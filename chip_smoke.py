@@ -23,6 +23,23 @@ Phases, in order; any failure exits non-zero:
    The kernel launch counts of this phase are reported.
 4. Times: CUDA-event times of A and B at the phase-3 shapes beside their
    memory bound and their plain versions' times.
+5. Kernel vs plain on the card for the scalar codec: kernel C (quantize)
+   and kernel D (apply_frame_many) at n in {17, 1000, 2^20 + 3, 2^24 + 5},
+   all three scale policies, garbage in the padding, scale 0 given
+   explicitly, D with K in {1, 3}; then all four kernels at 2^30 + 1024
+   elements (byte offsets past 2^31), against their plain versions chunk by
+   chunk. Any mismatch fails.
+6. The headline codec bench (shared_tensor_tpu_torch.bench) at N = 1 Mi
+   with the kernel and the plain codec: its JSON lines, frames/s and us
+   per frame; the launches of C and D in the kernel run; the device time
+   per launch of compute_scale, C and D and of one whole frame, each from
+   a CUDA graph of many launches, so the eager frame splits into scale,
+   C, D and launch/host overhead; a torch.profiler window of the eager
+   chain (busy share of the device; trace in profiles/).
+7. The config-5 sweep (shared_tensor_tpu_torch.benchmarks.pareto) at 2^20,
+   2^24, 2^27 and 2^30 elements with a short target: one JSON line per
+   size, RMS decay per frame within 0.45-0.55, peak device memory, and the
+   times of C and D per launch at 2^30.
 
 Prints the card's name and power limit (nvidia-smi), a {"kernels": [...]}
 line, and last {"ok": true, "device": {...}}. Exits non-zero with no result
@@ -33,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -50,6 +68,12 @@ AGREE_REL = 1e-5  # replicas agree when every leaf is within this * its max |val
 BATCH = 4  # frames per link per round, delivered together (K of kernel B)
 MAX_ROUNDS = 400
 WORDS_BYTES = 4 * 4  # packed words per row x bytes per word
+SCALAR_SIZES = (17, 1000, 2**20 + 3, 2**24 + 5)  # phase 5: live counts, padded to 1024
+BIG_PAD = 2**30 + 1024  # phase 5: padded elements of the 64-bit indexing check
+BENCH_SECONDS = 1.0  # phase 6: target length of one timed chain
+SWEEP_LOG2 = (20, 24, 27, 30)  # phase 7: config 5's sizes, up to its "1B"
+SWEEP_SECONDS = 0.5  # phase 7: target length of one timed chain
+OUT_DIR = "profiles"  # phase 6 writes its profiler trace here
 
 
 def resnet18_template(width: int = 64) -> dict:
@@ -112,7 +136,9 @@ def _bitdiff(a: torch.Tensor, b: torch.Tensor) -> int:
 
 
 def _maxerr(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest |a - b|; NaN in both counts as equal, NaN in one as inf."""
     d = (a.double() - b.double()).abs()
+    d = torch.where(a.isnan() & b.isnan(), torch.zeros_like(d), d)
     d = torch.nan_to_num(d, nan=float("inf"))
     return float(d.max()) if d.numel() else 0.0
 
@@ -356,9 +382,271 @@ def times(spec, device, k: int, n_arr: int, rate: float) -> dict:
               f"({r['bytes'] / 1e6:.1f} MB at {rate / 1e12:.2f} TB/s), plain {r['plain_ms']:.4f} ms")
     return out
 
+# -- phase 5 --------------------------------------------------------------------
+
+
+def scalar_kernel_vs_plain(device, sizes=SCALAR_SIZES, seed: int = 0) -> dict:
+    """Kernels C and D against their plain versions; see the module
+    docstring (phase 5). Returns {kernel: {"mismatches": n, "max_abs_err": x}}."""
+    from shared_tensor_tpu_torch.config import ScalePolicy
+    from shared_tensor_tpu_torch.ops import codec_cuda as CC
+    from shared_tensor_tpu_torch.ops.packing import padded_len
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {"quantize": {"mismatches": 0, "max_abs_err": 0.0},
+           "apply_frame_many": {"mismatches": 0, "max_abs_err": 0.0}}
+
+    def note(name, m, e):
+        out[name]["mismatches"] += m
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], e)
+
+    for n in sizes:
+        n_pad = padded_len(n)
+        base = torch.randn(n_pad, generator=gen, device=device)  # the padding holds garbage
+        base[::97] = 0.0  # zeros count as negative
+        base[:3] = torch.tensor([1e-40, -1e-45, 0.0])  # subnormals survive
+        cases = [(p.name, p, None) for p in ScalePolicy] + [("scale=0", ScalePolicy.POW2_RMS, 0.0)]
+        for label, policy, fixed in cases:
+            r_k, r_p = base.clone(), base.clone()
+            s_k = None if fixed is None else torch.full((), fixed, device=device)
+            s_p = None if fixed is None else s_k.clone()
+            f_k, _ = CC.quantize_kernel(r_k, n, policy, scale=s_k)
+            f_p, _ = CC.quantize_plain(r_p, n, policy, scale=s_p)
+            _sync(device)
+            m = _bitdiff(f_k.words, f_p.words) + _bitdiff(r_k, r_p) + _bitdiff(f_k.scale, f_p.scale)
+            m += int(r_k[n:].count_nonzero())  # padding lanes are 0
+            note("quantize", m, _maxerr(r_k, r_p))
+            print(f"[5] C quantize n={n} {label}: scale {float(f_k.scale):.6g}, mismatches {m}")
+            if label == "RMS":
+                frame = f_k  # a scale that is not a power of two
+        for k in (1, 3):
+            a_k = [base * (i + 1) for i in range(k)]
+            a_k[0][3:6] = torch.tensor([3e38, -3e38, float("nan")])
+            a_p = [a.clone() for a in a_k]
+            CC.apply_frame_many_kernel(a_k, frame, n)
+            CC.apply_frame_many_plain(a_p, frame, n)
+            _sync(device)
+            m = sum(_bitdiff(x, y) + int(x[n:].count_nonzero()) for x, y in zip(a_k, a_p))
+            note("apply_frame_many", m, max(_maxerr(x, y) for x, y in zip(a_k, a_p)))
+            print(f"[5] D apply_frame_many n={n} K={k}: mismatches {m}")
+    return out
+
+
+def big_index_check(device, n_pad: int = BIG_PAD, chunk: int = 2**26, seed: int = 0) -> dict:
+    """All four kernels on one buffer of ``n_pad`` elements (byte offsets
+    past 2^31), each against its plain version chunk by chunk: the plain
+    versions are elementwise given the scales, so a chunk with its own live
+    count is the same function. Returns {kernel: mismatches}."""
+    from shared_tensor_tpu_torch.ops import codec_cuda as CC
+    from shared_tensor_tpu_torch.ops.codec import Frame
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = n_pad - 5
+    out = {}
+    # C then D (K = 1)
+    r0 = torch.randn(n_pad, generator=gen, device=device)
+    r = r0.clone()
+    frame, _ = CC.quantize_kernel(r, n)
+    v0 = torch.randn(n_pad, generator=gen, device=device)
+    v = v0.clone()
+    CC.apply_frame(v, frame, n)
+    _sync(device)
+    mc = md = 0
+    for lo in range(0, n_pad, chunk):
+        hi = min(n_pad, lo + chunk)
+        live = max(0, min(n, hi) - lo)
+        words = frame.words[lo // 32 : hi // 32]
+        f_p, r_p = CC.quantize_plain(r0[lo:hi].clone(), live, scale=frame.scale.clone())
+        mc += _bitdiff(f_p.words, words) + _bitdiff(r_p, r[lo:hi])
+        (v_p,) = CC.apply_frame_many_plain([v0[lo:hi].clone()], Frame(frame.scale.clone(), words.clone()), live)
+        md += _bitdiff(v_p, v[lo:hi])
+    out["quantize"], out["apply_frame_many"] = mc, md
+    del r, v
+    # A then B (K = 1, N = 1), per-row scales and live counts
+    rows = n_pad // 128
+    s_row = 2.0 ** torch.randint(-6, 2, (rows,), generator=gen, device=device).float()
+    s_row[::5] = 0.0
+    rowcount = torch.randint(0, 129, (rows,), generator=gen, device=device, dtype=torch.int32)
+    r = r0.clone()
+    words = CC.quantize_rows_kernel(s_row, rowcount, r)
+    v = v0.clone()
+    CC.apply_rows_batch_kernel(s_row[None].contiguous(), rowcount, words[None].contiguous(), [v])
+    _sync(device)
+    ma = mb = 0
+    rc = chunk // 128
+    for lo in range(0, rows, rc):
+        hi = min(rows, lo + rc)
+        r_p = r0[lo * 128 : hi * 128].clone()
+        w_p = CC.quantize_rows_plain(s_row[lo:hi].contiguous(), rowcount[lo:hi].contiguous(), r_p)
+        ma += _bitdiff(w_p, words[lo * 4 : hi * 4]) + _bitdiff(r_p, r[lo * 128 : hi * 128])
+        (v_p,) = CC.apply_rows_batch_plain(
+            s_row[None, lo:hi].contiguous(), rowcount[lo:hi].contiguous(),
+            words[None, lo * 4 : hi * 4].contiguous(), [v0[lo * 128 : hi * 128].clone()])
+        mb += _bitdiff(v_p, v[lo * 128 : hi * 128])
+    out["quantize_rows"], out["apply_rows_batch"] = ma, mb
+    print(f"[5] 64-bit indexing at {n_pad} elements ({n_pad * 4 / 2**30:.2f} GiB per buffer): "
+          f"mismatches {out}")
+    return out
+
+
+# -- phase 6 --------------------------------------------------------------------
+
+
+def _graph_ms(fn, iters: int, reps: int = 3) -> float:
+    """Device ms per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, replayed ``reps`` times between CUDA events, so the host's launch
+    cost is not in the time."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * reps)
+    del g
+    return ms
+
+
+def scalar_bytes(n: int, k: int = 1) -> dict:
+    """Bytes each kernel must move at ``n`` padded elements: C reads and
+    writes the residual and writes the words; D reads the words and reads
+    and writes K arrays; each reads the 4-byte scale."""
+    return {"quantize": 8 * n + n / 8 + 4, "apply_frame_many": 8 * k * n + n / 8 + 4}
+
+
+def codec_bench(device, rate: float, n: int, seconds: float) -> dict:
+    """Phase 6: the bench for both codecs, the launches of C and D in the
+    kernel run, and the device time split of one frame."""
+    from shared_tensor_tpu_torch import bench
+    from shared_tensor_tpu_torch.config import ScalePolicy
+    from shared_tensor_tpu_torch.ops import codec_cuda as CC
+    from shared_tensor_tpu_torch.ops.codec import compute_scale
+    from shared_tensor_tpu_torch.utils.profiling import trace
+
+    CC.reset_launches()
+    kern = bench.run("kernel", device, n, target_seconds=seconds)
+    launches = {k: CC.LAUNCHES[k] for k in ("quantize", "apply_frame_many")}
+    plain = bench.run("plain", device, n, target_seconds=seconds)
+    for res in (kern, plain):
+        print(json.dumps(res))
+        d = res["detail"]
+        print(f"[6] bench {d['codec']}: {d['frames_per_s']:.1f} frames/s, "
+              f"{d['frame_s'] * 1e6:.3f} us/frame, {res['value']} GB/s equiv")
+    print(f"[6] launches in the kernel bench: {launches}")
+
+    pol = ScalePolicy.POW2_RMS
+    gen = torch.Generator(device=device).manual_seed(1)
+    r = torch.randn(n, generator=gen, device=device)
+    v = torch.zeros(n, device=device)
+    frame, _ = CC.quantize_kernel(r.clone(), n, pol)
+    scale = frame.scale
+    iters = 200
+
+    def whole_frame():
+        f, _ = CC.quantize_kernel(r, n, pol)
+        CC.apply_frame(v, f, n)
+
+    split = {
+        "scale_ms": _graph_ms(lambda: compute_scale(r, n, pol), iters),
+        "quantize_ms": _graph_ms(lambda: CC.quantize_kernel(r, n, pol, scale=scale), iters),
+        "apply_frame_many_ms": _graph_ms(lambda: CC.apply_frame_many_kernel((v,), frame, n), iters),
+        "frame_graph_ms": _graph_ms(whole_frame, iters),
+        "quantize_plain_ms": _graph_ms(lambda: CC.quantize_plain(r, n, pol, scale=scale), 50),
+        "apply_frame_many_plain_ms": _graph_ms(lambda: CC.apply_frame_many_plain((v,), frame, n), 50),
+    }
+    eager_ms = kern["detail"]["frame_s"] * 1e3
+    split["frame_eager_ms"] = eager_ms
+    split["overhead_ms"] = eager_ms - split["scale_ms"] - split["quantize_ms"] - split["apply_frame_many_ms"]
+    for k, b in scalar_bytes(n).items():
+        split[f"{k}_bound_ms"] = b / rate * 1e3
+
+    # a profiler window over the eager chain: device busy share, time by kernel
+    os.makedirs(OUT_DIR, exist_ok=True)
+    r.copy_(torch.randn(n, generator=gen, device=device))
+    whole_frame()
+    torch.cuda.synchronize()
+    frames = 200
+    t0 = time.perf_counter()
+    with trace(os.path.join(OUT_DIR, "codec_chain_trace")) as prof:
+        for _ in range(frames):
+            whole_frame()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels only: a CPU operator's device time repeats its kernels'
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kern)
+    # the profiler slows the host many times over, so the busy share is the
+    # profiled kernel time per frame over the unprofiled eager frame time
+    split["kernel_ms_per_frame_profiled"] = dev_us / 1e3 / frames if dev_us else None
+    split["busy_share"] = dev_us / 1e3 / frames / eager_ms if dev_us else None
+    print(f"[6] profiler window: {frames} eager frames in {wall_ms:.3f} ms under the profiler, "
+          f"{len(kern)} kernel names, {dev_us / 1e3:.3f} ms of kernel time")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"[6] profile: {e.key[:70]}: {e.self_device_time_total / frames:.3f} us/frame, "
+              f"{e.count / frames:.2f} launches/frame")
+    print(f"[6] frame split at n={n} (ms): " + ", ".join(f"{k} {v:.6f}" if v is not None else f"{k} not measured"
+                                                       for k, v in split.items()))
+    return {"bench": {"kernel": kern, "plain": plain}, "launches": launches, "split": split}
+
+
+# -- phase 7 --------------------------------------------------------------------
+
+
+def sweep(device, rate: float, log2s=SWEEP_LOG2, seconds: float = SWEEP_SECONDS) -> dict:
+    """Phase 7: config 5's sweep through the port's pareto.measure_size;
+    the RMS decay must be within 0.45-0.55 at every size."""
+    from shared_tensor_tpu_torch.benchmarks import pareto
+    from shared_tensor_tpu_torch.config import ScalePolicy
+    from shared_tensor_tpu_torch.ops import codec_cuda as CC
+
+    rows = []
+    CC.reset_launches()
+    for log2n in log2s:
+        n = 1 << log2n
+        row = pareto.measure_size(CC, n, ScalePolicy.POW2_RMS, device, target_seconds=seconds, budget_s=60.0)
+        print(json.dumps(row))
+        print(f"[7] n=2^{log2n}: {row['frame_us']:.3f} us/frame, {row['equiv_gbps']} GB/s equiv, "
+              f"RMS decay {row['rms_decay_per_frame']}, peak {row['peak_bytes'] / 2**30:.2f} GiB")
+        if not 0.45 <= row["rms_decay_per_frame"] <= 0.55:
+            raise AssertionError(f"RMS decay {row['rms_decay_per_frame']} at 2^{log2n} is outside 0.45-0.55")
+        rows.append(row)
+        torch.cuda.empty_cache()
+    launches = {k: CC.LAUNCHES[k] for k in ("quantize", "apply_frame_many")}
+    print(f"[7] launches in the sweep: {launches}")
+
+    n = 1 << log2s[-1]
+    gen = torch.Generator(device=device).manual_seed(2)
+    r = torch.randn(n, generator=gen, device=device)
+    v = torch.zeros(n, device=device)
+    frame, _ = CC.quantize_kernel(r.clone(), n)
+    big = {
+        "n": n,
+        "quantize_ms": _time_ms(lambda: CC.quantize_kernel(r, n, scale=frame.scale), 10),
+        "apply_frame_many_ms": _time_ms(lambda: CC.apply_frame_many_kernel((v,), frame, n), 10),
+    }
+    for k, b in scalar_bytes(n).items():
+        big[f"{k}_bound_ms"] = b / rate * 1e3
+    print(f"[7] at n=2^{log2s[-1]}: C {big['quantize_ms']:.4f} ms (bound {big['quantize_bound_ms']:.4f}), "
+          f"D {big['apply_frame_many_ms']:.4f} ms (bound {big['apply_frame_many_bound_ms']:.4f})")
+    del r, v, frame
+    torch.cuda.empty_cache()
+    return {"rows": rows, "launches": launches, "big": big}
+
+
 SOURCES = {
     "quantize_rows": ("shared_tensor_tpu_torch/csrc/quantize_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:286"),
     "apply_rows_batch": ("shared_tensor_tpu_torch/csrc/apply_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:337"),
+    "quantize": ("shared_tensor_tpu_torch/csrc/quantize.cu", "shared_tensor_tpu/ops/codec_pallas.py:160"),
+    "apply_frame_many": ("shared_tensor_tpu_torch/csrc/apply_frame.cu", "shared_tensor_tpu/ops/codec_pallas.py:216"),
 }
 
 
@@ -401,10 +689,10 @@ def main() -> int:
     if bad:
         raise AssertionError(f"kernel vs plain mismatches: {bad}")
 
-    # 3. tree drive (the launch counts are this phase's)
+    # 3. tree drive (the launch counts of A and B are this phase's)
     CC.reset_launches()
     drive = tree_drive(template, dev, args.seed)
-    launches = dict(CC.LAUNCHES)
+    launches = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
     print(f"[3] launches {launches}, frames out {drive['frames_out']}, in {drive['frames_in']}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
@@ -412,17 +700,48 @@ def main() -> int:
     # 4. times at the drive's shapes: B as at the interior's flood (K, N=2)
     rate = hbm_rate(name)
     t = times(spec, dev, drive["max_k"], 2, rate)
+
+    # 5. C and D against plain, then all four kernels past 2^31 bytes
+    parity.update(scalar_kernel_vs_plain(dev, seed=args.seed))
+    big = big_index_check(dev, seed=args.seed)
+    bad = {k: v["mismatches"] for k, v in parity.items() if v["mismatches"]}
+    bad.update({f"{k} at {BIG_PAD}": m for k, m in big.items() if m})
+    if bad:
+        raise AssertionError(f"kernel vs plain mismatches: {bad}")
+    torch.cuda.empty_cache()
+
+    # 6. the headline codec bench (the launch counts of C and D are this phase's)
+    bench = codec_bench(dev, rate, 1 << 20, BENCH_SECONDS)
+    launches.update(bench["launches"])
+    if not all(bench["launches"].values()):
+        raise AssertionError(f"a kernel of the bench never launched: {bench['launches']}")
+    sp = bench["split"]
+    for k in ("quantize", "apply_frame_many"):
+        t[k] = {"ms": sp[f"{k}_ms"], "plain_ms": sp[f"{k}_plain_ms"], "bound_ms": sp[f"{k}_bound_ms"],
+                "shape": f"n={1 << 20} K=1" if k == "apply_frame_many" else f"n={1 << 20}"}
+
+    # 7. the config-5 sweep up to 2^30
+    sw = sweep(dev, rate)
+    if not all(sw["launches"].values()):
+        raise AssertionError(f"a kernel of the sweep never launched: {sw['launches']}")
+    for k in ("quantize", "apply_frame_many"):
+        t[k]["ms_2e30"] = sw["big"][f"{k}_ms"]
+        t[k]["bound_ms_2e30"] = sw["big"][f"{k}_bound_ms"]
+
     print(smi)
     kernels = []
-    for k in ("quantize_rows", "apply_rows_batch"):
-        kernels.append({
+    for k in SOURCES:
+        row = {
             "name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],
             "launches": launches[k], "mismatches": parity[k]["mismatches"],
             "max_abs_err": parity[k]["max_abs_err"], "ms": t[k]["ms"],
             "plain_ms": t[k]["plain_ms"], "bound_ms": t[k]["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "shape": t[k]["shape"],
-        })
+        }
+        row.update({x: t[k][x] for x in ("ms_2e30", "bound_ms_2e30") if x in t[k]})
+        kernels.append(row)
     print(json.dumps({"drive": drive}))
+    print(json.dumps({"bench_split": sp, "sweep": sw["rows"], "big_2e30": sw["big"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -46,6 +46,23 @@ class Frame(NamedTuple):
     words: torch.Tensor  # int32[n_padded // 32]
 
 
+_DIVISORS: dict[tuple[int, torch.device], torch.Tensor] = {}
+
+
+def _f32_count(n: int, device: torch.device) -> torch.Tensor:
+    """``f32(n)`` as a 0-d tensor on ``device``, made once per ``(n, device)``
+    so that a frame copies nothing from the host. A tensor, not a Python
+    float: CUDA divides by a host scalar as a multiply by its reciprocal,
+    which is not bit-equal to JAX's ``sum / f32(n)``."""
+    key = (n, device)
+    nf = _DIVISORS.get(key)
+    if nf is None:
+        if len(_DIVISORS) >= 256:
+            _DIVISORS.clear()
+        nf = _DIVISORS[key] = torch.tensor(float(n), dtype=torch.float32, device=device)
+    return nf
+
+
 def compute_scale(
     residual: torch.Tensor, n: int, policy: ScalePolicy = ScalePolicy.POW2_RMS
 ) -> torch.Tensor:
@@ -57,7 +74,7 @@ def compute_scale(
     so |r| ~ 1e20 does not overflow the sum of squares."""
     amax = torch.max(torch.abs(residual))
     norm = residual / torch.where(amax > 0, amax, torch.ones_like(amax))
-    nf = torch.tensor(float(n), dtype=torch.float32, device=residual.device)
+    nf = _f32_count(n, residual.device)
     rms = amax * torch.sqrt(torch.sum(norm * norm) / nf)
     if policy == ScalePolicy.RMS:
         scale = rms

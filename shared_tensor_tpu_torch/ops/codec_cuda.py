@@ -1,8 +1,7 @@
-"""Hand-written CUDA kernels for the table codec's two row passes, with
-their plain PyTorch versions beside them.
+"""Hand-written CUDA kernels for the codec's sender and receiver passes,
+with their plain PyTorch versions beside them.
 
-The counterpart of ``shared_tensor_tpu/ops/codec_pallas.py``'s row-granular
-primitives (the two TPU kernels on the per-frame path):
+The counterpart of every TPU kernel in ``shared_tensor_tpu/ops/codec_pallas.py``:
 
 - kernel A, :func:`quantize_rows` (``csrc/quantize_rows.cu``) replaces
   ``codec_pallas.quantize_rows`` / ``_quantize_rows_kernel``: sign bits of
@@ -12,6 +11,17 @@ primitives (the two TPU kernels on the per-frame path):
   ``codec_pallas.apply_rows_batch`` / ``_apply_rows_kernel``: K frames
   unpacked and their ``s*(1-2b)`` deltas summed in frame order from 0.0,
   masked, then added to N arrays clamped to +/-SAT, in place.
+- kernel C, :func:`quantize` (``csrc/quantize.cu``) replaces
+  ``codec_pallas.quantize`` / ``_quantize_kernel``: A with one scalar scale
+  (from :func:`..codec.compute_scale`, on the device) and a flat live count.
+- kernel D, :func:`apply_frame_many` / :func:`apply_frame`
+  (``csrc/apply_frame.cu``) replace ``codec_pallas.apply_frame_many`` /
+  ``apply_frame`` / ``_apply_kernel``: one scalar-scale frame into K arrays,
+  clamped, in place.
+
+C and D follow the Pallas kernels, not the golden ``ops/codec.py``, on the
+padding: they set padding lanes to 0 even at scale 0, where the golden
+leaves them as they were.
 
 Layout: a flat f32 buffer viewed as (rows, 128); packed words are 32-bit
 (int32 tensors holding the u32 bit patterns), 4 per row, flat bit i in word
@@ -19,10 +29,10 @@ i//32 at bit i%32. Kernel B takes its K frames frame-major (``s_rows``
 f32[K, rows], ``words`` [K, rows*4]), the layout frames arrive in, where the
 Pallas kernel wanted them row-major for its block specs.
 
-Dispatch: the wrappers :func:`quantize_rows` / :func:`apply_rows_batch` run
-the kernel for CUDA tensors and the plain version for CPU tensors, and
-nothing else: there is no fallback from a CUDA tensor to the plain path.
-``LAUNCHES`` counts kernel launches (not plain calls).
+Dispatch: each wrapper runs the kernel for CUDA tensors and the plain
+version for CPU tensors, and nothing else: there is no fallback from a CUDA
+tensor to the plain path. ``LAUNCHES`` counts kernel launches (not plain
+calls).
 
 Build: ``nvcc`` compiles each source in ``csrc/`` into its own shared
 library (plain C interface, loaded with ctypes) under ``csrc/build/`` at
@@ -34,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
@@ -44,14 +55,20 @@ from typing import Sequence
 
 import torch
 
-from .codec import SAT
-from .packing import LANES, pack_bits, unpack_bits
+from ..config import ScalePolicy
+from .codec import SAT, Frame, compute_scale
+from .packing import BITS_PER_WORD, LANES, pack_bits, unpack_bits
 
 WORDS_PER_ROW = 4
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR / "build"
-SOURCES = {"quantize_rows": "quantize_rows.cu", "apply_rows_batch": "apply_rows.cu"}
+SOURCES = {
+    "quantize_rows": "quantize_rows.cu",
+    "apply_rows_batch": "apply_rows.cu",
+    "quantize": "quantize.cu",
+    "apply_frame_many": "apply_frame.cu",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-Xptxas", "-v",
@@ -129,6 +146,10 @@ _ARGTYPES = {
     "quantize_rows": ("st_quantize_rows", [_VP, _VP, _VP, _VP, _I64, _VP]),
     # s_rows, rowcount, words, array_ptrs, n_arrays, k_frames, rows, stream
     "apply_rows_batch": ("st_apply_rows_batch", [_VP, _VP, _VP, _VP, _I32, _I32, _I64, _VP]),
+    # scale, resid, words, n_live, n_pad, stream
+    "quantize": ("st_quantize", [_VP, _VP, _VP, _I64, _I64, _VP]),
+    # scale, words, array_ptrs, n_arrays, n_live, n_pad, stream
+    "apply_frame_many": ("st_apply_frame_many", [_VP, _VP, _VP, _I32, _I64, _I64, _VP]),
 }
 
 
@@ -340,3 +361,175 @@ def apply_rows_batch(
     if dev is not None and dev.type == "cpu":
         return apply_rows_batch_plain(s_rows, rowcount, words, arrays)
     raise ValueError(f"unsupported device {dev}")
+
+
+# -- kernels C and D: the scalar codec ----------------------------------------------
+
+
+def _check_flat(t: torch.Tensor, what: str) -> int:
+    """A flat f32 buffer of a positive multiple of 128 elements; its length."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{what} must be a torch.Tensor, got {type(t).__name__}")
+    if t.dim() != 1 or t.shape[0] == 0 or t.shape[0] % LANES:
+        raise ValueError(f"{what} must be flat with a positive multiple of {LANES} elements")
+    _check(t, what, (torch.float32,), (t.shape[0],), t.device)
+    return t.shape[0]
+
+
+def _check_live(n: int, n_pad: int) -> int:
+    n = operator.index(n)
+    if not 0 <= n <= n_pad:
+        raise ValueError(f"live count {n} is outside [0, {n_pad}]")
+    return n
+
+
+def _check_disjoint(inputs: Sequence[torch.Tensor], targets: Sequence[torch.Tensor]) -> None:
+    """Raise if an input shares storage with a target the kernel writes."""
+    written = {(t.device, t.untyped_storage().data_ptr()) for t in targets}
+    for t in inputs:
+        if (t.device, t.untyped_storage().data_ptr()) in written:
+            raise ValueError("an input shares storage with an array updated in place")
+
+
+def _check_quantize_flat(residual, n, scale) -> tuple[int, int]:
+    n_pad = _check_flat(residual, "residual")
+    n = _check_live(n, n_pad)
+    if scale is not None:
+        _check(scale, "scale", (torch.float32,), (), residual.device)
+        _check_disjoint([scale], [residual])
+    return n, n_pad
+
+
+def _check_apply_frame(arrays, frame: Frame, n) -> tuple[int, int]:
+    if not arrays:
+        raise ValueError("need at least one target array")
+    n_pad = _check_flat(arrays[0], "arrays[0]")
+    dev = arrays[0].device
+    for i, a in enumerate(arrays):
+        _check(a, f"arrays[{i}]", (torch.float32,), (n_pad,), dev)
+    n = _check_live(n, n_pad)
+    _check(frame.scale, "frame.scale", (torch.float32,), (), dev)
+    _check(frame.words, "frame.words", _WORD_DTYPES, (n_pad // BITS_PER_WORD,), dev)
+    check_distinct(arrays)
+    _check_disjoint([frame.scale, frame.words], arrays)
+    return n, n_pad
+
+
+# -- kernel C: quantize ------------------------------------------------------------
+
+
+def quantize_plain(
+    residual: torch.Tensor,
+    n: int,
+    policy: ScalePolicy = ScalePolicy.POW2_RMS,
+    scale: torch.Tensor | None = None,
+) -> tuple[Frame, torch.Tensor]:
+    """Plain PyTorch version of kernel C. Returns ``(Frame, residual)``
+    with ``residual`` updated in place; ``scale`` (a 0-d f32 tensor)
+    defaults to ``compute_scale(residual, n, policy)``."""
+    n, n_pad = _check_quantize_flat(residual, n, scale)
+    if scale is None:
+        scale = compute_scale(residual, n, policy)
+    live = torch.arange(n_pad, device=residual.device) < n
+    neg = residual <= 0.0  # zero counts as negative
+    words = pack_bits(live & neg)
+    sent = torch.where(neg, -scale, scale)
+    zero = torch.zeros_like(residual)
+    residual.copy_(torch.where(live & (scale > 0.0), residual - sent, torch.where(live, residual, zero)))
+    return Frame(scale, words), residual
+
+
+def quantize_kernel(
+    residual: torch.Tensor,
+    n: int,
+    policy: ScalePolicy = ScalePolicy.POW2_RMS,
+    scale: torch.Tensor | None = None,
+) -> tuple[Frame, torch.Tensor]:
+    """Kernel C on the GPU: the scale in plain torch on the device (as JAX
+    computes it in XLA outside the Pallas kernel), then one launch. Returns
+    ``(Frame, residual)`` with ``residual`` updated in place. Raises for
+    tensors that are not on a GPU."""
+    if not isinstance(residual, torch.Tensor) or residual.device.type != "cuda":
+        raise ValueError("quantize kernel needs a CUDA residual")
+    n, n_pad = _check_quantize_flat(residual, n, scale)
+    if scale is None:
+        scale = compute_scale(residual, n, policy)
+    words = torch.empty(n_pad // BITS_PER_WORD, dtype=torch.int32, device=residual.device)
+    fn = _fn("quantize")
+    with torch.cuda.device(residual.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(scale.data_ptr(), residual.data_ptr(), words.data_ptr(), n, n_pad, stream)
+    _check_launch("quantize", err)
+    LAUNCHES["quantize"] += 1
+    return Frame(scale, words), residual
+
+
+def quantize(
+    residual: torch.Tensor,
+    n: int,
+    policy: ScalePolicy = ScalePolicy.POW2_RMS,
+    scale: torch.Tensor | None = None,
+) -> tuple[Frame, torch.Tensor]:
+    """Kernel C for a CUDA residual, its plain version for a CPU one: the
+    counterpart of ``codec_pallas.quantize`` (whose donated residual is
+    this in-place update)."""
+    dev = residual.device if isinstance(residual, torch.Tensor) else None
+    if dev is not None and dev.type == "cuda":
+        return quantize_kernel(residual, n, policy, scale)
+    if dev is not None and dev.type == "cpu":
+        return quantize_plain(residual, n, policy, scale)
+    raise ValueError(f"unsupported device {dev}")
+
+
+# -- kernel D: apply_frame_many ------------------------------------------------------
+
+
+def apply_frame_many_plain(
+    arrays: Sequence[torch.Tensor], frame: Frame, n: int
+) -> tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of kernel D; updates ``arrays`` in place."""
+    n, n_pad = _check_apply_frame(arrays, frame, n)
+    live = torch.arange(n_pad, device=arrays[0].device) < n
+    w32 = frame.words.view(torch.int32) if frame.words.dtype != torch.int32 else frame.words
+    delta = torch.where(unpack_bits(w32) != 0, -frame.scale, frame.scale)
+    for a in arrays:
+        a.copy_(torch.where(live, torch.clamp(a + delta, -SAT, SAT), torch.zeros_like(a)))
+    return tuple(arrays)
+
+
+def apply_frame_many_kernel(
+    arrays: Sequence[torch.Tensor], frame: Frame, n: int
+) -> tuple[torch.Tensor, ...]:
+    """Kernel D on the GPU: one launch for all the arrays; updates them in
+    place. Raises for tensors that are not on a GPU."""
+    if not arrays or not isinstance(arrays[0], torch.Tensor) or arrays[0].device.type != "cuda":
+        raise ValueError("apply_frame_many kernel needs CUDA tensors")
+    n, n_pad = _check_apply_frame(arrays, frame, n)
+    ptrs = _pointer_array(arrays)
+    fn = _fn("apply_frame_many")
+    with torch.cuda.device(arrays[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(frame.scale.data_ptr(), frame.words.data_ptr(), ptrs.data_ptr(),
+                 len(arrays), n, n_pad, stream)
+    _check_launch("apply_frame_many", err)
+    LAUNCHES["apply_frame_many"] += 1
+    return tuple(arrays)
+
+
+def apply_frame_many(
+    arrays: Sequence[torch.Tensor], frame: Frame, n: int
+) -> tuple[torch.Tensor, ...]:
+    """Kernel D for CUDA arrays, its plain version for CPU ones: the
+    counterpart of ``codec_pallas.apply_frame_many`` (donated arrays are
+    this in-place update)."""
+    dev = arrays[0].device if arrays and isinstance(arrays[0], torch.Tensor) else None
+    if dev is not None and dev.type == "cuda":
+        return apply_frame_many_kernel(arrays, frame, n)
+    if dev is not None and dev.type == "cpu":
+        return apply_frame_many_plain(arrays, frame, n)
+    raise ValueError(f"unsupported device {dev}")
+
+
+def apply_frame(values: torch.Tensor, frame: Frame, n: int) -> torch.Tensor:
+    """Kernel D with one target array (``codec_pallas.apply_frame``)."""
+    return apply_frame_many((values,), frame, n)[0]

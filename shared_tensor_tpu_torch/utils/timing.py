@@ -1,0 +1,107 @@
+"""Device timing for codec work (used by ``bench.py`` and
+``benchmarks/pareto.py``): the counterpart of
+``shared_tensor_tpu/utils/timing.py``.
+
+The JAX version chains L frames inside one jitted ``fori_loop``. PyTorch
+runs eagerly, so here the chain is a Python loop of L frames enqueued on
+the current CUDA stream between two CUDA events, with nothing that
+synchronizes inside the loop; the events give the device's time for the
+whole chain, including any gaps the host leaves between launches. On the
+CPU (for tests only) the loop is timed with ``time.perf_counter``.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Callable
+
+import torch
+
+MAX_LENGTH = 4_000_000
+
+
+def _default_residual(n: int, device: torch.device) -> Callable[[int], torch.Tensor]:
+    def make(seed: int) -> torch.Tensor:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return torch.randn(n, generator=gen, device=device, dtype=torch.float32)
+
+    return make
+
+
+def codec_frame_time(
+    codec,
+    n: int,
+    policy,
+    make_residual: Callable[[int], torch.Tensor] | None = None,
+    target_seconds: float = 3.0,
+    reps: int = 2,
+    budget_s: float | None = None,
+    device: str | torch.device | None = None,
+) -> float:
+    """Seconds per codec roundtrip frame (sender ``codec.quantize`` then
+    receiver ``codec.apply_frame``) at size ``n`` (a multiple of 128, no
+    padding). ``codec`` is any module with those two functions:
+    ``ops.codec_cuda`` (the kernels) or ``ops.codec`` (the plain golden).
+
+    ``make_residual(seed)`` supplies the starting residual (default: standard
+    normal from a ``torch.Generator`` seeded with ``seed``, so the scale
+    stays nonzero and every frame does the full work). The chain is grown
+    until one run of it lasts ``target_seconds``; each length is run ``reps``
+    times from fresh state and the best kept. ``budget_s`` is a hard budget
+    for the whole measurement: when it trips, the best estimate so far is
+    returned. ``device`` defaults to ``cuda``; pass ``cpu`` to time the plain
+    path on the host."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("codec_frame_time on cuda needs a CUDA device")
+    deadline = None if budget_s is None else time.monotonic() + budget_s
+    if make_residual is None:
+        make_residual = _default_residual(n, dev)
+
+    def run(length: int) -> float:
+        best = math.inf
+        for rep in range(reps):
+            r = make_residual(rep).to(device=dev, dtype=torch.float32).contiguous()
+            v = torch.zeros(n, dtype=torch.float32, device=dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(length):
+                    frame, r = codec.quantize(r, n, policy)
+                    v = codec.apply_frame(v, frame, n)
+                end.record()
+                end.synchronize()
+                dt = start.elapsed_time(end) / 1e3
+            else:
+                t0 = time.perf_counter()
+                for _ in range(length):
+                    frame, r = codec.quantize(r, n, policy)
+                    v = codec.apply_frame(v, frame, n)
+                dt = time.perf_counter() - t0
+            del r, v
+            best = min(best, dt)
+            if deadline is not None and time.monotonic() > deadline:
+                break
+        return best
+
+    # Warm up (loads the kernels, fills the allocator's cache), then grow
+    # the chain until one run lasts target_seconds: a short run's time per
+    # frame over-counts fixed costs, so each step re-projects from the last.
+    run(1)
+    length = 1
+    t = run(length)
+    while t < target_seconds and length < MAX_LENGTH:
+        est = max(t / length, 1e-9)
+        nxt = min(MAX_LENGTH, max(length * 2, int(target_seconds / est)))
+        if deadline is not None:
+            # one eager chain cannot be interrupted: grow only as far as
+            # its reps are projected to fit in what is left of the budget
+            nxt = min(nxt, int((deadline - time.monotonic()) / (est * reps)))
+            if nxt <= length:
+                break
+        length = nxt
+        t = run(length)
+    return t / length

@@ -71,6 +71,38 @@ def test_compute_scale_overflow_safe_and_idle():
     assert got == want and np.isfinite(got) and got > 0
 
 
+@pytest.mark.parametrize("policy", [ScalePolicy.RMS, ScalePolicy.ABS_MEAN], ids=lambda p: p.name)
+def test_compute_scale_divides_by_f32_of_n(policy):
+    """At n = 2^24 + 1, whose f32 is 2^24, the divisor is f32(n) as in JAX:
+    the scale is bit-equal to JAX's (the sums here are exact in any order)
+    and differs from a division by the exact n."""
+    n = 2**24 + 1
+    r = np.zeros(1024, np.float32)
+    r[:3] = [1.0, -1.0, 0.5]
+    want = np.float32(JC.compute_scale(jnp.asarray(r), n, JPolicy(policy.value)))
+    got = TC.compute_scale(torch.from_numpy(r), n, policy).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    total = 2.25 if policy == ScalePolicy.RMS else 2.5  # sum of norm^2 or |norm|
+    exact = np.float32(total / n)
+    mean = np.float32(np.float32(total) / np.float32(n))
+    assert exact != mean
+    expect = np.sqrt(mean) if policy == ScalePolicy.RMS else mean
+    assert got == expect
+
+
+def test_compute_scale_makes_no_host_tensor_per_call(monkeypatch):
+    """The divisor is made once per (n, device); later frames copy nothing
+    from the host."""
+    r = torch.from_numpy(_resid(5, 1000, 1024))
+    first = TC.compute_scale(r, 1000)
+
+    def no_host_tensor(*args, **kwargs):
+        raise AssertionError("compute_scale made a host tensor")
+
+    monkeypatch.setattr(torch, "tensor", no_host_tensor)
+    assert torch.equal(TC.compute_scale(r, 1000), first)
+
+
 def test_apply_frame_and_many_match_jax():
     n, n_pad = 900, 1024
     r = _resid(2, n, n_pad)

@@ -347,7 +347,7 @@ def test_plain_path_launches_no_kernel():
     a.new_link(1)
     b.new_link(1, seed=False)
     _pump(a, b, 1, 1)
-    assert codec_cuda.LAUNCHES == {"quantize_rows": 0, "apply_rows_batch": 0}
+    assert codec_cuda.LAUNCHES == {"quantize_rows": 0, "apply_rows_batch": 0, "quantize": 0, "apply_frame_many": 0}
 
 
 # -- JAX vs port, frame by frame ------------------------------------------------

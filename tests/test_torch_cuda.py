@@ -107,3 +107,96 @@ def test_shared_tensor_on_cuda_matches_cpu(cuda_device):
         assert np.all((s1 == s2) | (s1 == 2 * s2) | (2 * s1 == s2))
     if all(np.array_equal(s1, s2) for (s1, _), (s2, _) in zip(gs, cs)):
         assert _same_bits(gv, cv) and _same_bits(gr, cr)
+
+
+def _scalar_case(seed, n, n_pad, garbage=True):
+    rng = np.random.default_rng(seed)
+    r = rng.normal(size=n_pad).astype(np.float32)
+    r[rng.random(n_pad) < 0.05] = 0.0
+    r[:3] = [1e-40, -1e-45, 0.0]  # subnormals survive (no FTZ)
+    if not garbage:
+        r[n:] = 0.0
+    return r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 1000, 2**20 + 3])
+@pytest.mark.parametrize("policy", ["POW2_RMS", "RMS", "ABS_MEAN"])
+def test_quantize_kernel_matches_plain(cuda_device, n, policy):
+    from shared_tensor_tpu_torch.config import ScalePolicy
+    from shared_tensor_tpu_torch.ops.packing import padded_len
+
+    n_pad = padded_len(n)
+    r_k = torch.from_numpy(_scalar_case(n, n, n_pad)).to(cuda_device)
+    r_p = r_k.clone()
+    fk, _ = CC.quantize_kernel(r_k, n, ScalePolicy[policy])
+    fp, _ = CC.quantize_plain(r_p, n, ScalePolicy[policy])
+    torch.cuda.synchronize()
+    assert _same_bits(fk.scale, fp.scale)  # the same compute_scale on the same device
+    assert _same_bits(fk.words, fp.words) and _same_bits(r_k, r_p)
+
+
+@pytest.mark.cuda
+def test_quantize_kernel_at_scale_zero_zeroes_padding(cuda_device):
+    n, n_pad = 1000, 1024
+    r = torch.from_numpy(_scalar_case(1, n, n_pad)).to(cuda_device)
+    r_k, r_p = r.clone(), r.clone()
+    zero = torch.zeros((), device=cuda_device)
+    fk, _ = CC.quantize_kernel(r_k, n, scale=zero)
+    fp, _ = CC.quantize_plain(r_p, n, scale=zero.clone())
+    torch.cuda.synchronize()
+    assert _same_bits(fk.words, fp.words) and _same_bits(r_k, r_p)
+    assert _same_bits(r_k[:n], r[:n]) and not r_k[n:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3])
+def test_apply_frame_many_kernel_matches_plain(cuda_device, k):
+    from shared_tensor_tpu_torch.ops.codec import Frame
+
+    n, n_pad = 2**20 + 3, 2**20 + 1024
+    rng = np.random.default_rng(k)
+    words = torch.from_numpy(rng.integers(0, 2**32, n_pad // 32, dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)).to(cuda_device)
+    frame = Frame(torch.tensor(0.37, device=cuda_device), words)
+    base = [_scalar_case(10 + i, n, n_pad) for i in range(k)]
+    base[0][3:7] = [3e38, -3e38, np.nan, 2.9e38]
+    ak = [torch.from_numpy(b).to(cuda_device) for b in base]
+    ap = [a.clone() for a in ak]
+    CC.apply_frame_many_kernel(ak, frame, n)
+    CC.apply_frame_many_plain(ap, frame, n)
+    torch.cuda.synchronize()
+    for x, y in zip(ak, ap):
+        assert _same_bits(x, y) and not x[n:].any()
+
+
+@pytest.mark.cuda
+def test_scalar_kernels_past_2_gib(cuda_device):
+    """64-bit indexing: a buffer of 2^29 + 1024 elements (byte offsets past
+    2^31), checked against the plain versions chunk by chunk with the
+    kernel's own scale (the plain version at full size would need several
+    times the memory)."""
+    from shared_tensor_tpu_torch.ops.codec import Frame
+
+    n_pad = 2**29 + 1024
+    n = n_pad - 5
+    free, _ = torch.cuda.mem_get_info(cuda_device)
+    if free < 12 * n_pad * 4:
+        pytest.skip(f"needs {12 * n_pad * 4 / 2**30:.0f} GiB free on the GPU, has {free / 2**30:.0f}")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    r0 = torch.randn(n_pad, generator=gen, device=cuda_device)
+    r = r0.clone()
+    frame, _ = CC.quantize_kernel(r, n)
+    v0 = torch.randn(n_pad, generator=gen, device=cuda_device)
+    v = v0.clone()
+    CC.apply_frame(v, frame, n)
+    torch.cuda.synchronize()
+    chunk = 2**26
+    for lo in range(0, n_pad, chunk):
+        hi = min(n_pad, lo + chunk)
+        live = max(0, min(n, hi) - lo)
+        fp, rp = CC.quantize_plain(r0[lo:hi].clone(), live, scale=frame.scale.clone())
+        assert _same_bits(fp.words, frame.words[lo // 32 : hi // 32]) and _same_bits(rp, r[lo:hi])
+        sub = Frame(frame.scale.clone(), frame.words[lo // 32 : hi // 32].clone())
+        (vp,) = CC.apply_frame_many_plain([v0[lo:hi].clone()], sub, live)
+        assert _same_bits(vp, v[lo:hi])

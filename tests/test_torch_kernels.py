@@ -103,4 +103,4 @@ def test_plain_calls_do_not_count_as_launches():
     rows = 8
     s_row, rowcount, resid = _rows_case(4, rows)
     CC.quantize_rows(torch.from_numpy(s_row), torch.from_numpy(rowcount), torch.from_numpy(resid))
-    assert CC.LAUNCHES == {"quantize_rows": 0, "apply_rows_batch": 0}
+    assert CC.LAUNCHES == {"quantize_rows": 0, "apply_rows_batch": 0, "quantize": 0, "apply_frame_many": 0}
