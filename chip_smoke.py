@@ -10,7 +10,7 @@ Phases, in order; any failure exits non-zero:
 2. Kernel vs plain on the card, at the ResNet-18 table shape (87,504 rows,
    partial rows, zero-scale leaves): kernel A (quantize_rows) words and
    residual bit-equal, kernel B (apply_rows_batch) bit-equal for
-   K in {1, 2, 8} and N in {1, 3}.
+   K in {1, 2, 8} and N in {1, 3, 9} (9 targets take two launches).
 3. Tree drive at full width: three SharedTensors on the GPU in a chain
    master - interior - leaf over the ResNet-18 parameter table (56 leaves,
    11,172,170 elements). The master is seeded; the seed spreads, then each
@@ -21,12 +21,16 @@ Phases, in order; any failure exits non-zero:
    1e-5 of each leaf's max |value|, and each link's first frame must equal
    the CPU plain path's on the same state (scales equal or one octave apart).
    The kernel launch counts of this phase are reported.
-4. Times: CUDA-event times of A and B at the phase-3 shapes beside their
-   memory bound and their plain versions' times.
+4. Times at the phase-3 shapes: A by CUDA events over eager launches; B at
+   every (K, N) of the drive's flood (K in {1, 4}, N in {1, 2, 3}) from a
+   CUDA graph of many launches (device time without the host's), each
+   beside its bytes bound, the plain version's time and copy_ms: a
+   device-to-device copy_ that moves the same bytes, the card's practical
+   streaming ceiling (not a library call for the same function).
 5. Kernel vs plain on the card for the scalar codec: kernel C (quantize)
    and kernel D (apply_frame_many) at n in {17, 1000, 2^20 + 3, 2^24 + 5},
    all three scale policies, garbage in the padding, scale 0 given
-   explicitly, D with K in {1, 3}; then all four kernels at 2^30 + 1024
+   explicitly, D with K in {1, 3, 9}; then all four kernels at 2^30 + 1024
    elements (byte offsets past 2^31), against their plain versions chunk by
    chunk. Any mismatch fails.
 6. The headline codec bench (shared_tensor_tpu_torch.bench) at N = 1 Mi
@@ -39,7 +43,8 @@ Phases, in order; any failure exits non-zero:
 7. The config-5 sweep (shared_tensor_tpu_torch.benchmarks.pareto) at 2^20,
    2^24, 2^27 and 2^30 elements with a short target: one JSON line per
    size, RMS decay per frame within 0.45-0.55, peak device memory, and the
-   times of C and D per launch at 2^30.
+   times of C and D per launch at 2^30 by CUDA events: D with K = 1 and
+   K = 3 targets, each beside its bound and copy_ms.
 
 Prints the card's name and power limit (nvidia-smi), a {"kernels": [...]}
 line, and last {"ok": true, "device": {...}}. Exits non-zero with no result
@@ -66,6 +71,8 @@ HBM_DEFAULT = 3.35e12
 QUIET_REL = 1e-7  # a frame is quiet when every leaf's scale <= this * its max |value|
 AGREE_REL = 1e-5  # replicas agree when every leaf is within this * its max |value|
 BATCH = 4  # frames per link per round, delivered together (K of kernel B)
+B_SHAPES = ((1, 1), (BATCH, 2), (BATCH, 3), (BATCH, 1), (1, 3))  # phase 4: (K, N) of the flood
+D_TARGETS = (1, 3)  # phase 7: target arrays of D at 2^30
 MAX_ROUNDS = 400
 WORDS_BYTES = 4 * 4  # packed words per row x bytes per word
 SCALAR_SIZES = (17, 1000, 2**20 + 3, 2**24 + 5)  # phase 5: live counts, padded to 1024
@@ -180,7 +187,7 @@ def kernel_vs_plain(spec, device, rng) -> dict:
     for k in (1, 2, 8):
         s_rows = frames.scales[:k, row_leaf].contiguous()
         words = frames.words[:k].contiguous()
-        for n_arr in (1, 3):
+        for n_arr in (1, 3, 9):
             base = [resid * (i + 1) for i in range(n_arr)]
             a_k = [b.clone() for b in base]
             a_p = [b.clone() for b in base]
@@ -335,24 +342,14 @@ def tree_drive(template, device, seed: int, verbose: bool = True) -> dict:
 # -- phase 4 --------------------------------------------------------------------
 
 
-def _time_ms(fn, iters: int, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def times(spec, device, k: int, n_arr: int, rate: float) -> dict:
-    """CUDA-event ms per launch of each kernel and its plain version at this
-    table's shapes, with the memory bound."""
+def times(spec, device, rate: float, shapes=B_SHAPES) -> dict:
+    """ms per launch of A (CUDA events, eager) and of B at each (K, N) of
+    ``shapes`` (CUDA graph), each with its plain version's time, its bytes
+    bound and copy_ms. Returns {"quantize_rows": row, "apply_rows_batch":
+    [row per shape]}."""
     from shared_tensor_tpu_torch.ops import codec_cuda as CC
     from shared_tensor_tpu_torch.ops import table as TT
+    from shared_tensor_tpu_torch.utils.timing import copy_ms, event_ms, graph_ms
 
     row_leaf, rowcount, live, *_ = TT._consts(spec, str(torch.device(device)))
     gen = torch.Generator(device=device).manual_seed(0)
@@ -360,27 +357,37 @@ def times(spec, device, k: int, n_arr: int, rate: float) -> dict:
     resid = torch.rand(n, generator=gen, device=device) * 2 - 1
     resid = torch.where(live.view(-1), resid, torch.zeros_like(resid))
     s_row = TT.compute_scales(resid, spec)[row_leaf].contiguous()
-    out = {}
     a_bytes = n * 8 + rows * WORDS_BYTES + rows * 8
-    out["quantize_rows"] = {
-        "ms": _time_ms(lambda: CC.quantize_rows_kernel(s_row, rowcount, resid), 50),
-        "plain_ms": _time_ms(lambda: CC.quantize_rows_plain(s_row, rowcount, resid), 5, 1),
+    out = {"quantize_rows": {
+        "ms": event_ms(lambda: CC.quantize_rows_kernel(s_row, rowcount, resid), 50),
+        "plain_ms": event_ms(lambda: CC.quantize_rows_plain(s_row, rowcount, resid), 5, 1),
         "bytes": a_bytes, "bound_ms": a_bytes / rate * 1e3, "shape": f"rows={rows}",
-    }
-    frames, _ = TT.quantize_table_burst(resid.clone(), spec, k, impl="kernel")
-    s_rows = frames.scales[:, row_leaf].contiguous()
-    words = frames.words.contiguous()
-    arrays = [resid.clone() for _ in range(n_arr)]
-    b_bytes = n * k / 8 + k * rows * 4 + rows * 4 + 8 * n_arr * n
-    out["apply_rows_batch"] = {
-        "ms": _time_ms(lambda: CC.apply_rows_batch_kernel(s_rows, rowcount, words, arrays), 50),
-        "plain_ms": _time_ms(lambda: CC.apply_rows_batch_plain(s_rows, rowcount, words, arrays), 5, 1),
-        "bytes": b_bytes, "bound_ms": b_bytes / rate * 1e3, "shape": f"rows={rows} K={k} N={n_arr}",
-    }
-    for name, r in out.items():
-        print(f"[4] {name} {r['shape']}: {r['ms']:.4f} ms/launch, bound {r['bound_ms']:.4f} ms "
-              f"({r['bytes'] / 1e6:.1f} MB at {rate / 1e12:.2f} TB/s), plain {r['plain_ms']:.4f} ms")
+    }}
+    r = out["quantize_rows"]
+    print(f"[4] quantize_rows {r['shape']}: {r['ms']:.4f} ms/launch, bound {r['bound_ms']:.4f} ms "
+          f"({r['bytes'] / 1e6:.1f} MB at {rate / 1e12:.2f} TB/s), plain {r['plain_ms']:.4f} ms")
+    frames, _ = TT.quantize_table_burst(resid.clone(), spec, max(k for k, _ in shapes), impl="kernel")
+    out["apply_rows_batch"] = []
+    for k, n_arr in shapes:
+        s_rows = frames.scales[:k, row_leaf].contiguous()
+        words = frames.words[:k].contiguous()
+        arrays = [resid.clone() for _ in range(n_arr)]
+        launch = lambda: CC.apply_rows_batch_kernel(s_rows, rowcount, words, arrays)
+        b_bytes = n * k / 8 + k * rows * 4 + rows * 4 + 8 * n_arr * n
+        r = {
+            "ms": graph_ms(launch, 50), "eager_ms": event_ms(launch, 50),
+            "plain_ms": event_ms(lambda: CC.apply_rows_batch_plain(s_rows, rowcount, words, arrays), 5, 1),
+            "copy_ms": copy_ms(b_bytes, device, lambda fn: graph_ms(fn, 50)),
+            "bytes": b_bytes, "bound_ms": b_bytes / rate * 1e3, "shape": f"rows={rows} K={k} N={n_arr}",
+        }
+        out["apply_rows_batch"].append(r)
+        print(f"[4] apply_rows_batch {r['shape']}: {r['ms']:.4f} ms/launch from a graph "
+              f"({r['eager_ms']:.4f} eager), bound {r['bound_ms']:.4f} ms ({r['bytes'] / 1e6:.1f} MB, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of it), copy_ms {r['copy_ms']:.4f}, "
+              f"plain {r['plain_ms']:.4f} ms")
+        del arrays
     return out
+
 
 # -- phase 5 --------------------------------------------------------------------
 
@@ -419,7 +426,7 @@ def scalar_kernel_vs_plain(device, sizes=SCALAR_SIZES, seed: int = 0) -> dict:
             print(f"[5] C quantize n={n} {label}: scale {float(f_k.scale):.6g}, mismatches {m}")
             if label == "RMS":
                 frame = f_k  # a scale that is not a power of two
-        for k in (1, 3):
+        for k in (1, 3, 9):
             a_k = [base * (i + 1) for i in range(k)]
             a_k[0][3:6] = torch.tensor([3e38, -3e38, float("nan")])
             a_p = [a.clone() for a in a_k]
@@ -492,30 +499,6 @@ def big_index_check(device, n_pad: int = BIG_PAD, chunk: int = 2**26, seed: int 
 # -- phase 6 --------------------------------------------------------------------
 
 
-def _graph_ms(fn, iters: int, reps: int = 3) -> float:
-    """Device ms per call of ``fn``: ``iters`` calls captured in one CUDA
-    graph, replayed ``reps`` times between CUDA events, so the host's launch
-    cost is not in the time."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(iters):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        g.replay()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / (iters * reps)
-    del g
-    return ms
-
-
 def scalar_bytes(n: int, k: int = 1) -> dict:
     """Bytes each kernel must move at ``n`` padded elements: C reads and
     writes the residual and writes the words; D reads the words and reads
@@ -531,6 +514,7 @@ def codec_bench(device, rate: float, n: int, seconds: float) -> dict:
     from shared_tensor_tpu_torch.ops import codec_cuda as CC
     from shared_tensor_tpu_torch.ops.codec import compute_scale
     from shared_tensor_tpu_torch.utils.profiling import trace
+    from shared_tensor_tpu_torch.utils.timing import copy_ms, graph_ms
 
     CC.reset_launches()
     kern = bench.run("kernel", device, n, target_seconds=seconds)
@@ -556,13 +540,15 @@ def codec_bench(device, rate: float, n: int, seconds: float) -> dict:
         CC.apply_frame(v, f, n)
 
     split = {
-        "scale_ms": _graph_ms(lambda: compute_scale(r, n, pol), iters),
-        "quantize_ms": _graph_ms(lambda: CC.quantize_kernel(r, n, pol, scale=scale), iters),
-        "apply_frame_many_ms": _graph_ms(lambda: CC.apply_frame_many_kernel((v,), frame, n), iters),
-        "frame_graph_ms": _graph_ms(whole_frame, iters),
-        "quantize_plain_ms": _graph_ms(lambda: CC.quantize_plain(r, n, pol, scale=scale), 50),
-        "apply_frame_many_plain_ms": _graph_ms(lambda: CC.apply_frame_many_plain((v,), frame, n), 50),
+        "scale_ms": graph_ms(lambda: compute_scale(r, n, pol), iters),
+        "quantize_ms": graph_ms(lambda: CC.quantize_kernel(r, n, pol, scale=scale), iters),
+        "apply_frame_many_ms": graph_ms(lambda: CC.apply_frame_many_kernel((v,), frame, n), iters),
+        "frame_graph_ms": graph_ms(whole_frame, iters),
+        "quantize_plain_ms": graph_ms(lambda: CC.quantize_plain(r, n, pol, scale=scale), 50),
+        "apply_frame_many_plain_ms": graph_ms(lambda: CC.apply_frame_many_plain((v,), frame, n), 50),
     }
+    split["apply_frame_many_copy_ms"] = copy_ms(scalar_bytes(n)["apply_frame_many"], device,
+                                                lambda fn: graph_ms(fn, iters))
     eager_ms = kern["detail"]["frame_s"] * 1e3
     split["frame_eager_ms"] = eager_ms
     split["overhead_ms"] = eager_ms - split["scale_ms"] - split["quantize_ms"] - split["apply_frame_many_ms"]
@@ -607,6 +593,7 @@ def sweep(device, rate: float, log2s=SWEEP_LOG2, seconds: float = SWEEP_SECONDS)
     from shared_tensor_tpu_torch.benchmarks import pareto
     from shared_tensor_tpu_torch.config import ScalePolicy
     from shared_tensor_tpu_torch.ops import codec_cuda as CC
+    from shared_tensor_tpu_torch.utils.timing import copy_ms, event_ms
 
     rows = []
     CC.reset_launches()
@@ -626,18 +613,23 @@ def sweep(device, rate: float, log2s=SWEEP_LOG2, seconds: float = SWEEP_SECONDS)
     n = 1 << log2s[-1]
     gen = torch.Generator(device=device).manual_seed(2)
     r = torch.randn(n, generator=gen, device=device)
-    v = torch.zeros(n, device=device)
     frame, _ = CC.quantize_kernel(r.clone(), n)
-    big = {
-        "n": n,
-        "quantize_ms": _time_ms(lambda: CC.quantize_kernel(r, n, scale=frame.scale), 10),
-        "apply_frame_many_ms": _time_ms(lambda: CC.apply_frame_many_kernel((v,), frame, n), 10),
-    }
-    for k, b in scalar_bytes(n).items():
-        big[f"{k}_bound_ms"] = b / rate * 1e3
-    print(f"[7] at n=2^{log2s[-1]}: C {big['quantize_ms']:.4f} ms (bound {big['quantize_bound_ms']:.4f}), "
-          f"D {big['apply_frame_many_ms']:.4f} ms (bound {big['apply_frame_many_bound_ms']:.4f})")
-    del r, v, frame
+    events = lambda fn: event_ms(fn, 10)
+    big = {"n": n, "quantize_ms": events(lambda: CC.quantize_kernel(r, n, scale=frame.scale)),
+           "quantize_bound_ms": scalar_bytes(n)["quantize"] / rate * 1e3}
+    del r
+    for k in D_TARGETS:
+        vs = [torch.zeros(n, device=device) for _ in range(k)]
+        nbytes = scalar_bytes(n, k)["apply_frame_many"]
+        d = {"ms": events(lambda: CC.apply_frame_many_kernel(vs, frame, n)),
+             "bound_ms": nbytes / rate * 1e3}
+        del vs
+        d["copy_ms"] = copy_ms(nbytes, device, events)
+        big[f"apply_frame_many_k{k}"] = d
+        print(f"[7] D at n=2^{log2s[-1]} K={k}: {d['ms']:.4f} ms, bound {d['bound_ms']:.4f} ms "
+              f"({100 * d['bound_ms'] / d['ms']:.1f}% of it), copy_ms {d['copy_ms']:.4f}")
+    print(f"[7] C at n=2^{log2s[-1]}: {big['quantize_ms']:.4f} ms (bound {big['quantize_bound_ms']:.4f})")
+    del frame
     torch.cuda.empty_cache()
     return {"rows": rows, "launches": launches, "big": big}
 
@@ -675,7 +667,7 @@ def main() -> int:
           + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in report.items()))
     for k, v in report.items():
         for line in v["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"[1] {k}: {line.strip()}")
 
     template = resnet18_template()
@@ -697,9 +689,12 @@ def main() -> int:
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
 
-    # 4. times at the drive's shapes: B as at the interior's flood (K, N=2)
+    # 4. times at the drive's shapes; B's row in the kernels line is the
+    # interior's flood (K = BATCH, N = 2), its other shapes beside it
     rate = hbm_rate(name)
-    t = times(spec, dev, drive["max_k"], 2, rate)
+    t = times(spec, dev, rate)
+    b_rows = t["apply_rows_batch"]
+    t["apply_rows_batch"] = dict(b_rows[B_SHAPES.index((BATCH, 2))], shapes=b_rows)
 
     # 5. C and D against plain, then all four kernels past 2^31 bytes
     parity.update(scalar_kernel_vs_plain(dev, seed=args.seed))
@@ -719,14 +714,18 @@ def main() -> int:
     for k in ("quantize", "apply_frame_many"):
         t[k] = {"ms": sp[f"{k}_ms"], "plain_ms": sp[f"{k}_plain_ms"], "bound_ms": sp[f"{k}_bound_ms"],
                 "shape": f"n={1 << 20} K=1" if k == "apply_frame_many" else f"n={1 << 20}"}
+    t["apply_frame_many"]["copy_ms"] = sp["apply_frame_many_copy_ms"]
 
     # 7. the config-5 sweep up to 2^30
     sw = sweep(dev, rate)
     if not all(sw["launches"].values()):
         raise AssertionError(f"a kernel of the sweep never launched: {sw['launches']}")
-    for k in ("quantize", "apply_frame_many"):
-        t[k]["ms_2e30"] = sw["big"][f"{k}_ms"]
-        t[k]["bound_ms_2e30"] = sw["big"][f"{k}_bound_ms"]
+    t["quantize"]["ms_2e30"] = sw["big"]["quantize_ms"]
+    t["quantize"]["bound_ms_2e30"] = sw["big"]["quantize_bound_ms"]
+    for k in D_TARGETS:
+        d = sw["big"][f"apply_frame_many_k{k}"]
+        suffix = "_2e30" if k == 1 else f"_2e30_k{k}"
+        t["apply_frame_many"].update({f"{x}{suffix}": d[x] for x in ("ms", "bound_ms", "copy_ms")})
 
     print(smi)
     kernels = []
@@ -738,7 +737,7 @@ def main() -> int:
             "plain_ms": t[k]["plain_ms"], "bound_ms": t[k]["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "shape": t[k]["shape"],
         }
-        row.update({x: t[k][x] for x in ("ms_2e30", "bound_ms_2e30") if x in t[k]})
+        row.update({x: v for x, v in t[k].items() if x not in row})
         kernels.append(row)
     print(json.dumps({"drive": drive}))
     print(json.dumps({"bench_split": sp, "sweep": sw["rows"], "big_2e30": sw["big"]}))

@@ -8,68 +8,88 @@
 //           bit_k ? -s_k : s_k              (== s_k * (1 - 2*bit_k))
 //   for each of N arrays a:  a = live ? clip(a + delta, -SAT, SAT) : 0
 // in place. The fixed k order keeps the sum bit-equal to the golden even
-// when the scales are not powers of two (RMS policy). The clip keeps NaN as
-// NaN, like jnp.clip, rather than fminf/fmaxf, which would drop it.
+// when the scales are not powers of two (RMS policy).
 //
 // Bound: memory. Per element: K/8 B of words, K*4/128 B of row scales and
 // 8N B of read+write over the N arrays (plus 4/128 B of row counts). One
-// launch serves every target array (replica + other links' residuals),
-// through a device array of N pointers, so the frames are unpacked once.
-// One thread per element; the 32 lanes of a warp read the same word
-// (a broadcast) and consecutive 4 B of each array (coalesced). Built
-// without fast-math: subnormals are kept.
+// launch serves up to 8 target arrays (replica + other links' residuals),
+// so the frames are unpacked once; the caller splits more targets into
+// launches of at most 8, each recomputing the same delta in the same order.
+// The design is apply_common.cuh's: targets by value; a warp for every
+// 128-element row, in 16-byte lanes; every load before any store. The
+// loads of the first kPre frames (lane k < kPre loads frame k's row scale,
+// which the warp broadcasts by shuffle; every lane its word of each) and of
+// the row count are issued before the targets', so a row costs one memory
+// round trip where a loop over K would wait for each scale in turn: at the
+// ResNet-18 table this took K=1 N=1 from 0.043 to 0.032 ms on the H100
+// (PERF.md). Frames past kPre are loaded in the summing loop.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <climits>
+
+#include "apply_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr float kSat = 3.0e38f;
+using namespace st_apply;
 
-__device__ __forceinline__ float clip_sat(float v) {
-  if (v != v) return v;  // NaN propagates, as in jnp.clip
-  return v < -kSat ? -kSat : (v > kSat ? kSat : v);
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kPre = 4;  // the flood's batch size: K <= 4 on the main path
+
+__device__ __forceinline__ void add_frame(float4& d, float s, uint32_t b) {
+  d.x = d.x + ((b & 1u) ? -s : s);
+  d.y = d.y + ((b & 2u) ? -s : s);
+  d.z = d.z + ((b & 4u) ? -s : s);
+  d.w = d.w + ((b & 8u) ? -s : s);
 }
 
+template <int N>
 __global__ void __launch_bounds__(kThreads)
-apply_rows_kernel(const float* __restrict__ s_rows,
-                  const int* __restrict__ rowcount,
-                  const uint32_t* __restrict__ words,
-                  float* const* __restrict__ arrays,
-                  int n_arrays, int k_frames, long long rows) {
-  const long long n = rows * 128;
-  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= n) return;
-  const long long row = e >> 7;
-  const int lane = (int)(e & 127);
-  const int bit = lane & 31;
-  const long long wi = row * 4 + (lane >> 5);
+apply_rows_kernel(const float* __restrict__ s_rows, const int* __restrict__ rowcount,
+                  const uint32_t* __restrict__ words, Targets t, int k_frames, long long rows) {
+  // row is warp-uniform: whole warps return, and the shuffles see whole warps
+  const long long row = warp_row();
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const int c = lane * 4;
+  const int shift = (lane & 7) * 4;
+  const long long e = row * 128 + c;
   const long long words_per_frame = rows * 4;
-  float delta = 0.0f;
-  for (int k = 0; k < k_frames; ++k) {
-    const uint32_t w = words[(long long)k * words_per_frame + wi];
-    const float s = s_rows[(long long)k * rows + row];
-    delta = delta + (((w >> bit) & 1u) ? -s : s);
-  }
-  const bool live = lane < rowcount[row];
-  for (int i = 0; i < n_arrays; ++i) {
-    float* a = arrays[i];
-    a[e] = live ? clip_sat(a[e] + delta) : 0.0f;
-  }
+  const uint32_t* w = words + row * 4 + (lane >> 3);
+  const float s_lane = lane < kPre && lane < k_frames ? s_rows[(long long)lane * rows + row] : 0.0f;
+  uint32_t b[kPre];
+#pragma unroll
+  for (int k = 0; k < kPre; ++k) b[k] = k < k_frames ? w[k * words_per_frame] : 0u;
+  const int count = rowcount[row];
+  float4 v[N];
+  load_targets<N>(t, e, v);
+  float4 d = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int k = 0; k < kPre; ++k)
+    if (k < k_frames) add_frame(d, __shfl_sync(kFull, s_lane, k), b[k] >> shift);
+  for (int k = kPre; k < k_frames; ++k)
+    add_frame(d, s_rows[(long long)k * rows + row], w[k * words_per_frame] >> shift);
+  const int left = count - c;
+  store_targets<N>(t, e, v, d, left <= 0 ? 0 : (left >= 4 ? 4 : left));
 }
 
 }  // namespace
 
+// arrays: a HOST array of n_arrays (1..8) device pointers, each 16-byte
+// aligned, as are the words.
 extern "C" int st_apply_rows_batch(const float* s_rows, const int* rowcount,
                                    const uint32_t* words,
                                    float* const* arrays, int n_arrays,
                                    int k_frames, long long rows,
                                    void* stream) {
-  const long long n = rows * 128;
-  if (n <= 0 || n_arrays <= 0 || k_frames <= 0) return 0;
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  apply_rows_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      s_rows, rowcount, words, arrays, n_arrays, k_frames, rows);
-  return (int)cudaGetLastError();
+  if (rows <= 0 || k_frames <= 0) return 0;
+  Targets t;
+  if (!make_targets(arrays, n_arrays, &t)) return (int)cudaErrorInvalidValue;
+  const long long blocks = row_blocks(rows);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return dispatch_targets(n_arrays, [&](auto n) {
+    apply_rows_kernel<decltype(n)::value><<<(unsigned)blocks, kThreads, 0, s>>>(
+        s_rows, rowcount, words, t, k_frames, rows);
+    return (int)cudaGetLastError();
+  });
 }

@@ -34,10 +34,31 @@ version for CPU tensors, and nothing else: there is no fallback from a CUDA
 tensor to the plain path. ``LAUNCHES`` counts kernel launches (not plain
 calls).
 
+Kernels B and D share one design for Hopper (their bound is bytes: each
+target is read and written once, the words read once):
+
+- targets by value: the wrapper hands the C entry point a host array of at
+  most :data:`MAX_TARGETS` (8) target pointers, which it passes to the
+  kernel as one parameter, so no thread waits on a pointer load; a call with
+  more targets is split by :func:`target_groups` into launches of at most
+  8, each recomputing the same delta from the same frames in the same order
+  (bit-equal), and each launch counts in ``LAUNCHES``;
+- 16-byte lanes: a warp takes one 128-lane row, a lane 4 consecutive
+  elements as one ``float4``, so every target and the words must be
+  16-byte aligned; :func:`check_aligned` raises ``ValueError`` on a
+  misaligned view (there is no scalar fallback);
+- every load before any store (the frame's words and scales first, then
+  every target's), and a grid with a warp for every row, as the card
+  measured best (PERF.md).
+
+The shared part of that design is ``csrc/apply_common.cuh``.
+
 Build: ``nvcc`` compiles each source in ``csrc/`` into its own shared
 library (plain C interface, loaded with ctypes) under ``csrc/build/`` at
-first use, for ``sm_90a``, without fast-math (subnormal residuals must
-survive, as in the JAX golden).
+first use, for ``sm_90a``, without fast-math and without FTZ (subnormals
+survive, as in the JAX package's host tier and the C reference). A
+library's name carries a hash of its source, the shared headers and the
+flags, so an edit to any of them rebuilds it.
 """
 
 from __future__ import annotations
@@ -60,6 +81,10 @@ from .codec import SAT, Frame, compute_scale
 from .packing import BITS_PER_WORD, LANES, pack_bits, unpack_bits
 
 WORDS_PER_ROW = 4
+#: Target arrays one launch of kernel B or D takes; more are split.
+MAX_TARGETS = 8
+#: Bytes of one kernel lane (a float4): targets and words are aligned to it.
+LANE_BYTES = 16
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR / "build"
@@ -80,7 +105,6 @@ LAUNCHES = {name: 0 for name in SOURCES}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _BUILD_LOCK = threading.Lock()
-_PTR_CACHE: dict[tuple, torch.Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -104,7 +128,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC_DIR / SOURCES[name]).read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    h = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 
@@ -141,15 +166,16 @@ def build(names: Sequence[str] | None = None) -> dict[str, dict]:
 
 
 _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_PP = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
 _ARGTYPES = {
     # s_row, rowcount, resid, words, rows, stream
     "quantize_rows": ("st_quantize_rows", [_VP, _VP, _VP, _VP, _I64, _VP]),
-    # s_rows, rowcount, words, array_ptrs, n_arrays, k_frames, rows, stream
-    "apply_rows_batch": ("st_apply_rows_batch", [_VP, _VP, _VP, _VP, _I32, _I32, _I64, _VP]),
+    # s_rows, rowcount, words, targets (host array), n_targets <= 8, k_frames, rows, stream
+    "apply_rows_batch": ("st_apply_rows_batch", [_VP, _VP, _VP, _PP, _I32, _I32, _I64, _VP]),
     # scale, resid, words, n_live, n_pad, stream
     "quantize": ("st_quantize", [_VP, _VP, _VP, _I64, _I64, _VP]),
-    # scale, words, array_ptrs, n_arrays, n_live, n_pad, stream
-    "apply_frame_many": ("st_apply_frame_many", [_VP, _VP, _VP, _I32, _I64, _I64, _VP]),
+    # scale, words, targets (host array), n_targets <= 8, n_live, n_pad, stream
+    "apply_frame_many": ("st_apply_frame_many", [_VP, _VP, _PP, _I32, _I64, _I64, _VP]),
 }
 
 
@@ -185,6 +211,28 @@ def check_distinct(arrays: Sequence[torch.Tensor]) -> None:
         if key in seen:
             raise ValueError("target arrays share storage; pass distinct tensors")
         seen.add(key)
+
+
+def check_aligned(tensors: Sequence[torch.Tensor], what: str) -> None:
+    """Raise ``ValueError`` unless every tensor starts on a 16-byte boundary:
+    kernels B and D move each lane's 4 elements as one 16-byte access."""
+    for i, t in enumerate(tensors):
+        if t.data_ptr() % LANE_BYTES:
+            raise ValueError(
+                f"{what}[{i}] starts {t.data_ptr() % LANE_BYTES} bytes off a "
+                f"{LANE_BYTES}-byte boundary; the kernel needs aligned tensors"
+            )
+
+
+def target_groups(arrays: Sequence[torch.Tensor]) -> list[tuple[torch.Tensor, ...]]:
+    """The targets in order, in groups of at most :data:`MAX_TARGETS`: one
+    launch each."""
+    return [tuple(arrays[i : i + MAX_TARGETS]) for i in range(0, len(arrays), MAX_TARGETS)]
+
+
+def _pointers(group: Sequence[torch.Tensor]):
+    """A host ctypes array of the group's device addresses."""
+    return (ctypes.c_void_p * len(group))(*(a.data_ptr() for a in group))
 
 
 def _check(t: torch.Tensor, what: str, dtypes, shape, device) -> None:
@@ -313,38 +361,28 @@ def apply_rows_batch_plain(
     return tuple(arrays)
 
 
-def _pointer_array(arrays: Sequence[torch.Tensor]) -> torch.Tensor:
-    """A device int64 tensor of the arrays' addresses, cached by address
-    tuple (a SharedTensor's buffers keep their addresses across frames)."""
-    key = (arrays[0].device, tuple(a.data_ptr() for a in arrays))
-    ptrs = _PTR_CACHE.get(key)
-    if ptrs is None:
-        if len(_PTR_CACHE) >= 256:
-            _PTR_CACHE.clear()
-        ptrs = torch.tensor(key[1], dtype=torch.int64).to(arrays[0].device)
-        _PTR_CACHE[key] = ptrs
-    return ptrs
-
-
 def apply_rows_batch_kernel(
     s_rows: torch.Tensor,
     rowcount: torch.Tensor,
     words: torch.Tensor,
     arrays: Sequence[torch.Tensor],
 ) -> tuple[torch.Tensor, ...]:
-    """Kernel B on the GPU; updates ``arrays`` in place. Raises for
-    tensors that are not on a GPU."""
+    """Kernel B on the GPU, one launch per group of at most 8 arrays;
+    updates ``arrays`` in place. Raises for tensors that are not on a GPU
+    or not 16-byte aligned."""
     if not arrays or arrays[0].device.type != "cuda":
         raise ValueError("apply_rows_batch kernel needs CUDA tensors")
     rows, k = _check_apply(s_rows, rowcount, words, arrays)
-    ptrs = _pointer_array(arrays)
+    check_aligned(arrays, "arrays")
+    check_aligned([words], "words")
     fn = _fn("apply_rows_batch")
     with torch.cuda.device(arrays[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(s_rows.data_ptr(), rowcount.data_ptr(), words.data_ptr(),
-                 ptrs.data_ptr(), len(arrays), k, rows, stream)
-    _check_launch("apply_rows_batch", err)
-    LAUNCHES["apply_rows_batch"] += 1
+        for group in target_groups(arrays):
+            err = fn(s_rows.data_ptr(), rowcount.data_ptr(), words.data_ptr(),
+                     _pointers(group), len(group), k, rows, stream)
+            _check_launch("apply_rows_batch", err)
+            LAUNCHES["apply_rows_batch"] += 1
     return tuple(arrays)
 
 
@@ -500,19 +538,22 @@ def apply_frame_many_plain(
 def apply_frame_many_kernel(
     arrays: Sequence[torch.Tensor], frame: Frame, n: int
 ) -> tuple[torch.Tensor, ...]:
-    """Kernel D on the GPU: one launch for all the arrays; updates them in
-    place. Raises for tensors that are not on a GPU."""
+    """Kernel D on the GPU, one launch per group of at most 8 arrays;
+    updates them in place. Raises for tensors that are not on a GPU or not
+    16-byte aligned."""
     if not arrays or not isinstance(arrays[0], torch.Tensor) or arrays[0].device.type != "cuda":
         raise ValueError("apply_frame_many kernel needs CUDA tensors")
     n, n_pad = _check_apply_frame(arrays, frame, n)
-    ptrs = _pointer_array(arrays)
+    check_aligned(arrays, "arrays")
+    check_aligned([frame.words], "frame.words")
     fn = _fn("apply_frame_many")
     with torch.cuda.device(arrays[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(frame.scale.data_ptr(), frame.words.data_ptr(), ptrs.data_ptr(),
-                 len(arrays), n, n_pad, stream)
-    _check_launch("apply_frame_many", err)
-    LAUNCHES["apply_frame_many"] += 1
+        for group in target_groups(arrays):
+            err = fn(frame.scale.data_ptr(), frame.words.data_ptr(), _pointers(group),
+                     len(group), n, n_pad, stream)
+            _check_launch("apply_frame_many", err)
+            LAUNCHES["apply_frame_many"] += 1
     return tuple(arrays)
 
 

@@ -1,6 +1,8 @@
 """Device timing for codec work (used by ``bench.py`` and
 ``benchmarks/pareto.py``): the counterpart of
-``shared_tensor_tpu/utils/timing.py``.
+``shared_tensor_tpu/utils/timing.py``; and the per-launch timers of single
+kernels, :func:`event_ms` and :func:`graph_ms`, with :func:`copy_ms`, the
+card's streaming rate for the same bytes.
 
 The JAX version chains L frames inside one jitted ``fori_loop``. PyTorch
 runs eagerly, so here the chain is a Python loop of L frames enqueued on
@@ -105,3 +107,54 @@ def codec_frame_time(
         length = nxt
         t = run(length)
     return t / length
+
+
+def event_ms(fn: Callable[[], object], iters: int, warmup: int = 3) -> float:
+    """Device ms per call of ``fn``: ``iters`` eager calls between two CUDA
+    events, after ``warmup`` calls. The host's launch cost shows whenever
+    it exceeds the device's time per call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn: Callable[[], object], iters: int, reps: int = 3) -> float:
+    """Device ms per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, replayed ``reps`` times between CUDA events, so the host's launch
+    cost is not in the time."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * reps)
+    del g
+    return ms
+
+
+def copy_ms(nbytes: float, device, timer: Callable[[Callable[[], object]], float]) -> float:
+    """ms of one device-to-device ``copy_`` that reads and writes ``nbytes``
+    in all (half each way), timed by ``timer(fn)``: what the card streams
+    at that size, the yardstick beside a kernel's bytes bound."""
+    src = torch.empty(int(nbytes) // 8, device=device)
+    dst = torch.empty_like(src)
+    ms = timer(lambda: dst.copy_(src))
+    del src, dst
+    return ms

@@ -52,29 +52,68 @@ def test_quantize_rows_kernel_matches_plain(cuda_device):
     assert _same_bits(r_k, r_p)
 
 
+_SPECIALS = [3e38, -3e38, 1e-40, np.nan, np.float32(-1e-45), 2.9e38, -0.0, np.float32(1e-38)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,n_arr", [(1, 1), (2, 3), (8, 1)])
-def test_apply_rows_batch_kernel_matches_plain(cuda_device, k, n_arr):
-    rows = 4099
+@pytest.mark.parametrize("rows", [1, 4099])
+@pytest.mark.parametrize("k,n_arr", [(1, 1), (2, 3), (8, 1), (4, 2), (4, 3), (8, 8), (2, 11)])
+def test_apply_rows_batch_kernel_matches_plain(cuda_device, k, n_arr, rows):
+    """Bit-exact at the main path's (K, N), at 8 targets (one launch) and
+    at 11 (two launches); NaN, +-3e38 and subnormals in the targets; a row
+    scale of 2^-126 turns subnormal targets into subnormal sums."""
     rng = np.random.default_rng(k)
     _, rowcount, _ = _rows_case(6, rows)
     s = (2.0 ** rng.integers(-6, 2, (k, rows))).astype(np.float32)
     s[rng.random((k, rows)) < 0.2] = 0.0
     s[0] *= np.float32(1.37)
+    s[:, -1] = np.float32(2.0**-126)
+    rowcount[-1] = 128
     words = rng.integers(0, 2**32, (k, rows * 4), dtype=np.uint64).astype(np.uint32)
     dev = cuda_device
     s_d = torch.from_numpy(s).to(dev)
     c_d = torch.from_numpy(rowcount).to(dev)
     w_d = torch.from_numpy(words.view(np.int32)).to(dev)
     base = [rng.normal(size=rows * 128).astype(np.float32) for _ in range(n_arr)]
-    base[0][:4] = [3e38, -3e38, 1e-40, np.nan]
+    base[0][:8] = _SPECIALS
+    base[-1][-8:] = _SPECIALS
     ak = [torch.from_numpy(b).to(dev) for b in base]
     ap = [a.clone() for a in ak]
+    CC.reset_launches()
     CC.apply_rows_batch_kernel(s_d, c_d, w_d, ak)
+    assert CC.LAUNCHES["apply_rows_batch"] == -(-n_arr // CC.MAX_TARGETS)
     CC.apply_rows_batch_plain(s_d, c_d, w_d, ap)
     torch.cuda.synchronize()
     for x, y in zip(ak, ap):
         assert _same_bits(x, y)
+
+
+@pytest.mark.cuda
+def test_kernels_raise_on_a_misaligned_view(cuda_device):
+    """A view 4 bytes off a 16-byte boundary raises ValueError in B and D:
+    no fallback to the plain version or to a scalar kernel."""
+    from shared_tensor_tpu_torch.ops.codec import Frame
+
+    rows = 8
+    dev = cuda_device
+    buf = torch.zeros(rows * 128 + 1, device=dev)
+    bad, good = buf[1:], torch.zeros(rows * 128, device=dev)
+    s_d = torch.ones(1, rows, device=dev)
+    c_d = torch.full((rows,), 128, dtype=torch.int32, device=dev)
+    w_d = torch.zeros(1, rows * 4, dtype=torch.int32, device=dev)
+    w_bad = torch.zeros(rows * 4 + 1, dtype=torch.int32, device=dev)[1:].view(1, -1)
+    CC.reset_launches()
+    with pytest.raises(ValueError):
+        CC.apply_rows_batch_kernel(s_d, c_d, w_d, [good, bad])
+    with pytest.raises(ValueError):
+        CC.apply_rows_batch(s_d, c_d, w_bad, [good])
+    frame = Frame(torch.tensor(0.5, device=dev), w_d[0])
+    with pytest.raises(ValueError):
+        CC.apply_frame_many_kernel([bad], frame, 100)
+    with pytest.raises(ValueError):
+        CC.apply_frame_many([good], Frame(frame.scale, w_bad[0]), 100)
+    assert CC.LAUNCHES["apply_rows_batch"] == 0 and CC.LAUNCHES["apply_frame_many"] == 0
+    assert not good.any()
 
 
 @pytest.mark.cuda
@@ -150,7 +189,7 @@ def test_quantize_kernel_at_scale_zero_zeroes_padding(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("k", [1, 3, 9])
 def test_apply_frame_many_kernel_matches_plain(cuda_device, k):
     from shared_tensor_tpu_torch.ops.codec import Frame
 
@@ -161,6 +200,33 @@ def test_apply_frame_many_kernel_matches_plain(cuda_device, k):
     frame = Frame(torch.tensor(0.37, device=cuda_device), words)
     base = [_scalar_case(10 + i, n, n_pad) for i in range(k)]
     base[0][3:7] = [3e38, -3e38, np.nan, 2.9e38]
+    ak = [torch.from_numpy(b).to(cuda_device) for b in base]
+    ap = [a.clone() for a in ak]
+    CC.apply_frame_many_kernel(ak, frame, n)
+    CC.apply_frame_many_plain(ap, frame, n)
+    torch.cuda.synchronize()
+    for x, y in zip(ak, ap):
+        assert _same_bits(x, y) and not x[n:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 4099])
+@pytest.mark.parametrize("scale", [0.37, 2.0**-126, 0.0])
+def test_apply_frame_many_kernel_small_and_subnormal(cuda_device, rows, scale):
+    """D at one row and at a row count no block size divides, with a live
+    count inside the last row; at scale 2^-126 subnormal targets give
+    subnormal sums (no FTZ), at scale 0 the padding still becomes 0."""
+    from shared_tensor_tpu_torch.ops.codec import Frame
+
+    n_pad = rows * 128
+    n = n_pad - 77
+    rng = np.random.default_rng(rows)
+    words = torch.from_numpy(rng.integers(0, 2**32, n_pad // 32, dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)).to(cuda_device)
+    frame = Frame(torch.tensor(scale, dtype=torch.float32, device=cuda_device), words)
+    base = [_scalar_case(40 + i, n, n_pad) for i in range(2)]
+    base[0][:8] = _SPECIALS
+    base[1][n - 8 : n] = _SPECIALS
     ak = [torch.from_numpy(b).to(cuda_device) for b in base]
     ap = [a.clone() for a in ak]
     CC.apply_frame_many_kernel(ak, frame, n)

@@ -78,6 +78,71 @@ def test_apply_rows_batch_plain_matches_pallas(k, n_arr):
         np.testing.assert_array_equal(_bits(g.numpy()), _bits(w))
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_apply_rows_batch_plain_matches_pallas_nine_targets_rms_scales(seed):
+    """Nine targets (more than one launch of kernel B takes) and three frames
+    whose scales are RMS values, not powers of two, so the frame order of
+    the sum shows in the bits."""
+    rows, k, n_arr = 12, 3, 9
+    rng = np.random.default_rng(100 + seed)
+    _, rowcount, _ = _rows_case(seed, rows)
+    s = rng.uniform(0.05, 3.0, (rows, k)).astype(np.float32)
+    s[rng.random((rows, k)) < 0.1] = 0.0
+    words2d = rng.integers(0, 2**32, (rows, 4 * k), dtype=np.uint64).astype(np.uint32)
+    arrays = [rng.normal(size=rows * 128).astype(np.float32) for _ in range(n_arr)]
+    arrays[n_arr - 1][:5] = [3e38, -3e38, np.nan, 1e-40, np.float32(-1e-45)]
+    want = codec_pallas.apply_rows_batch(
+        jnp.asarray(s), jnp.asarray(rowcount), jnp.asarray(words2d),
+        tuple(jnp.asarray(a) for a in arrays),
+    )
+    s_t = torch.from_numpy(np.ascontiguousarray(s.T))
+    w_t = words2d.reshape(rows, k, 4).transpose(1, 0, 2).reshape(k, rows * 4)
+    w_t = torch.from_numpy(np.ascontiguousarray(w_t).view(np.int32))
+    got = [torch.from_numpy(a.copy()) for a in arrays]
+    CC.apply_rows_batch(s_t, torch.from_numpy(rowcount), w_t, got)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_bits(g.numpy()), _bits(w))
+
+
+@pytest.mark.parametrize("n,sizes", [(1, [1]), (8, [8]), (9, [8, 1]), (11, [8, 3]), (17, [8, 8, 1])])
+def test_target_groups_split_at_eight(n, sizes):
+    arrays = [torch.zeros(128) for _ in range(n)]
+    groups = CC.target_groups(arrays)
+    assert [len(g) for g in groups] == sizes
+    assert [a for g in groups for a in g] == arrays  # every target once, in order
+    assert CC.MAX_TARGETS == 8
+
+
+def test_pointers_hold_the_targets_addresses():
+    arrays = [torch.zeros(256) for _ in range(3)]
+    ptrs = CC._pointers(arrays)
+    assert [ptrs[i] for i in range(3)] == [a.data_ptr() for a in arrays]
+
+
+def test_check_aligned_rejects_a_view_off_a_16_byte_boundary():
+    buf = torch.zeros(129 * 4)
+    assert buf.data_ptr() % 16 == 0
+    CC.check_aligned([buf, buf[4:], buf[128:]], "arrays")  # 16 and 512 bytes in
+    with pytest.raises(ValueError, match="4 bytes off"):
+        CC.check_aligned([buf, buf[1:]], "arrays")
+    with pytest.raises(ValueError, match=r"words\[0\]"):
+        CC.check_aligned([buf.view(torch.int32)[2:]], "words")
+
+
+def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
+    """B and D include csrc/apply_common.cuh: an edit to it must rebuild
+    both, so their library names hash it with their own source."""
+    for src in (*CC.SOURCES.values(), "apply_common.cuh"):
+        (tmp_path / src).write_bytes((CC.CSRC_DIR / src).read_bytes())
+    monkeypatch.setattr(CC, "CSRC_DIR", tmp_path)
+    before = {name: CC._lib_path(name) for name in CC.SOURCES}
+    header = tmp_path / "apply_common.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {name: CC._lib_path(name) for name in CC.SOURCES}
+    assert all(after[name] != before[name] for name in CC.SOURCES)
+    assert len(set(after.values())) == len(CC.SOURCES)
+
+
 def test_wrappers_reject_bad_arguments():
     rows = 8
     s_row, rowcount, resid = _rows_case(3, rows)

@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 
 from shared_tensor_tpu.config import ScalePolicy as JPolicy
+from shared_tensor_tpu.ops import codec_np as JNP
 from shared_tensor_tpu.ops import table as JT
 from shared_tensor_tpu_torch.config import ScalePolicy
 from shared_tensor_tpu_torch.ops import table as TT
@@ -160,6 +161,61 @@ def test_apply_table_batch_matches_jax(k):
         TT.apply_table_many(seq, TT.TableFrame(frames.scales[i], frames.words[i]), ts)
     for g, s in zip(gots, seq):
         np.testing.assert_allclose(g.numpy(), s.numpy(), rtol=0, atol=1e-3)
+
+
+def _subnormal_tree(seed):
+    """Leaves of +-U(1.4, 1.6) * 2^e (one at e = -126, the smallest normal
+    octave), so each leaf's RMS lies well inside an octave and every tier
+    picks the same POW2 scale; a tenth of the elements are zeros or the
+    subnormals +-1e-40 and 1e-45."""
+    rng = np.random.default_rng(seed)
+    tiny = np.array([0.0, 1e-40, -1e-40, 1e-45, -1e-45], np.float32)
+    tree = {}
+    for i, (shape, e) in enumerate(zip([(40, 70), (256,), (3, 5, 7), (1000,)], [0, 10, -10, -126])):
+        n = int(np.prod(shape))
+        x = rng.uniform(1.4, 1.6, n) * rng.choice([-1.0, 1.0], n) * 2.0**e
+        pick = rng.random(n) < 0.1
+        x[pick] = rng.choice(tiny, int(pick.sum()))
+        tree[f"leaf{i}"] = x.astype(np.float32).reshape(shape)
+    return tree
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_subnormals_match_the_jax_host_tier_bit_for_bit(k):
+    """The JAX package's host tier (codec_np, which runs the C codec in
+    native/ when it is built and numpy otherwise) keeps IEEE subnormals, as
+    the port does: K sender steps and their K frames applied to targets
+    that hold subnormals and zeros agree bit for bit (scales, words,
+    residuals, targets). Only XLA's tier flushes
+    (tests/test_torch_scalar_kernels.py)."""
+    tree = _subnormal_tree(k)
+    js, ts = JT.make_spec(tree), TT.make_spec(tree)
+    r_np = JNP.flatten_np(tree, js)
+    r_t = TT.flatten(tree, ts)
+    assert (np.abs(r_np[r_np != 0]) < 2.0**-126).any()  # subnormals in the input
+    scales, words = [], []
+    for _ in range(k):
+        j_scales, j_words, r_np = JNP.quantize_table_np(r_np, js)
+        frame, r_t = TT.quantize_table(r_t, ts, impl="plain")
+        np.testing.assert_array_equal(_f32_bits(frame.scales.numpy()), _f32_bits(j_scales))
+        np.testing.assert_array_equal(frame.words.numpy().view(np.uint32), j_words)
+        np.testing.assert_array_equal(_f32_bits(r_t.numpy()), _f32_bits(r_np))
+        scales.append(frame.scales.numpy())
+        words.append(frame.words.numpy().view(np.uint32))
+    assert (np.abs(r_np[r_np != 0]) < 2.0**-126).any()  # and in what the codec leaves
+    assert float(scales[0][3]) == 2.0**-126
+    targets = [JNP.flatten_np(_subnormal_tree(10 + i), js) for i in range(2)]
+    wants = JNP.apply_table_batch_np(tuple(targets), np.stack(scales), np.stack(words), js)
+    frames = TT.TableFrame(torch.from_numpy(np.stack(scales)), torch.from_numpy(np.stack(words).view(np.int32)))
+    gots = TT.apply_table_batch([torch.from_numpy(t.copy()) for t in targets], frames, ts, impl="plain")
+    for g, w in zip(gots, wants):
+        np.testing.assert_array_equal(_f32_bits(g.numpy()), _f32_bits(w))
+    sub = (gots[0].numpy() != 0) & (np.abs(gots[0].numpy()) < 2.0**-126)
+    assert sub.any()  # subnormal sums survive
+
+
+def _f32_bits(x):
+    return np.asarray(x, np.float32).view(np.uint32)
 
 
 def test_accumulate_table_sanitises_like_jax():
