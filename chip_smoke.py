@@ -45,6 +45,25 @@ Phases, in order; any failure exits non-zero:
    size, RMS decay per frame within 0.45-0.55, peak device memory, and the
    times of C and D per launch at 2^30 by CUDA events: D with K = 1 and
    K = 3 targets, each beside its bound and copy_ms.
+8. The peer tier over loopback TCP in this process, every SharedTensor on
+   the card, through create_or_fetch / add / read: (8a) BASELINE config 1,
+   a master seeding arange(1, 241) as 4x5x6x2 and a joiner, both adding,
+   both reading seed + both deltas within 1e-6; (8b) four peers on the
+   ResNet-18 table (the third joiner below the master's two children), the
+   master seeded from --seed, each peer adding one update; every replica
+   must reach seed + every update within AGREE_REL of each leaf's max
+   |value| within 120 s of the last add. A peer whose thread died or that
+   got a message kind it does not speak fails the phase. Reports the time
+   from the last add to agreement, frames, messages, bytes and
+   retransmissions per peer, frames/s per link, host ms per frame by stage
+   (fetch wait, encode, socket, decode, H2D, apply), the launches of A and
+   B in 8a+8b (both must be > 0) and the peak device memory; (8c) the host
+   wait per K-frame fetch at the ResNet-18 table with 8 bursts in flight,
+   asynchronous against the blocking copy, in turns, with the pinned
+   allocations each arm made, and the host time of receive_frames for one
+   K-frame burst alone in one thread.
+The transport (native/sttransport.cpp) is compiled with g++ in phase 1,
+beside the kernels.
 
 Prints the card's name and power limit (nvidia-smi), a {"kernels": [...]}
 line, and last {"ok": true, "device": {...}}. Exits non-zero with no result
@@ -56,6 +75,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -634,8 +654,256 @@ def sweep(device, rate: float, log2s=SWEEP_LOG2, seconds: float = SWEEP_SECONDS)
     return {"rows": rows, "launches": launches, "big": big}
 
 
+# -- phase 8 --------------------------------------------------------------------
+
+
+def _free_port() -> int:
+    """A loopback port the OS hands out."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+#: A peer's receive faults: frames dropped because their apply raised,
+#: messages whose handler raised, recv-loop restarts, unspoken kinds.
+FAULTS = ("st_apply_dropped_total", "st_msg_errors_total", "st_recv_restarts_total", "st_unknown_msgs_total")
+
+
+def _healthy(peers) -> None:
+    """Raise if a peer's thread died, it holds an error, or its receive
+    path survived a fault (each would hide a loss that agreement within
+    the tolerance need not show)."""
+    for i, p in enumerate(peers):
+        if p._error is not None or not p.threads_alive():
+            raise AssertionError(f"peer {i}: error {p._error!r}, threads alive {p.threads_alive()}")
+        m = p.metrics()
+        faults = {k: m[k] for k in FAULTS if m[k]}
+        if faults:
+            raise AssertionError(f"peer {i}: receive faults {faults}")
+
+
+def _leaf_rel_err(peers, target, mag, spec) -> float:
+    """Worst per-leaf max |replica - target| / the leaf's max |target| over
+    ``peers``, computed on the device (target: flat f32 on the device)."""
+    from shared_tensor_tpu_torch.ops import table as TT
+
+    row_leaf = TT._consts(spec, str(target.device))[0]
+    worst = 0.0
+    for p in peers:
+        d = (p.st.snapshot_flat() - target).abs().view(-1, 128).amax(dim=1)
+        leaf = torch.zeros(spec.num_leaves, device=target.device).scatter_reduce(0, row_leaf, d, reduce="amax")
+        worst = max(worst, float((leaf.double() / mag).max()))
+    return worst
+
+
+def _wait_agree(peers, target, mag, spec, tol: float, deadline_s: float) -> tuple[float, float]:
+    """Poll until every replica is within ``tol``; returns (seconds, worst
+    error). Raises at the deadline or when a peer's thread died."""
+    t0 = time.perf_counter()
+    while True:
+        _healthy(peers)
+        err = _leaf_rel_err(peers, target, mag, spec)
+        if err <= tol:
+            return time.perf_counter() - t0, err
+        if time.perf_counter() - t0 > deadline_s:
+            raise AssertionError(f"replicas did not agree within {deadline_s} s: worst leaf error {err:.3e}")
+        time.sleep(0.05)
+
+
+def peer_example(device) -> dict:
+    """8a, BASELINE config 1 over the TCP tree: a master seeds
+    arange(1, 241) as 4x5x6x2, a joiner fetches it, both add (1.0 and 0.5),
+    both must read seed + both deltas within 1e-6."""
+    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch
+
+    seed = np.arange(1.0, 241.0, dtype=np.float32).reshape(4, 5, 6, 2)
+    want = torch.from_numpy(seed + 1.5).to(device)
+    cfg = Config(transport=TransportConfig(peer_timeout_sec=10.0))
+    port = _free_port()
+    t0 = time.perf_counter()
+    with create_or_fetch("127.0.0.1", port, seed, cfg, device=device) as m, create_or_fetch(
+        "127.0.0.1", port, np.zeros_like(seed), cfg, device=device
+    ) as j:
+        m.add(np.full_like(seed, 1.0))
+        j.add(torch.full(seed.shape, 0.5, device=device))
+        while True:
+            _healthy((m, j))
+            err = max(float((p.read() - want).abs().max()) for p in (m, j))
+            if err <= 1e-6 or time.perf_counter() - t0 > 60:
+                break
+            time.sleep(0.02)
+        _healthy((m, j))
+        res = {"seconds": time.perf_counter() - t0, "max_abs_err": err,
+               "frames_out": [m.st.frames_out, j.st.frames_out]}
+    print(f"[8a] config 1 over TCP: read-back error {err:.3e} (limit 1e-6) after {res['seconds']:.3f} s, "
+          f"frames out {res['frames_out']}")
+    if err > 1e-6:
+        raise AssertionError(f"config 1 read-back error {err:.3e} > 1e-6")
+    return res
+
+
+def peer_tree(template, device, seed: int, n_peers: int = 4, deadline_s: float = 120.0) -> dict:
+    """8b: ``n_peers`` peers over loopback TCP on one card, every
+    SharedTensor on ``device``: the master seeded from ``seed``, the
+    joiners fetch it (the third below the master's two children), then
+    each adds its own update; every replica must reach seed + every update
+    within AGREE_REL of each leaf's max |value| before the deadline."""
+    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch
+    from shared_tensor_tpu_torch.ops.table import flatten, make_spec, tree_flatten, tree_unflatten
+
+    spec = make_spec(template)
+    rng = np.random.default_rng(seed + 8)
+    seed_tree = random_like(template, rng)
+    deltas = [random_like(template, rng, 0.5) for _ in range(n_peers)]
+    leaves = [np.asarray(x, np.float64) for x in tree_flatten(seed_tree)[0]]
+    seed_flat = flatten(seed_tree, spec, device)
+    seed_mag = torch.tensor([np.abs(x).max() for x in leaves], dtype=torch.float64, device=device)
+    for d in deltas:
+        for j, x in enumerate(tree_flatten(d)[0]):
+            leaves[j] += x
+    target = flatten(tree_unflatten(spec.treedef, [x.astype(np.float32) for x in leaves]), spec, device)
+    mag = torch.tensor([np.abs(x).max() for x in leaves], dtype=torch.float64, device=device)
+    cfg = Config(transport=TransportConfig(peer_timeout_sec=30.0))
+    port = _free_port()
+    peers = []
+    try:
+        t0 = time.perf_counter()
+        peers.append(create_or_fetch("127.0.0.1", port, seed_tree, cfg, timeout=60.0, device=device))
+        for _ in range(n_peers - 1):
+            peers.append(create_or_fetch("127.0.0.1", port, template, cfg, timeout=60.0, device=device))
+        t_join = time.perf_counter() - t0
+        children = [len(p.node.links) - (0 if p.is_master else 1) for p in peers]
+        if sum(children) != n_peers - 1 or children[0] != 2:
+            raise AssertionError(f"unexpected tree: child links per peer {children}")
+        t_seed, err_seed = _wait_agree(peers, seed_flat, seed_mag, spec, AGREE_REL, deadline_s)
+        before = [p.metrics() for p in peers]
+        t1 = time.perf_counter()
+        for p, d in zip(peers, deltas):
+            p.add(d)
+        t_last_add = time.perf_counter()
+        t_conv, err = _wait_agree(peers, target, mag, spec, AGREE_REL, deadline_s)
+        _sync(device)
+        _healthy(peers)
+        after = [p.metrics() for p in peers]
+        phase_s = time.perf_counter() - t1
+    finally:
+        for p in peers:
+            p.close()
+    per_peer = []
+    for i, (b, a) in enumerate(zip(before, after)):
+        d = {k: a[k] - b.get(k, 0) for k in a if not k.startswith("st_link_")}
+        links = {}
+        for k, v in a.items():
+            if k.startswith("st_link_"):
+                name, link = k.split("{link=")
+                links.setdefault(int(link.strip('"}')), {})[name] = v - b.get(k, 0)
+        per_peer.append({"peer": i, "master": i == 0, "delta": d, "links": links})
+    res = {
+        "peers": n_peers, "join_s": t_join, "seed_converge_s": t_seed, "seed_err": err_seed,
+        "last_add_to_converged_s": t_conv, "adds_s": t_last_add - t1, "worst_rel_err": err,
+        "window_s": phase_s, "per_peer": per_peer,
+    }
+    for pp in per_peer:
+        d = pp["delta"]
+        print(f"[8b] peer {pp['peer']}{' (master)' if pp['master'] else ''}: frames out {d['st_frames_out_total']} "
+              f"in {d['st_frames_in_total']}, msgs out {d['st_msgs_out_total']} in {d['st_msgs_in_total']}, "
+              f"data MB out {d['st_data_bytes_out_total'] / 1e6:.1f} in {d['st_data_bytes_in_total'] / 1e6:.1f}, "
+              f"retransmits {d['st_retransmit_msgs_total']}, dedup {d['st_dedup_discards_total']}, "
+              f"ignored ctrl {d['st_ctrl_ignored_total']}, faults "
+              + ", ".join(f"{k[3:-6]} {d[k]}" for k in FAULTS))
+        for link, v in sorted(pp["links"].items()):
+            fo = v.get("st_link_frames_out_total", 0)
+            print(f"[8b]   link {link}: {v.get('st_link_bytes_out_total', 0) / 1e6:.1f} MB out on the wire, "
+                  f"{fo} frames out = {fo / phase_s:.1f} frames/s over the {phase_s:.3f} s window")
+        secs = {k[3:-14]: d[k] for k in d if k.endswith("_seconds_total")}
+        n = max(1, d["st_frames_out_total"])
+        m_in = max(1, d["st_frames_in_total"])
+        print(f"[8b]   host ms per frame: fetch wait {1e3 * secs['fetch_wait'] / n:.4f}, encode "
+              f"{1e3 * secs['encode'] / n:.4f}, socket {1e3 * secs['send'] / n:.4f} (out); decode "
+              f"{1e3 * secs['decode'] / m_in:.4f}, H2D {1e3 * secs['h2d'] / m_in:.4f}, apply incl. H2D "
+              f"{1e3 * secs['apply'] / m_in:.4f} of which the state lock {1e3 * secs['apply_lock_wait'] / m_in:.4f} "
+              f"(in); send loop busy {secs['send_loop_busy']:.3f} s, "
+              f"fetch wait share {secs['fetch_wait'] / max(1e-9, secs['send_loop_busy']):.4f}")
+    tot = lambda k: sum(pp["delta"][k] for pp in per_peer)
+    res["fetch_wait_share"] = tot("st_fetch_wait_seconds_total") / max(1e-9, tot("st_send_loop_busy_seconds_total"))
+    res["frames_out"] = tot("st_frames_out_total")
+    res["retransmits"] = tot("st_retransmit_msgs_total")
+    print(f"[8b] {n_peers} peers, ResNet-18 table ({spec.num_leaves} leaves, {spec.total_n} elements): joined in "
+          f"{t_join:.3f} s, seed agreed in {t_seed:.3f} s; last add to agreement {t_conv:.3f} s "
+          f"(worst leaf error {err:.3e} of max|value|, limit {AGREE_REL}); {res['frames_out']} frames out, "
+          f"{res['retransmits']} retransmissions; fetch wait share of the send loops {res['fetch_wait_share']:.4f}")
+    return res
+
+
+def fetch_ab(template, device, k: int, depth: int = 8, bursts: int = 40) -> dict:
+    """8c: host ms per K-frame burst that the sender waits for its fetch, at
+    the ResNet-18 table, with ``depth`` bursts in flight as the send loop
+    keeps them: the asynchronous fetch against the parent commit's
+    blocking one (the same SharedTensor with its side stream taken away,
+    so finish_frame_burst runs the plain .cpu() copies; the burst graph,
+    captured in the warm-up, replays in both); in turns (blocking, async,
+    async, blocking)."""
+    from shared_tensor_tpu_torch.core import SharedTensor
+
+    st = SharedTensor(random_like(template, np.random.default_rng(3)), seed_values=True, device=device)
+    st.new_link(1)
+    stream = st._fetch_stream
+
+    def run(asynchronous: bool):
+        st._fetch_stream = stream if asynchronous else None
+        q = []
+        w0 = st.fetch_wait_s
+        t0 = time.perf_counter()
+        for i in range(bursts + depth):
+            if i < bursts:
+                q.append(st.begin_frame_burst_device(1, k))
+            if len(q) > depth or i >= bursts:
+                seq, df = q.pop(0)
+                st.finish_frame_burst(df)
+                st.ack_frame(1, seq)
+        _sync(device)
+        st._fetch_stream = stream
+        return st.fetch_wait_s - w0, time.perf_counter() - t0
+
+    cuda = torch.device(device).type == "cuda"
+    pinned_allocs = lambda: torch.cuda.host_memory_stats().get("num_host_alloc") if cuda else None
+    run(True)  # warm-up: the pinned pool and the kernels
+    runs = {"blocking": [], "async": []}
+    for name in ("blocking", "async", "async", "blocking"):
+        a0 = pinned_allocs()
+        wait, wall = run(name == "async")
+        a1 = pinned_allocs()
+        runs[name].append({"wait_ms_per_burst": 1e3 * wait / bursts, "wall_ms_per_burst": 1e3 * wall / bursts,
+                           "pinned_allocs": None if a0 is None or a1 is None else a1 - a0})
+    for name, rs in runs.items():
+        print(f"[8c] {name} fetch, K={k}, {bursts} bursts: wait ms per burst "
+              + ", ".join(f"{r['wait_ms_per_burst']:.4f}" for r in rs) + "; wall ms per burst "
+              + ", ".join(f"{r['wall_ms_per_burst']:.4f}" for r in rs) + "; pinned allocations "
+              + ", ".join(str(r["pinned_allocs"]) for r in rs))
+
+    # the receive side alone: one K-frame burst staged, copied and applied
+    # to a replica and one other link's residual, in this one thread
+    st.add(random_like(template, np.random.default_rng(4)))  # the bursts above drained the residual
+    seq, df = st.begin_frame_burst_device(1, k)
+    frames = st.finish_frame_burst(df)
+    rx = SharedTensor(template, device=device)
+    rx.new_link(1, seed=False)
+    rx.new_link(2, seed=False)
+    recv = []
+    for _ in range(6):
+        _sync(device)
+        h0, t0 = rx.h2d_s, time.perf_counter()
+        rx.receive_frames(1, frames)
+        recv.append({"host_ms": 1e3 * (time.perf_counter() - t0), "staging_h2d_ms": 1e3 * (rx.h2d_s - h0)})
+    recv = recv[1:]  # the first staged into a new pinned block
+    print(f"[8c] receive_frames of {len(frames)} frames alone: host ms "
+          + ", ".join(f"{r['host_ms']:.4f}" for r in recv) + "; of which staging + H2D "
+          + ", ".join(f"{r['staging_h2d_ms']:.4f}" for r in recv))
+    return {"k": k, "depth": depth, **runs, "receive": {"frames": len(frames), "runs": recv}}
+
+
 SOURCES = {
-    "quantize_rows": ("shared_tensor_tpu_torch/csrc/quantize_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:286"),
+    "quantize_rows":("shared_tensor_tpu_torch/csrc/quantize_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:286"),
     "apply_rows_batch": ("shared_tensor_tpu_torch/csrc/apply_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:337"),
     "quantize": ("shared_tensor_tpu_torch/csrc/quantize.cu", "shared_tensor_tpu/ops/codec_pallas.py:160"),
     "apply_frame_many": ("shared_tensor_tpu_torch/csrc/apply_frame.cu", "shared_tensor_tpu/ops/codec_pallas.py:216"),
@@ -649,6 +917,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from shared_tensor_tpu_torch.comm import wire
     from shared_tensor_tpu_torch.ops import codec_cuda as CC
     from shared_tensor_tpu_torch.ops.table import make_spec
 
@@ -660,11 +929,19 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
 
-    # 1. build
+    # 1. build: the kernels (one nvcc each) and, beside them, the transport (g++)
+    from concurrent.futures import ThreadPoolExecutor
+
+    from shared_tensor_tpu_torch import _build
+
     t0 = time.perf_counter()
-    report = CC.build()
+    with ThreadPoolExecutor(1) as pool:
+        transport = pool.submit(lambda: (_build.build_transport(), time.perf_counter() - t0))
+        report = CC.build()
+        lib, transport_s = transport.result()
     print(f"[1] build {time.perf_counter() - t0:.2f} s: "
-          + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in report.items()))
+          + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in report.items())
+          + f"; transport {lib.name} {transport_s:.2f} s")
     for k, v in report.items():
         for line in v["log"].splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
@@ -727,6 +1004,25 @@ def main() -> int:
         suffix = "_2e30" if k == 1 else f"_2e30_k{k}"
         t["apply_frame_many"].update({f"{x}{suffix}": d[x] for x in ("ms", "bound_ms", "copy_ms")})
 
+    # 8. the peer tier over loopback TCP (the launch counts of A and B are this phase's)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    CC.reset_launches()
+    t8 = time.perf_counter()
+    example = peer_example(dev)
+    tree = peer_tree(template, dev, args.seed)
+    peer_launches = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
+    tree["seconds"] = time.perf_counter() - t8
+    tree["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    print(f"[8] launches {peer_launches}; peak device memory {tree['max_memory_allocated'] / 2**30:.3f} GiB; "
+          f"phase 8a+8b {tree['seconds']:.3f} s; on {smi}")
+    if not all(peer_launches.values()):
+        raise AssertionError(f"a kernel of the peer path never launched: {peer_launches}")
+    fetch = fetch_ab(template, dev, min(16, wire.burst_frames_cap(spec)))
+    for k, n in peer_launches.items():
+        t[k]["launches_phase3"] = launches[k]
+        launches[k] = n
+
     print(smi)
     kernels = []
     for k in SOURCES:
@@ -740,6 +1036,7 @@ def main() -> int:
         row.update({x: v for x, v in t[k].items() if x not in row})
         kernels.append(row)
     print(json.dumps({"drive": drive}))
+    print(json.dumps({"peer_example": example, "peer_tree": tree, "fetch_ab": fetch}))
     print(json.dumps({"bench_split": sp, "sweep": sw["rows"], "big_2e30": sw["big"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,10 +1,13 @@
-"""Codec configuration for the PyTorch/CUDA port.
+"""Configuration for the PyTorch/CUDA port.
 
-Only what the per-frame data plane reads: the scale policy, per-leaf
-scales and idle-frame suppression. The values and their meaning are those
-of ``shared_tensor_tpu.config`` (``ScalePolicy``, ``CodecConfig``), so a
-port peer and a JAX peer built from the same settings produce the same
-frames.
+Only what the port reads: the codec (scale policy, per-leaf scales,
+idle-frame suppression), the TCP transport and the peer's send loop. Names,
+defaults and meaning are those of ``shared_tensor_tpu.config``, so a port
+peer and a JAX peer built from the same settings produce the same frames
+and join the same tree. Knobs of features the port does not have (the
+reference wire format, link striping, the shared-memory lane, fault
+injection, observability, serving, lifecycle, sharding, the host tier and
+its native engine) are absent, so asking for one is a ``TypeError``.
 """
 
 from __future__ import annotations
@@ -36,3 +39,58 @@ class CodecConfig:
     #: Skip sending a frame whose scales are all 0 (it is a no-op on every
     #: receiver).
     suppress_zero_frames: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class TransportConfig:
+    """The native TCP tree (``native/sttransport.cpp``): fan-out, liveness,
+    join bounds and the go-back-N delivery timer."""
+
+    #: Max outgoing wire bytes/sec per link; 0 = unlimited.
+    bandwidth_cap_bytes_per_sec: int = 0
+    listen_backlog: int = 128
+    #: Seconds of link silence before a peer is declared dead and the link
+    #: torn down and re-grafted.
+    peer_timeout_sec: float = 30.0
+    #: Reconnect/rejoin attempts before a node reports itself isolated.
+    max_rejoin_attempts: int = 8
+    #: Children per node before the listener redirects joiners down the
+    #: tree; 1..16.
+    max_children: int = 2
+    #: Per-attempt bound on connect() and on the join walk's reply read.
+    connect_timeout_sec: float = 5.0
+    #: Total budget of the create-time join-or-become-master loop.
+    join_timeout_sec: float = 30.0
+    #: Go-back-N timer: when the oldest unacknowledged DATA/BURST message
+    #: of a live link waits this long, the head of the unacknowledged tail
+    #: is re-sent byte for byte; 0 disables it.
+    ack_timeout_sec: float = 5.0
+    #: Retransmission rounds without ACK progress before the link is torn
+    #: down for re-graft (<= 0 means 1).
+    ack_retry_limit: int = 8
+    #: Consecutive failed send attempts (~0.1 s each) before a link whose
+    #: peer stopped draining is torn down for re-graft; 0 = never.
+    quarantine_send_failures: int = 100
+
+    def __post_init__(self):
+        if not 1 <= self.max_children <= 16:
+            raise ValueError(f"max_children must be in 1..16, got {self.max_children}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """A peer's configuration."""
+
+    codec: CodecConfig = dataclasses.field(default_factory=CodecConfig)
+    transport: TransportConfig = dataclasses.field(default_factory=TransportConfig)
+    #: Target seconds between frames per link; 0 = free-running.
+    sync_interval_sec: float = 0.0
+    #: Quantized-but-unsent frames per link in the send loop, each with its
+    #: device-to-host copy started at dispatch; 1 = plain double buffering.
+    send_pipeline_depth: int = 8
+    #: Free send-buffer slots the frame pool keeps (idle memory bound).
+    frame_pool_keep: int = 4
+    #: Frames per wire message: K successive halvings of a link's residual
+    #: quantized in one call and fetched with one copy. 0 = auto (16, capped
+    #: by what every peer sized its receive buffer for); 1 = single frames.
+    device_frame_burst: int = 0

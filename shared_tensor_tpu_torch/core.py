@@ -15,17 +15,41 @@ a re-graft that sets replica and residual to one carry, each gets a copy,
 and ``read``/``snapshot_flat``/``snapshot_all`` return copies.
 
 All state changes hold one mutex, as in the JAX core.
+
+On a CUDA device the frame fetch is asynchronous: ``begin_frame`` and
+``begin_frame_burst_device`` start the copy of the new frame into pinned
+host buffers on a side stream that waits for the quantize, and
+``finish_frame`` / ``finish_frame_burst`` wait only for that copy's own
+event. So a sender that keeps several frames in flight (the peer's send
+loop) overlaps their transfers with each other and with its host work.
+The frame comes back as numpy views of the pinned tensors, with no copy
+out. The pinned memory comes from PyTorch's caching host allocator: it
+hands a block out again only once no array references it and the copies
+recorded on it have completed, so a steady sender allocates no pinned
+memory per frame (``cudaHostAlloc`` per frame would cost more than the
+frame), and a fetch that is never finished (its link died) frees its
+block safely. On the CPU the fetch is the plain synchronous copy.
+
+On a CUDA device a link's K-frame burst (``begin_frame_burst_device``)
+replays one CUDA graph, captured on that link's residual tensor, where the
+eager burst launches some 30 operations a frame from the host: the JAX
+device tier's one jitted dispatch per burst. The state lock is held
+throughout a burst, so its host time is what every other state change of
+the node waits for. A graph is captured again whenever the link's residual
+is a new tensor (a new link, a re-graft).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from .config import CodecConfig
+from .ops import codec_cuda
 from .ops.packing import words_from_host, words_to_host
 from .ops.table import (
     TableFrame,
@@ -56,6 +80,77 @@ def resolve_device(device=None) -> torch.device:
 
 def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+class _HostFetch:
+    """A frame's device-to-host copy in flight: pinned host tensors filled on
+    ``stream`` after everything already queued on the current stream (the
+    quantize). The device tensors stay referenced, and marked as used on
+    the side stream, until the copy's event has completed."""
+
+    def __init__(self, scales: torch.Tensor, words: torch.Tensor, stream):
+        self._src = (scales, words)
+        self._dst = (
+            torch.empty(scales.shape, dtype=scales.dtype, pin_memory=True),
+            torch.empty(words.shape, dtype=words.dtype, pin_memory=True),
+        )
+        stream.wait_stream(torch.cuda.current_stream(scales.device))
+        with torch.cuda.stream(stream):
+            self._dst[0].copy_(scales, non_blocking=True)
+            self._dst[1].copy_(words, non_blocking=True)
+            self._done = torch.cuda.Event()
+            self._done.record(stream)
+        scales.record_stream(stream)
+        words.record_stream(stream)
+
+    def wait(self) -> tuple[np.ndarray, np.ndarray]:
+        """Block on the copy's event; the f32 scales and the uint32 words
+        as numpy views of the pinned tensors (which they keep alive)."""
+        if self._dst is None:
+            raise RuntimeError("frame already finished")
+        self._done.synchronize()
+        hs, hw = self._dst
+        self._dst = self._src = None
+        return hs.numpy(), hw.numpy().view(np.uint32)
+
+
+class _BurstGraph:
+    """``quantize_table_burst`` of K frames on one residual tensor, captured
+    as a CUDA graph: :meth:`run` replays it (updating the residual in place)
+    and returns the stacked frame as fresh tensors, since the next replay
+    overwrites the graph's own outputs. The capture runs on ``stream`` in
+    thread-local mode, so other threads (other nodes of the process) may
+    keep using the device meanwhile; it is preceded by one eager burst on a
+    copy of the residual, which loads the kernel and the layout constants
+    (a capture may not). ``tally`` holds the kernel launches the capture
+    recorded, which every replay adds to ``codec_cuda.LAUNCHES``."""
+
+    def __init__(self, resid: torch.Tensor, spec: TableSpec, k: int, codec: CodecConfig, stream):
+        self.resid = resid
+        self.k = k
+        burst = lambda r: quantize_table_burst(r, spec, k, codec.scale_policy, codec.per_leaf_scale)[0]
+        burst(resid.clone())
+        self.graph = torch.cuda.CUDAGraph()
+        stream.wait_stream(torch.cuda.current_stream(resid.device))
+        with torch.cuda.stream(stream), codec_cuda.capture_tally() as self.tally:
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.out = burst(resid)
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(resid.device).wait_stream(stream)
+
+    def run(self) -> TableFrame:
+        self.graph.replay()
+        codec_cuda.count_replay(self.tally)
+        return TableFrame(self.out.scales.clone(), self.out.words.clone())
+
+
+class DeviceFrame(TableFrame):
+    """A frame as ``begin_frame`` returns it: device tensors (scales,
+    words) and, on a CUDA device, ``fetch``, their host copy in flight."""
+
+    fetch: Optional[_HostFetch] = None
 
 
 class SharedTensor:
@@ -96,6 +191,18 @@ class SharedTensor:
         self.frames_out = 0
         self.frames_in = 0
         self.updates = 0
+        # asynchronous frame fetch (CUDA only; see the module docstring) on
+        # a side stream of this node's own
+        self._fetch_stream = codec_cuda.own_stream(self, self.device) if self.device.type == "cuda" else None
+        # per-link burst graphs, captured on the side stream (CUDA only; see
+        # the module docstring)
+        self._graphs: dict[int, _BurstGraph] = {}
+        # host seconds spent waiting for frame fetches (finish_frame*), on
+        # staging received frames and their host-to-device copies, and
+        # waiting for the state lock to apply them
+        self.fetch_wait_s = 0.0
+        self.h2d_s = 0.0
+        self.apply_lock_wait_s = 0.0
 
     # -- buffers -----------------------------------------------------------
 
@@ -114,12 +221,32 @@ class SharedTensor:
         return out
 
     def _device_frame(self, frame: TableFrame) -> TableFrame:
+        t0 = time.perf_counter()
         scales = frame.scales
         if isinstance(scales, torch.Tensor):
             scales = scales.to(device=self.device, dtype=torch.float32)
         else:
             scales = torch.from_numpy(np.asarray(scales, np.float32).copy()).to(self.device)
-        return TableFrame(scales, words_from_host(frame.words, self.device))
+        out = TableFrame(scales, words_from_host(frame.words, self.device))
+        self.h2d_s += time.perf_counter() - t0
+        return out
+
+    def _start_fetch(self, frame: TableFrame) -> DeviceFrame:
+        out = DeviceFrame(*frame)
+        if self._fetch_stream is not None:
+            out.fetch = _HostFetch(frame.scales, frame.words, self._fetch_stream)
+        return out
+
+    def _fetched(self, frame: TableFrame) -> tuple[np.ndarray, np.ndarray]:
+        """Host (f32 scales, uint32 words) of a frame from begin_frame*."""
+        t0 = time.perf_counter()
+        fetch = getattr(frame, "fetch", None)
+        if fetch is not None:
+            out = fetch.wait()
+        else:
+            out = _host(frame.scales), words_to_host(frame.words)
+        self.fetch_wait_s += time.perf_counter() - t0
+        return out
 
     # -- links -------------------------------------------------------------
 
@@ -153,6 +280,7 @@ class SharedTensor:
         one lock acquisition. False if ``link_id`` is unknown."""
         with self._lock:
             resid = self._links.pop(link_id, None)
+            self._graphs.pop(link_id, None)
             if resid is None:
                 return False
             resid = self._unapply(resid, self._inflight.pop(link_id, {}))
@@ -166,6 +294,7 @@ class SharedTensor:
         """drop_link + a copy of the replica under one lock acquisition."""
         with self._lock:
             resid = self._links.pop(link_id, None)
+            self._graphs.pop(link_id, None)
             inflight = self._inflight.pop(link_id, {})
             if resid is not None:
                 resid = self._unapply(resid, inflight)
@@ -176,6 +305,7 @@ class SharedTensor:
         with every unacknowledged frame rolled back into it."""
         with self._lock:
             resid = self._links.pop(link_id, None)
+            self._graphs.pop(link_id, None)
             inflight = self._inflight.pop(link_id, {})
             if resid is not None:
                 resid = self._unapply(resid, inflight)
@@ -257,11 +387,11 @@ class SharedTensor:
 
     # -- sync engine hooks -------------------------------------------------
 
-    def begin_frame(self, link_id: int) -> Optional[tuple[int, TableFrame]]:
-        """Quantize a link's residual into a frame (device tensors, not yet
-        fetched) and apply error feedback. Returns (seq, frame), or None if
-        the link is gone. The caller must eventually ack it, or let
-        nack/drop roll it back."""
+    def begin_frame(self, link_id: int) -> Optional[tuple[int, DeviceFrame]]:
+        """Quantize a link's residual into a frame (device tensors, their
+        host copy started) and apply error feedback. Returns (seq, frame),
+        or None if the link is gone. The caller must eventually ack it, or
+        let nack/drop roll it back."""
         with self._lock:
             resid = self._links.get(link_id)
             if resid is None:
@@ -272,32 +402,42 @@ class SharedTensor:
             self._frame_seq += 1
             seq = self._frame_seq
             self._inflight.setdefault(link_id, {})[seq] = (frame,)
-        return seq, frame
+        return seq, self._start_fetch(frame)
 
-    def begin_frame_burst_device(self, link_id: int, k: int) -> Optional[tuple[int, TableFrame]]:
+    def begin_frame_burst_device(self, link_id: int, k: int) -> Optional[tuple[int, DeviceFrame]]:
         """K successive halvings of a link's residual in one call; one
-        ledger entry. Returns (seq, stacked TableFrame with a leading K
-        axis), device tensors not yet fetched."""
+        ledger entry. Returns (seq, stacked frame with a leading K axis),
+        device tensors, their host copy started."""
         with self._lock:
             resid = self._links.get(link_id)
             if resid is None:
                 return None
-            frames, _ = quantize_table_burst(
-                resid, self.spec, k, self.codec.scale_policy, self.codec.per_leaf_scale
-            )
+            if self.device.type == "cuda":
+                frames = self._burst_graph(link_id, resid, k).run()
+            else:
+                frames, _ = quantize_table_burst(
+                    resid, self.spec, k, self.codec.scale_policy, self.codec.per_leaf_scale
+                )
             self._frame_seq += 1
             seq = self._frame_seq
             # zero-scale tail frames are exact no-ops, so storing all K is right
             self._inflight.setdefault(link_id, {})[seq] = tuple(
                 TableFrame(frames.scales[i], frames.words[i]) for i in range(k)
             )
-        return seq, frames
+        return seq, self._start_fetch(frames)
+
+    def _burst_graph(self, link_id: int, resid: torch.Tensor, k: int) -> _BurstGraph:
+        """The link's burst graph, captured anew if the residual is another
+        tensor than the one captured. The caller holds the lock."""
+        g = self._graphs.get(link_id)
+        if g is None or g.resid is not resid or g.k != k:
+            g = self._graphs[link_id] = _BurstGraph(resid, self.spec, k, self.codec, self._fetch_stream)
+        return g
 
     def finish_frame_burst(self, frames: TableFrame) -> Optional[list[TableFrame]]:
-        """Fetch a burst to the host and trim its all-zero-scale tail. None
-        for a fully idle burst."""
-        scales = _host(frames.scales)
-        words = words_to_host(frames.words)
+        """Wait for a burst's host copy and trim its all-zero-scale tail.
+        None for a fully idle burst."""
+        scales, words = self._fetched(frames)
         k_eff = 0
         for i in range(scales.shape[0]):
             if not scales[i].any():
@@ -326,13 +466,12 @@ class SharedTensor:
             self._unapply(resid, q)
 
     def finish_frame(self, frame: TableFrame) -> Optional[TableFrame]:
-        """Fetch a frame to host memory: numpy f32 scales and uint32 words,
+        """Wait for a frame's host copy: numpy f32 scales and uint32 words,
         what the wire carries. None for an idle frame when the codec
         suppresses them."""
-        scales = _host(frame.scales)
+        scales, words = self._fetched(frame)
         if self.codec.suppress_zero_frames and not scales.any():
             return None
-        words = words_to_host(frame.words)
         self.frames_out += 1
         return TableFrame(scales, words)
 
@@ -353,15 +492,18 @@ class SharedTensor:
         if not _host(frame.scales).any():
             return
         dframe = self._device_frame(frame)
+        t0 = time.perf_counter()
         with self._lock:
+            self.apply_lock_wait_s += time.perf_counter() - t0
             others = [r for i, r in self._links.items() if i != link_id]
             apply_table_many((self.values, *others), dframe, self.spec)
             self.frames_in += 1
 
     def receive_frames(self, link_id: int, frames: list[TableFrame]) -> None:
         """Apply K queued frames from one link in one pass (their summed
-        delta). K is padded with zero-scale no-op frames to the next power
-        of two; all-zero-scale frames count nowhere."""
+        delta); all-zero-scale frames count nowhere. On a CUDA device the K
+        frames are stacked in pinned memory and copied to the device without
+        blocking the host, ahead of the apply on the same stream."""
         if not frames:
             return
         if len(frames) == 1:
@@ -370,16 +512,20 @@ class SharedTensor:
         applied = sum(1 for s in host_scales if s.any())
         if applied == 0:
             return
-        k = 1
-        while k < len(frames):
-            k *= 2
-        scales = np.zeros((k, self.spec.num_leaves), np.float32)
-        words = np.zeros((k, self.spec.total // 32), np.uint32)
+        t0 = time.perf_counter()
+        pin = self.device.type == "cuda"
+        k = len(frames)
+        scales = torch.empty((k, self.spec.num_leaves), dtype=torch.float32, pin_memory=pin)
+        words = torch.empty((k, self.spec.total // 32), dtype=torch.int32, pin_memory=pin)
+        s_host, w_host = scales.numpy(), words.numpy().view(np.uint32)
         for i, f in enumerate(frames):
-            scales[i] = host_scales[i]
-            words[i] = _host(f.words).view(np.uint32)
-        stacked = self._device_frame(TableFrame(scales, words))
+            s_host[i] = host_scales[i]
+            w_host[i] = _host(f.words).view(np.uint32)
+        stacked = TableFrame(scales.to(self.device, non_blocking=True), words.to(self.device, non_blocking=True))
+        self.h2d_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
         with self._lock:
+            self.apply_lock_wait_s += time.perf_counter() - t0
             others = [r for i, r in self._links.items() if i != link_id]
             apply_table_batch((self.values, *others), stacked, self.spec)
             self.frames_in += applied

@@ -32,7 +32,9 @@ Pallas kernel wanted them row-major for its block specs.
 Dispatch: each wrapper runs the kernel for CUDA tensors and the plain
 version for CPU tensors, and nothing else: there is no fallback from a CUDA
 tensor to the plain path. ``LAUNCHES`` counts kernel launches (not plain
-calls).
+calls). A launch that a wrapper makes while its thread captures a CUDA
+graph (:func:`capture_tally`) does not run then: it goes to the capture's
+tally, and every replay of the graph adds that tally (:func:`count_replay`).
 
 Kernels B and D share one design for Hopper (their bound is bytes: each
 target is read and written once, the words read once):
@@ -53,7 +55,8 @@ target is read and written once, the words read once):
 
 The shared part of that design is ``csrc/apply_common.cuh``.
 
-Build: ``nvcc`` compiles each source in ``csrc/`` into its own shared
+Build: ``nvcc`` compiles each source in ``csrc/`` (the kernels and the
+host helper ``stream.cu`` of :func:`own_stream`) into its own shared
 library (plain C interface, loaded with ctypes) under ``csrc/build/`` at
 first use, for ``sm_90a``, without fast-math and without FTZ (subnormals
 survive, as in the JAX package's host tier and the C reference). A
@@ -63,6 +66,7 @@ flags, so an edit to any of them rebuilds it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import operator
@@ -71,6 +75,7 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
 from pathlib import Path
 from typing import Sequence
 
@@ -94,6 +99,8 @@ SOURCES = {
     "quantize": "quantize.cu",
     "apply_frame_many": "apply_frame.cu",
 }
+#: Host helpers built like the kernels; they launch nothing.
+HELPERS = {"stream": "stream.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-Xptxas", "-v",
@@ -112,6 +119,39 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+_TALLY = threading.local()
+
+
+def _count(name: str) -> None:
+    """One launch of kernel ``name``; while this thread captures a CUDA
+    graph under :func:`capture_tally`, the capture's tally takes it."""
+    tally = getattr(_TALLY, "tally", None)
+    if tally is None:
+        LAUNCHES[name] += 1
+    else:
+        tally[name] = tally.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Wrap a CUDA graph capture made in this thread: yields a dict that
+    the wrappers fill with the launches they record into the graph, by
+    kernel, instead of counting them in ``LAUNCHES`` (nothing runs until a
+    replay). The caller keeps it for :func:`count_replay`."""
+    prev = getattr(_TALLY, "tally", None)
+    _TALLY.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _TALLY.tally = prev
+
+
+def count_replay(tally: dict[str, int]) -> None:
+    """One replay of a graph ran the launches its capture tallied."""
+    for name, n in tally.items():
+        LAUNCHES[name] += n
+
+
 # -- build -------------------------------------------------------------------
 
 
@@ -127,19 +167,19 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC_DIR / SOURCES[name]).read_bytes()
+    src = (CSRC_DIR / {**SOURCES, **HELPERS}[name]).read_bytes()
     headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     h = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 
 def build(names: Sequence[str] | None = None) -> dict[str, dict]:
-    """Compile the named kernels (default: all) that are not built yet, one
-    ``nvcc`` per source, all started together. Returns, per kernel, the
+    """Compile the named kernels (default: all, and the helpers) that are
+    not built yet, one ``nvcc`` per source, all started together. Returns, per kernel, the
     seconds its compile took (0.0 if it was already built) and the
     compiler's report (``-Xptxas -v``: registers, spills). Raises on a
     failed compile."""
-    names = list(SOURCES) if names is None else list(names)
+    names = [*SOURCES, *HELPERS] if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
@@ -148,7 +188,7 @@ def build(names: Sequence[str] | None = None) -> dict[str, dict]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / {**SOURCES, **HELPERS}[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
     report = {name: {"seconds": 0.0, "log": ""} for name in names}
     failed = []
@@ -176,6 +216,8 @@ _ARGTYPES = {
     "quantize": ("st_quantize", [_VP, _VP, _VP, _I64, _I64, _VP]),
     # scale, words, targets (host array), n_targets <= 8, n_live, n_pad, stream
     "apply_frame_many": ("st_apply_frame_many", [_VP, _VP, _PP, _I32, _I64, _I64, _VP]),
+    # device, out: the new stream's handle
+    "stream": ("st_stream_create", [_I32, ctypes.POINTER(_VP)]),
 }
 
 
@@ -197,6 +239,38 @@ def _fn(name: str):
 def _check_launch(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+# -- side streams ------------------------------------------------------------
+
+# device index -> handles of streams whose owner was collected
+_SPARE_STREAMS: dict[int, list[int]] = {}
+_SPARE_MU = threading.Lock()
+
+
+def own_stream(owner: object, device: torch.device) -> torch.cuda.ExternalStream:
+    """A non-blocking CUDA stream on ``device`` that no other live ``owner``
+    holds: not one of PyTorch's pooled streams, which it hands out in turn
+    to every caller. When ``owner`` is collected the stream is kept for the
+    next owner, never destroyed, since the caching allocator may still
+    record events on it for tensors it used."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    with _SPARE_MU:
+        spare = _SPARE_STREAMS.setdefault(index, [])
+        handle = spare.pop() if spare else None
+    if handle is None:
+        out = _VP()
+        err = _fn("stream")(index, ctypes.byref(out))
+        if err:
+            raise RuntimeError(f"cudaStreamCreateWithFlags failed with error {err}")
+        handle = out.value
+    weakref.finalize(owner, _spare, index, handle)
+    return torch.cuda.ExternalStream(handle, device=torch.device("cuda", index))
+
+
+def _spare(index: int, handle: int) -> None:
+    with _SPARE_MU:
+        _SPARE_STREAMS[index].append(handle)
 
 
 # -- argument checks ---------------------------------------------------------
@@ -320,7 +394,7 @@ def quantize_rows_kernel(
         err = fn(s_row.data_ptr(), rowcount.data_ptr(), residual.data_ptr(),
                  words.data_ptr(), rows, stream)
     _check_launch("quantize_rows", err)
-    LAUNCHES["quantize_rows"] += 1
+    _count("quantize_rows")
     return words
 
 
@@ -382,7 +456,7 @@ def apply_rows_batch_kernel(
             err = fn(s_rows.data_ptr(), rowcount.data_ptr(), words.data_ptr(),
                      _pointers(group), len(group), k, rows, stream)
             _check_launch("apply_rows_batch", err)
-            LAUNCHES["apply_rows_batch"] += 1
+            _count("apply_rows_batch")
     return tuple(arrays)
 
 
@@ -498,7 +572,7 @@ def quantize_kernel(
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(scale.data_ptr(), residual.data_ptr(), words.data_ptr(), n, n_pad, stream)
     _check_launch("quantize", err)
-    LAUNCHES["quantize"] += 1
+    _count("quantize")
     return Frame(scale, words), residual
 
 
@@ -553,7 +627,7 @@ def apply_frame_many_kernel(
             err = fn(frame.scale.data_ptr(), frame.words.data_ptr(), _pointers(group),
                      len(group), n, n_pad, stream)
             _check_launch("apply_frame_many", err)
-            LAUNCHES["apply_frame_many"] += 1
+            _count("apply_frame_many")
     return tuple(arrays)
 
 

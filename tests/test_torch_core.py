@@ -196,8 +196,8 @@ def test_zero_scale_frames_count_nowhere():
 
 
 def test_receive_frames_backlog_contract(monkeypatch):
-    """K frames from one link land in ONE batched pass (K padded to a power
-    of two) and equal sequential application to f32 summation order."""
+    """K frames from one link land in ONE batched pass of K frames and
+    equal sequential application to f32 summation order."""
     import shared_tensor_tpu_torch.core as core_mod
 
     t = _tree(7)
@@ -232,10 +232,7 @@ def test_receive_frames_backlog_contract(monkeypatch):
     monkeypatch.setattr(core_mod, "apply_table_batch", counting_batch)
     monkeypatch.setattr(core_mod, "apply_table_many", counting_many)
     batched.receive_frames(1, frames)
-    k = 1
-    while k < len(frames):
-        k *= 2
-    assert calls == {"batch": [k], "single": 0}, calls
+    assert calls == {"batch": [len(frames)], "single": 0}, calls
     assert batched.frames_in == len(frames)
     np.testing.assert_allclose(batched.snapshot_flat(), seq.snapshot_flat(), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(batched._links[2], seq._links[2], rtol=1e-6, atol=1e-6)
@@ -338,6 +335,32 @@ def test_burst_device_idle_and_exhaustion():
     frames = st2.finish_frame_burst(stacked)
     assert 0 < len(frames) < 64
     assert float(st2._links[1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_fetch_returns_the_blocking_copy(k):
+    """finish_frame / finish_frame_burst return exactly the bytes of a
+    blocking .cpu() of the frame begin_frame* produced; on the CPU the
+    fetch is that plain copy (no copy in flight). The CUDA twin, with the
+    copy on a side stream into pinned buffers, is in test_torch_cuda.py."""
+    rng = np.random.default_rng(k)
+    tpl = rng.uniform(-1, 1, 3000).astype(np.float32)
+    st = _st(tpl, seed_values=True)
+    st.new_link(1)
+    seq, dev = st.begin_frame(1) if k == 1 else st.begin_frame_burst_device(1, k)
+    assert dev.fetch is None
+    want_s, want_w = dev.scales.cpu().numpy().copy(), dev.words.cpu().numpy().view(np.uint32).copy()
+    if k == 1:
+        got = [st.finish_frame(dev)]
+        want_s, want_w = want_s[None], want_w[None]
+    else:
+        got = st.finish_frame_burst(dev)
+    assert len(got) == k and st.frames_out == k
+    for i, f in enumerate(got):
+        assert f.scales.dtype == np.float32 and f.words.dtype == np.uint32
+        np.testing.assert_array_equal(f.scales.view(np.uint32), want_s[i].view(np.uint32))
+        np.testing.assert_array_equal(f.words, want_w[i])
+    assert st.fetch_wait_s > 0.0
 
 
 def test_plain_path_launches_no_kernel():

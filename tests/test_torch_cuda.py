@@ -1,10 +1,15 @@
-"""The port's CUDA kernels on a GPU (marked ``cuda``; each test skips
+"""The port on a GPU: its CUDA kernels, the asynchronous frame fetch and a
+two-peer round trip over loopback TCP (marked ``cuda``; each test skips
 without a CUDA device). This file imports neither jax nor the JAX package,
 so it runs on a torch-only machine:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
-Tolerance: bit-exact against the plain PyTorch versions on the same inputs."""
+Tolerance: kernels and fetches bit-exact against the plain PyTorch
+versions and blocking copies on the same inputs; the round trip to 1e-6
+(test_peer.py's)."""
+
+import time
 
 import numpy as np
 import pytest
@@ -13,6 +18,8 @@ import torch
 from shared_tensor_tpu_torch.core import SharedTensor
 from shared_tensor_tpu_torch.ops import codec_cuda as CC
 
+#: A peer's receive faults, 0 on a healthy peer.
+FAULTS = ("st_apply_dropped_total", "st_msg_errors_total", "st_recv_restarts_total", "st_unknown_msgs_total")
 
 @pytest.fixture
 def cuda_device():
@@ -266,3 +273,144 @@ def test_scalar_kernels_past_2_gib(cuda_device):
         sub = Frame(frame.scale.clone(), frame.words[lo // 32 : hi // 32].clone())
         (vp,) = CC.apply_frame_many_plain([v0[lo:hi].clone()], sub, live)
         assert _same_bits(vp, v[lo:hi])
+
+
+def _begin(st, k, rng):
+    # a fresh normal delta first, so none of the K halvings is idle (a delta
+    # of ones can leave a residual that one frame zeroes exactly)
+    st.add({"w": rng.normal(size=(300, 70)).astype(np.float32), "b": rng.normal(size=5).astype(np.float32)})
+    return st.begin_frame(1) if k == 1 else st.begin_frame_burst_device(1, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4])
+def test_async_fetch_equals_blocking_copy(cuda_device, k):
+    """finish_frame / finish_frame_burst, which wait on the side stream's
+    copy into pinned memory, return the same bits as a blocking .cpu() of
+    the same device frame, with eight frames in flight on one link (the
+    send loop's depth); a second round reuses the pinned blocks the first
+    freed, allocating none."""
+    rng = np.random.default_rng(k)
+    tpl = {"w": rng.uniform(-1, 1, (300, 70)).astype(np.float32), "b": rng.normal(size=(5,)).astype(np.float32)}
+    st = SharedTensor(tpl, seed_values=True, device=cuda_device)
+    st.new_link(1)
+    stats = getattr(torch.cuda, "host_memory_stats", lambda: {})
+    allocs = []
+    for _ in range(2):
+        inflight = [_begin(st, k, rng) for _ in range(8)]
+        for seq, dev in inflight:
+            assert dev.fetch is not None
+            got = [st.finish_frame(dev)] if k == 1 else st.finish_frame_burst(dev)
+            want_s = dev.scales.cpu().numpy().reshape(k, -1)
+            want_w = dev.words.cpu().numpy().view(np.uint32).reshape(k, -1)
+            assert len(got) == k
+            for i, f in enumerate(got):
+                assert f.scales.dtype == np.float32 and f.words.dtype == np.uint32
+                assert np.array_equal(f.scales.view(np.uint32), want_s[i].view(np.uint32))
+                assert np.array_equal(f.words, want_w[i])
+            st.ack_frame(1, seq)
+        del got, f, inflight
+        allocs.append(stats().get("num_host_alloc"))
+    assert allocs[0] == allocs[1]  # None == None where torch has no such counter
+    with pytest.raises(RuntimeError):
+        dev.fetch.wait()  # a fetch is finished once
+
+
+@pytest.mark.cuda
+def test_burst_graph_equals_the_eager_burst(cuda_device):
+    """begin_frame_burst_device replays a CUDA graph of the K-frame quantize:
+    its frames and the residual it leaves are bit-equal to the eager
+    quantize_table_burst on the same residual, over several replays with
+    adds in between; each replay counts K launches of kernel A (the
+    capture none, its eager warm-up on a copy K); a link
+    whose residual is a new tensor gets a new graph."""
+    from shared_tensor_tpu_torch.ops.table import quantize_table_burst
+
+    rng = np.random.default_rng(7)
+    tpl = {"w": rng.uniform(-1, 1, (300, 70)).astype(np.float32), "b": rng.normal(size=(5,)).astype(np.float32)}
+    st = SharedTensor(tpl, seed_values=True, device=cuda_device)
+    st.new_link(1)
+    k = 5
+    for i in range(3):
+        ref = st._links[1].clone()
+        want, _ = quantize_table_burst(ref, st.spec, k)
+        CC.reset_launches()
+        seq, dev = st.begin_frame_burst_device(1, k)
+        torch.cuda.synchronize()
+        # the first call also runs the eager warm-up burst before its capture
+        assert CC.LAUNCHES["quantize_rows"] == (2 * k if i == 0 else k)
+        assert st._graphs[1].tally == {"quantize_rows": k}  # what the capture recorded
+        assert _same_bits(dev.scales, want.scales) and _same_bits(dev.words, want.words)
+        assert _same_bits(st._links[1], ref)
+        st.finish_frame_burst(dev)
+        st.ack_frame(1, seq)
+        st.add({"w": rng.normal(size=(300, 70)).astype(np.float32), "b": np.zeros(5, np.float32)})
+    graph = st._graphs[1]
+    st.drop_link(1)
+    assert 1 not in st._graphs
+    st.new_link(1)
+    st.begin_frame_burst_device(1, k)
+    assert st._graphs[1] is not graph and st._graphs[1].resid is st._links[1]
+
+
+@pytest.mark.cuda
+def test_forty_shared_tensors_each_own_a_stream(cuda_device):
+    """Every live CUDA SharedTensor has a side stream no other holds (a
+    capture records whatever is enqueued on its stream), with no cap from
+    PyTorch's pool of 32; the streams of collected ones are reused."""
+    import gc
+
+    tpl = {"w": np.ones((64, 8), np.float32)}
+    sts = [SharedTensor(tpl, seed_values=True, device=cuda_device) for _ in range(40)]
+    handles = {st._fetch_stream.cuda_stream for st in sts}
+    assert len(handles) == 40
+    for st in sts:
+        st.new_link(1)
+        seq, dev = st.begin_frame_burst_device(1, 3)
+        assert st.finish_frame_burst(dev) is not None
+        st.ack_frame(1, seq)
+    del sts, st, dev
+    gc.collect()
+    again = [SharedTensor(tpl, device=cuda_device) for _ in range(40)]
+    assert {st._fetch_stream.cuda_stream for st in again} == handles
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.cuda
+def test_two_peer_round_trip_runs_the_kernels(cuda_device):
+    """Two peers on the GPU over loopback TCP (BASELINE config 1's shape):
+    the joiner fetches the seed, both add, both read seed + both deltas,
+    and kernels A and B ran on the way."""
+    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch
+
+    cfg = Config(transport=TransportConfig(peer_timeout_sec=10.0))
+    seed = np.arange(1.0, 241.0, dtype=np.float32).reshape(4, 5, 6, 2)
+    want = seed + 1.5
+    port = _free_port()
+    CC.reset_launches()
+    with create_or_fetch("127.0.0.1", port, seed, cfg, device=cuda_device) as m, create_or_fetch(
+        "127.0.0.1", port, np.zeros_like(seed), cfg, device=cuda_device
+    ) as j:
+        m.add(np.full_like(seed, 1.0))
+        j.add(torch.full(seed.shape, 0.5, device=cuda_device))
+        deadline = time.time() + 60
+        while time.time() < deadline:
+            got = [p.read() for p in (m, j)]
+            if all(np.allclose(g.cpu().numpy(), want, rtol=0, atol=1e-6) for g in got):
+                break
+            time.sleep(0.05)
+        for g in got:
+            assert g.device.type == "cuda"
+            np.testing.assert_allclose(g.cpu().numpy(), want, rtol=0, atol=1e-6)
+        assert m.threads_alive() and j.threads_alive() and m._error is None and j._error is None
+        for p in (m, j):
+            faults = {k: v for k, v in p.metrics().items() if k in FAULTS and v}
+            assert faults == {}, faults
+    assert CC.LAUNCHES["quantize_rows"] > 0 and CC.LAUNCHES["apply_rows_batch"] > 0, CC.LAUNCHES
