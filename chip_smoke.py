@@ -21,12 +21,15 @@ Phases, in order; any failure exits non-zero:
    1e-5 of each leaf's max |value|, and each link's first frame must equal
    the CPU plain path's on the same state (scales equal or one octave apart).
    The kernel launch counts of this phase are reported.
-4. Times at the phase-3 shapes: A by CUDA events over eager launches; B at
-   every (K, N) of the drive's flood (K in {1, 4}, N in {1, 2, 3}) from a
-   CUDA graph of many launches (device time without the host's), each
-   beside its bytes bound, the plain version's time and copy_ms: a
-   device-to-device copy_ that moves the same bytes, the card's practical
-   streaming ceiling (not a library call for the same function).
+4. Times at the phase-3 shapes: A, and B at every (K, N) of the drive's
+   flood (K in {1, 4}, N in {1, 2, 3}), from a CUDA graph of many launches
+   (device time without the host's; A also eagerly, by CUDA events) that
+   takes the next of enough buffer sets at each launch to hold four times
+   the L2, so that the bytes come from device memory (the time on one set
+   beside it), each beside its bytes bound, the plain version's time and
+   copy_ms: a device-to-device copy_ that moves the same bytes over as many
+   sets, the card's practical streaming ceiling (not a library call for the
+   same function).
 5. Kernel vs plain on the card for the scalar codec: kernel C (quantize)
    and kernel D (apply_frame_many) at n in {17, 1000, 2^20 + 3, 2^24 + 5},
    all three scale policies, garbage in the padding, scale 0 given
@@ -62,8 +65,31 @@ Phases, in order; any failure exits non-zero:
    asynchronous against the blocking copy, in turns, with the pinned
    allocations each arm made, and the host time of receive_frames for one
    K-frame burst alone in one thread.
+9. The pod tier, BASELINE config 2 at full width (CharRNNConfig(): 2 layers,
+   hidden 512, 3,870,976 parameters; batch 32 x seq 128 per peer, lr 0.5,
+   the built-in pangram corpus, batches from --seed): the first 4 of phase
+   10's 8 ranks (one parallel.run_mesh for both phases; the other 4 wait at
+   a barrier), all on the one card with backend gloo (NCCL refuses two
+   ranks on one device; printed), 40 compressed steps then 10 with
+   overlap=True;
+   tokens/s, ms per step and its stages (grads, scales, A, collective, B,
+   the rest) over the last 10 compressed steps, the loss at the first and
+   the last step, the replica spread after 10 sync-only steps, peak device
+   memory and each rank's launches of A and B (one each per sync step);
+   each rank then holds A and B against their plain versions on its
+   trained state (B with K = 4 frames, its own column zeroed, N = 1).
+   Then 2 peers x 2 shards on the same ranks for 10 steps (the shard-group
+   reductions on the card). Fails if a rank dies, a launch count is off, a
+   kernel disagrees with its plain version or the loss does not fall.
+10. BASELINE config 4: ResNet-18 at ResNetConfig() (width 64, CIFAR stem, 10
+   classes), 8 ranks on the card (gloo), 12 steps of the compressed arm and
+   12 of the exact arm from the same parameters, on synthetic 32x32 images
+   and labels from --seed (the repo holds no CIFAR); both arms' losses,
+   ms per step and frame_ici_bytes. Then A and B alone at phase 9's shapes
+   (one rank's block of the char-RNN table), timed as in phase 4.
 The transport (native/sttransport.cpp) is compiled with g++ in phase 1,
-beside the kernels.
+beside the kernels. Every rank's full results of phases 9 and 10 go to
+profiles/pod.json.
 
 Prints the card's name and power limit (nvidia-smi), a {"kernels": [...]}
 line, and last {"ok": true, "device": {...}}. Exits non-zero with no result
@@ -73,6 +99,7 @@ when no CUDA device is available.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import socket
@@ -363,13 +390,16 @@ def tree_drive(template, device, seed: int, verbose: bool = True) -> dict:
 
 
 def times(spec, device, rate: float, shapes=B_SHAPES) -> dict:
-    """ms per launch of A (CUDA events, eager) and of B at each (K, N) of
-    ``shapes`` (CUDA graph), each with its plain version's time, its bytes
-    bound and copy_ms. Returns {"quantize_rows": row, "apply_rows_batch":
-    [row per shape]}."""
+    """ms per launch of A and of B at each (K, N) of ``shapes``, from a CUDA
+    graph of many launches that takes the next of enough buffer sets at
+    every launch that they hold four times the L2 (``ms``, read against the
+    bytes bound; ``copy_ms`` likewise), and from the same graph on one set
+    (``ms_hot``: where a set fits in the L2 it stays there); A's eager time
+    by CUDA events; each with its plain version's time. Returns
+    {"quantize_rows": row, "apply_rows_batch": [row per shape]}."""
     from shared_tensor_tpu_torch.ops import codec_cuda as CC
     from shared_tensor_tpu_torch.ops import table as TT
-    from shared_tensor_tpu_torch.utils.timing import copy_ms, event_ms, graph_ms
+    from shared_tensor_tpu_torch.utils.timing import copy_ms, event_ms, graph_ms, l2_sets
 
     row_leaf, rowcount, live, *_ = TT._consts(spec, str(torch.device(device)))
     gen = torch.Generator(device=device).manual_seed(0)
@@ -377,34 +407,46 @@ def times(spec, device, rate: float, shapes=B_SHAPES) -> dict:
     resid = torch.rand(n, generator=gen, device=device) * 2 - 1
     resid = torch.where(live.view(-1), resid, torch.zeros_like(resid))
     s_row = TT.compute_scales(resid, spec)[row_leaf].contiguous()
+
+    def timed(launch, make_set, nbytes) -> dict:
+        """Graph, eager and copy times of ``launch(*set)`` over fresh sets
+        from ``make_set()``, and the graph's time on one set."""
+        sets = [make_set() for _ in range(l2_sets(nbytes, device))]
+        turn = itertools.cycle(sets)
+        cold = lambda: launch(*next(turn))
+        hot = lambda: launch(*sets[0])
+        r = {"ms": graph_ms(cold, 50), "ms_hot": graph_ms(hot, 50), "eager_ms": event_ms(cold, 50),
+             "copy_ms": copy_ms(nbytes, device, lambda fn: graph_ms(fn, 50), sets=len(sets)),
+             "sets": len(sets), "bytes": nbytes, "bound_ms": nbytes / rate * 1e3}
+        del sets, turn
+        return r
+
     a_bytes = n * 8 + rows * WORDS_BYTES + rows * 8
-    out = {"quantize_rows": {
-        "ms": event_ms(lambda: CC.quantize_rows_kernel(s_row, rowcount, resid), 50),
-        "plain_ms": event_ms(lambda: CC.quantize_rows_plain(s_row, rowcount, resid), 5, 1),
-        "bytes": a_bytes, "bound_ms": a_bytes / rate * 1e3, "shape": f"rows={rows}",
-    }}
-    r = out["quantize_rows"]
-    print(f"[4] quantize_rows {r['shape']}: {r['ms']:.4f} ms/launch, bound {r['bound_ms']:.4f} ms "
-          f"({r['bytes'] / 1e6:.1f} MB at {rate / 1e12:.2f} TB/s), plain {r['plain_ms']:.4f} ms")
+    r = timed(CC.quantize_rows_kernel, lambda: (s_row.clone(), rowcount.clone(), resid.clone()), a_bytes)
+    r.update(plain_ms=event_ms(lambda: CC.quantize_rows_plain(s_row, rowcount, resid), 5, 1),
+             shape=f"rows={rows}")
+    out = {"quantize_rows": r}
+    print(f"[4] quantize_rows {r['shape']}: {r['ms']:.4f} ms/launch from a graph over {r['sets']} buffer sets "
+          f"({r['ms_hot']:.4f} on one set, {r['eager_ms']:.4f} eager), bound {r['bound_ms']:.4f} ms "
+          f"({r['bytes'] / 1e6:.1f} MB at {rate / 1e12:.2f} TB/s, {100 * r['bound_ms'] / r['ms']:.1f}% of it), "
+          f"copy_ms {r['copy_ms']:.4f}, plain {r['plain_ms']:.4f} ms")
     frames, _ = TT.quantize_table_burst(resid.clone(), spec, max(k for k, _ in shapes), impl="kernel")
     out["apply_rows_batch"] = []
     for k, n_arr in shapes:
         s_rows = frames.scales[:k, row_leaf].contiguous()
         words = frames.words[:k].contiguous()
-        arrays = [resid.clone() for _ in range(n_arr)]
-        launch = lambda: CC.apply_rows_batch_kernel(s_rows, rowcount, words, arrays)
         b_bytes = n * k / 8 + k * rows * 4 + rows * 4 + 8 * n_arr * n
-        r = {
-            "ms": graph_ms(launch, 50), "eager_ms": event_ms(launch, 50),
-            "plain_ms": event_ms(lambda: CC.apply_rows_batch_plain(s_rows, rowcount, words, arrays), 5, 1),
-            "copy_ms": copy_ms(b_bytes, device, lambda fn: graph_ms(fn, 50)),
-            "bytes": b_bytes, "bound_ms": b_bytes / rate * 1e3, "shape": f"rows={rows} K={k} N={n_arr}",
-        }
+        r = timed(CC.apply_rows_batch_kernel,
+                  lambda: (s_rows.clone(), rowcount.clone(), words.clone(), [resid.clone() for _ in range(n_arr)]),
+                  b_bytes)
+        arrays = [resid.clone() for _ in range(n_arr)]
+        r.update(plain_ms=event_ms(lambda: CC.apply_rows_batch_plain(s_rows, rowcount, words, arrays), 5, 1),
+                 shape=f"rows={rows} K={k} N={n_arr}")
         out["apply_rows_batch"].append(r)
-        print(f"[4] apply_rows_batch {r['shape']}: {r['ms']:.4f} ms/launch from a graph "
-              f"({r['eager_ms']:.4f} eager), bound {r['bound_ms']:.4f} ms ({r['bytes'] / 1e6:.1f} MB, "
-              f"{100 * r['bound_ms'] / r['ms']:.1f}% of it), copy_ms {r['copy_ms']:.4f}, "
-              f"plain {r['plain_ms']:.4f} ms")
+        print(f"[4] apply_rows_batch {r['shape']}: {r['ms']:.4f} ms/launch from a graph over {r['sets']} buffer "
+              f"sets ({r['ms_hot']:.4f} on one set, {r['eager_ms']:.4f} eager), bound {r['bound_ms']:.4f} ms "
+              f"({r['bytes'] / 1e6:.1f} MB, {100 * r['bound_ms'] / r['ms']:.1f}% of it), "
+              f"copy_ms {r['copy_ms']:.4f}, plain {r['plain_ms']:.4f} ms")
         del arrays
     return out
 
@@ -567,8 +609,8 @@ def codec_bench(device, rate: float, n: int, seconds: float) -> dict:
         "quantize_plain_ms": graph_ms(lambda: CC.quantize_plain(r, n, pol, scale=scale), 50),
         "apply_frame_many_plain_ms": graph_ms(lambda: CC.apply_frame_many_plain((v,), frame, n), 50),
     }
-    split["apply_frame_many_copy_ms"] = copy_ms(scalar_bytes(n)["apply_frame_many"], device,
-                                                lambda fn: graph_ms(fn, iters))
+    for k in ("quantize", "apply_frame_many"):
+        split[f"{k}_copy_ms"] = copy_ms(scalar_bytes(n)[k], device, lambda fn: graph_ms(fn, iters))
     eager_ms = kern["detail"]["frame_s"] * 1e3
     split["frame_eager_ms"] = eager_ms
     split["overhead_ms"] = eager_ms - split["scale_ms"] - split["quantize_ms"] - split["apply_frame_many_ms"]
@@ -902,6 +944,295 @@ def fetch_ab(template, device, k: int, depth: int = 8, bursts: int = 40) -> dict
     return {"k": k, "depth": depth, **runs, "receive": {"frames": len(frames), "runs": recv}}
 
 
+# -- phases 9 and 10 -----------------------------------------------------------
+
+#: The chip phases' ranks share the one card, and NCCL refuses two ranks on
+#: one device: they talk over gloo, which moves the tensors through pinned
+#: host buffers (parallel/mesh.py).
+POD_BACKEND = "gloo"
+CHAR_PEERS, CHAR_BATCH, CHAR_SEQ, CHAR_LR = 4, 32, 128, 0.5  # BASELINE config 2, the example's defaults
+CHAR_STEPS = 40  # compressed steps, the last CHAR_TIMED of them with stage times
+CHAR_TIMED = 10
+OVERLAP_STEPS = 10
+DRAIN_STEPS = 10  # sync-only steps before replica_spread
+SHARDED_STEPS = 10  # 2 peers x 2 shards
+SHARDED_LR = 0.1  # at 0.5 the first 10 steps of SGD are too noisy to show the loss falling
+RESNET_PEERS, RESNET_BATCH, RESNET_HW, RESNET_LR = 8, 32, 32, 0.05  # BASELINE config 4
+RESNET_STEPS = 12  # per arm
+
+
+def pod_kernel_check(state, spec, mesh) -> dict:
+    """Kernels A and B against their plain versions on this rank's block of
+    the trained state, at the pod shapes: A with the per-leaf scales of the
+    block, B with K = n_peer frames gathered from every peer (this peer's
+    column zeroed) into N = 1 target. Collective (the scales and the
+    frames). Returns {kernel: {"mismatches", "max_abs_err"}}."""
+    from shared_tensor_tpu_torch.config import ScalePolicy
+    from shared_tensor_tpu_torch.ops import codec_cuda as CC
+    from shared_tensor_tpu_torch.parallel import ici
+
+    ctx = ici._make_ctx(mesh, spec, True)
+    r0 = state.residual.clone()
+    s_row = ici._leaf_scales(ctx, r0.view(-1, 128), ScalePolicy.POW2_RMS)[ctx.row_leaf].contiguous()
+    r_k, r_p = r0.clone(), r0.clone()
+    w_k = CC.quantize_rows_kernel(s_row, ctx.rowcount, r_k)
+    w_p = CC.quantize_rows_plain(s_row, ctx.rowcount, r_p)
+    words_all, scales_all = ici._codec_send(ctx, ScalePolicy.POW2_RMS, CC.quantize_rows_plain, r0.clone()).wait()
+    v_k, v_p = state.values.clone(), state.values.clone()
+    ici._codec_apply(ctx, CC.apply_rows_batch_kernel, v_k, words_all, scales_all)
+    ici._codec_apply(ctx, CC.apply_rows_batch_plain, v_p, words_all, scales_all)
+    torch.cuda.synchronize()
+    return {
+        "quantize_rows": {"mismatches": _bitdiff(w_k, w_p) + _bitdiff(r_k, r_p), "max_abs_err": _maxerr(r_k, r_p)},
+        "apply_rows_batch": {"mismatches": _bitdiff(v_k, v_p), "max_abs_err": _maxerr(v_k, v_p),
+                             "k": int(words_all.shape[0]), "zero_column": int(mesh.peer)},
+    }
+
+
+def _char_batches(data, seed: int, n_peer: int):
+    from shared_tensor_tpu_torch.models import char_rnn as m
+
+    return lambda i: m.make_batches(data, CHAR_BATCH, CHAR_SEQ, torch.Generator().manual_seed(seed * 100_003 + i),
+                                    n_peer=n_peer)
+
+
+def pod_char_rnn(mesh, mesh22, seed: int) -> dict:
+    """Phase 9, on each of the 4 ranks: BASELINE config 2 at full width.
+    CHAR_STEPS compressed steps (tokens/s over all but the first; stage
+    times over the last CHAR_TIMED), then OVERLAP_STEPS with the collective
+    under the backward pass; the launches of A and B over those steps; A
+    and B against their plain versions on the trained state; DRAIN_STEPS
+    sync-only steps and the replica spread; then 2 peers x 2 shards on the
+    same ranks (``mesh22``) for SHARDED_STEPS."""
+    from shared_tensor_tpu_torch.models import char_rnn as m
+    from shared_tensor_tpu_torch.ops import codec_cuda as CC
+    from shared_tensor_tpu_torch.parallel import build_sync_step
+    from shared_tensor_tpu_torch.train import PodTrainer, build_train_step
+    from shared_tensor_tpu_torch.utils.timing import Spans
+    from shared_tensor_tpu_torch.examples.train_char_rnn import PANGRAM
+
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = m.CharRNNConfig()
+    params = m.init_params(torch.Generator().manual_seed(seed), cfg, device=dev)
+    loss = lambda p, b: m.loss_fn(p, b, cfg)
+    data = m.encode_corpus(PANGRAM, device=dev)
+    batch = _char_batches(data, seed, mesh.n_peer)
+    tr = PodTrainer(mesh, params, loss)
+    losses = []
+    spans = Spans(dev)
+    timed = build_train_step(mesh, tr.spec, loss, spans=spans)
+    CC.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(CHAR_STEPS):
+        if i < CHAR_STEPS - CHAR_TIMED:
+            l, _ = tr.step(tr.shard_batch(batch(i)), lr=CHAR_LR)
+        else:
+            tr.state, _, l, _ = timed(tr.state, None, tr.shard_batch(batch(i)), CHAR_LR)
+        losses.append(l.cpu().numpy())  # the host waits for the step here
+        if i == 0:
+            t1 = time.perf_counter()
+        if i == CHAR_STEPS - CHAR_TIMED - 1:
+            t2 = time.perf_counter()
+    untimed = CHAR_STEPS - CHAR_TIMED - 1
+    over = PodTrainer(mesh, params, loss, overlap=True)
+    over.state = tr.state
+    t3 = time.perf_counter()
+    for i in range(CHAR_STEPS, CHAR_STEPS + OVERLAP_STEPS):
+        l, _ = over.step(over.shard_batch(batch(i)), lr=CHAR_LR)
+        losses.append(l.cpu().numpy())
+    t4 = time.perf_counter()
+    launches = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
+    check = pod_kernel_check(over.state, over.spec, mesh)
+    drain = build_sync_step(mesh, over.spec)
+    for _ in range(DRAIN_STEPS):
+        drain(over.state)
+    spread = over.replica_spread()
+    peak = torch.cuda.max_memory_allocated(dev)
+    tokens = mesh.n_peer * CHAR_BATCH * CHAR_SEQ
+
+    # 2 peers x 2 shards over the same 4 ranks: the shard-group reductions
+    sh = PodTrainer(mesh22, params, loss)
+    batch22 = _char_batches(data, seed + 1, 2)
+    CC.reset_launches()
+    sh_losses = [sh.step(sh.shard_batch(batch22(i)), lr=SHARDED_LR)[0].cpu().numpy() for i in range(SHARDED_STEPS)]
+    sh_launches = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
+    sh_check = pod_kernel_check(sh.state, sh.spec, mesh22)
+    rows_local = tr.spec.rows // mesh.n_shard
+    del tr, over, sh, timed, drain
+    torch.cuda.empty_cache()  # phase 10 follows on the same ranks
+    return {
+        "peer": mesh.peer, "device": str(dev), "backend": mesh.backend,
+        "losses": np.stack(losses).tolist(), "launches": launches, "check": check,
+        "tokens_per_s": tokens * untimed / (t2 - t1), "step_ms": 1e3 * (t2 - t1) / untimed,
+        "first_step_ms": 1e3 * (t1 - t0), "overlap_step_ms": 1e3 * (t4 - t3) / OVERLAP_STEPS,
+        "overlap_tokens_per_s": tokens * OVERLAP_STEPS / (t4 - t3),
+        "stage_ms": spans.ms(), "spread_after_drain": spread, "peak_bytes": peak,
+        "rows_local": rows_local,
+        "sharded": {"losses": np.stack(sh_losses).tolist(), "launches": sh_launches, "check": sh_check,
+                    "peer": mesh22.peer, "shard": mesh22.shard},
+    }
+
+
+def resnet_batch(seed: int, step: int, n_peer: int, n: int = RESNET_BATCH, hw: int = RESNET_HW, classes: int = 10):
+    """Synthetic 32x32 images (a class-dependent shift plus noise) and
+    labels for every peer, [n_peer, n, hw, hw, 3] and [n_peer, n], from
+    numpy seeded by (seed, step)."""
+    rng = np.random.default_rng((seed, step))
+    labels = rng.integers(0, classes, n_peer * n)
+    x = rng.normal(size=(n_peer * n, hw, hw, 3)) * 0.3 + ((labels - (classes - 1) / 2) * 0.5)[:, None, None, None]
+    return x.astype(np.float32).reshape(n_peer, n, hw, hw, 3), labels.reshape(n_peer, n)
+
+
+def pod_resnet(mesh, seed: int) -> dict:
+    """Phase 10, on each of the 8 ranks: BASELINE config 4, ResNet-18 at
+    the default width, RESNET_STEPS of the compressed arm and of the exact
+    arm from the same parameters and batches."""
+    from shared_tensor_tpu_torch.models import resnet as r
+    from shared_tensor_tpu_torch.ops import codec_cuda as CC
+    from shared_tensor_tpu_torch.parallel import frame_ici_bytes
+    from shared_tensor_tpu_torch.train import PodTrainer
+
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = r.ResNetConfig()
+    out = {"peer": mesh.peer}
+    for compressed in (True, False):
+        params = r.init_params(torch.Generator().manual_seed(seed), cfg, device=dev)
+        tr = PodTrainer(mesh, params, lambda p, b: r.loss_fn(p, b, cfg), compressed=compressed)
+        CC.reset_launches()
+        losses = []
+        t0 = time.perf_counter()
+        for i in range(RESNET_STEPS):
+            l, _ = tr.step(tr.shard_batch(resnet_batch(seed, i, mesh.n_peer)), lr=RESNET_LR)
+            losses.append(float(l.mean()))
+            if i == 0:
+                t1 = time.perf_counter()
+        t2 = time.perf_counter()
+        out["compressed" if compressed else "exact"] = {
+            "losses": losses, "step_ms": 1e3 * (t2 - t1) / (RESNET_STEPS - 1), "first_step_ms": 1e3 * (t1 - t0),
+            "launches": {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")},
+            "frame_ici_bytes": frame_ici_bytes(tr.spec, mesh.n_peer, compressed),
+            "spread": tr.replica_spread(),
+        }
+        del tr
+        torch.cuda.empty_cache()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def _loss_fell(losses) -> bool:
+    """Finite, and the mean of the last 5 steps' losses (SGD at these rates
+    is noisy step to step) below the first step's."""
+    ls = np.asarray(losses, dtype=np.float64)
+    return bool(np.isfinite(ls).all() and ls[-5:].mean() < ls[0])
+
+
+def pod_ranks(world, seed: int) -> dict:
+    """Phases 9 and 10 in one spawn of RESNET_PEERS ranks (a spawn and a
+    CUDA context per rank cost seconds): every rank builds every mesh;
+    phase 9 runs on the first CHAR_PEERS ranks while the others wait at a
+    barrier, then phase 10 on all."""
+    import torch.distributed as dist
+
+    from shared_tensor_tpu_torch.parallel import make_mesh
+
+    first = range(CHAR_PEERS)
+    mesh4 = make_mesh(CHAR_PEERS, 1, device=world.device, backend=world.backend, ranks=first)
+    mesh22 = make_mesh(2, 2, device=world.device, backend=world.backend, ranks=first)
+    t0 = time.perf_counter()
+    char = None if mesh4 is None else pod_char_rnn(mesh4, mesh22, seed)
+    dist.barrier()
+    t1 = time.perf_counter()
+    resnet = pod_resnet(world, seed)
+    return {"char": char, "resnet": resnet, "phase9_s": t1 - t0, "phase10_s": time.perf_counter() - t1}
+
+
+def pod_phases(device, rate: float, seed: int) -> dict:
+    """Phases 9 and 10 (see the module docstring); raises on any failed
+    check. Returns their results and the pod-shape times of A and B."""
+    from shared_tensor_tpu_torch.models import char_rnn as m
+    from shared_tensor_tpu_torch.ops.table import make_spec
+    from shared_tensor_tpu_torch.parallel import run_mesh
+
+    print(f"[9] {CHAR_PEERS} of {RESNET_PEERS} ranks on one card (the rest wait for phase 10), "
+          f"backend={POD_BACKEND} (NCCL refuses two ranks on one device)")
+    t0 = time.perf_counter()
+    ranks = run_mesh(pod_ranks, RESNET_PEERS, 1, seed, device=device, backend=POD_BACKEND, timeout_s=600)
+    spawn_s = time.perf_counter() - t0
+    char = [r["char"] for r in ranks[:CHAR_PEERS]]
+    res10 = [r["resnet"] for r in ranks]
+    secs9, secs10 = ranks[0]["phase9_s"], ranks[0]["phase10_s"]
+    spec = make_spec(m.init_params(torch.Generator().manual_seed(seed), m.CharRNNConfig(), device=device))
+    steps = CHAR_STEPS + OVERLAP_STEPS
+    bad = []
+    for rk, res in enumerate(char):
+        st = res["stage_ms"]
+        sync_ms = sum(st.get(k, 0.0) for k in ("scales", "quantize", "gather", "apply"))
+        print(f"[9] rank {rk}: {res['tokens_per_s']:.1f} tokens/s, {res['step_ms']:.3f} ms/step "
+              f"(first step {res['first_step_ms']:.1f} ms); overlap {res['overlap_step_ms']:.3f} ms/step "
+              f"({res['overlap_tokens_per_s']:.1f} tokens/s); stage ms: grads {st.get('grads', 0):.3f}, sync "
+              f"{sync_ms:.3f} (scales {st.get('scales', 0):.3f}, A {st.get('quantize', 0):.3f}, collective "
+              f"{st.get('gather', 0):.3f}, B {st.get('apply', 0):.3f}), other (update, loss gather) "
+              f"{st.get('update', 0) + st.get('losses', 0):.3f}; loss first {np.mean(res['losses'][0]):.4f} last "
+              f"{np.mean(res['losses'][-1]):.4f}; replica spread after {DRAIN_STEPS} sync-only steps "
+              f"{res['spread_after_drain']:.3e}; peak {res['peak_bytes'] / 2**30:.3f} GiB; launches "
+              f"{res['launches']}; kernel vs plain {res['check']}")
+        sh = res["sharded"]
+        print(f"[9] 2x2 rank {rk} (peer {sh['peer']}, shard {sh['shard']}): loss first "
+              f"{np.mean(sh['losses'][0]):.4f} last {np.mean(sh['losses'][-1]):.4f}; launches {sh['launches']}; "
+              f"kernel vs plain {sh['check']}")
+        for name, want in (("launches", steps), ("sharded", SHARDED_STEPS)):
+            got = res["launches"] if name == "launches" else sh["launches"]
+            if any(v != want for v in got.values()):
+                bad.append(f"rank {rk} {name}: {got} (want {want} each)")
+        for c in (res["check"], sh["check"]):
+            bad += [f"rank {rk} {k}: {v['mismatches']} mismatches" for k, v in c.items() if v["mismatches"]]
+        for name, ls in (("4x1", res["losses"]), ("2x2", sh["losses"])):
+            if not _loss_fell(np.mean(ls, axis=1)):
+                bad.append(f"rank {rk} {name}: loss did not fall ({np.mean(ls, axis=1).tolist()})")
+    print(f"[9] phase 9 {secs9:.3f} s (phases 9 and 10 with the ranks' start {spawn_s:.3f} s)")
+    if bad:
+        raise AssertionError("phase 9: " + "; ".join(bad))
+
+    for arm in ("compressed", "exact"):
+        a = res10[0][arm]
+        print(f"[10] ResNet-18 {arm}: {RESNET_PEERS} ranks, backend={POD_BACKEND}, {a['step_ms']:.3f} ms/step "
+              f"(first {a['first_step_ms']:.1f} ms), frame_ici_bytes {a['frame_ici_bytes']}, losses "
+              + " ".join(f"{x:.4f}" for x in a["losses"]) + f"; spread {a['spread']:.3e}; launches {a['launches']}")
+        for rk, res in enumerate(res10):
+            if not _loss_fell(res[arm]["losses"]):
+                bad.append(f"rank {rk} {arm}: loss did not fall ({res[arm]['losses']})")
+            want = RESNET_STEPS if arm == "compressed" else 0
+            if any(v != want for v in res[arm]["launches"].values()):
+                bad.append(f"rank {rk} {arm}: launches {res[arm]['launches']} (want {want} each)")
+    print(f"[10] phase 10 {secs10:.3f} s; peak per rank "
+          + ", ".join(f"{r['peak_bytes'] / 2**30:.3f}" for r in res10) + " GiB")
+    if bad:
+        raise AssertionError("phase 10: " + "; ".join(bad))
+
+    # every rank's full results go to a file; the summary to the output
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "pod.json"), "w") as f:
+        json.dump({"char_rnn": char, "resnet": res10}, f)
+    mean = lambda rows: float(np.mean(rows))
+    summary = {
+        "seconds": {"phase9": secs9, "phase10": secs10, "phases_9_10_with_start": spawn_s}, "backend": POD_BACKEND,
+        "char_rnn": [{k: v for k, v in r.items() if k not in ("losses", "sharded")}
+                     | {"loss_first": mean(r["losses"][0]), "loss_last": mean(r["losses"][-1]),
+                        "sharded_loss_first": mean(r["sharded"]["losses"][0]),
+                        "sharded_loss_last": mean(r["sharded"]["losses"][-1]),
+                        "sharded_launches": r["sharded"]["launches"]} for r in char],
+        "resnet": {arm: res10[0][arm] for arm in ("compressed", "exact")}
+                  | {"peak_bytes": [r["peak_bytes"] for r in res10]},
+    }
+    # A and B alone at the pod shapes of phase 9 (one rank's block of the
+    # char-RNN table; B with K = 4 frames and N = 1 target)
+    t = times(spec, device, rate, shapes=((CHAR_PEERS, 1),))
+    return {"char_rnn": char, "summary": summary,
+            "times": {"quantize_rows": t["quantize_rows"], "apply_rows_batch": t["apply_rows_batch"][0]}}
+
+
 SOURCES = {
     "quantize_rows":("shared_tensor_tpu_torch/csrc/quantize_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:286"),
     "apply_rows_batch": ("shared_tensor_tpu_torch/csrc/apply_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:337"),
@@ -991,7 +1322,8 @@ def main() -> int:
     for k in ("quantize", "apply_frame_many"):
         t[k] = {"ms": sp[f"{k}_ms"], "plain_ms": sp[f"{k}_plain_ms"], "bound_ms": sp[f"{k}_bound_ms"],
                 "shape": f"n={1 << 20} K=1" if k == "apply_frame_many" else f"n={1 << 20}"}
-    t["apply_frame_many"]["copy_ms"] = sp["apply_frame_many_copy_ms"]
+    for k in ("quantize", "apply_frame_many"):
+        t[k]["copy_ms"] = sp[f"{k}_copy_ms"]
 
     # 7. the config-5 sweep up to 2^30
     sw = sweep(dev, rate)
@@ -1023,6 +1355,20 @@ def main() -> int:
         t[k]["launches_phase3"] = launches[k]
         launches[k] = n
 
+    # 9 and 10. the pod tier: BASELINE config 2 (4 ranks, and 2 x 2) and config 4 (8 ranks, both arms)
+    torch.cuda.empty_cache()
+    pod = pod_phases(dev, rate, args.seed)
+    for k in ("quantize_rows", "apply_rows_batch"):
+        pt = pod["times"][k]
+        t[k].update({
+            "launches_pod": sum(r["launches"][k] for r in pod["char_rnn"]),
+            "launches_pod_per_rank": [r["launches"][k] for r in pod["char_rnn"]],
+            "mismatches_pod": sum(r["check"][k]["mismatches"] + r["sharded"]["check"][k]["mismatches"]
+                                  for r in pod["char_rnn"]),
+            "ms_pod": pt["ms"], "ms_pod_hot": pt["ms_hot"], "plain_ms_pod": pt["plain_ms"],
+            "bound_ms_pod": pt["bound_ms"], "copy_ms_pod": pt["copy_ms"], "shape_pod": pt["shape"],
+        })
+
     print(smi)
     kernels = []
     for k in SOURCES:
@@ -1038,6 +1384,7 @@ def main() -> int:
     print(json.dumps({"drive": drive}))
     print(json.dumps({"peer_example": example, "peer_tree": tree, "fetch_ab": fetch}))
     print(json.dumps({"bench_split": sp, "sweep": sw["rows"], "big_2e30": sw["big"]}))
+    print(json.dumps({"pod": pod["summary"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

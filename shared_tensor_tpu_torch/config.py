@@ -1,7 +1,8 @@
 """Configuration for the PyTorch/CUDA port.
 
 Only what the port reads: the codec (scale policy, per-leaf scales,
-idle-frame suppression), the TCP transport and the peer's send loop. Names,
+idle-frame suppression), the TCP transport, the peer's send loop and the
+pod mesh's axis names. Names,
 defaults and meaning are those of ``shared_tensor_tpu.config``, so a port
 peer and a JAX peer built from the same settings produce the same frames
 and join the same tree. Knobs of features the port does not have (the

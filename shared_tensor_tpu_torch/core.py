@@ -74,7 +74,7 @@ def resolve_device(device=None) -> torch.device:
     CPU unasked)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("SharedTensor needs a CUDA device; pass device='cpu' explicitly for the CPU")
+        raise RuntimeError("no CUDA device; pass device='cpu' explicitly for the CPU")
     return dev
 
 

@@ -1,8 +1,9 @@
 """Device timing for codec work (used by ``bench.py`` and
 ``benchmarks/pareto.py``): the counterpart of
-``shared_tensor_tpu/utils/timing.py``; and the per-launch timers of single
+``shared_tensor_tpu/utils/timing.py``; the per-launch timers of single
 kernels, :func:`event_ms` and :func:`graph_ms`, with :func:`copy_ms`, the
-card's streaming rate for the same bytes.
+card's streaming rate for the same bytes; and :class:`Spans`, the stage
+times of a training step.
 
 The JAX version chains L frames inside one jitted ``fori_loop``. PyTorch
 runs eagerly, so here the chain is a Python loop of L frames enqueued on
@@ -14,6 +15,7 @@ CPU (for tests only) the loop is timed with ``time.perf_counter``.
 
 from __future__ import annotations
 
+import itertools
 import math
 import time
 from typing import Callable
@@ -149,12 +151,63 @@ def graph_ms(fn: Callable[[], object], iters: int, reps: int = 3) -> float:
     return ms
 
 
-def copy_ms(nbytes: float, device, timer: Callable[[Callable[[], object]], float]) -> float:
+def l2_sets(nbytes: float, device) -> int:
+    """How many sets of buffers of ``nbytes`` together hold four times the
+    card's L2: a timed loop that takes the next set at every launch then
+    streams from device memory, not from the L2."""
+    l2 = torch.cuda.get_device_properties(device).L2_cache_size
+    return max(1, math.ceil(4 * l2 / nbytes))
+
+
+def copy_ms(nbytes: float, device, timer: Callable[[Callable[[], object]], float], sets: int = 1) -> float:
     """ms of one device-to-device ``copy_`` that reads and writes ``nbytes``
     in all (half each way), timed by ``timer(fn)``: what the card streams
-    at that size, the yardstick beside a kernel's bytes bound."""
-    src = torch.empty(int(nbytes) // 8, device=device)
-    dst = torch.empty_like(src)
-    ms = timer(lambda: dst.copy_(src))
-    del src, dst
+    at that size, the yardstick beside a kernel's bytes bound. With
+    ``sets`` > 1 each call copies the next of that many buffer pairs."""
+    pairs = [(torch.empty(int(nbytes) // 8, device=device), torch.empty(int(nbytes) // 8, device=device))
+             for _ in range(sets)]
+    turn = itertools.cycle(pairs)
+
+    def copy():
+        src, dst = next(turn)
+        dst.copy_(src)
+
+    ms = timer(copy)
+    del pairs, turn
     return ms
+
+
+class Spans:
+    """Wall time of the named consecutive stages of a repeated piece of
+    work (a training step), summed over its repeats: :meth:`start` opens
+    the first stage, each :meth:`mark` closes the stage that ends there.
+    On a CUDA device every start and mark first waits for the device, so a
+    stage's time holds its kernels, not just their launches; timing thus
+    serializes what it times (an overlapped collective included) and is
+    for attribution, not for the throughput of untimed work."""
+
+    def __init__(self, device=None):
+        self.cuda = device is not None and torch.device(device).type == "cuda"
+        self.totals: dict[str, float] = {}
+        self.counts: dict[str, int] = {}
+        self._t: float | None = None
+
+    def _now(self) -> float:
+        if self.cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def start(self) -> None:
+        self._t = self._now()
+
+    def mark(self, name: str) -> None:
+        if self._t is None:
+            raise RuntimeError("Spans.mark before start")
+        now = self._now()
+        self.totals[name] = self.totals.get(name, 0.0) + now - self._t
+        self.counts[name] = self.counts.get(name, 0) + 1
+        self._t = now
+
+    def ms(self) -> dict[str, float]:
+        """Mean ms per occurrence of each stage."""
+        return {k: 1e3 * v / self.counts[k] for k, v in self.totals.items()}

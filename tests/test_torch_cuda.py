@@ -1,6 +1,6 @@
-"""The port on a GPU: its CUDA kernels, the asynchronous frame fetch and a
-two-peer round trip over loopback TCP (marked ``cuda``; each test skips
-without a CUDA device). This file imports neither jax nor the JAX package,
+"""The port on a GPU: its CUDA kernels, the asynchronous frame fetch, a
+two-peer round trip over loopback TCP and a two-rank pod step over gloo
+(marked ``cuda``; each test skips without a CUDA device). This file imports neither jax nor the JAX package,
 so it runs on a torch-only machine:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
@@ -414,3 +414,42 @@ def test_two_peer_round_trip_runs_the_kernels(cuda_device):
             faults = {k: v for k, v in p.metrics().items() if k in FAULTS and v}
             assert faults == {}, faults
     assert CC.LAUNCHES["quantize_rows"] > 0 and CC.LAUNCHES["apply_rows_batch"] > 0, CC.LAUNCHES
+
+
+def _pod_step_kernel_vs_plain(mesh, steps):
+    """On each rank: one seeded pod state through ``steps`` sync steps with
+    the kernels and again with their plain versions, on the card. Returns
+    (bit mismatches, kernel launches)."""
+    from shared_tensor_tpu_torch.ops.table import flatten, make_spec
+    from shared_tensor_tpu_torch.parallel import add_updates, build_sync_step, init_state
+
+    rng = np.random.default_rng(0)
+    shapes = {"w": (300, 70), "b": (9,)}
+    tpl = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    spec = make_spec(tpl)
+    ups = [flatten({k: rng.normal(size=s).astype(np.float32) * 10.0 ** p for k, s in shapes.items()}, spec)
+           for p in range(mesh.n_peer)]
+    outs = []
+    CC.reset_launches()
+    for impl in ("kernel", "plain"):
+        state = init_state(mesh, spec, tpl)
+        add_updates(state, ups[mesh.peer].to(mesh.device))
+        step = build_sync_step(mesh, spec, impl=impl)
+        for _ in range(steps):
+            state, scales = step(state)
+        outs.append([state.values.cpu(), state.residual.cpu(), scales.cpu()])
+    launches = dict(CC.LAUNCHES)
+    return sum(int((a.view(torch.int32) != b.view(torch.int32)).sum()) for a, b in zip(*outs)), launches
+
+
+@pytest.mark.cuda
+def test_pod_step_kernels_match_plain_on_two_gloo_ranks(cuda_device):
+    """Two ranks on the card (gloo, through pinned host buffers): the pod
+    step with kernels A and B equals the plain step bit for bit, one launch
+    of each per step per rank."""
+    from shared_tensor_tpu_torch.parallel import run_mesh
+
+    for mismatches, launches in run_mesh(_pod_step_kernel_vs_plain, 2, 1, 3, device="cuda", backend="gloo",
+                                         timeout_s=300):
+        assert mismatches == 0
+        assert launches == {"quantize_rows": 3, "apply_rows_batch": 3, "quantize": 0, "apply_frame_many": 0}

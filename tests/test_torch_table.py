@@ -61,6 +61,34 @@ def test_treedef_str_matches_jax(tree):
     assert str(TT.tree_flatten(tree)[1]) == str(jax.tree.structure(tree))
 
 
+def _model_trees(model):
+    """(JAX parameter shapes, port parameters) of a model's default size."""
+    gen = torch.Generator().manual_seed(0)
+    if model == "char_rnn":
+        from shared_tensor_tpu.models import char_rnn as jm
+        from shared_tensor_tpu_torch.models import char_rnn as tm
+
+        return (jax.eval_shape(lambda: jm.init_params(jax.random.key(0), jm.CharRNNConfig())),
+                tm.init_params(gen, tm.CharRNNConfig(), device="cpu"))
+    from shared_tensor_tpu.models import resnet as jr
+    from shared_tensor_tpu_torch.models import resnet as tr
+
+    return (jax.eval_shape(lambda: jr.init_params(jax.random.key(0), jr.ResNetConfig())),
+            tr.init_params(gen, tr.ResNetConfig(), device="cpu"))
+
+
+@pytest.mark.parametrize("model", ["char_rnn", "resnet18"])
+def test_model_layouts_match_jax(model):
+    """The char-RNN and ResNet-18 trees (lists of dicts inside a dict): the
+    same TreeDef string and layout digest as JAX's, so port and JAX peers
+    can share one table."""
+    j_tree, t_tree = _model_trees(model)
+    js, ts = JT.make_spec(j_tree), TT.make_spec(t_tree)
+    assert str(ts.treedef) == str(js.treedef)
+    assert (ts.shapes, ts.ns, ts.padded) == (js.shapes, js.ns, js.padded)
+    assert ts.layout_digest() == js.layout_digest()
+
+
 def test_flatten_rejects_mismatch():
     tree = _mixed(0)
     spec = TT.make_spec(tree)
