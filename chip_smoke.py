@@ -87,8 +87,35 @@ Phases, in order; any failure exits non-zero:
    and labels from --seed (the repo holds no CIFAR); both arms' losses,
    ms per step and frame_ici_bytes. Then A and B alone at phase 9's shapes
    (one rank's block of the char-RNN table), timed as in phase 4.
+11. BASELINE config 2 as two pods of two: ranks 0-1 and 2-3 of the same
+   spawn as two (2, 1) meshes, each a HierarchicalTrainer at full width
+   (benchmarks/hierarchical.py) whose bridge rank (0 and 2) holds a CUDA
+   SharedTensorPeer on one loopback rendezvous port, the pods on different
+   batch streams from --seed: 1 + BRIDGE_STEPS steps unbridged (the two
+   pods as PodTrainers with no peer); the bridged pods created, exchanges
+   until pod B holds the model (its pod starts from its peer's replica at
+   the handshake, before the state has streamed in); then 1 + BRIDGE_STEPS
+   steps bridged (an exchange every step); ms per step of each arm, the
+   seconds of each stage and the bridge overhead, every rank's step, the
+   bridge peers' frames, then the settle from the last training step
+   (exchanges only) until every leaf of the two pods' mean replicas agrees
+   within AGREE_REL, under a deadline (the join waits the same way), and
+   each rank's bridged step by stage over a few steps (its pod step's, and
+   the exchange's: the pod mean's collectives, the snapshot, the push, the
+   broadcast, apply_external); then, the bridges closed, pod A's
+   checkpoint: save_trainer and save_pod_sharded (MB, seconds),
+   load_trainer into a fresh PodTrainer and load_pod_sharded bit for bit,
+   and RESUME_STEPS steps from the saved point by the live and the
+   restored trainer with losses and states bit for bit
+   (torch.use_deterministic_algorithms on: PyTorch documents the
+   embedding's and the loss's index backward as nondeterministic on
+   CUDA); each rank's launches of A and B on the phase (A and B on every
+   pod step; on the bridge ranks also the peer's) and A and B against
+   their plain versions on its state. Fails if the pods do not agree, the checkpoint is not exact, a
+   rank's launches are short, a kernel disagrees or the bridged arm's loss
+   does not fall.
 The transport (native/sttransport.cpp) is compiled with g++ in phase 1,
-beside the kernels. Every rank's full results of phases 9 and 10 go to
+beside the kernels. Every rank's full results of phases 9, 10 and 11 go to
 profiles/pod.json.
 
 Prints the card's name and power limit (nvidia-smi), a {"kernels": [...]}
@@ -170,6 +197,14 @@ def random_like(template, rng: np.random.Generator, scale: float = 1.0):
         mag = scale * 2.0 ** np.round(np.log2(10.0 ** rng.uniform(-3, 3)))
         out.append((rng.uniform(-1, 1, np.shape(leaf)) * mag).astype(np.float32))
     return tree_unflatten(treedef, out)
+
+
+def tree_updates(template, seed: int, n_peers: int):
+    """Phase 8b's data: the master's seed and each peer's update, drawn
+    from ``seed`` (tools/agreement_tail.py drives the same data)."""
+    rng = np.random.default_rng(seed + 8)
+    seed_tree = random_like(template, rng)
+    return seed_tree, [random_like(template, rng, 0.5) for _ in range(n_peers)]
 
 
 def hbm_rate(name: str) -> float:
@@ -794,9 +829,7 @@ def peer_tree(template, device, seed: int, n_peers: int = 4, deadline_s: float =
     from shared_tensor_tpu_torch.ops.table import flatten, make_spec, tree_flatten, tree_unflatten
 
     spec = make_spec(template)
-    rng = np.random.default_rng(seed + 8)
-    seed_tree = random_like(template, rng)
-    deltas = [random_like(template, rng, 0.5) for _ in range(n_peers)]
+    seed_tree, deltas = tree_updates(template, seed, n_peers)
     leaves = [np.asarray(x, np.float64) for x in tree_flatten(seed_tree)[0]]
     seed_flat = flatten(seed_tree, spec, device)
     seed_mag = torch.tensor([np.abs(x).max() for x in leaves], dtype=torch.float64, device=device)
@@ -944,7 +977,7 @@ def fetch_ab(template, device, k: int, depth: int = 8, bursts: int = 40) -> dict
     return {"k": k, "depth": depth, **runs, "receive": {"frames": len(frames), "runs": recv}}
 
 
-# -- phases 9 and 10 -----------------------------------------------------------
+# -- phases 9, 10 and 11 ---------------------------------------------------------
 
 #: The chip phases' ranks share the one card, and NCCL refuses two ranks on
 #: one device: they talk over gloo, which moves the tensors through pinned
@@ -959,6 +992,8 @@ SHARDED_STEPS = 10  # 2 peers x 2 shards
 SHARDED_LR = 0.1  # at 0.5 the first 10 steps of SGD are too noisy to show the loss falling
 RESNET_PEERS, RESNET_BATCH, RESNET_HW, RESNET_LR = 8, 32, 32, 0.05  # BASELINE config 4
 RESNET_STEPS = 12  # per arm
+BRIDGE_STEPS = 4  # timed steps per arm, after one warm-up step
+RESUME_STEPS = 2  # steps from the checkpoint, live and restored
 
 
 def pod_kernel_check(state, spec, mesh) -> dict:
@@ -1128,28 +1163,238 @@ def _loss_fell(losses) -> bool:
     return bool(np.isfinite(ls).all() and ls[-5:].mean() < ls[0])
 
 
-def pod_ranks(world, seed: int) -> dict:
-    """Phases 9 and 10 in one spawn of RESNET_PEERS ranks (a spawn and a
-    CUDA context per rank cost seconds): every rank builds every mesh;
+def pod_ranks(world, seed: int, port: int) -> dict:
+    """Phases 9, 10 and 11 in one spawn of RESNET_PEERS ranks (a spawn and
+    a CUDA context per rank cost seconds): every rank builds every mesh;
     phase 9 runs on the first CHAR_PEERS ranks while the others wait at a
-    barrier, then phase 10 on all."""
+    barrier, then phase 10 on all, then phase 11 on the first
+    2 * PEERS of benchmarks/hierarchical.py."""
     import torch.distributed as dist
 
+    from shared_tensor_tpu_torch.benchmarks import hierarchical as H
     from shared_tensor_tpu_torch.parallel import make_mesh
 
     first = range(CHAR_PEERS)
     mesh4 = make_mesh(CHAR_PEERS, 1, device=world.device, backend=world.backend, ranks=first)
     mesh22 = make_mesh(2, 2, device=world.device, backend=world.backend, ranks=first)
+    pod, index, both = H.make_pods(world.device, world.backend, ranks=range(2 * H.PEERS))
     t0 = time.perf_counter()
     char = None if mesh4 is None else pod_char_rnn(mesh4, mesh22, seed)
     dist.barrier()
     t1 = time.perf_counter()
     resnet = pod_resnet(world, seed)
-    return {"char": char, "resnet": resnet, "phase9_s": t1 - t0, "phase10_s": time.perf_counter() - t1}
+    dist.barrier()
+    t2 = time.perf_counter()
+    bridge = None if pod is None else pod_bridge(pod, index, both, seed, port)
+    dist.barrier()
+    return {"char": char, "resnet": resnet, "bridge": bridge, "phase9_s": t1 - t0, "phase10_s": t2 - t1,
+            "phase11_s": time.perf_counter() - t2}
+
+
+def _stopwatch():
+    """({name: seconds}, lap): ``lap(name)`` records the seconds since the
+    previous lap (or the call)."""
+    secs, last = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        secs[name] = now - last[0]
+        last[0] = now
+
+    return secs, lap
+
+
+def checkpoint_roundtrip(live, index: int, setup) -> dict:
+    """Phase 11's checkpoint of pod A's trainer (collective over its ranks),
+    once its bridge is closed: save_trainer and save_pod_sharded with their
+    bytes and seconds; load_trainer into a fresh PodTrainer and
+    load_pod_sharded, both bit for bit; then RESUME_STEPS steps from the
+    saved point, once by the live trainer and once by the restored one, on
+    the same batches, losses and states bit for bit. Deterministic
+    algorithms are on for those steps: the embedding's and the loss's
+    backward accumulate by index, which PyTorch documents as
+    nondeterministic on CUDA."""
+    import shutil
+
+    from shared_tensor_tpu_torch.benchmarks import hierarchical as H
+    from shared_tensor_tpu_torch.parallel.mesh import all_true
+    from shared_tensor_tpu_torch.train import PodTrainer
+    from shared_tensor_tpu_torch.utils import checkpoint as ckpt
+
+    mesh = live.mesh
+    root = os.path.join(OUT_DIR, "checkpoint")
+    path, sdir = os.path.join(root, "trainer.npz"), os.path.join(root, "sharded")
+    os.makedirs(root, exist_ok=True)
+    secs, lap = _stopwatch()
+    ckpt.save_trainer(live, path)
+    lap("save_trainer")
+    ckpt.save_pod_sharded(live.state, live.spec, sdir, mesh)
+    lap("save_sharded")
+    out = {"seconds": secs, "trainer_bytes": os.path.getsize(path),
+           "sharded_bytes": sum(os.path.getsize(os.path.join(sdir, f)) for f in os.listdir(sdir))}
+    fresh = PodTrainer(mesh, live.template, live.loss_fn)
+    lap("fresh_trainer")
+    ckpt.load_trainer(fresh, path)
+    lap("load_trainer")
+    sharded = ckpt.load_pod_sharded(sdir, mesh, live.spec)
+    lap("load_sharded")
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
+    out["restored_equal"] = all_true(mesh, same(fresh.state, live.state) and fresh.steps == live.steps)
+    out["sharded_equal"] = all_true(mesh, same(sharded, live.state))
+    batch = H.batches(live, index, setup)
+    lap("compare")
+    # an op with no deterministic version raises here; cuBLAS is pinned by
+    # CUBLAS_WORKSPACE_CONFIG, set before the ranks were spawned. This is
+    # torch.use_deterministic_algorithms(True) without its import of
+    # torch._inductor (for inductor's own flag; nothing here compiles),
+    # which took seconds in each rank at its first call
+    torch._C._set_deterministic_algorithms(True)
+    try:
+        losses, out["resume_ms"] = [], []
+        for i in range(RESUME_STEPS):
+            b = batch(2_000_000 + i)
+            row = []
+            for trainer in (live, fresh):
+                t0 = time.perf_counter()
+                losses.append(trainer.step(b, setup.lr)[0])
+                torch.cuda.synchronize(mesh.device)
+                row.append(1e3 * (time.perf_counter() - t0))
+            out["resume_ms"].append(row)
+        pairs = list(zip(losses[::2], losses[1::2]))
+        out["resume_losses"] = [[float(x.mean()), float(y.mean())] for x, y in pairs]
+    finally:
+        torch._C._set_deterministic_algorithms(False)
+    lap("resume")
+    out["resume_equal"] = all_true(mesh, all(torch.equal(x, y) for x, y in pairs) and same(fresh.state, live.state))
+    if mesh.peer == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    lap("cleanup")
+    return out
+
+
+def pod_bridge(pod, index: int, both, seed: int, port: int) -> dict:
+    """Phase 11, on each of the 2 * PEERS ranks: BASELINE config 2 as two
+    pods of PEERS bridged over loopback TCP (benchmarks/hierarchical.py):
+    the unbridged arm on PodTrainers with no peer, the
+    join, the bridged arm, the settle, the bridged step by stage, the bridge
+    peers' frames and this rank's launches of A and B over them; then, the
+    bridges closed, pod A's checkpoint round trip and each rank's A and B
+    against their plain versions on its state. ``stage_s`` holds the
+    seconds of each stage."""
+    from shared_tensor_tpu_torch.benchmarks import hierarchical as H
+    from shared_tensor_tpu_torch.ops import codec_cuda as CC
+    from shared_tensor_tpu_torch.parallel.mesh import all_true
+
+    setup = H.Setup(seed=seed, steps=BRIDGE_STEPS)  # config 2's batch, lr 0.1
+    stage_s, lap = _stopwatch()
+    CC.reset_launches()
+    out = {"pod": index, "peer": pod.peer, "bridge": pod.peer == 0, "stage_s": stage_s}
+    plain = H.run_arms(H.pod_trainer(pod, setup), index, both, setup, ("unbridged",))
+    lap("unbridged")
+    tr = H.create(pod, index, both, port, setup)
+    lap("create")
+    try:
+        # pod B was seeded from its peer's replica at the handshake, before
+        # the tree's state had arrived: it trains once it has the model
+        out["join"] = H.settle(tr, both)
+        lap("join")
+        bridged = H.run_arms(tr, index, both, setup, ("bridged",))
+        out["arms"] = plain["arms"] | bridged["arms"]
+        out["losses"] = plain["losses"] | bridged["losses"]
+        lap("bridged")
+        out["settle"] = H.settle(tr, both)
+        lap("settle")
+        out["split_ms"] = H.step_split(tr, index, setup)
+        out["frames"] = H.bridge_frames(tr)
+        out["launches"] = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
+        lap("split")
+    finally:
+        tr.close()
+    lap("close")
+    # the checkpoint and the kernel check on the pods' trainers, their
+    # bridges closed (a bridge peer streams until every residual is zero)
+    out["checkpoint"] = checkpoint_roundtrip(tr.pod, index, setup) if index == 0 else None
+    all_true(both, True)
+    lap("checkpoint")
+    out["check"] = pod_kernel_check(tr.pod.state, tr.pod.spec, pod)
+    lap("check")
+    return out
+
+
+def bridge_report(res: list, secs: float) -> dict:
+    """Print phase 11's block from every rank's pod_bridge results; returns
+    {"summary": ..., "bad": [failures]}."""
+    from shared_tensor_tpu_torch.benchmarks import hierarchical as H
+
+    arms = ("unbridged", "bridged")
+    summ = H.summarize(res, arms=arms)
+    ms, bad = summ["ms_per_step"], []
+    ranks = lambda: range(len(res))
+    tag = lambda i: f"{i}{' (bridge)' if res[i]['bridge'] else ''}"
+    print(f"[11] BASELINE config 2 as two pods of {H.PEERS} ranks (ranks 0-{len(res) - 1}, backend "
+          f"{POD_BACKEND}) bridged over loopback TCP, the pods on different batch streams; seconds by stage "
+          + ", ".join(f"{k} {v:.3f}" for k, v in res[0]["stage_s"].items()) + f"; ms/step (the slower rank's, {BRIDGE_STEPS} steps an arm): unbridged "
+          f"{ms['unbridged']:.3f} (no peer), bridged (an exchange every step) {ms['bridged']:.3f}: bridge overhead "
+          f"{summ['bridge_overhead_pct_every_step']:.2f}%")
+    for arm in arms:
+        print(f"[11] {arm} ms/step by rank: "
+              + ", ".join(f"{tag(i)} {summ['rank_step_ms'][arm][i]:.3f}" for i in ranks()))
+    for i in ranks():
+        print(f"[11] rank {tag(i)} bridged step by stage, ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in res[i]["split_ms"].items())
+              + f"; launches {res[i]['launches']}; kernel vs plain {res[i]['check']}")
+    for i in ranks():
+        f = res[i]["frames"]
+        if f is not None:
+            print(f"[11] bridge of pod {res[i]['pod']} (rank {i}): frames out {f['frames_out']} in "
+                  f"{f['frames_in']}, by link {f['links']}")
+    def under(st, thr):
+        return next((f"{t:.3f} s" for t, r in st["curve"] if r <= thr), "not reached")
+
+    for name, st in (("join: pod B receives the model", res[0]["join"]),
+                     ("settle from the last training step", res[0]["settle"])):
+        print(f"[11] {name}: {st['exchanges']} exchanges, {st['seconds']:.3f} s to a gap of {st['gap_rel']:.3e} of "
+              f"each leaf's max |value| (limit {H.AGREE_REL}; {st['gap_abs']:.3e} absolute); under 1e-3 after "
+              f"{under(st, 1e-3)}, under 1e-4 after {under(st, 1e-4)}")
+    for arm in arms:
+        print(f"[11] {arm} mean loss by step, pod A: " + " ".join(f"{x:.4f}" for x in res[0]["losses"][arm])
+              + "; pod B: " + " ".join(f"{x:.4f}" for x in res[H.PEERS]["losses"][arm]))
+    st = res[0]["settle"]
+    ck = res[0]["checkpoint"]
+    mb, cs = lambda n: n / 1e6, ck["seconds"]
+    print(f"[11] checkpoint of pod A: save_trainer {mb(ck['trainer_bytes']):.1f} MB in {cs['save_trainer']:.3f} s "
+          f"({mb(ck['trainer_bytes']) / cs['save_trainer']:.1f} MB/s), save_pod_sharded "
+          f"{mb(ck['sharded_bytes']):.1f} MB in {cs['save_sharded']:.3f} s "
+          f"({mb(ck['sharded_bytes']) / cs['save_sharded']:.1f} MB/s); load_trainer {cs['load_trainer']:.3f} s, "
+          f"load_pod_sharded {cs['load_sharded']:.3f} s; restored bit for bit {ck['restored_equal']}, sharded "
+          f"{ck['sharded_equal']}; {RESUME_STEPS} steps live and restored (deterministic algorithms on): losses "
+          f"{ck['resume_losses']}, bit for bit {ck['resume_equal']}, ms per step [live, restored] "
+          f"{[[round(x, 3) for x in row] for row in ck['resume_ms']]}; seconds by stage "
+          + ", ".join(f"{k} {v:.3f}" for k, v in cs.items()))
+    print(f"[11] phase 11 {secs:.3f} s")
+    for name in ("join", "settle"):
+        if not res[0][name]["agreed"]:
+            bad.append(f"{name}: the pods did not agree within {H.SETTLE_S} s: gap {res[0][name]['gap_rel']:.3e}")
+    bad += [f"checkpoint: {k} false" for k in ("restored_equal", "sharded_equal", "resume_equal") if not ck[k]]
+    want = 2 * (1 + BRIDGE_STEPS)  # one A and one B per pod step
+    for i in ranks():
+        if any(v < want for v in res[i]["launches"].values()):
+            bad.append(f"rank {i} launches {res[i]['launches']} (want at least {want} each)")
+        bad += [f"rank {i} {k}: {v['mismatches']} mismatches" for k, v in res[i]["check"].items() if v["mismatches"]]
+        if not _loss_fell(res[i]["losses"]["bridged"]):
+            bad.append(f"rank {i}: loss did not fall in the bridged arm ({res[i]['losses']['bridged']})")
+    summ["checkpoint"] = ck
+    for name in ("join", "settle"):
+        st = res[0][name]
+        summ[name] = {k: v for k, v in st.items() if k != "curve"} | {
+            "under_1e-3": under(st, 1e-3), "under_1e-4": under(st, 1e-4)}
+    summ["seconds"] = secs
+    summ["stage_s"] = res[0]["stage_s"]
+    return {"summary": summ, "bad": bad}
 
 
 def pod_phases(device, rate: float, seed: int) -> dict:
-    """Phases 9 and 10 (see the module docstring); raises on any failed
+    """Phases 9, 10 and 11 (see the module docstring); raises on any failed
     check. Returns their results and the pod-shape times of A and B."""
     from shared_tensor_tpu_torch.models import char_rnn as m
     from shared_tensor_tpu_torch.ops.table import make_spec
@@ -1157,8 +1402,12 @@ def pod_phases(device, rate: float, seed: int) -> dict:
 
     print(f"[9] {CHAR_PEERS} of {RESNET_PEERS} ranks on one card (the rest wait for phase 10), "
           f"backend={POD_BACKEND} (NCCL refuses two ranks on one device)")
+    # phase 11's resume runs with deterministic algorithms, which need
+    # cuBLAS's workspace pinned in every rank before its first matmul
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t0 = time.perf_counter()
-    ranks = run_mesh(pod_ranks, RESNET_PEERS, 1, seed, device=device, backend=POD_BACKEND, timeout_s=600)
+    ranks = run_mesh(pod_ranks, RESNET_PEERS, 1, seed, _free_port(), device=device, backend=POD_BACKEND,
+                     timeout_s=600)
     spawn_s = time.perf_counter() - t0
     char = [r["char"] for r in ranks[:CHAR_PEERS]]
     res10 = [r["resnet"] for r in ranks]
@@ -1191,7 +1440,7 @@ def pod_phases(device, rate: float, seed: int) -> dict:
         for name, ls in (("4x1", res["losses"]), ("2x2", sh["losses"])):
             if not _loss_fell(np.mean(ls, axis=1)):
                 bad.append(f"rank {rk} {name}: loss did not fall ({np.mean(ls, axis=1).tolist()})")
-    print(f"[9] phase 9 {secs9:.3f} s (phases 9 and 10 with the ranks' start {spawn_s:.3f} s)")
+    print(f"[9] phase 9 {secs9:.3f} s (phases 9, 10 and 11 with the ranks' start {spawn_s:.3f} s)")
     if bad:
         raise AssertionError("phase 9: " + "; ".join(bad))
 
@@ -1211,13 +1460,20 @@ def pod_phases(device, rate: float, seed: int) -> dict:
     if bad:
         raise AssertionError("phase 10: " + "; ".join(bad))
 
+    res11 = [r["bridge"] for r in ranks if r["bridge"] is not None]
+    bridge = bridge_report(res11, ranks[0]["phase11_s"])
+    if bridge["bad"]:
+        raise AssertionError("phase 11: " + "; ".join(bridge["bad"]))
+
     # every rank's full results go to a file; the summary to the output
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "pod.json"), "w") as f:
-        json.dump({"char_rnn": char, "resnet": res10}, f)
+        json.dump({"char_rnn": char, "resnet": res10, "bridge": res11}, f)
     mean = lambda rows: float(np.mean(rows))
     summary = {
-        "seconds": {"phase9": secs9, "phase10": secs10, "phases_9_10_with_start": spawn_s}, "backend": POD_BACKEND,
+        "seconds": {"phase9": secs9, "phase10": secs10, "phase11": ranks[0]["phase11_s"],
+                    "phases_9_10_11_with_start": spawn_s}, "backend": POD_BACKEND,
+        "bridge": bridge["summary"],
         "char_rnn": [{k: v for k, v in r.items() if k not in ("losses", "sharded")}
                      | {"loss_first": mean(r["losses"][0]), "loss_last": mean(r["losses"][-1]),
                         "sharded_loss_first": mean(r["sharded"]["losses"][0]),
@@ -1229,7 +1485,7 @@ def pod_phases(device, rate: float, seed: int) -> dict:
     # A and B alone at the pod shapes of phase 9 (one rank's block of the
     # char-RNN table; B with K = 4 frames and N = 1 target)
     t = times(spec, device, rate, shapes=((CHAR_PEERS, 1),))
-    return {"char_rnn": char, "summary": summary,
+    return {"char_rnn": char, "bridge": res11, "summary": summary,
             "times": {"quantize_rows": t["quantize_rows"], "apply_rows_batch": t["apply_rows_batch"][0]}}
 
 
@@ -1355,7 +1611,8 @@ def main() -> int:
         t[k]["launches_phase3"] = launches[k]
         launches[k] = n
 
-    # 9 and 10. the pod tier: BASELINE config 2 (4 ranks, and 2 x 2) and config 4 (8 ranks, both arms)
+    # 9, 10 and 11. the pod tier: BASELINE config 2 (4 ranks, and 2 x 2), config 4 (8 ranks, both arms)
+    # and config 2 as two pods of 2 bridged over TCP
     torch.cuda.empty_cache()
     pod = pod_phases(dev, rate, args.seed)
     for k in ("quantize_rows", "apply_rows_batch"):
@@ -1367,6 +1624,9 @@ def main() -> int:
                                   for r in pod["char_rnn"]),
             "ms_pod": pt["ms"], "ms_pod_hot": pt["ms_hot"], "plain_ms_pod": pt["plain_ms"],
             "bound_ms_pod": pt["bound_ms"], "copy_ms_pod": pt["copy_ms"], "shape_pod": pt["shape"],
+            "launches_phase11": sum(r["launches"][k] for r in pod["bridge"]),
+            "launches_phase11_per_rank": [r["launches"][k] for r in pod["bridge"]],
+            "mismatches_phase11": sum(r["check"][k]["mismatches"] for r in pod["bridge"]),
         })
 
     print(smi)

@@ -250,6 +250,37 @@ def broadcast_(mesh: Mesh, t: torch.Tensor, src: int, group) -> torch.Tensor:
     return t
 
 
+def broadcast_from_root_(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """In-place broadcast of ``t`` from cell (0, 0) to every rank of the
+    mesh: over peer 0's shard group, then over each shard's peer group.
+    Collective over the mesh."""
+    if mesh.peer == 0:
+        broadcast_(mesh, t, mesh.rank_of(0, 0), mesh.shard_group)
+    return broadcast_(mesh, t, mesh.rank_of(0, mesh.shard), mesh.peer_group)
+
+
+def all_true(mesh: Mesh, flag: bool) -> bool:
+    """True iff ``flag`` is true on every rank of the mesh (an all-reduce
+    MIN over the shard group, then over the peer group). Collective; it
+    also orders every rank after every other rank's call."""
+    t = torch.tensor([1 if flag else 0], dtype=torch.int32, device=mesh.device)
+    all_reduce_(mesh, t, dist.ReduceOp.MIN, mesh.shard_group)
+    all_reduce_(mesh, t, dist.ReduceOp.MIN, mesh.peer_group)
+    return bool(t.item())
+
+
+def gather_to(mesh: Mesh, t: torch.Tensor, dst: int, group) -> Optional[torch.Tensor]:
+    """Gather ``t`` from every rank of ``group`` to global rank ``dst``:
+    ``[group size, *t.shape]`` in group order there (on ``t``'s device),
+    None on the other ranks."""
+    if _group_size(group) == 1:
+        return t[None]
+    src = _to_host(t) if mesh.host_staged else t.contiguous()
+    out = [torch.empty_like(src) for _ in range(_group_size(group))] if dist.get_rank() == dst else None
+    dist.gather(src, out, dst=dst, group=group)
+    return None if out is None else torch.stack(out).to(t.device)
+
+
 # -- spawning a mesh on one host -----------------------------------------------
 
 
