@@ -70,7 +70,7 @@ Phases, in order; any failure exits non-zero:
    the built-in pangram corpus, batches from --seed): the first 4 of phase
    10's 8 ranks (one parallel.run_mesh for both phases; the other 4 wait at
    a barrier), all on the one card with backend gloo (NCCL refuses two
-   ranks on one device; printed), 40 compressed steps then 10 with
+   ranks on one device; printed), 30 compressed steps then 10 with
    overlap=True;
    tokens/s, ms per step and its stages (grads, scales, A, collective, B,
    the rest) over the last 10 compressed steps, the loss at the first and
@@ -114,8 +114,27 @@ Phases, in order; any failure exits non-zero:
    their plain versions on its state. Fails if the pods do not agree, the checkpoint is not exact, a
    rank's launches are short, a kernel disagrees or the bridged arm's loss
    does not fall.
-The transport (native/sttransport.cpp) is compiled with g++ in phase 1,
-beside the kernels. Every rank's full results of phases 9, 10 and 11 go to
+12. The host tier on BASELINE config 2's table (the default CharRNNConfig:
+   9 leaves, 3,870,976 elements): (12a) the port's libstcodec
+   (ops/codec_np, native/stcodec.c) against its plain numpy versions on
+   this machine's CPU, on seeded data: K = 4 successive quantize_table
+   frames (scales equal or one octave apart, words and residuals bit for
+   bit at the C loop's scales), apply_table_batch of the K frames into
+   N = 2 targets and accumulate_table, 0 mismatches required; host ms of
+   each beside its plain version, and the CPU's model (lscpu); (12b) a
+   mixed-tier tree over loopback: a CUDA device-tier master and two
+   host-tier peers on the native engine below it, the master seeded, each
+   peer adding a seeded update; every replica must reach seed + all
+   updates within AGREE_REL of each leaf's max |value| within 30 s of the
+   last add; a peer on another tier than asked fails the phase. Reports
+   frames/s per peer and per link by tier, the engines' counters, and the
+   launches of A and B (the master's) in 12b; then A and B against their
+   plain versions on the master's state, A as a burst of as many frames as
+   one BURST carries on this table and B with those frames into N = 2
+   targets (its replica and a link's residual), 0 mismatches required.
+The transport, the host codec and the engine (native/sttransport.cpp,
+stcodec.c, stengine.cpp) are compiled with g++ and gcc in phase 1, beside
+the kernels. Every rank's full results of phases 9, 10 and 11 go to
 profiles/pod.json.
 
 Prints the card's name and power limit (nvidia-smi), a {"kernels": [...]}
@@ -657,7 +676,7 @@ def codec_bench(device, rate: float, n: int, seconds: float) -> dict:
     r.copy_(torch.randn(n, generator=gen, device=device))
     whole_frame()
     torch.cuda.synchronize()
-    frames = 200
+    frames = 100
     t0 = time.perf_counter()
     with trace(os.path.join(OUT_DIR, "codec_chain_trace")) as prof:
         for _ in range(frames):
@@ -767,7 +786,7 @@ def _leaf_rel_err(peers, target, mag, spec) -> float:
     row_leaf = TT._consts(spec, str(target.device))[0]
     worst = 0.0
     for p in peers:
-        d = (p.st.snapshot_flat() - target).abs().view(-1, 128).amax(dim=1)
+        d = (p.st.snapshot_flat().to(target.device) - target).abs().view(-1, 128).amax(dim=1)
         leaf = torch.zeros(spec.num_leaves, device=target.device).scatter_reduce(0, row_leaf, d, reduce="amax")
         worst = max(worst, float((leaf.double() / mag).max()))
     return worst
@@ -984,7 +1003,7 @@ def fetch_ab(template, device, k: int, depth: int = 8, bursts: int = 40) -> dict
 #: host buffers (parallel/mesh.py).
 POD_BACKEND = "gloo"
 CHAR_PEERS, CHAR_BATCH, CHAR_SEQ, CHAR_LR = 4, 32, 128, 0.5  # BASELINE config 2, the example's defaults
-CHAR_STEPS = 40  # compressed steps, the last CHAR_TIMED of them with stage times
+CHAR_STEPS = 30  # compressed steps, the last CHAR_TIMED of them with stage times
 CHAR_TIMED = 10
 OVERLAP_STEPS = 10
 DRAIN_STEPS = 10  # sync-only steps before replica_spread
@@ -1489,6 +1508,220 @@ def pod_phases(device, rate: float, seed: int) -> dict:
             "times": {"quantize_rows": t["quantize_rows"], "apply_rows_batch": t["apply_rows_batch"][0]}}
 
 
+# -- phase 12 -------------------------------------------------------------------
+
+
+def char_rnn_template() -> dict:
+    """BASELINE config 2's table: the default CharRNNConfig's parameter
+    shapes as zero float32 arrays (9 leaves, 3,870,976 elements)."""
+    from shared_tensor_tpu_torch.models import char_rnn as m
+    from shared_tensor_tpu_torch.ops.table import tree_flatten, tree_unflatten
+
+    params = m.init_params(torch.Generator().manual_seed(0), m.CharRNNConfig(), device="cpu")
+    leaves, treedef = tree_flatten(params)
+    return tree_unflatten(treedef, [np.zeros(tuple(x.shape), np.float32) for x in leaves])
+
+
+def cpu_model() -> str:
+    """The host CPU's model name as lscpu gives it, or, where that reads
+    "unknown" (a virtual machine may hide it), its vendor, family and model
+    numbers."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+    except OSError:
+        out = ""
+    info = dict(line.split(":", 1) for line in out.splitlines() if ":" in line)
+    info = {k.strip(): v.strip() for k, v in info.items()}
+    name = info.get("Model name", "unknown")
+    if name in ("", "unknown"):
+        name = (f"{info.get('Vendor ID', 'unknown')} family {info.get('CPU family', '?')} model "
+                f"{info.get('Model', '?')}, {info.get('CPU(s)', '?')} CPUs")
+    return name
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def host_codec_check(template, seed: int, k: int = BATCH, n_targets: int = 2) -> dict:
+    """12a: the port's libstcodec (ops/codec_np) against its plain numpy
+    versions on this machine's CPU, on the char-RNN table with seeded data:
+    K successive quantize_table frames (scales within the one-octave
+    allowance, words and residuals bit for bit at the C loop's scales), the
+    K frames applied to N targets (apply_table_batch), and accumulate_table,
+    each counted in mismatching words or elements; host ms of each C loop
+    and of its plain version."""
+    from shared_tensor_tpu_torch.ops import codec_np as NP
+    from shared_tensor_tpu_torch.ops.table import make_spec
+
+    spec = make_spec(template)
+    rng = np.random.default_rng(seed + 12)
+    resid = NP.flatten_np(random_like(template, rng), spec)
+    targets = tuple(NP.flatten_np(random_like(template, rng), spec) for _ in range(n_targets))
+    update = NP.flatten_np(random_like(template, rng, 0.5), spec)
+    bad = {"quantize_table": 0, "apply_table_batch": 0, "accumulate_table": 0, "scales_off_octave": 0,
+           "scales_one_octave": 0}
+    r, frames = resid, []
+    for _ in range(k):
+        s, w, r_next = NP.quantize_table_np(r, spec)
+        s_plain = NP.compute_scales_plain(r, spec)
+        ratio = s_plain[s > 0] / s[s > 0]
+        bad["scales_off_octave"] += int(np.count_nonzero(~np.isin(ratio, (0.5, 1.0, 2.0)))
+                                        + np.count_nonzero((s == 0) != (s_plain == 0)))
+        bad["scales_one_octave"] += int(np.count_nonzero(ratio != 1.0))
+        _, w_plain, r_plain = NP.quantize_table_plain(r, spec, scales=s)
+        bad["quantize_table"] += int(np.count_nonzero(w != w_plain)) + _bitdiff(
+            torch.from_numpy(r_next), torch.from_numpy(r_plain))
+        frames.append((s, w))
+        r = r_next
+    scales, words = np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames])
+    got = NP.apply_table_batch_np(targets, scales, words, spec)
+    want = NP.apply_table_batch_plain(targets, scales, words, spec)
+    bad["apply_table_batch"] = sum(_bitdiff(torch.from_numpy(a), torch.from_numpy(b)) for a, b in zip(got, want))
+    got = NP.accumulate_table_np(targets, update, spec)
+    want = NP.accumulate_table_plain(targets, update, spec)
+    bad["accumulate_table"] = sum(_bitdiff(torch.from_numpy(a), torch.from_numpy(b)) for a, b in zip(got, want))
+    ms = {
+        "quantize_table": _host_ms(lambda: NP.quantize_table_np(resid, spec)),
+        "quantize_table_plain": _host_ms(lambda: NP.quantize_table_plain(resid, spec), 2),
+        "apply_table_batch": _host_ms(lambda: NP.apply_table_batch_np(targets, scales, words, spec)),
+        "apply_table_batch_plain": _host_ms(lambda: NP.apply_table_batch_plain(targets, scales, words, spec), 2),
+        "accumulate_table": _host_ms(lambda: NP.accumulate_table_np(targets, update, spec)),
+        "accumulate_table_plain": _host_ms(lambda: NP.accumulate_table_plain(targets, update, spec), 2),
+    }
+    cpu = cpu_model()
+    print(f"[12a] host codec (libstcodec) vs plain numpy on {spec.num_leaves} leaves, {spec.total_n} elements, "
+          f"K={k} N={n_targets}: mismatches " + ", ".join(f"{x} {bad[x]}" for x in
+                                                          ("quantize_table", "apply_table_batch", "accumulate_table"))
+          + f"; scales off by more than an octave {bad['scales_off_octave']}, one octave apart "
+          f"{bad['scales_one_octave']}")
+    print(f"[12a] host ms on {cpu}: quantize_table {ms['quantize_table']:.3f} (plain {ms['quantize_table_plain']:.3f}), "
+          f"apply_table_batch K={k} N={n_targets} {ms['apply_table_batch']:.3f} "
+          f"(plain {ms['apply_table_batch_plain']:.3f}), accumulate_table N={n_targets} "
+          f"{ms['accumulate_table']:.3f} (plain {ms['accumulate_table_plain']:.3f}); a link frame "
+          f"(quantize + apply of one frame into 2 arrays) {ms['quantize_table'] + ms['apply_table_batch'] / k:.3f}")
+    return {"mismatches": bad, "host_ms": ms, "cpu": cpu, "k": k, "n_targets": n_targets,
+            "elements": spec.total_n, "leaves": spec.num_leaves}
+
+
+def mixed_tier_tree(template, device, seed: int, deadline_s: float = 30.0) -> dict:
+    """12b: a CUDA device-tier port master and two host-tier port peers on
+    the native engine joined below it, over loopback, on the char-RNN
+    table; the master seeded, every peer adds a seeded update; every replica
+    must reach seed + all updates within AGREE_REL of each leaf's max
+    |value| within ``deadline_s`` of the last add. Fails if a peer runs on
+    another tier than asked."""
+    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch
+    from shared_tensor_tpu_torch.ops.table import flatten, make_spec, tree_flatten, tree_unflatten
+
+    spec = make_spec(template)
+    seed_tree, deltas = tree_updates(template, seed + 12, 3)
+    leaves = [np.asarray(x, np.float64) for x in tree_flatten(seed_tree)[0]]
+    seed_flat = flatten(seed_tree, spec, device)
+    seed_mag = torch.tensor([np.abs(x).max() for x in leaves], dtype=torch.float64, device=device)
+    for d in deltas:
+        for j, x in enumerate(tree_flatten(d)[0]):
+            leaves[j] += x
+    target = flatten(tree_unflatten(spec.treedef, [x.astype(np.float32) for x in leaves]), spec, device)
+    mag = torch.tensor([np.abs(x).max() for x in leaves], dtype=torch.float64, device=device)
+    cfg = Config(transport=TransportConfig(peer_timeout_sec=30.0))
+    port = _free_port()
+    peers, tiers = [], ("device", "engine", "engine")
+    try:
+        t0 = time.perf_counter()
+        peers.append(create_or_fetch("127.0.0.1", port, seed_tree, cfg, timeout=60.0, device=device))
+        for _ in range(2):
+            peers.append(create_or_fetch("127.0.0.1", port, template, cfg, timeout=60.0, host_tier=True))
+        t_join = time.perf_counter() - t0
+        got = ["engine" if p._engine is not None else ("host" if p.st.host_tier else p.st.device.type)
+               for p in peers]
+        want = [torch.device(device).type, "engine", "engine"]
+        if got != want:
+            raise AssertionError(f"phase 12b: peers came up on tiers {got}, asked for {want}")
+        t_seed, err_seed = _wait_agree(peers, seed_flat, seed_mag, spec, AGREE_REL, deadline_s)
+        before = [p.metrics() for p in peers]
+        t1 = time.perf_counter()
+        for p, d in zip(peers, deltas):
+            p.add(d)
+        t_conv, err = _wait_agree(peers, target, mag, spec, AGREE_REL, deadline_s)
+        window = time.perf_counter() - t1
+        _sync(device)
+        _healthy(peers)
+        after = [p.metrics() for p in peers]
+        engines = [p._engine.counters().tolist() if p._engine is not None else None for p in peers]
+        master = peers[0].st.snapshot_all() + (flatten(deltas[0], spec, device), peers[0].st.codec)
+    finally:
+        for p in peers:
+            p.close()
+    per_peer = []
+    for i, (tier, b, a) in enumerate(zip(tiers, before, after)):
+        d = {k: a[k] - b.get(k, 0) for k in a if not k.startswith("st_link_")}
+        links = {}
+        for k, v in a.items():
+            if k.startswith("st_link_"):
+                name, link = k.split("{link=")
+                links.setdefault(int(link.strip('"}')), {})[name] = v - b.get(k, 0)
+        per_peer.append({"peer": i, "tier": tier, "delta": d, "links": links, "engine_counters": engines[i]})
+        print(f"[12b] peer {i} ({tier}{', master' if i == 0 else ''}): frames out {d['st_frames_out_total']} "
+              f"= {d['st_frames_out_total'] / window:.1f}/s, in {d['st_frames_in_total']} "
+              f"= {d['st_frames_in_total'] / window:.1f}/s, msgs out {d['st_msgs_out_total']} "
+              f"in {d['st_msgs_in_total']}, retransmits {d['st_retransmit_msgs_total']}, dedup "
+              f"{d['st_dedup_discards_total']}")
+        for link, v in sorted(links.items()):
+            fo = v.get("st_link_frames_out_total")
+            wo = v.get("st_link_wire_msgs_out_total", 0)
+            print(f"[12b]   link {link}: " + (f"{fo} frames out = {fo / window:.1f} frames/s, " if fo is not None else "")
+                  + f"{wo} wire messages out = {wo / window:.1f}/s, "
+                  f"{v.get('st_link_bytes_out_total', 0) / 1e6:.1f} MB out")
+        if engines[i] is not None:
+            c = engines[i]
+            print(f"[12b]   engine counters: frames out {c[0]} in {c[1]}, updates {c[2]}, msgs out {c[3]} "
+                  f"in {c[4]}, tx slot acquires {c[5]} alloc events {c[6]}, retransmits {c[8]}, dedup {c[9]}, "
+                  f"ACK rtt mean {c[10] / max(1, c[11]) / 1e6:.3f} ms over {c[11]}")
+    print(f"[12b] mixed-tier tree on the char-RNN table ({spec.num_leaves} leaves, {spec.total_n} elements), "
+          f"a CUDA master and two engine peers: joined in {t_join:.3f} s, seed agreed in {t_seed:.3f} s; "
+          f"last add to agreement {t_conv:.3f} s (worst leaf error {err:.3e}, limit {AGREE_REL}, "
+          f"deadline {deadline_s} s)")
+    return {"join_s": t_join, "seed_converge_s": t_seed, "seed_err": err_seed, "last_add_to_converged_s": t_conv,
+            "worst_rel_err": err, "window_s": window, "per_peer": per_peer}, master
+
+
+def tree_kernel_check(master, spec) -> dict:
+    """Kernels A and B against their plain versions on 12b's master, at the
+    shapes its engine children give it: A as a burst of K = the most frames
+    one BURST carries for this table (the engine's cascade burst), on the
+    master's own update with its codec's scale policy; B with those K frames
+    into N = 2 targets, the master's replica and one link's residual (a
+    child's burst applies to the replica and the other child's link).
+    Returns {kernel: {"mismatches", "max_abs_err", "k", "n"}}."""
+    from shared_tensor_tpu_torch.comm import wire
+    from shared_tensor_tpu_torch.ops import table as TT
+
+    values, links, update, codec = master
+    k = wire.burst_frames_cap(spec)
+    f_k, r_k = TT.quantize_table_burst(update.clone(), spec, k, codec.scale_policy, codec.per_leaf_scale, "kernel")
+    f_p, r_p = TT.quantize_table_burst(update.clone(), spec, k, codec.scale_policy, codec.per_leaf_scale, "plain")
+    resid = next(iter(links.values()))
+    a_k = TT.apply_table_batch((values.clone(), resid.clone()), f_p, spec, "kernel")
+    a_p = TT.apply_table_batch((values.clone(), resid.clone()), f_p, spec, "plain")
+    _sync(values.device)
+    live = int((f_p.scales != 0).any(dim=1).sum())
+    out = {
+        "quantize_rows": {"mismatches": _bitdiff(f_k.words, f_p.words) + _bitdiff(f_k.scales, f_p.scales)
+                          + _bitdiff(r_k, r_p), "max_abs_err": _maxerr(r_k, r_p), "k": k, "live_frames": live},
+        "apply_rows_batch": {"mismatches": sum(_bitdiff(x, y) for x, y in zip(a_k, a_p)),
+                             "max_abs_err": max(_maxerr(x, y) for x, y in zip(a_k, a_p)), "k": k, "n": 2},
+    }
+    print(f"[12b] A quantize_rows, a burst of K={k} ({live} frames with a nonzero scale): mismatches "
+          f"{out['quantize_rows']['mismatches']}; B apply_rows_batch K={k} N=2: mismatches "
+          f"{out['apply_rows_batch']['mismatches']}")
+    return out
+
+
 SOURCES = {
     "quantize_rows":("shared_tensor_tpu_torch/csrc/quantize_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:286"),
     "apply_rows_batch": ("shared_tensor_tpu_torch/csrc/apply_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:337"),
@@ -1516,19 +1749,20 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
 
-    # 1. build: the kernels (one nvcc each) and, beside them, the transport (g++)
+    # 1. build: the kernels (one nvcc each) and, beside them, the transport,
+    # the host codec and the engine (g++ and gcc, the three in parallel)
     from concurrent.futures import ThreadPoolExecutor
 
     from shared_tensor_tpu_torch import _build
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
-        transport = pool.submit(lambda: (_build.build_transport(), time.perf_counter() - t0))
+        native = pool.submit(lambda: (_build.build_engine(), time.perf_counter() - t0))
         report = CC.build()
-        lib, transport_s = transport.result()
+        lib, native_s = native.result()
     print(f"[1] build {time.perf_counter() - t0:.2f} s: "
           + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in report.items())
-          + f"; transport {lib.name} {transport_s:.2f} s")
+          + f"; {_build.transport_path().name}, {_build.codec_path().name} and {lib.name} {native_s:.2f} s")
     for k, v in report.items():
         for line in v["log"].splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
@@ -1629,6 +1863,32 @@ def main() -> int:
             "mismatches_phase11": sum(r["check"][k]["mismatches"] for r in pod["bridge"]),
         })
 
+    # 12. the host tier: the C loops on this machine's CPU, then a CUDA
+    # master with two engine peers (the launch counts of A and B are 12b's)
+    t12 = time.perf_counter()
+    char_template = char_rnn_template()
+    host = host_codec_check(char_template, args.seed)
+    print(f"[12a] on {smi}; CPU {host['cpu']}")
+    if any(host["mismatches"][k] for k in ("quantize_table", "apply_table_batch", "accumulate_table",
+                                           "scales_off_octave")):
+        raise AssertionError(f"phase 12a: the C loops disagree with their plain versions: {host['mismatches']}")
+    CC.reset_launches()
+    mixed, master = mixed_tier_tree(char_template, dev, args.seed)
+    mixed_launches = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
+    if not all(mixed_launches.values()):
+        raise AssertionError(f"a kernel of the mixed-tier tree never launched: {mixed_launches}")
+    check12 = tree_kernel_check(master, make_spec(char_template))
+    del master
+    secs12 = time.perf_counter() - t12
+    print(f"[12] launches {mixed_launches}; phase 12 {secs12:.3f} s")
+    for k, n in mixed_launches.items():
+        t[k]["launches_phase12"] = n
+        t[k]["mismatches_phase12"] = check12[k]["mismatches"]
+        t[k]["max_abs_err_phase12"] = check12[k]["max_abs_err"]
+    bad = {k: v["mismatches"] for k, v in check12.items() if v["mismatches"]}
+    if bad:
+        raise AssertionError(f"phase 12b: kernel vs plain mismatches on the master's state: {bad}")
+
     print(smi)
     kernels = []
     for k in SOURCES:
@@ -1645,6 +1905,7 @@ def main() -> int:
     print(json.dumps({"peer_example": example, "peer_tree": tree, "fetch_ab": fetch}))
     print(json.dumps({"bench_split": sp, "sweep": sw["rows"], "big_2e30": sw["big"]}))
     print(json.dumps({"pod": pod["summary"]}))
+    print(json.dumps({"host_codec": host, "mixed_tier_tree": mixed, "phase12_s": secs12}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

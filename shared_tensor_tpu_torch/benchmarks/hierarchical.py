@@ -1,7 +1,7 @@
 """Two pods bridged over the TCP peer tree: the char-RNN (BASELINE config 2's
 model) trained by two pods on different data streams.
 
-    python -m shared_tensor_tpu_torch.benchmarks.hierarchical [--device cpu] [--small] [--steps N]
+    python -m shared_tensor_tpu_torch.benchmarks.hierarchical [--device cpu] [--small] [--steps N] [--host-tier]
 
 The counterpart of the root ``benchmarks/hierarchical_bench.py``. Each pod
 is a (PEERS, 1) mesh of ranks, and the two bridge peers meet over loopback TCP.
@@ -31,6 +31,8 @@ steps; and the frames the bridge peers sent.
 on ranks that already exist (``chip_smoke.py`` phase 11 calls them inside
 its own spawn); :func:`main` spawns the ranks itself with
 ``parallel.run_mesh``. On one GPU every rank shares the card, over gloo.
+``--host-tier`` puts the two bridge peers on the host tier (the native
+engine on the CPU), whatever the pods' device.
 """
 
 from __future__ import annotations
@@ -75,6 +77,9 @@ class Setup:
     lr: float = 0.1
     steps: int = 8
     seed: int = 0
+    #: bridge peers on the host tier (the native engine) instead of the
+    #: mesh's device
+    host_tier: bool = False
 
 
 #: A width for the CPU: the root bench's model, batch and rate.
@@ -127,7 +132,8 @@ def create(pod: Mesh, index: int, both: Mesh, port: int, setup: Setup) -> Hierar
     tr = None
     for i in range(2):
         if index == i:
-            tr = HierarchicalTrainer.create(pod, "127.0.0.1", port, params, loss, timeout=120.0)
+            tr = HierarchicalTrainer.create(pod, "127.0.0.1", port, params, loss, timeout=120.0,
+                                            host_tier=setup.host_tier)
         all_true(both, True)
     return tr
 
@@ -287,9 +293,11 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=None, help="timed steps per arm (a multiple of 8)")
     ap.add_argument("--small", action="store_true", help="a narrow char-RNN for the CPU")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--host-tier", action="store_true", help="bridge peers on the host tier (native engine)")
     args = ap.parse_args(argv)
     setup = SMALL if args.small else Setup()
-    setup = dataclasses.replace(setup, seed=args.seed, **({} if args.steps is None else {"steps": args.steps}))
+    setup = dataclasses.replace(setup, seed=args.seed, host_tier=args.host_tier,
+                                **({} if args.steps is None else {"steps": args.steps}))
     backend = "gloo" if args.device == "cpu" or torch.cuda.device_count() < 2 * PEERS else None
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))

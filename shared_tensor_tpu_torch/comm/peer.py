@@ -1,25 +1,38 @@
 """The peer: a complete shared-tensor node on PyTorch.
 
-The counterpart of ``shared_tensor_tpu/comm/peer.py`` on its device tier.
-It composes the three layers below it into the user-facing object
-(``create_or_fetch`` / ``read`` / ``add``):
+The counterpart of ``shared_tensor_tpu/comm/peer.py``. It composes the
+layers below it into the user-facing object (``create_or_fetch`` /
+``read`` / ``add``):
 
 - ``core.SharedTensor``: replica, per-link residuals and the in-flight
   ledger, with the codec on the GPU (kernels A and B of
-  ``ops/codec_cuda.py``);
+  ``ops/codec_cuda.py``), or on the host tier (``host_tier=True``) in the
+  C loops of ``native/stcodec.c``;
+- ``comm.engine.EngineTensor``: on the host tier by default, the native
+  engine (``native/stengine.cpp``) in place of the SharedTensor: two C
+  threads run the whole steady state (quantize, encode, send, receive,
+  flood apply, ACK ledger) of every attached link, and the Python
+  threads below keep the handshakes, membership and the control messages
+  the engine hands back (``poll_ctrl``); ``Config.native_engine=False``
+  selects the Python host tier instead;
 - ``comm.transport.TransportNode``: the native TCP tree;
 - ``comm.wire``: the messages between them, byte-identical to the JAX
   package's, so JAX and PyTorch peers share one tree.
 
-Two host threads per node. The send thread keeps up to
-``Config.send_pipeline_depth`` quantized frames per link in flight, each a
-burst of ``device_frame_burst`` halvings whose device-to-host copy started
-at dispatch; it encodes the oldest into a pooled slot, ledgers it and
-sends it. The receive thread is the only consumer of transport events and
-the only writer of handshake state: it batches consecutive DATA/BURST
-messages of a link into one flood apply, acknowledges them cumulatively,
-and handles the join handshake. Sends are woken by ``add`` and by incoming
-frames and stop when the residuals are exactly zero.
+Two host threads per node. On the device tier the send thread keeps up
+to ``Config.send_pipeline_depth`` quantized frames per link in flight,
+each a burst of ``device_frame_burst`` halvings whose device-to-host copy
+started at dispatch; it encodes the oldest into a pooled slot, ledgers it
+and sends it. On the Python host tier it quantizes a burst of
+``frame_burst`` halvings synchronously per message. The receive thread is
+the only consumer of transport events and the only writer of handshake
+state: it batches consecutive DATA/BURST messages of a link into one flood
+apply, acknowledges them cumulatively, and handles the join handshake.
+Sends are woken by ``add`` and by incoming frames and stop when the
+residuals are exactly zero. On the native engine (``host_tier=True``) the
+engine's two C threads carry each link's data plane once its handshake
+is done, and the peer runs the receive thread alone: handshakes and the
+control messages the engine hands back.
 
 Delivery: a frame stays in the core's ledger until the receiver's ACK; a
 link that dies rolls its unacknowledged frames back into its residual,
@@ -28,13 +41,13 @@ uplink then owes the tree. Messages carry a per-link seq; the receiver
 accepts only the next one (go-back-N) and the sender re-sends the head
 of its unacknowledged tail after ``ack_timeout_sec``.
 
-Not ported (later slices): the host tier and its native engine, the
-reference wire format, subscribers, the shared-memory lane, sign2,
-lifecycle and operator commands, sharding, fault injection and the
-observability plane. A joiner that asks for one of them in its SYNC is
-refused with a REJECT that names it; metrics digests and clock probes
-from a JAX child are counted and dropped; any other message kind the
-port does not speak is logged, counted and dropped.
+Not ported (later slices): the reference wire format, subscribers, the
+shared-memory lane, sign2, lifecycle and operator commands, sharding,
+fault injection and the observability plane. A joiner that asks for one
+of them in its SYNC is refused with a REJECT that names it; metrics
+digests and clock probes from a JAX child are counted and dropped; any
+other message kind the port does not speak is logged, counted and
+dropped.
 """
 
 from __future__ import annotations
@@ -51,6 +64,7 @@ from ..config import Config
 from ..core import SharedTensor, resolve_device
 from ..ops.table import make_spec
 from . import wire
+from .engine import EngineTensor, engine_eligible
 from .transport import EventKind, TransportNode
 
 log = logging.getLogger("shared_tensor_tpu_torch.peer")
@@ -83,6 +97,15 @@ class SpecMismatch(ConnectionError):
     """The tree holds a different table layout, or refused this joiner."""
 
 
+def _python_tier_auto_burst(spec) -> int:
+    """The Python host tier's auto burst: each burst frame is a full
+    synchronous rescan under the state lock, so only small tables, where
+    the per-message cost dominates, burst."""
+    if spec.total <= (1 << 15):
+        return max(24, min(128, (1 << 19) // max(1, spec.total)))
+    return 1
+
+
 class SharedTensorPeer:
     """One node of the shared tensor: joins the tree at (host, port), or
     becomes its master if nobody answers, then streams codec frames.
@@ -90,16 +113,38 @@ class SharedTensorPeer:
     The master seeds the shared state from ``template``; a joiner's
     ``template`` (torch tensors or numpy arrays) only gives the layout,
     and the state streams in from the tree. ``device=None`` is the GPU and
-    raises without one; the tests pass ``device="cpu"``."""
+    raises without one; the tests pass ``device="cpu"``. ``host_tier=True``
+    runs the host tier on the CPU: the native engine, unless one of the
+    engine's conditions (``engine_eligible``) is unmet, which puts the peer
+    on the Python host tier: ``Config.native_engine`` False,
+    ``CodecConfig.suppress_zero_frames`` False (the engine sends no idle
+    frames) or ``Config.sync_interval_sec`` > 0 (its sender does not
+    pace). The tier is logged at creation. A failed build of the engine (or
+    of the codec) raises; nothing falls back to another tier."""
 
-    def __init__(self, host: str, port: int, template: Any, config: Config | None = None, device=None):
+    def __init__(
+        self, host: str, port: int, template: Any, config: Config | None = None, device=None,
+        host_tier: bool = False,
+    ):
         self.config = config or Config()
         tcfg = self.config.transport
-        dev = resolve_device(device)  # before any socket: no GPU, no node
+        dev = resolve_device(device, host_tier)  # before any socket: no GPU, no node
         spec = make_spec(template)
         cap = wire.burst_frames_cap(spec)
-        if not self.config.codec.suppress_zero_frames:
-            self._burst_device = 1  # a burst has no idle frames to send
+        use_engine = engine_eligible(self.config, host_tier)
+        # bursts have no idle frames to send: without suppression, stream
+        burstable = self.config.codec.suppress_zero_frames
+        if not burstable:
+            self._burst = 1
+        elif self.config.frame_burst == 0:
+            # the engine fills the wire message budget; the Python host
+            # tier bursts small tables only
+            self._burst = cap if use_engine else _python_tier_auto_burst(spec)
+        else:
+            self._burst = max(1, self.config.frame_burst)
+        self._burst = min(self._burst, cap)  # every peer's receive bound
+        if host_tier or not burstable:
+            self._burst_device = 1
         elif self.config.device_frame_burst == 0:
             self._burst_device = min(16, cap)
         else:
@@ -117,11 +162,29 @@ class SharedTensorPeer:
             keepalive_sec=min(1.0, max(0.05, tcfg.peer_timeout_sec / 4)),
         )
         self.is_master = self.node.is_master
+        # the native engine's links (its receiver consumes their DATA, BURST
+        # and ACK; the Python loops leave them alone)
+        self._engine: Optional[EngineTensor] = None
+        self._engine_links: set[int] = set()
         try:
-            self.st = SharedTensor(template, self.config.codec, seed_values=self.is_master, device=dev)
+            if use_engine:
+                self.st = self._engine = EngineTensor(
+                    template, self.config.codec, seed_values=self.is_master, node=self.node,
+                    burst=self._burst, recv_cap=wire.frame_wire_bytes(spec),
+                    quarantine_send_failures=tcfg.quarantine_send_failures,
+                    ack_timeout_sec=tcfg.ack_timeout_sec, ack_retry_limit=tcfg.ack_retry_limit,
+                    cascade_frames=self.config.codec.cascade_frames,
+                )
+            else:
+                self.st = SharedTensor(
+                    template, self.config.codec, seed_values=self.is_master, device=dev, host_tier=host_tier
+                )
         except BaseException:
             self.node.close()
             raise
+        log.info(
+            "peer on the %s", "native engine" if use_engine else ("Python host tier" if host_tier else f"{dev} tier")
+        )
         # v2 trace stamp (origin node, origin monotonic ns, hops) sent with
         # every DATA/BURST: re-seeded by add(), advanced by each applied
         # traced message. A tuple, assigned whole.
@@ -142,6 +205,7 @@ class SharedTensorPeer:
         self._sent_snapshot = None
         self._mid_handshake_base = None
         self._sealed = False  # leave(): discard incoming data unacknowledged
+        self._paused = False  # pause(): produce no new frames
         self._uplink: Optional[int] = None
         # delivery ledger per link: (ledger seq, wire seq, payload, slot,
         # sent at) in wire-seq order. The send thread appends, the receive
@@ -150,8 +214,9 @@ class SharedTensorPeer:
         self._ack_mu = threading.Lock()
         self._unacked: dict[int, list] = {}
         per = wire.frame_payload_bytes(spec)
+        k_max = max(self._burst_device, self._burst if host_tier else 1)
         self._tx_pool = wire.FramePool(
-            max(wire.DATA_HDR_T + per, wire.BURST_HDR_T + self._burst_device * per),
+            max(wire.DATA_HDR_T + per, wire.BURST_HDR_T + k_max * per),
             keep=max(1, int(self.config.frame_pool_keep)),
         )
         self._tx_seq: dict[int, int] = {}
@@ -175,23 +240,26 @@ class SharedTensorPeer:
         self._data_bytes_in = 0
         self._link_frames_out: dict[int, int] = {}
         self._secs = dict.fromkeys(_TIMERS, 0.0)
-        self._recv_thread = threading.Thread(target=self._recv_loop, daemon=True, name="st-recv")
-        self._send_thread = threading.Thread(target=self._send_loop, daemon=True, name="st-send")
-        self._recv_thread.start()
-        self._send_thread.start()
+        # on the engine, its own sender thread sends on every link
+        self._threads = (threading.Thread(target=self._recv_loop, daemon=True, name="st-recv"),)
+        if self._engine is None:
+            self._threads += (threading.Thread(target=self._send_loop, daemon=True, name="st-send"),)
+        for t in self._threads:
+            t.start()
 
     # -- user API ----------------------------------------------------------------
 
     def read(self) -> Any:
         """A copy of the shared state: the template's tree of torch tensors
-        on this peer's device."""
+        on this peer's device (the CPU on the host tier)."""
         return self.st.read()
 
     def add(self, delta: Any) -> None:
         """Merge an additive update: visible here at once, streamed to every
         peer asynchronously."""
         self.st.add(delta)
-        self._trace_stamp = (self.node.obs_id, time.monotonic_ns(), 0)
+        if self._engine is None:  # the engine stamps inside its add
+            self._trace_stamp = (self.node.obs_id, time.monotonic_ns(), 0)
         self._wake.set()
 
     def wait_ready(self, timeout: float = 30.0) -> None:
@@ -210,19 +278,24 @@ class SharedTensorPeer:
         loses nothing. The pow2 scale flushes subnormal RMS to 0, so after
         long add sequences pass a tiny ``tol`` (1e-30)."""
         deadline = time.time() + timeout
+        # the engine quiesces in microseconds; the Python tiers need the
+        # coarser poll to stay off their state lock
+        poll = 0.005 if self._engine is not None else 0.05
         while time.time() < deadline and not self._stop.is_set():
             links = [l for l in self.st.link_ids if l >= 0]
             if all(self.st.residual_rms(l) <= tol for l in links):
                 stats = [self.node.stats(l) for l in self.node.links]
                 if all(s is None or s.send_queue == 0 for s in stats) and self.st.inflight_total() == 0:
                     return True
-            time.sleep(0.05)
+            time.sleep(poll)
         return False
 
     def leave(self, timeout: float = 60.0, tol: float = 1e-30) -> bool:
         """Graceful exit that loses nothing mid-stream: seal (incoming data
         is discarded unacknowledged, so its senders re-deliver it around
         us), drain what we owe, close. Returns the drain's verdict."""
+        if self._engine is not None:
+            self._engine.seal()
         self._sealed = True
         ok = self.drain(timeout=timeout, tol=tol)
         self.close()
@@ -232,17 +305,34 @@ class SharedTensorPeer:
         """Leave the tree; the other peers re-graft and carry on."""
         self._stop.set()
         self._wake.set()
-        for t in (self._send_thread, self._recv_thread):
+        for t in self._threads:
             t.join(timeout=5.0)
+        if self._engine is not None:
+            # its threads wait inside the node's queues: stop them first
+            self._engine.stop()
         self.node.close()
+        if self._engine is not None:
+            self._engine.destroy()
+
+    def pause(self, paused: bool = True) -> None:
+        """Stop (or resume) producing new frames; what is in flight is
+        still delivered and acknowledged. On the engine this returns once
+        the sender's current pass is over; the Python send loop checks the
+        flag at each link."""
+        self._paused = paused
+        if self._engine is not None:
+            self._engine.pause(paused)
+        if not paused:
+            self._wake.set()
 
     @property
     def ready(self) -> bool:
         return self._ready.is_set()
 
     def threads_alive(self) -> bool:
-        """Both host threads are running."""
-        return self._send_thread.is_alive() and self._recv_thread.is_alive()
+        """The peer's Python threads are running: receive and send, or on
+        the engine receive only."""
+        return all(t.is_alive() for t in self._threads)
 
     def metrics(self) -> dict:
         """Counters under the JAX package's names (``st_frames_*``: non-idle
@@ -253,18 +343,26 @@ class SharedTensorPeer:
         ``st_apply_dropped_total``, ``st_msg_errors_total``,
         ``st_recv_restarts_total``), and the host seconds spent per stage of the data
         path (``st_*_seconds_total``)."""
-        with self._ack_mu:
-            msgs_out = sum(self._acked.values()) + sum(len(v) for v in self._unacked.values())
-            msgs_in = sum(self._rx_count.values())
+        if self._engine is not None:
+            # one counter snapshot: separate reads would mix instants
+            c = self._engine.counters()
+            frames_out, frames_in, updates, msgs_out, msgs_in = (int(x) for x in c[:5])
+            retransmits, dedup = int(c[8]), int(c[9])
+        else:
+            with self._ack_mu:
+                msgs_out = sum(self._acked.values()) + sum(len(v) for v in self._unacked.values())
+                msgs_in = sum(self._rx_count.values())
+            frames_out, frames_in, updates = self.st.frames_out, self.st.frames_in, self.st.updates
+            retransmits, dedup = self._retransmits, self._dedup
         out = {
-            "st_frames_out_total": self.st.frames_out,
-            "st_frames_in_total": self.st.frames_in,
-            "st_updates_total": self.st.updates,
+            "st_frames_out_total": frames_out,
+            "st_frames_in_total": frames_in,
+            "st_updates_total": updates,
             "st_msgs_out_total": msgs_out,
             "st_msgs_in_total": msgs_in,
             "st_inflight_msgs": self.st.inflight_total(),
-            "st_retransmit_msgs_total": self._retransmits,
-            "st_dedup_discards_total": self._dedup,
+            "st_retransmit_msgs_total": retransmits,
+            "st_dedup_discards_total": dedup,
             "st_ctrl_ignored_total": self._ctrl_ignored,
             "st_unknown_msgs_total": self._unknown_msgs,
             "st_apply_dropped_total": self._apply_dropped,
@@ -278,6 +376,12 @@ class SharedTensorPeer:
             "st_apply_lock_wait_seconds_total": self.st.apply_lock_wait_s,
         }
         out.update({f"st_{k}_seconds_total": v for k, v in self._secs.items()})
+        if self._engine is not None:
+            out.update(self._engine.obs_stats())
+            p = self._engine.pool_stats()
+            out["st_tx_slot_acquires_total"] = p["tx_slot_acquires"]
+            out["st_tx_slot_alloc_events_total"] = p["tx_slot_alloc_events"]
+            out["st_tx_slots_allocated"] = p["tx_slots_allocated"]
         for link, n in list(self._link_frames_out.items()):
             out[f'st_link_frames_out_total{{link="{link}"}}'] = n
         for link in self.node.links:
@@ -310,7 +414,10 @@ class SharedTensorPeer:
 
     def _send_loop_inner(self) -> None:
         interval = self.config.sync_interval_sec
-        depth = max(1, int(self.config.send_pipeline_depth))
+        # the host tier's frames are synchronous work: a pipeline would only
+        # hold the state lock longer
+        host = self.st.host_tier
+        depth = 1 if host else max(1, int(self.config.send_pipeline_depth))
         k = self._burst_device
         spec = self.st.spec
         pipe: dict[int, deque] = {}
@@ -327,8 +434,29 @@ class SharedTensorPeer:
                 del pipe[stale]  # the link's drop already rolled its ledger back
                 hot.discard(stale)
             for link in links:
+                if self._paused and not pipe.get(link):
+                    continue  # paused: what is in the pipeline still goes out
                 if self._window_full(link):
                     continue  # residual mass waits until ACKs reopen the window
+                if host and self._burst > 1:
+                    # the host burst: K halvings quantized in one call, one
+                    # message, one ledger entry, one ACK
+                    out = self.st.begin_frame_burst(link, self._burst)
+                    if out is None:
+                        continue  # link dropped concurrently
+                    seq, burst = out
+                    if not burst:
+                        self.st.ack_frame(link, seq)  # idle: a no-op burst
+                        continue
+                    self._link_frames_out[link] = self._link_frames_out.get(link, 0) + len(burst)
+                    payload = self._register_data(
+                        link, seq, lambda buf, s, t: wire.encode_burst_into(burst, spec, s, buf, trace=t)
+                    )
+                    if self._send_blocking(link, payload):
+                        sent_any = True
+                    else:
+                        self.st.nack_frame(link)
+                    continue
                 q = pipe.setdefault(link, deque())
                 # a cold link risks one speculative frame, a hot one keeps
                 # the whole pipeline of fetches in flight
@@ -515,7 +643,18 @@ class SharedTensorPeer:
         spec = self.st.spec
         while not self._stop.is_set():
             busy = self._handle_events()
+            if self._engine is not None:
+                # control messages the engine's receiver handed back
+                while (c := self._engine.poll_ctrl()) is not None:
+                    busy = True
+                    try:
+                        self._on_message(*c)
+                    except Exception:
+                        self._msg_errors += 1
+                        log.exception("dropping message of kind %d on link %d", c[1][0], c[0])
             for link in list(self.node.links):
+                if link in self._engine_links:
+                    continue  # the engine's receiver consumes these
                 # Consecutive DATA/BURST messages of a link go into ONE flood
                 # apply; a control message flushes them first (order). msgs
                 # counts accepted messages (what the ACK acknowledges).
@@ -570,6 +709,10 @@ class SharedTensorPeer:
                     except Exception:
                         self._msg_errors += 1
                         log.exception("dropping message of kind %d on link %d", payload[0], link)
+                    if link in self._engine_links:
+                        # the handshake just gave the link to the engine:
+                        # its next message is the engine's
+                        break
                 self._flush_frames(link, batch, msgs, traced)
                 self._flush_acks(link)  # retry an ACK that met backpressure
             if not busy:
@@ -635,16 +778,21 @@ class SharedTensorPeer:
         return bool(evs)
 
     def _on_link_up(self, ev) -> None:
+        # A child link needs nothing here: its SYNC opens the handshake. The
+        # receive loop reads every link the transport lists, which may be
+        # before the link's LINK_UP is polled, so the child's SYNC and
+        # CHUNKs may already be in: resetting the snapshot buffer here would
+        # make its DONE attach nothing, and the child would never receive
+        # the tree's state.
         if ev.is_uplink:
             self._uplink = ev.link_id
             self._error = None  # a re-graft supersedes an isolation verdict
             self._start_join(ev.link_id)
-        else:
-            self._pending[ev.link_id] = bytearray()  # wait for the child's SYNC
 
     def _on_membership_event(self, ev) -> None:
         if ev.kind == EventKind.LINK_DOWN:
             self._pending.pop(ev.link_id, None)
+            self._engine_links.discard(ev.link_id)
             with self._ack_mu:
                 purged = self._unacked.pop(ev.link_id, ())
                 for d in (self._tx_seq, self._acked, self._rx_count, self._ack_sent, self._ack_progress,
@@ -655,7 +803,10 @@ class SharedTensorPeer:
                 # keep what we owe upward in the live carry slot; if the
                 # handshake never finished there was no codec link, and what
                 # we owe is values - the snapshot we sent (lazily, at re-join)
-                stashed = self.st.stash_carry(ev.link_id, CARRY_LINK)
+                if self._engine is not None:
+                    stashed = self._engine.stash_carry(ev.link_id)
+                else:
+                    stashed = self.st.stash_carry(ev.link_id, CARRY_LINK)
                 if not stashed and self._sent_snapshot is not None:
                     self._mid_handshake_base = self._sent_snapshot
                 self._sent_snapshot = None
@@ -666,7 +817,10 @@ class SharedTensorPeer:
             # the parent died and nobody held the rendezvous: we are the new
             # root; our replica is the authoritative seed, and the carry's
             # mass is already in it
-            self.st.take_link_and_snapshot(CARRY_LINK)
+            if self._engine is not None:
+                self._engine.drop_carry()
+            else:
+                self.st.take_link_and_snapshot(CARRY_LINK)
             self._mid_handshake_base = None
             self._uplink = None
             self.is_master = True
@@ -682,7 +836,10 @@ class SharedTensorPeer:
         """Child side of the handshake: SYNC, then our replica minus what
         we still owe the tree (the carry), so the parent's diff seed never
         erases it. The carry and the snapshot are taken under one lock."""
-        carry, snap = self.st.take_link_and_snapshot(CARRY_LINK)
+        if self._engine is not None:
+            carry, snap = self._engine.take_carry_and_snapshot()
+        else:
+            carry, snap = self.st.take_link_and_snapshot(CARRY_LINK)
         if carry is None and self._mid_handshake_base is not None:
             carry = snap - self._mid_handshake_base
         self._mid_handshake_base = None
@@ -725,16 +882,19 @@ class SharedTensorPeer:
                 # then puts it ahead of our first DATA, which the child would
                 # otherwise apply AND count again in its attach diff
                 self._send_blocking(link, wire.encode_welcome(0))
-                self.st.new_link_diff(link, snap)
+                self._attach_diff(link, snap)
                 self._wake.set()
         elif kind == wire.WELCOME:
             snap, self._sent_snapshot = self._sent_snapshot, None
             if snap is not None:
                 # owed upward: everything the snapshot did not claim (the
                 # carry plus adds and floods during the handshake)
-                self.st.new_link_diff(link, snap)
+                self._attach_diff(link, snap)
+            elif self._engine is not None:  # a duplicate WELCOME
+                self._engine.new_link(link, seed=False, rx_init=self._rx_count.get(link, 0))
+                self._engine_links.add(link)
             else:
-                self.st.new_link(link, seed=False)  # a duplicate WELCOME
+                self.st.new_link(link, seed=False)
             self._ready.set()
             self._wake.set()
         elif kind == wire.REJECT:
@@ -745,6 +905,17 @@ class SharedTensorPeer:
         else:
             self._unknown_msgs += 1
             log.warning("link %d: ignoring message kind %d, which this peer does not speak", link, kind)
+
+    def _attach_diff(self, link: int, snap) -> None:
+        """Open the codec link with residual = replica - ``snap``. On the
+        engine this hands the link's data plane to C, with the count of
+        messages Python already acknowledged on it, so the ACK stream stays
+        monotonic across the handoff."""
+        if self._engine is not None:
+            self._engine.new_link_diff(link, snap, rx_init=self._rx_count.get(link, 0))
+            self._engine_links.add(link)
+        else:
+            self.st.new_link_diff(link, snap)
 
     def _on_sync(self, link: int, payload: bytes) -> None:
         n_leaves, n, digest = wire.decode_sync(payload)
@@ -777,13 +948,15 @@ def create_or_fetch(
     config: Config | None = None,
     timeout: float = 30.0,
     device=None,
+    host_tier: bool = False,
 ) -> SharedTensorPeer:
     """Create the shared tensor at ``host:port`` if nobody owns it yet (the
     master, seeded from ``template``), else join the tree there (``template``
     gives only the layout). Blocks until the node is ready: a master at
     once, a joiner after the state-transfer handshake. ``device=None`` is
-    the GPU and raises without one."""
-    peer = SharedTensorPeer(host, port, template, config, device=device)
+    the GPU and raises without one; ``host_tier=True`` runs on the CPU, on
+    the native engine unless ``config.native_engine`` is False."""
+    peer = SharedTensorPeer(host, port, template, config, device=device, host_tier=host_tier)
     try:
         peer.wait_ready(timeout)
     except BaseException:

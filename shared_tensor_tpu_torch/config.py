@@ -1,14 +1,14 @@
 """Configuration for the PyTorch/CUDA port.
 
 Only what the port reads: the codec (scale policy, per-leaf scales,
-idle-frame suppression), the TCP transport, the peer's send loop and the
-pod mesh's axis names. Names,
+idle-frame suppression, the engine's cascade depth), the TCP transport,
+the peer's send loop and burst sizes, and the native engine switch. Names,
 defaults and meaning are those of ``shared_tensor_tpu.config``, so a port
 peer and a JAX peer built from the same settings produce the same frames
 and join the same tree. Knobs of features the port does not have (the
-reference wire format, link striping, the shared-memory lane, fault
-injection, observability, serving, lifecycle, sharding, the host tier and
-its native engine) are absent, so asking for one is a ``TypeError``.
+reference wire format, link striping, the shared-memory lane, adaptive
+precision (sign2), fault injection, observability, serving, lifecycle,
+sharding) are absent, so asking for one is a ``TypeError``.
 """
 
 from __future__ import annotations
@@ -40,6 +40,11 @@ class CodecConfig:
     #: Skip sending a frame whose scales are all 0 (it is a no-op on every
     #: receiver).
     suppress_zero_frames: bool = True
+    #: Frames the native engine quantizes per memory pass over a residual:
+    #: frame 0's scales are measured, frames 1..k-1 take the halving
+    #: schedule the measured sequence converges to (the scales ride the
+    #: wire, so receivers are oblivious). 1 = re-measure every frame.
+    cascade_frames: int = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,3 +100,16 @@ class Config:
     #: quantized in one call and fetched with one copy. 0 = auto (16, capped
     #: by what every peer sized its receive buffer for); 1 = single frames.
     device_frame_burst: int = 0
+    #: Frames per wire message on the host tier: K successive halvings of a
+    #: link's residual quantized back to back and sent as ONE message, one
+    #: ledger entry and one ACK. 0 = auto (the engine fills the wire
+    #: message budget; the Python host tier bursts small tables only);
+    #: 1 = single frames; K > 1 = K, capped by what every peer sized its
+    #: receive buffer for.
+    frame_burst: int = 0
+    #: Run a host-tier peer's steady-state data plane (quantize, encode,
+    #: send, receive, flood apply, ACK ledger) in the native engine
+    #: (``native/stengine.cpp``, two C threads over the ``stcodec.c``
+    #: loops); Python keeps the handshakes and membership. False selects
+    #: the Python host tier.
+    native_engine: bool = True

@@ -1,12 +1,19 @@
-"""SharedTensor on PyTorch: the process-local replica + per-link codec state,
-device tier.
+"""SharedTensor on PyTorch: the process-local replica + per-link codec state.
 
 The counterpart of ``shared_tensor_tpu/core.py``'s ``SharedTensor``: a full
 replica ``values`` of a table of tensors plus one residual per tree link,
 with the same link operations, in-flight ledger, frame calls and counters.
-The codec runs on ``device`` (the GPU by default) through the two kernels
-of ``ops/codec_cuda.py``; ``device="cpu"`` runs their plain versions and
-exists for tests.
+Two tiers, as in the JAX package:
+
+- the device tier (the default): the codec runs on ``device`` (the GPU by
+  default) through the kernels of ``ops/codec_cuda.py``; ``device="cpu"``
+  runs their plain versions and exists for tests;
+- the host tier (``host_tier=True``, the JAX package's numpy tier, which
+  it selects with ``ST_HOST_CODEC``): replica and residuals are CPU
+  tensors, and the codec is the C loops of ``native/stcodec.c``
+  (``ops/codec_np.py``), run synchronously on zero-copy numpy views of
+  them. Frames are numpy arrays from the start, with no fetch, and a
+  burst is up to K halvings quantized in one call (``begin_frame_burst``).
 
 Where the JAX core swaps immutable arrays, this one updates its buffers in
 place (as the TPU kernels' ``input_output_aliases`` do). So every buffer
@@ -49,7 +56,7 @@ import numpy as np
 import torch
 
 from .config import CodecConfig
-from .ops import codec_cuda
+from .ops import codec_cuda, codec_np
 from .ops.packing import words_from_host, words_to_host
 from .ops.table import (
     TableFrame,
@@ -69,9 +76,15 @@ class DuplicateLink(ValueError):
     """A link id that is already attached."""
 
 
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the GPU; raise if there is none (never carry on on the
-    CPU unasked)."""
+def resolve_device(device=None, host_tier: bool = False) -> torch.device:
+    """``None`` means the GPU, or the CPU for the host tier; raise if there
+    is no GPU (never carry on on the CPU unasked) and for a host tier on
+    anything but the CPU."""
+    if host_tier:
+        dev = torch.device("cpu" if device is None else device)
+        if dev.type != "cpu":
+            raise ValueError(f"the host tier runs on the CPU, not {str(dev)!r}")
+        return dev
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass device='cpu' explicitly for the CPU")
@@ -166,12 +179,18 @@ class SharedTensor:
         codec: CodecConfig | None = None,
         seed_values: bool = False,
         device=None,
+        host_tier: bool = False,
     ):
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, host_tier)
+        self._np = host_tier
         self.spec: TableSpec = make_spec(template)
         self.codec = codec or CodecConfig()
         self._lock = threading.Lock()
-        if seed_values:
+        if host_tier:
+            codec_np.native()  # build (or fail) now, not at the first frame
+        if seed_values and host_tier:
+            self.values = torch.from_numpy(codec_np.flatten_np(template, self.spec))
+        elif seed_values:
             self.values = flatten(template, self.spec, self.device)
         else:
             self.values = self._zeros()
@@ -203,6 +222,15 @@ class SharedTensor:
         self.fetch_wait_s = 0.0
         self.h2d_s = 0.0
         self.apply_lock_wait_s = 0.0
+        # the host tier's stack of received frames that the C loops read
+        # (reused, under the lock)
+        self._rx_np: Optional[tuple[np.ndarray, np.ndarray]] = None
+
+    @property
+    def host_tier(self) -> bool:
+        """True when the codec runs as synchronous host (C) work on the
+        CPU rather than as device work."""
+        return self._np
 
     # -- buffers -----------------------------------------------------------
 
@@ -243,6 +271,8 @@ class SharedTensor:
         fetch = getattr(frame, "fetch", None)
         if fetch is not None:
             out = fetch.wait()
+        elif self._np:
+            out = frame.scales, frame.words  # already host arrays
         else:
             out = _host(frame.scales), words_to_host(frame.words)
         self.fetch_wait_s += time.perf_counter() - t0
@@ -315,7 +345,10 @@ class SharedTensor:
         """Roll back unacknowledged frames by re-applying them (in place)."""
         for entry in frames.values():
             for f in entry:
-                apply_table_many((resid,), f, self.spec)
+                if self._np:
+                    codec_np.apply_table_many_np((resid.numpy(),), f.scales, f.words, self.spec, inplace=True)
+                else:
+                    apply_table_many((resid,), f, self.spec)
         return resid
 
     @property
@@ -333,6 +366,17 @@ class SharedTensor:
         acquisition: the checkpoint primitive."""
         with self._lock:
             return self.values.clone(), {i: r.clone() for i, r in self._links.items()}
+
+    def restore_state(self, values, links: dict) -> None:
+        """Checkpoint restore (the inverse of :meth:`snapshot_all`) under one
+        lock acquisition: the replica, and the residuals of the given links
+        that exist here (and of a carry pseudo-slot, a negative id, which
+        is recreated)."""
+        with self._lock:
+            self.values = self._own(values)
+            for lid, r in links.items():
+                if lid in self._links or lid < 0:
+                    self._links[lid] = self._own(r)
 
     # -- user API ----------------------------------------------------------
 
@@ -371,6 +415,13 @@ class SharedTensor:
 
     def add(self, delta: Any) -> None:
         """Merge an additive update into the replica and every link residual."""
+        if self._np:
+            update = codec_np.flatten_np(delta, self.spec)
+            with self._lock:
+                targets = [t.numpy() for t in (self.values, *self._links.values())]
+                codec_np.accumulate_table_np(targets, update, self.spec, inplace=True)
+                self.updates += 1
+            return
         update = flatten(delta, self.spec, self.device)
         with self._lock:
             accumulate_table((self.values, *self._links.values()), update, self.spec)
@@ -396,13 +447,49 @@ class SharedTensor:
             resid = self._links.get(link_id)
             if resid is None:
                 return None
-            frame, _ = quantize_table(
-                resid, self.spec, self.codec.scale_policy, self.codec.per_leaf_scale
-            )
+            if self._np:
+                r = resid.numpy()
+                scales, words, _ = codec_np.quantize_table_np(
+                    r, self.spec, self.codec.scale_policy, self.codec.per_leaf_scale, out=r
+                )
+                frame = TableFrame(scales, words)
+            else:
+                frame, _ = quantize_table(
+                    resid, self.spec, self.codec.scale_policy, self.codec.per_leaf_scale
+                )
             self._frame_seq += 1
             seq = self._frame_seq
             self._inflight.setdefault(link_id, {})[seq] = (frame,)
         return seq, self._start_fetch(frame)
+
+    def begin_frame_burst(self, link_id: int, k: int) -> Optional[tuple[int, list[TableFrame]]]:
+        """Host tier: up to ``k`` successive halvings of a link's residual in
+        one call, stopping at the first all-zero-scale frame; ONE ledger
+        entry (one wire message, one ACK). Returns (seq, frames), numpy
+        frames ready for the wire (0 frames: the link is idle), or None if
+        the link is gone."""
+        if not self._np:
+            raise RuntimeError("begin_frame_burst is the host tier's; the device tier bursts with "
+                               "begin_frame_burst_device")
+        with self._lock:
+            resid = self._links.get(link_id)
+            if resid is None:
+                return None
+            r = resid.numpy()
+            frames: list[TableFrame] = []
+            for _ in range(k):
+                scales, words, _ = codec_np.quantize_table_np(
+                    r, self.spec, self.codec.scale_policy, self.codec.per_leaf_scale, out=r
+                )
+                if not scales.any():
+                    break  # idle: nothing left the codec can express
+                frames.append(TableFrame(scales, words))
+            self._frame_seq += 1
+            seq = self._frame_seq
+            if frames:
+                self._inflight.setdefault(link_id, {})[seq] = tuple(frames)
+            self.frames_out += len(frames)
+        return seq, frames
 
     def begin_frame_burst_device(self, link_id: int, k: int) -> Optional[tuple[int, DeviceFrame]]:
         """K successive halvings of a link's residual in one call; one
@@ -491,6 +578,8 @@ class SharedTensor:
         all-zero-scale frame is a no-op and counts nowhere."""
         if not _host(frame.scales).any():
             return
+        if self._np:
+            return self._receive_host(link_id, [frame], 1)
         dframe = self._device_frame(frame)
         t0 = time.perf_counter()
         with self._lock:
@@ -503,7 +592,8 @@ class SharedTensor:
         """Apply K queued frames from one link in one pass (their summed
         delta); all-zero-scale frames count nowhere. On a CUDA device the K
         frames are stacked in pinned memory and copied to the device without
-        blocking the host, ahead of the apply on the same stream."""
+        blocking the host, ahead of the apply on the same stream; on the
+        host tier into a reused aligned stack that the C loop reads."""
         if not frames:
             return
         if len(frames) == 1:
@@ -512,6 +602,8 @@ class SharedTensor:
         applied = sum(1 for s in host_scales if s.any())
         if applied == 0:
             return
+        if self._np:
+            return self._receive_host(link_id, frames, applied)
         t0 = time.perf_counter()
         pin = self.device.type == "cuda"
         k = len(frames)
@@ -530,6 +622,26 @@ class SharedTensor:
             apply_table_batch((self.values, *others), stacked, self.spec)
             self.frames_in += applied
 
+    def _receive_host(self, link_id: int, frames: list, applied: int) -> None:
+        """Host tier: the K frames (wire views, possibly unaligned) copied
+        into the reused stack, then one C pass over each target, in place."""
+        k = len(frames)
+        t0 = time.perf_counter()
+        with self._lock:
+            self.apply_lock_wait_s += time.perf_counter() - t0
+            if self._rx_np is None or self._rx_np[0].shape[0] < k:
+                self._rx_np = (
+                    np.empty((k, self.spec.num_leaves), np.float32),
+                    np.empty((k, self.spec.total // 32), np.uint32),
+                )
+            scales, words = self._rx_np[0][:k], self._rx_np[1][:k]
+            for i, f in enumerate(frames):
+                scales[i] = _host(f.scales)
+                words[i] = codec_np._u32(f.words)
+            targets = [r.numpy() for i, r in self._links.items() if i != link_id]
+            codec_np.apply_table_batch_np((self.values.numpy(), *targets), scales, words, self.spec, inplace=True)
+            self.frames_in += applied
+
     # -- introspection -----------------------------------------------------
 
     def state_version(self) -> int:
@@ -541,12 +653,15 @@ class SharedTensor:
             r = self._links.get(link_id)
             if r is None:
                 return 0.0
+            if self._np:
+                r64 = r.numpy().astype(np.float64)
+                return float(np.sqrt(np.dot(r64, r64) / self.spec.total_n))
             r64 = r.to(torch.float64)
             return float(torch.sqrt(torch.dot(r64, r64) / self.spec.total_n))
 
     def __repr__(self) -> str:  # pragma: no cover
         return (
             f"SharedTensor(leaves={self.spec.num_leaves}, n={self.spec.total_n}, "
-            f"device={self.device}, links={list(self._links)}, "
+            f"device={self.device}, host_tier={self._np}, links={list(self._links)}, "
             f"out={self.frames_out}, in={self.frames_in})"
         )

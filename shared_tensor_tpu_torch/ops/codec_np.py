@@ -1,0 +1,369 @@
+"""The host codec: the table codec as synchronous host work over numpy
+arrays, for host-tier peers.
+
+The counterpart of ``shared_tensor_tpu/ops/codec_np.py``. The per-element
+loops are the C loops of ``native/stcodec.c`` (AVX-512 where the CPU has
+it, chosen at run time), compiled by the port (``_build.build_codec``) and
+bound here with ctypes. ``ctypes.CDLL`` releases the GIL for the length of
+every loop call, so a peer's threads and the caller's own work run beside
+them. Where the JAX package falls back to numpy when the library is
+missing, this module raises: a failed build is an error, never a silent
+change of tier.
+
+The ``*_plain`` functions beside them are the port's copy of the JAX
+package's numpy loops, the semantic reference of the C loops; the tests
+and ``chip_smoke.py`` hold the two against each other, and nothing on the
+main path calls them. Sign bits and error feedback are bit-identical given
+the same scales. The C scale pass sums in double over a fixed chunking
+and the numpy one in float32 over a normalised copy, so a scale may land
+one octave off at an exact octave boundary (POW2_RMS) or differ in its
+last bits (RMS, ABS_MEAN); the scale rides the wire, so either is a valid
+codec step.
+
+Arrays are flat padded float32 buffers (``ops/table.py``'s layout) and
+uint32 words. The C loops take only C-contiguous, naturally aligned
+arrays, and a view that is not fails loudly at the call. The port's words
+are int32 bit patterns on the device; they reach the C loops as
+``.numpy().view(np.uint32)`` of contiguous CPU tensors.
+
+``inplace=True`` (apply, accumulate) and ``out=`` (quantize) write the
+result into the given arrays, as the port's device codec does; otherwise
+each call returns new arrays, as the JAX package's does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..config import ScalePolicy
+from .codec import SAT
+from .table import TableSpec, tree_flatten, tree_unflatten
+
+_LIB: Optional[ctypes.CDLL] = None
+_LIB_MU = threading.Lock()
+
+# ALIGNED: the C loops (and their AVX paths) assume natural alignment; a
+# misaligned view (an offset np.frombuffer) must fail here, not reach the
+# library as undefined behaviour.
+_i64p = np.ctypeslib.ndpointer(np.int64, flags="C,ALIGNED")
+_f32p = np.ctypeslib.ndpointer(np.float32, flags="C,ALIGNED")
+_u32p = np.ctypeslib.ndpointer(np.uint32, flags="C,ALIGNED")
+_f64p = np.ctypeslib.ndpointer(np.float64, flags="C")
+_f64p_opt = ctypes.POINTER(ctypes.c_double)
+_I64, _I32 = ctypes.c_int64, ctypes.c_int32
+
+_SIGNATURES = {
+    "stc_scale_partials": [_f32p, _i64p, _i64p, _I64, _f64p, _f64p, _f64p],
+    "stc_quantize": [_f32p, _f32p, _i64p, _i64p, _i64p, _I64, _f32p, _u32p],
+    "stc_apply_frame": [_f32p, _f32p, _i64p, _i64p, _i64p, _I64, _f32p, _u32p],
+    "stc_apply_frames": [_f32p, _f32p, _i64p, _i64p, _i64p, _I64, _I64, _I32, _f32p, _u32p,
+                         _f64p_opt, _f64p_opt, _f64p_opt],
+    "stc_accumulate_update_to": [_f32p, _f32p, _f32p, _i64p, _i64p, _i64p, _I64],
+}
+
+
+def native() -> ctypes.CDLL:
+    """The port's ``libstcodec``, built on first use. Raises if it cannot
+    be built."""
+    global _LIB
+    with _LIB_MU:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(_build.build_codec()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype = None
+                fn.argtypes = argtypes
+            _LIB = lib
+    return _LIB
+
+
+_layout_cache: dict = {}
+
+
+def _leaf_slices(spec: TableSpec):
+    off = 0
+    for n, p in zip(spec.ns, spec.padded):
+        yield off, n, p
+        off += p
+
+
+def _layout(spec: TableSpec):
+    """(offsets, ns, padded) as int64 arrays, cached per spec. Keyed by the
+    spec's value (a frozen dataclass): an id() key could alias a collected
+    spec whose id was reused and hand the C loops another layout."""
+    hit = _layout_cache.get(spec)
+    if hit is None:
+        hit = (
+            np.asarray([off for off, _, _ in _leaf_slices(spec)], np.int64),
+            np.asarray(spec.ns, np.int64),
+            np.asarray(spec.padded, np.int64),
+        )
+        if len(_layout_cache) > 256:
+            _layout_cache.clear()
+        _layout_cache[spec] = hit
+    return hit
+
+
+def _f32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.ascontiguousarray(a, np.float32)
+
+
+def _u32(w) -> np.ndarray:
+    """Packed words as contiguous uint32 (int32 words are viewed, not
+    converted: the bits are the same)."""
+    if isinstance(w, torch.Tensor):
+        w = w.detach().cpu().numpy()
+    w = np.ascontiguousarray(w)
+    if w.dtype == np.int32:
+        return w.view(np.uint32)
+    if w.dtype != np.uint32:
+        raise TypeError(f"packed words must be uint32 or int32, got {w.dtype}")
+    return w
+
+
+def _target(a) -> np.ndarray:
+    """An array the C loops may write in place: C-contiguous float32."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().numpy()
+    if a.dtype != np.float32 or not a.flags.c_contiguous or not a.flags.writeable:
+        raise ValueError("in-place targets must be writable C-contiguous float32 arrays")
+    return a
+
+
+# -- layout --------------------------------------------------------------------
+
+
+def flatten_np(tree: Any, spec: TableSpec) -> np.ndarray:
+    """Pytree (numpy arrays or tensors) -> a NEW padded flat float32 numpy
+    buffer, padding exactly 0. The numpy twin of ``table.flatten``."""
+    leaves, treedef = tree_flatten(tree)
+    if treedef != spec.treedef:
+        raise ValueError(f"tree structure {treedef} does not match spec {spec.treedef}")
+    out = np.zeros(spec.total, np.float32)
+    for (off, n, _), leaf in zip(_leaf_slices(spec), leaves):
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().cpu().numpy()
+        flat = np.ravel(np.asarray(leaf)).astype(np.float32, copy=False)
+        if flat.shape[0] != n:
+            raise ValueError(f"leaf has {flat.shape[0]} elements, spec expects {n}")
+        out[off : off + n] = flat
+    return out
+
+
+def unflatten_np(flat, spec: TableSpec) -> Any:
+    """Inverse of :func:`flatten_np`. The leaves are copies, never views of
+    ``flat``: an edit of a read() result must not reach the replica."""
+    flat = np.asarray(flat)
+    leaves = [flat[off : off + n].copy().reshape(shape) for (off, n, _), shape in zip(_leaf_slices(spec), spec.shapes)]
+    return tree_unflatten(spec.treedef, leaves)
+
+
+# -- the C loops ---------------------------------------------------------------
+
+
+def _pow2_floor(x: np.ndarray) -> np.ndarray:
+    """2^floor(log2(x)) by clearing the f32 mantissa (exact)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0x7F800000)).view(np.float32)
+
+
+def compute_scales_np(
+    residual, spec: TableSpec, policy: ScalePolicy = ScalePolicy.POW2_RMS, per_leaf: bool = True
+) -> np.ndarray:
+    """Per-leaf scales from one fused C pass of per-leaf max |r|, sum of
+    squares and sum of |r| in double (overflow-safe without normalising);
+    a leaf whose max is 0 or whose scale is not finite gets 0."""
+    r = _f32(residual)
+    offs, ns_arr, _ = _layout(spec)
+    L = spec.num_leaves
+    amax, ss, sabs = np.zeros(L), np.zeros(L), np.zeros(L)
+    native().stc_scale_partials(r, offs, ns_arr, L, amax, ss, sabs)
+    ns = np.asarray(spec.ns, np.float64)
+    if not per_leaf:
+        amax = np.full(L, amax.max())
+        ss = np.full(L, ss.sum())
+        sabs = np.full(L, sabs.sum())
+        ns = np.full(L, float(spec.total_n))
+    if policy == ScalePolicy.ABS_MEAN:
+        s = (sabs / ns).astype(np.float32)
+    else:
+        rms = np.sqrt(ss / ns).astype(np.float32)
+        s = _pow2_floor(rms) if policy == ScalePolicy.POW2_RMS else rms
+    return np.where((amax > 0) & np.isfinite(s), s, 0.0).astype(np.float32)
+
+
+def quantize_table_np(
+    residual,
+    spec: TableSpec,
+    policy: ScalePolicy = ScalePolicy.POW2_RMS,
+    per_leaf: bool = True,
+    out: Optional[np.ndarray] = None,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Sender step: (scales f32[L], words u32[total // 32], new residual).
+    A bit is set iff r <= 0; the residual moves by -+ its leaf's scale on
+    live lanes of leaves with a nonzero scale; padding stays 0. ``out`` (may
+    be ``residual`` itself) receives the new residual."""
+    r = _f32(residual)
+    scales = compute_scales_np(r, spec, policy, per_leaf)
+    offs, ns, padded = _layout(spec)
+    new_r = np.empty(spec.total, np.float32) if out is None else _target(out)
+    words = np.empty(spec.total // 32, np.uint32)  # the C loop writes every word
+    native().stc_quantize(r, new_r, offs, ns, padded, spec.num_leaves, scales, words)
+    return scales, words, new_r
+
+
+def apply_table_batch_np(
+    arrays, scales, words, spec: TableSpec, inplace: bool = False
+) -> tuple[np.ndarray, ...]:
+    """Receiver step: K stacked frames (scales f32[K, L], words u32[K, W])
+    applied to every array (the replica and the other links' residuals), in
+    one pass over each: clip(a + sum over k of s_k * (1 - 2 * bit_k)) on live
+    lanes, padding copied. K = 1 takes the single-frame loop."""
+    srows = np.ascontiguousarray(scales, np.float32).reshape(-1, spec.num_leaves)
+    wrows = _u32(words).reshape(srows.shape[0], -1)
+    k = srows.shape[0]
+    offs, ns, padded = _layout(spec)
+    lib = native()
+    out = []
+    for a in arrays:
+        if inplace:
+            src = dst = _target(a)
+        else:
+            src, dst = _f32(a), np.empty(spec.total, np.float32)
+        if k == 1:
+            lib.stc_apply_frame(src, dst, offs, ns, padded, spec.num_leaves, srows[0], wrows[0])
+        else:
+            lib.stc_apply_frames(src, dst, offs, ns, padded, spec.num_leaves, spec.total // 32, k,
+                                 srows, wrows, None, None, None)
+        out.append(dst)
+    return tuple(out)
+
+
+def apply_table_many_np(arrays, scales, words, spec: TableSpec, inplace: bool = False) -> tuple[np.ndarray, ...]:
+    """One frame (scales f32[L], words u32[W]) applied to every array."""
+    return apply_table_batch_np(arrays, np.reshape(scales, (1, -1)), _u32(words).reshape(1, -1), spec, inplace)
+
+
+def accumulate_table_np(arrays, update, spec: TableSpec, inplace: bool = False) -> tuple[np.ndarray, ...]:
+    """a += u into the replica and every link residual, in one pass each:
+    clip(a + u) on live lanes with u's NaN taken as 0 and its infinities
+    as +-3e38, padding copied from a."""
+    offs, ns, padded = _layout(spec)
+    u = _f32(update)
+    lib = native()
+    out = []
+    for a in arrays:
+        if inplace:
+            src = dst = _target(a)
+        else:
+            src, dst = _f32(a), np.empty(spec.total, np.float32)
+        lib.stc_accumulate_update_to(dst, src, u, offs, ns, padded, spec.num_leaves)
+        out.append(dst)
+    return tuple(out)
+
+
+# -- the plain numpy versions (tests and chip_smoke only) --------------------------
+
+
+def _scale_per_element(scales, spec: TableSpec) -> np.ndarray:
+    s = np.empty(spec.total, np.float32)
+    for i, (off, _, p) in enumerate(_leaf_slices(spec)):
+        s[off : off + p] = scales[i]
+    return s
+
+
+def _live_mask(spec: TableSpec) -> np.ndarray:
+    m = np.zeros(spec.total, bool)
+    for off, n, _ in _leaf_slices(spec):
+        m[off : off + n] = True
+    return m
+
+
+def compute_scales_plain(
+    residual, spec: TableSpec, policy: ScalePolicy = ScalePolicy.POW2_RMS, per_leaf: bool = True
+) -> np.ndarray:
+    """The numpy scale pass: each leaf normalised by its max |r| before the
+    float32 sums (overflow-safe)."""
+    residual = np.asarray(residual, np.float32)
+    segs = list(_leaf_slices(spec)) if per_leaf else [(0, spec.total_n, None)]
+    out = np.zeros(len(segs), np.float32)
+    for i, (off, n, _) in enumerate(segs):
+        live = residual[off : off + n] if per_leaf else residual  # padding is 0
+        amax = np.float32(np.max(np.abs(live))) if live.size else np.float32(0)
+        if not (amax > 0) or not np.isfinite(amax):
+            continue
+        norm = live.astype(np.float32) / amax
+        if policy == ScalePolicy.ABS_MEAN:
+            s = amax * np.float32(np.sum(np.abs(norm), dtype=np.float32) / np.float32(n))
+        else:
+            rms = amax * np.float32(np.sqrt(np.sum(norm * norm, dtype=np.float32) / np.float32(n)))
+            s = _pow2_floor(rms)[()] if policy == ScalePolicy.POW2_RMS else rms
+        out[i] = s if np.isfinite(s) else 0.0
+    if not per_leaf:
+        out = np.full(spec.num_leaves, out[0], np.float32)
+    return out
+
+
+def quantize_table_plain(
+    residual,
+    spec: TableSpec,
+    policy: ScalePolicy = ScalePolicy.POW2_RMS,
+    per_leaf: bool = True,
+    scales: Optional[np.ndarray] = None,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The numpy sender step; ``scales`` quantizes at given scales (to hold
+    the C loop's bits against this one's when the scale passes differ)."""
+    r = np.asarray(residual, np.float32)
+    if scales is None:
+        scales = compute_scales_plain(r, spec, policy, per_leaf)
+    scales = np.asarray(scales, np.float32)
+    live = _live_mask(spec)
+    s_el = _scale_per_element(scales, spec)
+    neg = r <= 0
+    words = np.packbits(neg & live, bitorder="little").view("<u4").astype(np.uint32)
+    sent = np.where(neg, -s_el, s_el)
+    new_r = np.where(live & (s_el > 0), r - sent, np.where(live, r, 0.0)).astype(np.float32)
+    return scales, words, new_r
+
+
+def apply_table_batch_plain(arrays, scales, words, spec: TableSpec) -> tuple[np.ndarray, ...]:
+    """The numpy receiver step: the K frames' deltas summed in one float32
+    buffer in frame order, then clip(a + delta) per array, padding 0."""
+    scales = np.asarray(scales, np.float32).reshape(-1, spec.num_leaves)
+    words = _u32(words).reshape(scales.shape[0], -1)
+    delta = np.zeros(spec.total, np.float32)
+    live = _live_mask(spec)
+    for row, wrow in zip(scales, words):
+        if not row.any():
+            continue  # a zero-scale frame contributes nothing
+        bits = np.unpackbits(np.ascontiguousarray(wrow).view(np.uint8), bitorder="little")[: spec.total]
+        delta += _scale_per_element(row, spec) * (1.0 - 2.0 * bits.astype(np.float32))
+    delta[~live] = 0.0
+    out = []
+    for a in arrays:
+        v = np.clip(np.asarray(a, np.float32) + delta, -SAT, SAT)
+        v[~live] = 0.0
+        out.append(v)
+    return tuple(out)
+
+
+def apply_table_many_plain(arrays, scales, words, spec: TableSpec) -> tuple[np.ndarray, ...]:
+    return apply_table_batch_plain(arrays, np.reshape(scales, (1, -1)), _u32(words).reshape(1, -1), spec)
+
+
+def accumulate_table_plain(arrays, update, spec: TableSpec) -> tuple[np.ndarray, ...]:
+    """The numpy add: sanitised u (padding 0, NaN 0, infinities +-3e38)
+    added to each array, clipped to +-3e38."""
+    live = _live_mask(spec)
+    u = np.asarray(update, np.float32).copy()
+    u[~live] = 0.0
+    np.nan_to_num(u, copy=False, nan=0.0, posinf=SAT, neginf=-SAT)
+    return tuple(np.clip(np.asarray(a, np.float32) + u, -SAT, SAT) for a in arrays)

@@ -86,6 +86,7 @@ class HierarchicalTrainer:
         peer_config=None,
         timeout: float = 30.0,
         pod_sync_every: int = 1,
+        host_tier: bool = False,
         **pod_kwargs,
     ) -> "HierarchicalTrainer":
         """``create_or_fetch`` at pod granularity, on every rank of the pod:
@@ -95,7 +96,9 @@ class HierarchicalTrainer:
         bridge's record of what the pod has seen. Codec frames keep arriving
         after ``create_or_fetch`` returns (a joiner returns mid state
         transfer), so a second snapshot would count as seen frames the pod
-        never got. The peer lives on the mesh's device.
+        never got. The peer lives on the mesh's device, or with
+        ``host_tier`` on the host tier (the CPU; the native engine unless
+        ``peer_config.native_engine`` is False), whatever the mesh's device.
 
         ``sync_every`` is pod steps between TREE exchanges;
         ``pod_sync_every`` is pod steps between the pod's own sync steps
@@ -105,8 +108,9 @@ class HierarchicalTrainer:
         peer = snap = err = None
         if _is_bridge(mesh):
             try:
-                peer = create_or_fetch(host, port, template, peer_config, timeout, device=mesh.device)
-                snap = peer.st.snapshot_flat()
+                peer = create_or_fetch(host, port, template, peer_config, timeout,
+                                       device=None if host_tier else mesh.device, host_tier=host_tier)
+                snap = peer.st.snapshot_flat().to(mesh.device)
             except Exception as e:  # raised below, after every rank has heard
                 err = e
         if not all_true(mesh, err is None):
@@ -184,7 +188,7 @@ class HierarchicalTrainer:
         if self.is_bridge:
             # pull: tree progress since last seen (our own pushes are in
             # _peer_seen already, through the bookkeeping below)
-            snap = self.peer.st.snapshot_flat()
+            snap = self.peer.st.snapshot_flat().to(mean.device)
             incoming = snap - self._peer_seen
             self._mark("snapshot")
             # push: pod progress since the last push. Through the peer's

@@ -2,9 +2,10 @@
 ``shared_tensor_tpu/utils/checkpoint.py``: a JAX checkpoint restores into
 the port and a port checkpoint into the JAX package.
 
-- :func:`save_shared` / :func:`load_shared`: a peer-tier ``SharedTensor``,
-  the replica and every link residual in one ``.npz`` (keys ``values``,
-  ``link_<id>``, ``layout``, ``meta``).
+- :func:`save_shared` / :func:`load_shared`: a peer-tier ``SharedTensor``
+  (either tier) or a peer's native ``EngineTensor``, the replica and every
+  link residual in one ``.npz`` (keys ``values``, ``link_<id>``,
+  ``layout``, ``meta``).
 - :func:`save_pod` / :func:`load_pod` and :func:`save_trainer` /
   :func:`load_trainer`: a pod's state (and a ``PodTrainer``'s step count and
   optimizer state) as ``[n_peer, total]`` arrays in one ``.npz``, the shape
@@ -77,7 +78,9 @@ def _host(t: torch.Tensor) -> np.ndarray:
 def save_shared(st: SharedTensor, path: str) -> None:
     """Snapshot a peer-tier SharedTensor: the replica and every link
     residual, taken under one lock (``snapshot_all``) so that no frame
-    tears the error-feedback invariant between them."""
+    tears the error-feedback invariant between them. On an EngineTensor
+    the capture is one ``snapshot_ex`` under the engine's lock (the carry
+    included, as link -1)."""
     values, links = st.snapshot_all()
     arrays = {"values": _host(values), "layout": _u8(st.spec.layout_digest())}
     for lid, r in links.items():
@@ -87,11 +90,12 @@ def save_shared(st: SharedTensor, path: str) -> None:
 
 
 def load_shared(st: SharedTensor, path: str) -> None:
-    """Restore into an existing SharedTensor of the same layout. Residuals
-    are restored for the links of the file that exist here; links opened
-    since keep theirs. The carry pseudo-slot (a negative id, the peer's
-    ``CARRY_LINK``) is recreated unconditionally: dropping it would present
-    the restored mass as known to the tree at the next handshake."""
+    """Restore into an existing SharedTensor (or EngineTensor) of the same
+    layout. Residuals are restored for the links of the file that exist
+    here; links opened since keep theirs. The carry pseudo-slot (a negative
+    id, the peer's ``CARRY_LINK``) is recreated unconditionally: dropping it
+    would present the restored mass as known to the tree at the next
+    handshake."""
     with np.load(path) as z:
         if z["layout"].tobytes() != st.spec.layout_digest():
             raise ValueError(
@@ -100,11 +104,7 @@ def load_shared(st: SharedTensor, path: str) -> None:
             )
         values = z["values"]
         links = {lid: z[f"link_{lid}"] for lid in _meta(z).get("links", []) if f"link_{lid}" in z}
-    with st._lock:
-        st.values = st._own(values)
-        for lid, r in links.items():
-            if lid in st._links or lid < 0:
-                st._links[lid] = st._own(r)
+    st.restore_state(values, links)
 
 
 # -- the pod tier: one file ------------------------------------------------------

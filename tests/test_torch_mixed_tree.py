@@ -7,7 +7,10 @@ joiner, and a chain JAX - port - JAX (the JAX master takes one child, so
 the third peer is redirected below the port peer). Each runs with the JAX
 peers on each of their tiers: the native engine (the default on a CPU
 host), the Python host tier (``native_engine=False``) and the device tier
-(``ST_HOST_CODEC=xla``). Port peers run on device="cpu".
+(``ST_HOST_CODEC=xla``). Port peers run on their device tier
+(device="cpu"), and in a second set on their host tier: the native engine
+(the default there) and the Python host tier (``native_engine=False``). A
+last tree mixes the port's three tiers with a JAX engine peer.
 
 Tolerance: test_peer.py's, rtol 1e-4 and atol 1e-6. Every wait has its
 own deadline."""
@@ -28,6 +31,7 @@ from tests._ports import free_port
 from tests.test_torch_peer import _leaves, wait_converged
 
 TIERS = ("engine", "host", "device")
+PORT_HOST_TIERS = ("engine", "host")
 TOPOLOGIES = ("jax_master", "torch_master", "jax_torch_jax")
 TORCH_CFG = Config(transport=TransportConfig(peer_timeout_sec=10.0))
 
@@ -51,6 +55,14 @@ def _check_tier(p, tier):
         assert p._engine is None and p.st.host_tier == (tier == "host")
 
 
+def _torch_peer(port, template, tier):
+    """A port peer on ``tier``: device (device="cpu"), engine or host."""
+    if tier == "device":
+        return create_or_fetch("127.0.0.1", port, template, TORCH_CFG, device="cpu")
+    cfg = Config(transport=TORCH_CFG.transport, native_engine=tier == "engine")
+    return create_or_fetch("127.0.0.1", port, template, cfg, host_tier=True)
+
+
 def _seed():
     return {"w": np.ones((16, 8), np.float32), "b": np.arange(8, dtype=np.float32)}
 
@@ -62,6 +74,17 @@ def _zeros(tree):
 @pytest.mark.parametrize("tier", TIERS)
 @pytest.mark.parametrize("topology", TOPOLOGIES)
 def test_mixed_tree_converges(topology, tier, monkeypatch):
+    _converge(topology, tier, "device", monkeypatch)
+
+
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("topology", TOPOLOGIES)
+@pytest.mark.parametrize("port_tier", PORT_HOST_TIERS)
+def test_mixed_tree_converges_port_host_tier(port_tier, topology, tier, monkeypatch):
+    _converge(topology, tier, port_tier, monkeypatch)
+
+
+def _converge(topology, tier, port_tier, monkeypatch):
     if tier == "device":
         monkeypatch.setenv("ST_HOST_CODEC", "xla")
     port = free_port()
@@ -69,18 +92,19 @@ def test_mixed_tree_converges(topology, tier, monkeypatch):
     peers = []
     try:
         if topology == "torch_master":
-            peers.append(create_or_fetch("127.0.0.1", port, seed, TORCH_CFG, device="cpu"))
+            peers.append(_torch_peer(port, seed, port_tier))
             peers.append(jax_create_or_fetch("127.0.0.1", port, _zeros(seed), _jax_cfg(tier)))
             jax_peers, torch_peer = peers[1:], peers[0]
         else:
             chain = topology == "jax_torch_jax"
             peers.append(jax_create_or_fetch("127.0.0.1", port, seed, _jax_cfg(tier, 1 if chain else 2)))
-            peers.append(create_or_fetch("127.0.0.1", port, _zeros(seed), TORCH_CFG, device="cpu"))
+            peers.append(_torch_peer(port, _zeros(seed), port_tier))
             if chain:
                 peers.append(jax_create_or_fetch("127.0.0.1", port, _zeros(seed), _jax_cfg(tier)))
             jax_peers, torch_peer = [peers[0], *peers[2:]], peers[1]
         for p in jax_peers:
             _check_tier(p, tier)
+        _check_tier(torch_peer, port_tier)
         if topology == "jax_torch_jax":
             # the third peer hangs below the port peer: its traffic crosses it
             deadline = time.time() + 30
@@ -99,6 +123,36 @@ def test_mixed_tree_converges(topology, tier, monkeypatch):
         assert m["st_frames_in_total"] > 0 and m["st_frames_out_total"] > 0
         assert m["st_unknown_msgs_total"] == 0
         assert torch_peer.threads_alive() and torch_peer._error is None
+    finally:
+        for p in reversed(peers):
+            p.close()
+
+
+def test_port_tiers_and_a_jax_engine_in_one_tree():
+    """A port device-tier master, a port engine peer, a port Python
+    host-tier peer and a JAX engine peer (the fourth below the master's two
+    children): every replica converges."""
+    port = free_port()
+    seed = _seed()
+    peers = []
+    try:
+        peers.append(_torch_peer(port, seed, "device"))
+        peers.append(_torch_peer(port, _zeros(seed), "engine"))
+        peers.append(_torch_peer(port, _zeros(seed), "host"))
+        peers.append(jax_create_or_fetch("127.0.0.1", port, _zeros(seed), _jax_cfg("engine")))
+        for p, tier in zip(peers, ("device", "engine", "host", "engine")):
+            _check_tier(p, tier)
+        wait_converged(peers, seed, timeout=60.0)
+        rng = np.random.default_rng(7)
+        total = seed
+        for p in peers:
+            delta = {k: rng.uniform(-1, 1, v.shape).astype(np.float32) for k, v in seed.items()}
+            p.add(delta)
+            total = {k: total[k] + delta[k] for k in total}
+        wait_converged(peers, total, timeout=60.0)
+        for p in peers[:3]:
+            m = p.metrics()
+            assert m["st_unknown_msgs_total"] == 0 and p.threads_alive() and p._error is None
     finally:
         for p in reversed(peers):
             p.close()

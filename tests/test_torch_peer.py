@@ -252,6 +252,33 @@ def test_graceful_leave_loses_nothing():
             p.close()
 
 
+def test_child_handshake_survives_a_late_link_up_event():
+    """The receive loop may read a new child's SYNC and CHUNKs before the
+    link's LINK_UP event is polled. That event must not reset the
+    snapshot being received: the DONE opens the link with residual =
+    replica - the child's snapshot, so the child receives the tree's
+    state."""
+    from shared_tensor_tpu_torch.comm.transport import Event, EventKind
+
+    rng = np.random.default_rng(3)
+    seed = rng.normal(size=(64, 40)).astype(np.float32)
+    with create_or_fetch("127.0.0.1", free_port(), seed, CFG, device=CPU) as m:
+        spec = m.st.spec
+        snap = np.zeros(spec.total, np.float32)
+        snap[: seed.size] = rng.normal(size=seed.size)
+        link = 1000  # not a transport link: the WELCOME's send fails, the handshake goes on
+        m._on_message(link, wire.encode_sync(spec))
+        chunks = list(wire.encode_snapshot_chunks(snap))
+        for chunk in chunks[:-1]:
+            m._on_message(link, chunk)
+        m._on_link_up(Event(EventKind.LINK_UP, link, False))
+        m._on_message(link, chunks[-1])  # DONE
+        _, links = m.st.snapshot_all()
+        assert link in links
+        want = m.st.snapshot_flat().numpy() - snap
+        np.testing.assert_array_equal(links[link].numpy(), want)
+
+
 def test_spec_mismatch_rejected():
     """A joiner with another table layout fails loudly at join time."""
     port = free_port()
@@ -347,6 +374,12 @@ def test_device_none_needs_a_gpu():
 
 
 def test_unported_config_knobs_are_type_errors():
-    for kw in ({"native_engine": False}, {"frame_burst": 4}, {"faults": None}, {"obs": None}):
+    cases = (
+        (CodecConfig, {"adaptive_precision": True}),
+        (TransportConfig, {"wire_compat": True}),
+        (Config, {"faults": None}),
+        (Config, {"obs": None}),
+    )
+    for cls, kw in cases:
         with pytest.raises(TypeError):
-            Config(**kw)
+            cls(**kw)

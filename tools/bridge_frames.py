@@ -1,14 +1,16 @@
 """The bridge's overhead and its link's frames/s: the JAX bench against the
 port's, on one host's CPU.
 
-    python tools/bridge_frames.py --impl jax|port
+    python tools/bridge_frames.py --impl jax|port [--host-tier]
 
 ``--impl jax`` runs the root ``benchmarks/hierarchical_bench.py`` (two pods
 of 4 virtual CPU devices, one process each, bridged by the JAX package's
 peer on its native engine); ``--impl port`` runs
 ``shared_tensor_tpu_torch.benchmarks.hierarchical --device cpu --small``
 (two pods of 2 gloo ranks at the same model width, batch and rate, bridged
-by the port's peer on the CPU). Each bench runs unchanged, except that
+by the port's peer on the CPU: its Python device-tier peer on
+``device="cpu"``, or with ``--host-tier`` its host tier on the native
+engine, the JAX bench's configuration). Each bench runs unchanged, except that
 every bridge's ``HierarchicalTrainer.step`` is wrapped to read its peer's
 ``st_frames_out_total`` after each step. It prints the bench's own
 line, then one line with the frames/s of each bridge over each bridged
@@ -91,6 +93,7 @@ def arms_frames_per_s(lines: list[dict], warmup: int) -> list[dict]:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--impl", choices=("port", "jax"), required=True)
+    ap.add_argument("--host-tier", action="store_true", help="port bridge peers on the host tier (native engine)")
     args = ap.parse_args()
     os.environ["BRIDGE_FRAMES_IMPL"] = args.impl
     with tempfile.TemporaryDirectory() as tmp:
@@ -105,12 +108,14 @@ def main() -> None:
         else:
             from shared_tensor_tpu_torch.benchmarks import hierarchical
 
-            hierarchical.main(["--device", "cpu", "--small", "--steps", str(PORT_STEPS)])
+            hierarchical.main(["--device", "cpu", "--small", "--steps", str(PORT_STEPS)]
+                              + (["--host-tier"] if args.host_tier else []))
             warmup = hierarchical.WARMUP
         sys.stdout.flush()
         with open(out) as f:
             lines = [json.loads(x) for x in f]
-    print(json.dumps({"impl": args.impl, "bridges": arms_frames_per_s(lines, warmup)}), flush=True)
+    print(json.dumps({"impl": args.impl, "host_tier": args.host_tier, "bridges": arms_frames_per_s(lines, warmup)}),
+          flush=True)
 
 
 if __name__ == "__main__":
