@@ -132,6 +132,34 @@ Phases, in order; any failure exits non-zero:
    plain versions on the master's state, A as a burst of as many frames as
    one BURST carries on this table and B with those frames into N = 2
    targets (its replica and a link's residual), 0 mismatches required.
+13. The serving path on BASELINE config 2's table (the default CharRNNConfig,
+   9 leaves, 3,870,976 parameters, its init from --seed redrawn with
+   power-of-two bounds, benchmarks/serve.tables): a CUDA device-tier
+   master (max_children 3), an engine writer (host_tier=True) below it,
+   subscriber S1 on the whole table and S2 on the embedding leaf's element
+   range, both below the master (each node's parent, each subscriber's
+   seed time and buffered bytes reported; S2 must buffer only its pages).
+   The engine writer adds a seeded power-of-two update and drains it, the
+   subscribers catch up, then the master adds its own; each subscriber
+   waits until it is fresh past an epoch taken after that last add (the
+   time reported), then reads within 1 s of staleness and must agree with
+   the master's read() per leaf within AGREE_REL. S1's ServingHandle on the card: refresh ms,
+   params() the same object between refreshes, and a char-RNN forward on
+   a pangram batch with the handle's params and the master's (largest
+   logit difference; a non-finite logit fails; the handle's logits must
+   equal those of S1's read() on the card bit for bit). Then 2 x
+   fresh_interval_sec idle (S1's staleness must stay within the interval
+   plus SERVE_IDLE_SLACK), and a 1 s read arm of
+   benchmarks/serve.read_arm while the engine writer adds at SERVE_ADD_HZ
+   (reads/s, p50/p99 staleness, refused fraction). Last, sgd_arm: the
+   master adds one SGD step of the char-RNN (bounds no powers of two) and
+   S1 is read at the 1 s bound for SERVE_SGD_ARM_S s with no more writes
+   (refused fraction, staleness, time to a FRESH past the step or None,
+   frames applied, S1's distance from the master; S1 must have taken in
+   most of the step). The launches of A and B
+   in the phase (both > 0), then A and B against their plain versions on
+   the master's state (tree_kernel_check), 0 mismatches required; the
+   subscriber's host ms per applied frame. One {"serve": ...} line.
 The transport, the host codec and the engine (native/sttransport.cpp,
 stcodec.c, stengine.cpp) are compiled with g++ and gcc in phase 1, beside
 the kernels. Every rank's full results of phases 9, 10 and 11 go to
@@ -151,6 +179,7 @@ import os
 import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1690,9 +1719,9 @@ def mixed_tier_tree(template, device, seed: int, deadline_s: float = 30.0) -> di
             "worst_rel_err": err, "window_s": window, "per_peer": per_peer}, master
 
 
-def tree_kernel_check(master, spec) -> dict:
-    """Kernels A and B against their plain versions on 12b's master, at the
-    shapes its engine children give it: A as a burst of K = the most frames
+def tree_kernel_check(master, spec, tag: str = "12b") -> dict:
+    """Kernels A and B against their plain versions on a tree's CUDA master
+    (12b's, 13's), at the shapes an engine child gives it: A as a burst of K = the most frames
     one BURST carries for this table (the engine's cascade burst), on the
     master's own update with its codec's scale policy; B with those K frames
     into N = 2 targets, the master's replica and one link's residual (a
@@ -1716,10 +1745,264 @@ def tree_kernel_check(master, spec) -> dict:
         "apply_rows_batch": {"mismatches": sum(_bitdiff(x, y) for x, y in zip(a_k, a_p)),
                              "max_abs_err": max(_maxerr(x, y) for x, y in zip(a_k, a_p)), "k": k, "n": 2},
     }
-    print(f"[12b] A quantize_rows, a burst of K={k} ({live} frames with a nonzero scale): mismatches "
+    print(f"[{tag}] A quantize_rows, a burst of K={k} ({live} frames with a nonzero scale): mismatches "
           f"{out['quantize_rows']['mismatches']}; B apply_rows_batch K={k} N=2: mismatches "
           f"{out['apply_rows_batch']['mismatches']}")
     return out
+
+
+# -- phase 13 -------------------------------------------------------------------
+
+#: Phase 13: seconds an idle subscriber's staleness may exceed the FRESH
+#: interval (the writer's send loop sleeps up to 50 ms between passes, and
+#: the mark waits behind whatever the subscriber is applying).
+SERVE_IDLE_SLACK = 0.25
+#: Phase 13's read arm: adds per second of the engine writer.
+SERVE_ADD_HZ = 10.0
+#: Phase 13's last arm: the SGD step's learning rate (the trainer's default)
+#: and the seconds S1 is read at the 1 s bound after it.
+SERVE_SGD_LR = 1e-2
+SERVE_SGD_ARM_S = 2.5
+SERVE_BATCH = 8  # phase 13's forward: sequences of CHAR_SEQ tokens
+
+
+def _rel_err(a: np.ndarray, b: np.ndarray) -> float:
+    """max |a - b| / max |b| (0 when b is all zero)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    mag = float(np.abs(b).max()) if b.size else 0.0
+    return float(np.abs(a - b).max()) / mag if mag > 0 else float(np.abs(a - b).max())
+
+
+def serve_tree(cfg_m, device, seed: int, deadline_s: float = 30.0) -> tuple[dict, tuple]:
+    """Phase 13 (module docstring) on the table of the char-RNN ``cfg_m``
+    (benchmarks/serve.tables' data): the tree, the writes, the reads, the handle and
+    the read arm. Returns the report and the master's state for
+    tree_kernel_check."""
+    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch, serve
+    from shared_tensor_tpu_torch.benchmarks import serve as serve_bench
+    from shared_tensor_tpu_torch.config import ServeConfig
+    from shared_tensor_tpu_torch.examples.train_char_rnn import PANGRAM
+    from shared_tensor_tpu_torch.models import char_rnn as m
+    from shared_tensor_tpu_torch.ops import codec_np
+    from shared_tensor_tpu_torch.ops.table import flatten, make_spec, tree_flatten, tree_unflatten
+
+    template, seed_tree, deltas = serve_bench.tables(cfg_m, seed)
+    spec = make_spec(template)
+    leaves_t = tree_flatten(template)[0]
+    embed = next(i for i, x in enumerate(leaves_t) if x is template["embed"])
+    offs = codec_np._layout(spec)[0]
+    rng_embed = (int(offs[embed]), int(offs[embed]) + spec.ns[embed])
+    leaves = [np.asarray(x, np.float64) for x in tree_flatten(seed_tree)[0]]
+    for d in deltas:
+        for j, x in enumerate(tree_flatten(d)[0]):
+            leaves[j] += x
+    target = flatten(tree_unflatten(spec.treedef, [x.astype(np.float32) for x in leaves]), spec, device)
+    mag = torch.tensor([np.abs(x).max() for x in leaves], dtype=torch.float64, device=device)
+    scfg = ServeConfig()
+    cfg = Config(transport=TransportConfig(peer_timeout_sec=30.0, max_children=3))
+    port = _free_port()
+    peers, subs, out = [], [], {}
+    try:
+        t0 = time.perf_counter()
+        peers.append(create_or_fetch("127.0.0.1", port, seed_tree, cfg, timeout=60.0, device=device))
+        peers.append(create_or_fetch("127.0.0.1", port, template, cfg, timeout=60.0, host_tier=True))
+        out["writers_join_s"] = time.perf_counter() - t0
+        master, writer = peers
+        if writer._engine is None or master.st.device.type != torch.device(device).type:
+            raise AssertionError(f"phase 13: the master must be a {device} peer and the writer an engine peer")
+        seed_s = []
+        for rng in (None, rng_embed):
+            t1 = time.perf_counter()
+            subs.append(serve.subscribe("127.0.0.1", port, template, Config(transport=cfg.transport,
+                                        serve=ServeConfig(range=rng)), timeout=60.0))
+            seed_s.append(time.perf_counter() - t1)
+        s1, s2 = subs
+        mm = master.metrics()
+        if len(master.node.links) != 3 or mm["st_sub_links"] != 2 or writer._uplink is None:
+            raise AssertionError(f"phase 13: the writer and both subscribers must hang off the master: "
+                                 f"{len(master.node.links)} links, {mm['st_sub_links']} subscriber links")
+        out["tree"] = {"master": f"root ({master.st.device} device tier)", "engine_writer": "master", "s1": "master",
+                       "s2": "master"}
+        out["seed_s"] = {"s1": seed_s[0], "s2": seed_s[1]}
+        out["buffered_bytes"] = {"s1": s1.buffered_bytes, "s2": s2.buffered_bytes,
+                                 "s2_range": list(s2.range_elements), "embed_range": list(rng_embed)}
+        if s2.buffered_bytes != 4 * spec.ns[embed] or s1.buffered_bytes != 4 * spec.total:
+            raise AssertionError(f"phase 13: buffered bytes {out['buffered_bytes']}")
+        print(f"[13] writers joined in {out['writers_join_s']:.3f} s; S1 seeded in {seed_s[0]:.3f} s "
+              f"({s1.buffered_bytes} bytes buffered), S2 on elements {rng_embed} in {seed_s[1]:.3f} s "
+              f"({s2.buffered_bytes} bytes); all three below the master")
+        steps = {"build": time.perf_counter() - t0}
+        t_step = time.perf_counter()
+        # writes and freshness
+        _wait_agree(peers, flatten(seed_tree, spec, device), torch.tensor(
+            [np.abs(x).max() for x in tree_flatten(seed_tree)[0]], dtype=torch.float64, device=device),
+            spec, AGREE_REL, deadline_s)
+        # The engine writer adds first and drains (its frames all acknowledged
+        # by the master), the subscribers catch up, then the master adds. A
+        # FRESH mark needs a drained residual, and a subscriber link drains
+        # a sum of two updates of unrelated power-of-two bounds only after
+        # thousands of frames (sparse outliers, PERF.md §4); each update
+        # alone, relayed or not, drains in about 28.
+        writer.add(deltas[1])
+        if not writer.drain(timeout=deadline_s):
+            raise AssertionError("phase 13: the engine writer did not drain its update")
+        ep1 = serve.epoch()
+        for sub in subs:
+            sub.wait_fresh(ep1, timeout=deadline_s)
+        master.add(deltas[0])
+        t_add = time.perf_counter()
+        ep = serve.epoch()
+        fresh = {}
+        for name, sub in zip(("s1", "s2"), subs):
+            sub.wait_fresh(ep, timeout=deadline_s)
+            fresh[name] = {"last_add_to_fresh_s": time.perf_counter() - t_add}
+        out["writers_agree_s"], out["writers_err"] = _wait_agree(peers, target, mag, spec, AGREE_REL, deadline_s)
+        want = master.st.snapshot_flat().cpu().numpy()
+        got1 = s1.read_flat(1.0)[0]
+        got2 = s2.read(max_staleness=1.0)
+        errs = {"s1": max(_rel_err(got1[o:o + n], want[o:o + n]) for o, n in zip(offs, spec.ns)),
+                "s2": _rel_err(got2[: spec.ns[embed]], want[rng_embed[0]:rng_embed[1]])}
+        out["fresh"], out["agree_rel_err"] = fresh, errs
+        print("[13] last add to fresh past the epoch: " + "; ".join(
+            f"{k} {v['last_add_to_fresh_s']:.3f} s, worst leaf error vs the master {errs[k]:.3e}"
+            for k, v in fresh.items()) + f" (limit {AGREE_REL}); writers agreed within {AGREE_REL} "
+            f"{out['writers_agree_s']:.3f} s after that")
+        if max(errs.values()) > AGREE_REL:
+            raise AssertionError(f"phase 13: subscribers disagree with the master: {errs}")
+        steps["writes"], t_step = time.perf_counter() - t_step, time.perf_counter()
+        # serve: the handle on the card and a char-RNN forward
+        handle = s1.serving_handle(device=device)
+        t1 = time.perf_counter()
+        handle.refresh(1.0)
+        out["refresh_ms"] = 1e3 * (time.perf_counter() - t1)
+        p1 = handle.params()
+        if p1 is not handle.params() or handle.refresh(1.0) or handle.params() is not p1:
+            raise AssertionError("phase 13: params() changed between refreshes of an unchanged state")
+        on_card = all(x.device.type == torch.device(device).type for x in tree_flatten(p1)[0])
+        data = m.encode_corpus(PANGRAM, cfg_m.vocab, device=device)
+        x, y = m.make_batches(data, SERVE_BATCH, CHAR_SEQ, torch.Generator().manual_seed(seed + 13))
+        with torch.no_grad():
+            la = m.forward(p1, x, cfg_m)
+            lb = m.forward(master.read(), x, cfg_m)
+            ls = m.forward(tree_unflatten(spec.treedef, [torch.from_numpy(np.asarray(v)).to(device)
+                                                         for v in tree_flatten(s1.read(1.0))[0]]), x, cfg_m)
+        _sync(device)
+        if _bitdiff(la, ls):
+            raise AssertionError("phase 13: the handle's params are not S1's read() on the card")
+        diff, top = float((la - lb).abs().max()), float(lb.abs().max())
+        out["forward"] = {"batch": list(x.shape), "max_logit_diff": diff, "max_abs_logit": top,
+                          "finite": bool(torch.isfinite(la).all()), "params_on_device": on_card}
+        # the weights agree within AGREE_REL, but the matmuls round their
+        # operands to bf16 (8 bits), so a weight near a rounding boundary
+        # moves its product by 2^-8 of itself: the logits agree to about that
+        print(f"[13] S1 handle refresh {out['refresh_ms']:.3f} ms, params on {device} {on_card}; char-RNN forward "
+              f"{list(x.shape)}: largest logit difference handle vs master {diff:.3e} (largest |logit| {top:.3e})")
+        if not (on_card and out["forward"]["finite"]):
+            raise AssertionError(f"phase 13: handle forward {out['forward']}")
+        steps["serve"], t_step = time.perf_counter() - t_step, time.perf_counter()
+        # idle, then the read arm under paced adds
+        t1, worst = time.perf_counter(), 0.0
+        while time.perf_counter() - t1 < 2 * scfg.fresh_interval_sec:
+            worst = max(worst, s1.staleness())
+            time.sleep(0.01)
+        out["idle"] = {"seconds": 2 * scfg.fresh_interval_sec, "max_staleness_s": worst,
+                       "limit_s": scfg.fresh_interval_sec + SERVE_IDLE_SLACK}
+        print(f"[13] idle {2 * scfg.fresh_interval_sec} s: S1's largest staleness {worst:.4f} s "
+              f"(limit {scfg.fresh_interval_sec} + {SERVE_IDLE_SLACK})")
+        if worst > scfg.fresh_interval_sec + SERVE_IDLE_SLACK:
+            raise AssertionError(f"phase 13: idle staleness {worst} s")
+        small = [tree_unflatten(spec.treedef, [np.asarray(x, np.float32) * np.float32(2.0**-10)
+                                               for x in tree_flatten(d)[0]]) for d in deltas]
+        stop, count = threading.Event(), [0]
+        adder = serve_bench.paced_adds(writer, small, SERVE_ADD_HZ, stop, count)
+        try:
+            arm = serve_bench.read_arm(s1, 1.0, 1.0)
+        finally:
+            stop.set()
+            adder.join(timeout=10.0)
+        arm.update(adds=count[0], add_hz=SERVE_ADD_HZ)
+        out["read_arm"] = arm
+        print(f"[13] read arm (bound 1 s, engine writer adding at {SERVE_ADD_HZ} Hz): {arm['read_per_s']:.1f} "
+              f"reads/s, staleness p50 {arm['staleness_p50_s']} p99 {arm['staleness_p99_s']} s, refused "
+              f"{arm['refused_fraction']}")
+        out["sgd_arm"] = sgd_arm(master, s1, m.loss_fn, (x, y), cfg_m, spec, offs)
+        _healthy(peers)
+        out["apply_ms_per_frame"] = {k: 1e3 * s.apply_s / max(1, s.frames_applied) for k, s in zip(("s1", "s2"), subs)}
+        out["frames_applied"] = {k: s.frames_applied for k, s in zip(("s1", "s2"), subs)}
+        out["subscriber_metrics"] = {k: s.metrics() for k, s in zip(("s1", "s2"), subs)}
+        mm = master.metrics()
+        out["master"] = {k: mm[k] for k in ("st_sub_links", "st_sub_msgs_out_total", "st_sub_fresh_out_total",
+                                            "st_frames_in_total", "st_frames_out_total")}
+        print(f"[13] subscriber host apply ms per frame {out['apply_ms_per_frame']} over {out['frames_applied']} "
+              f"frames; master {out['master']}")
+        steps["idle_and_read_arm"] = time.perf_counter() - t_step
+        out["step_s"] = steps
+        state = master.st.snapshot_all() + (flatten(deltas[0], spec, device), master.st.codec)
+    finally:
+        for s in subs:
+            s.close()
+        for p in reversed(peers):
+            p.close()
+    return out, state
+
+
+def sgd_arm(master, s1, loss_fn, batch, cfg_m, spec, offs) -> dict:
+    """Phase 13's last arm, on an update whose bounds are no powers of two:
+    the master adds one SGD step of the char-RNN at its own weights (as a
+    trainer adds it), then nobody writes. Such a residual drains its sparse
+    outliers over thousands of frames, so no FRESH mark need come within
+    the arm, and S1's newest verified instant is the step's own stamp: its
+    reads at the 1 s bound are served until the step is 1 s old, then
+    refused. Reports the refused fraction and staleness over
+    SERVE_SGD_ARM_S s of reads, the time to a FRESH past the step (None:
+    none came in the arm), S1's frames applied and its distance from the
+    master at the arm's end; fails unless S1 is finite and has taken in
+    most of the step (its RMS distance from the master under half the
+    step's RMS)."""
+    from shared_tensor_tpu_torch import serve
+    from shared_tensor_tpu_torch.benchmarks import serve as serve_bench
+    from shared_tensor_tpu_torch.ops.table import flatten, tree_flatten, tree_unflatten
+
+    leaves, treedef = tree_flatten(master.read())
+    leaves = [v.detach().clone().requires_grad_(True) for v in leaves]
+    grads = torch.autograd.grad(loss_fn(tree_unflatten(treedef, leaves), batch, cfg_m), leaves)
+    step = tree_unflatten(treedef, [(-SERVE_SGD_LR * g).detach().float() for g in grads])
+    frames0 = s1.frames_applied
+    master.add(step)
+    t_add, ep = time.perf_counter(), serve.epoch()
+    fresh_at = []
+
+    def waiter():
+        try:
+            s1.wait_fresh(ep, timeout=SERVE_SGD_ARM_S)
+            fresh_at.append(time.perf_counter() - t_add)
+        except TimeoutError:
+            pass
+
+    th = threading.Thread(target=waiter)
+    th.start()
+    try:
+        arm = serve_bench.read_arm(s1, 1.0, SERVE_SGD_ARM_S)
+    finally:
+        th.join()
+    want = master.st.snapshot_flat().cpu().numpy().astype(np.float64)
+    got = np.asarray(s1.read_flat(float("inf"))[0], np.float64)
+    d = flatten(step, spec).numpy().astype(np.float64)
+    rms_err, rms_step = float(np.sqrt(np.mean((got - want) ** 2))), float(np.sqrt(np.mean(d**2)))
+    arm.update(
+        update=f"one SGD step, lr {SERVE_SGD_LR}", time_to_fresh_s=fresh_at[0] if fresh_at else None,
+        frames_applied=s1.frames_applied - frames0, rms_err=rms_err, rms_step=rms_step,
+        worst_leaf_rel_err=max(_rel_err(got[o:o + n], want[o:o + n]) for o, n in zip(offs, spec.ns)),
+        step_worst_leaf_rel=max(_rel_err(d[o:o + n], want[o:o + n]) for o, n in zip(offs, spec.ns)),
+    )
+    print(f"[13] SGD-step arm (bound 1 s, no writes after the step): {arm['read_per_s']:.1f} reads/s, refused "
+          f"{arm['refused_fraction']}, staleness p50 {arm['staleness_p50_s']} p99 {arm['staleness_p99_s']} s; "
+          f"FRESH past the step after {arm['time_to_fresh_s']} s; S1 applied {arm['frames_applied']} frames, "
+          f"RMS distance from the master {rms_err:.3e} (the step's RMS {rms_step:.3e}), worst leaf "
+          f"{arm['worst_leaf_rel_err']:.3e} (the step's {arm['step_worst_leaf_rel']:.3e})")
+    if not (np.isfinite(got).all() and rms_err < 0.5 * rms_step):
+        raise AssertionError(f"phase 13: S1 did not take in the SGD step: {arm}")
+    return arm
 
 
 SOURCES = {
@@ -1734,6 +2017,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1889,6 +2173,30 @@ def main() -> int:
     if bad:
         raise AssertionError(f"phase 12b: kernel vs plain mismatches on the master's state: {bad}")
 
+    # 13. the serving path: a CUDA master, an engine writer and two subscribers
+    # (the launch counts of A and B are this phase's)
+    t13 = time.perf_counter()
+    CC.reset_launches()
+    from shared_tensor_tpu_torch.models.char_rnn import CharRNNConfig
+
+    serve_out, master = serve_tree(CharRNNConfig(), dev, args.seed)
+    serve_launches = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
+    if not all(serve_launches.values()):
+        raise AssertionError(f"a kernel of the serving path never launched: {serve_launches}")
+    check13 = tree_kernel_check(master, make_spec(char_template), "13")
+    del master
+    serve_out["seconds"] = time.perf_counter() - t13
+    serve_out["launches"] = serve_launches
+    print(f"[13] launches {serve_launches}; phase 13 {serve_out['seconds']:.3f} s; on {smi}")
+    for k, n in serve_launches.items():
+        t[k]["launches_phase13"] = n
+        t[k]["mismatches_phase13"] = check13[k]["mismatches"]
+        t[k]["max_abs_err_phase13"] = check13[k]["max_abs_err"]
+    bad = {k: v["mismatches"] for k, v in check13.items() if v["mismatches"]}
+    if bad:
+        raise AssertionError(f"phase 13: kernel vs plain mismatches on the master's state: {bad}")
+    serve_out["script_s"] = time.perf_counter() - t_script
+
     print(smi)
     kernels = []
     for k in SOURCES:
@@ -1906,6 +2214,7 @@ def main() -> int:
     print(json.dumps({"bench_split": sp, "sweep": sw["rows"], "big_2e30": sw["big"]}))
     print(json.dumps({"pod": pod["summary"]}))
     print(json.dumps({"host_codec": host, "mixed_tier_tree": mixed, "phase12_s": secs12}))
+    print(json.dumps({"serve": serve_out}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -16,10 +16,12 @@ module is given and the engine's transport calls share one mapped copy of
 the transport. A failed build raises; nothing falls back to the Python
 tier unless the configuration asks for it (``Config.native_engine``).
 
-This slice binds the 1-bit engine: links by snapshot diff, the re-graft
-carry, seal, pause, checkpoints and counters. The subscriber, reference
-wire format, sign2 and shard-plane entry points of the C API wait for
-their slices; the engine runs with ``precision_mode`` 0 (fixed 1 bit), and
+This binds the 1-bit engine: links by snapshot diff, the re-graft carry,
+read-only subscriber links (``new_link_sub``: unledgered, optionally
+range-filtered, with the engine's own FRESH marks), seal, pause,
+checkpoints and counters. The reference wire format, sign2 and
+shard-plane entry points of the C API wait for their slices; the engine
+runs with ``precision_mode`` 0 (fixed 1 bit), and
 the port's SYNC and WELCOME advertise no sign2, so no engine peer sends it
 2-bit frames.
 
@@ -73,6 +75,9 @@ _SIGNATURES = {
     "st_engine_read": (None, [_VP, _f32p]),
     # link, snapshot (nullable), seed, rx_init
     "st_engine_attach": (_I32, [_VP, _I32, _VP, _I32, ctypes.c_uint64]),
+    # link, snapshot (nullable), rx_init, word lo, word count (0: the whole
+    # table), FRESH interval seconds
+    "st_engine_attach_sub": (_I32, [_VP, _I32, _VP, ctypes.c_uint64, _I64, _I64, _F64]),
     "st_engine_detach": (_I32, [_VP, _I32, _f32p]),
     "st_engine_stash_carry": (_I32, [_VP, _I32]),
     # both outputs nullable (drop_carry)
@@ -234,6 +239,29 @@ class EngineTensor:
         if snap.shape != (self.spec.total,):
             raise ValueError(f"snapshot shape {snap.shape} != ({self.spec.total},)")
         r = self._lib.st_engine_attach(self._handle(), link_id, snap.ctypes.data_as(ctypes.c_void_p), 0, rx_init)
+        if r == 0:
+            raise DuplicateLink(f"link {link_id} already exists")
+
+    def new_link_sub(
+        self, link_id: int, peer_snapshot, rx_init: int = 0, word_lo: int = 0, word_cnt: int = 0,
+        fresh_interval_sec: float = 0.0,
+    ) -> None:
+        """Attach a read-only subscriber link: residual = our replica -
+        ``peer_snapshot`` (None: the whole replica). Unledgered: the C
+        sender keeps no unacknowledged entries, expects no ACK and never
+        re-sends; with ``word_cnt`` > 0 it ships only words [word_lo,
+        word_lo + word_cnt) of each frame, as RDATA, and masks the rest of
+        the residual; an idle link gets a FRESH mark every
+        ``fresh_interval_sec``. Attach and mode are one native call: a mark
+        set after the attach would let the sender emit a ledgered message
+        whose ACK never comes."""
+        ptr = None
+        if peer_snapshot is not None:
+            snap = codec_np._f32(peer_snapshot)
+            if snap.shape != (self.spec.total,):
+                raise ValueError(f"snapshot shape {snap.shape} != ({self.spec.total},)")
+            ptr = snap.ctypes.data_as(ctypes.c_void_p)
+        r = self._lib.st_engine_attach_sub(self._handle(), link_id, ptr, rx_init, word_lo, word_cnt, fresh_interval_sec)
         if r == 0:
             raise DuplicateLink(f"link {link_id} already exists")
 
@@ -409,6 +437,8 @@ class EngineTensor:
             "st_update_hops_sum": int(c[12]),
             "st_update_hops_count": int(c[13]),
             "st_traced_msgs_in_total": int(c[15]),
+            "st_sub_msgs_out_total": int(c[16]),
+            "st_sub_fresh_out_total": int(c[17]),
         }
 
     @property

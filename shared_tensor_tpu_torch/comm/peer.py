@@ -41,18 +41,40 @@ uplink then owes the tree. Messages carry a per-link seq; the receiver
 accepts only the next one (go-back-N) and the sender re-sends the head
 of its unacknowledged tail after ``ack_timeout_sec``.
 
-Not ported (later slices): the reference wire format, subscribers, the
-shared-memory lane, sign2, lifecycle and operator commands, sharding,
-fault injection and the observability plane. A joiner that asks for one
-of them in its SYNC is refused with a REJECT that names it; metrics
-digests and clock probes from a JAX child are counted and dropped; any
-other message kind the port does not speak is logged, counted and
-dropped.
+Read-only subscribers (``serve.Subscriber``, the JAX package's too)
+attach to a peer on any tier: their SYNC carries ``SYNC_FLAG_READ_ONLY``
+(and ``SYNC_FLAG_RANGE`` with a RANGE message for a word range); the peer
+seeds them over the control plane (WELCOME, its snapshot of their words as
+CHUNKs, DONE, a FRESH mark stamped at the snapshot) and then streams to
+them unledgered: no ACK, no window, no re-send. On the device and Python
+host tiers the send loop gives a subscriber link one synchronous frame
+(the host tier: a burst of up to 32) a pass, never the pipeline, so a
+FRESH mark ("as of t you have everything") is sent only when the link's
+residual is drained and nothing quantized is left unsent; a ranged link
+gets one RDATA per frame and its residual masked to its range. On the
+engine the C sender runs the same branch (``EngineTensor.new_link_sub``).
+A lost message shows at the subscriber as a seq gap, which it repairs by
+re-running the handshake; a dead subscriber link leaves no carry.
+
+Fault injection (``Config.faults``, ``comm/faults.py``): the plan sees
+every DATA, BURST and RDATA message at the send boundary
+(``_send_blocking(..., data=True)``, re-sends included) and nothing else,
+and the crash points fire at mid-join-walk, mid-burst and
+between-apply-and-ack. On the engine the wire faults come from the
+``ST_FAULT_PLAN`` environment string read at node creation.
+
+Not ported (later slices): the reference wire format, link striping, the
+shared-memory lane, sign2, lifecycle and operator commands, sharding and
+the observability plane. A joiner that asks for the sharded tensor in its
+SYNC is refused with a REJECT that names it; metrics digests and clock
+probes from a JAX child are counted and dropped; any other message kind
+the port does not speak is logged, counted and dropped.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from collections import deque
@@ -63,7 +85,7 @@ import numpy as np
 from ..config import Config
 from ..core import SharedTensor, resolve_device
 from ..ops.table import make_spec
-from . import wire
+from . import faults, wire
 from .engine import EngineTensor, engine_eligible
 from .transport import EventKind, TransportNode
 
@@ -83,10 +105,12 @@ SEND_WINDOW = 32
 RETX_PREFIX = 4
 #: SYNC flags the port refuses, with what each asks for.
 _UNSERVED = {
-    wire.SYNC_FLAG_READ_ONLY: "read-only subscribers",
-    wire.SYNC_FLAG_RANGE: "range subscriptions",
     wire.SYNC_FLAG_SHARD: "the cluster-sharded tensor",
 }
+#: Most frames a host-tier subscriber message carries: a subscriber's
+#: staleness floor is its queue depth times its apply time per message
+#: (the engine's kSubBurstCap).
+SUB_BURST_CAP = 32
 #: Control kinds a JAX child sends on its own (metrics digests, clock
 #: probes): dropped and counted.
 _IGNORED_KINDS = (wire.DIGEST, wire.CLOCK)
@@ -162,6 +186,14 @@ class SharedTensorPeer:
             keepalive_sec=min(1.0, max(0.05, tcfg.peer_timeout_sec / 4)),
         )
         self.is_master = self.node.is_master
+        # fault injection at the data send boundary (None when off: a send
+        # pays one None check); corrupt() is given the frame geometry and
+        # the v2 trace, so its flips land in sign words
+        self._faults: Optional[faults.FaultPlan] = (
+            faults.FaultPlan(self.config.faults, scale_bytes=4 * spec.num_leaves, trace_bytes=wire.TRACE_BYTES)
+            if self.config.faults.enabled
+            else None
+        )
         # the native engine's links (its receiver consumes their DATA, BURST
         # and ACK; the Python loops leave them alone)
         self._engine: Optional[EngineTensor] = None
@@ -185,6 +217,18 @@ class SharedTensorPeer:
         log.info(
             "peer on the %s", "native engine" if use_engine else ("Python host tier" if host_tier else f"{dev} tier")
         )
+        fcfg = self.config.faults
+        if use_engine and fcfg.enabled and not os.environ.get("ST_FAULT_PLAN") and any((
+            fcfg.drop_pct, fcfg.dup_pct, fcfg.truncate_pct, fcfg.corrupt_pct, fcfg.delay_pct,
+            fcfg.stall_after_frames >= 0, fcfg.sever_after_frames,
+        )):
+            # the engine's C sender never crosses the Python send boundary:
+            # a chaos run that forgot the env string would inject nothing
+            log.warning(
+                "FaultConfig wire faults are set but the native engine owns this peer's data plane: they inject "
+                "nothing on engine links; render them into the environment with faults.to_env() around the "
+                "node's creation (crash points still fire)"
+            )
         # v2 trace stamp (origin node, origin monotonic ns, hops) sent with
         # every DATA/BURST: re-seeded by add(), advanced by each applied
         # traced message. A tuple, assigned whole.
@@ -207,6 +251,26 @@ class SharedTensorPeer:
         self._sealed = False  # leave(): discard incoming data unacknowledged
         self._paused = False  # pause(): produce no new frames
         self._uplink: Optional[int] = None
+        # the serving tier's writer side. _sub_links: attached read-only
+        # links -> their word range (None: the whole table); unledgered
+        # (no ACK ever comes), and set BEFORE the codec link opens so the
+        # send loop never takes the ledgered path for one. _pending_sub:
+        # a read-only SYNC's handshake until its DONE (the RANGE received
+        # so far). _sub_fresh: the last FRESH mark's time per link.
+        # _sub_mask_ver: state_version at a ranged link's last mask.
+        # _sub_mu: a lock per subscriber link, under which its send pass
+        # (quantize to send), its (re-)attach and its LINK_DOWN cleanup
+        # exclude each other, so a frame of the old residual is never sent
+        # after the re-seed that supersedes it. Per link, so a send pass
+        # that waits on one subscriber's full queue never holds up the
+        # receive thread's handling of another (link ids are not reused).
+        self._sub_links: dict[int, Optional[tuple[int, int]]] = {}
+        self._pending_sub: dict[int, Optional[tuple[int, int]]] = {}
+        self._sub_fresh: dict[int, float] = {}
+        self._sub_mask_ver: dict[int, int] = {}
+        self._sub_mu: dict[int, threading.Lock] = {}
+        self._sub_msgs_out = 0
+        self._sub_fresh_out = 0
         # delivery ledger per link: (ledger seq, wire seq, payload, slot,
         # sent at) in wire-seq order. The send thread appends, the receive
         # thread pops on ACK; the payload is a view of its pool slot, kept
@@ -341,8 +405,10 @@ class SharedTensorPeer:
         framing included), the port's own counters (non-idle frames sent
         per link, ever; the receive faults survived, 0 on a healthy peer:
         ``st_apply_dropped_total``, ``st_msg_errors_total``,
-        ``st_recv_restarts_total``), and the host seconds spent per stage of the data
-        path (``st_*_seconds_total``)."""
+        ``st_recv_restarts_total``), the writer side of the serving tier
+        (``st_sub_links``, ``st_sub_msgs_out_total``,
+        ``st_sub_fresh_out_total``), and the host seconds spent per stage
+        of the data path (``st_*_seconds_total``)."""
         if self._engine is not None:
             # one counter snapshot: separate reads would mix instants
             c = self._engine.counters()
@@ -374,6 +440,9 @@ class SharedTensorPeer:
             "st_fetch_wait_seconds_total": self.st.fetch_wait_s,
             "st_h2d_seconds_total": self.st.h2d_s,
             "st_apply_lock_wait_seconds_total": self.st.apply_lock_wait_s,
+            "st_sub_links": len(self._sub_links),
+            "st_sub_msgs_out_total": self._sub_msgs_out,
+            "st_sub_fresh_out_total": self._sub_fresh_out,
         }
         out.update({f"st_{k}_seconds_total": v for k, v in self._secs.items()})
         if self._engine is not None:
@@ -434,6 +503,16 @@ class SharedTensorPeer:
                 del pipe[stale]  # the link's drop already rolled its ledger back
                 hot.discard(stale)
             for link in links:
+                if link in self._sub_links:
+                    # a subscriber link: unledgered and never pipelined.
+                    # Paused, a drained link keeps its FRESH mark; one that
+                    # still owes mass gets none, so a read across the pause
+                    # refuses instead of verifying falsely
+                    if self._paused:
+                        self._sub_fresh_beat(link)
+                    elif self._send_sub(link):
+                        sent_any = True
+                    continue
                 if self._paused and not pipe.get(link):
                     continue  # paused: what is in the pipeline still goes out
                 if self._window_full(link):
@@ -452,7 +531,9 @@ class SharedTensorPeer:
                     payload = self._register_data(
                         link, seq, lambda buf, s, t: wire.encode_burst_into(burst, spec, s, buf, trace=t)
                     )
-                    if self._send_blocking(link, payload):
+                    # ledgered, error feedback applied, not on the wire yet
+                    self._fault_point("mid-burst")
+                    if self._send_blocking(link, payload, data=True):
                         sent_any = True
                     else:
                         self.st.nack_frame(link)
@@ -493,7 +574,8 @@ class SharedTensorPeer:
                     payload = self._register_data(
                         link, seq, lambda buf, s, t: wire.encode_frame_into(frame, s, buf, trace=t)
                     )
-                if self._send_blocking(link, payload):
+                self._fault_point("mid-burst")  # ledgered, not on the wire yet
+                if self._send_blocking(link, payload, data=True):
                     sent_any = True
                 else:
                     # the link died with this frame (and its successors in
@@ -511,6 +593,108 @@ class SharedTensorPeer:
             elif not sent_any:
                 self._wake.wait(0.05)  # until an add or an incoming frame
                 self._wake.clear()
+
+    def _send_sub(self, link: int) -> bool:
+        """One send pass of a subscriber link. Unledgered: a message counts
+        as delivered once it is queued (``ack_frame`` at once); a message
+        the wire loses shows at the subscriber as a seq gap, and its resync
+        re-seeds the link. The frame is quantized and sent in this call
+        (the device tier: one frame, its copy waited for here; the host
+        tier: a burst of up to SUB_BURST_CAP), so when the residual is
+        found drained nothing of the link is quantized and unsent, and the
+        FRESH mark then sent covers exactly what went out. A ranged link's
+        residual is masked to its range first (only when the replica moved)
+        and each frame goes out as one RDATA. Returns True if data was
+        sent."""
+        mu = self._sub_mu.get(link)
+        if mu is None:
+            return False
+        with mu:
+            rng = self._sub_links.get(link)
+            if link not in self._sub_links:
+                return False  # detached while the pass began
+            if rng is not None:
+                ver = self.st.state_version()
+                if ver != self._sub_mask_ver.get(link):
+                    wlo, wcnt = rng
+                    self.st.mask_link_residual(link, wlo * 32, (wlo + wcnt) * 32)
+                    self._sub_mask_ver[link] = ver
+            # the FRESH candidate is stamped BEFORE the drained check: an add
+            # that lands after the check must not be covered by the mark.
+            # Likewise the frame's trace, the origin stamp of the newest
+            # update folded in, is read BEFORE the quantize: it is set only
+            # after that update's mass is in the residuals, so the frame's
+            # stamp may be older than its mass (a read that under-claims)
+            # but never newer. With no stamp yet the frame goes untraced: a
+            # stamp of our own clock would claim updates we never received.
+            fresh_t = time.monotonic_ns()
+            trace = self._trace_stamp
+            if self.st.host_tier:
+                out = self.st.begin_frame_burst(link, min(self._burst, SUB_BURST_CAP))
+                if out is None:
+                    return False
+                seq, frames = out
+            else:
+                out = self.st.begin_frame(link)
+                if out is None:
+                    return False
+                seq, df = out
+                f = self.st.finish_frame(df)
+                frames = [f] if f is not None and f.scales.any() else []
+            if not frames:
+                self.st.ack_frame(link, seq)  # idle: a no-op
+                self._sub_fresh_mark(link, fresh_t)
+                return False
+            self._link_frames_out[link] = self._link_frames_out.get(link, 0) + len(frames)
+            nmsg = len(frames) if rng is not None else 1
+            with self._ack_mu:
+                base = self._tx_seq.get(link, 0)
+                self._tx_seq[link] = base + nmsg
+            if rng is not None:
+                wlo, wcnt = rng
+                payloads = [wire.encode_rdata(f, wlo, wcnt, base + i + 1, trace=trace) for i, f in enumerate(frames)]
+            elif len(frames) == 1:
+                payloads = [wire.encode_frame(frames[0], base + 1, trace=trace)]
+            else:
+                payloads = [wire.encode_burst(frames, self.st.spec, base + 1, trace=trace)]
+            ok = True
+            for payload in payloads:
+                self._data_bytes_out += len(payload)
+                if not self._send_blocking(link, payload, data=True):
+                    ok = False
+                    break
+                self._sub_msgs_out += 1
+            if ok:
+                self.st.ack_frame(link, seq)  # delivered on enqueue
+            else:
+                self.st.nack_frame(link)
+            return ok
+
+    def _sub_fresh_mark(self, link: int, fresh_t: int) -> None:
+        """Send one FRESH mark, at most one per ``fresh_interval_sec``, with
+        the link's last data seq (a subscriber that has not applied exactly
+        that many resyncs instead of trusting the mark). ``fresh_t`` was
+        stamped before the caller found the residual drained. Lossy: a full
+        queue skips this mark, and the next pass tries again."""
+        now = time.monotonic()
+        if now - self._sub_fresh.get(link, 0.0) < self.config.serve.fresh_interval_sec:
+            return
+        with self._ack_mu:
+            last_seq = self._tx_seq.get(link, 0)
+        try:
+            if self.node.send(link, wire.encode_fresh(fresh_t, last_seq), timeout=0.0):
+                self._sub_fresh[link] = now
+                self._sub_fresh_out += 1
+        except BrokenPipeError:
+            pass  # LINK_DOWN cleans the link up
+
+    def _sub_fresh_beat(self, link: int) -> None:
+        """A paused sender's FRESH mark: only for a drained residual,
+        stamped before the check, as in :meth:`_send_sub`."""
+        fresh_t = time.monotonic_ns()
+        if self.st.residual_rms(link) > 0.0:
+            return
+        self._sub_fresh_mark(link, fresh_t)
 
     def _register_data(self, link: int, ledger_seq: int, encode_into):
         """Allocate the link's next wire seq, encode the message into a pool
@@ -587,18 +771,48 @@ class SharedTensorPeer:
             self._retransmits += len(tail)
             for payload in tail:
                 self._data_bytes_out += len(payload)
-                if not self._send_blocking(link, payload):
+                if not self._send_blocking(link, payload, data=True):
                     break
 
     def _release_slots(self, entries) -> None:
         for entry in entries:
             self._tx_pool.release(entry[3])
 
-    def _send_blocking(self, link: int, payload) -> bool:
+    def _fault_point(self, name: str) -> None:
+        """A named protocol point of the fault plan's crash schedule."""
+        plan = self._faults
+        if plan is not None:
+            plan.point(name)
+
+    def _send_blocking(self, link: int, payload, data: bool = False) -> bool:
         """Deliver one message, riding out backpressure. False on a dead
         link, or after ``quarantine_send_failures`` consecutive refusals
         (~0.1 s each: the peer stopped draining), when the link is torn
-        down for re-graft."""
+        down for re-graft.
+
+        ``data=True`` marks a DATA, BURST or RDATA message (a re-send
+        too): the fault plan, when there is one, may drop, delay,
+        duplicate, truncate, corrupt, stall or sever it here. A message the
+        plan swallowed reports success: the sender believes it delivered,
+        which is the fault its ledger (or the subscriber's gap check)
+        recovers from."""
+        plan = self._faults  # one load: a test may detach the plan meanwhile
+        if plan is not None and data:
+            payloads, delay, sever = plan.on_send(link, payload)
+            if delay > 0:
+                time.sleep(delay)
+            ok = True
+            for p in payloads:
+                ok = self._send_raw(link, p)
+                if not ok:
+                    break
+            if sever:
+                self.node.drop_link(link)
+                return False
+            return ok
+        return self._send_raw(link, payload)
+
+    def _send_raw(self, link: int, payload) -> bool:
         quarantine = self.config.transport.quarantine_send_failures
         fails = 0
         t0 = time.perf_counter()
@@ -735,6 +949,8 @@ class SharedTensorPeer:
             self._secs["apply"] += time.perf_counter() - t0
             self._wake.set()  # the flood refilled the other links' residuals
         if msgs:
+            # mass applied and flooded, ACK not sent: the sender re-delivers
+            self._fault_point("between-apply-and-ack")
             self._ack_received(link, msgs)
         for p in traced:
             tr = wire.data_trace(p, self.st.spec)
@@ -792,6 +1008,16 @@ class SharedTensorPeer:
     def _on_membership_event(self, ev) -> None:
         if ev.kind == EventKind.LINK_DOWN:
             self._pending.pop(ev.link_id, None)
+            self._pending_sub.pop(ev.link_id, None)
+            mu = self._sub_mu.pop(ev.link_id, None)
+            if mu is not None:
+                # a read-only leaf owes the tree nothing and re-seeds when
+                # it comes back: its residual goes (the drop below), with
+                # no carry
+                with mu:
+                    self._sub_links.pop(ev.link_id, None)
+                    self._sub_fresh.pop(ev.link_id, None)
+                    self._sub_mask_ver.pop(ev.link_id, None)
             self._engine_links.discard(ev.link_id)
             with self._ack_mu:
                 purged = self._unacked.pop(ev.link_id, ())
@@ -847,6 +1073,8 @@ class SharedTensorPeer:
             snap = snap - carry
         self._sent_snapshot = snap
         self._send_blocking(uplink, wire.encode_sync(self.st.spec, wire.WIRE_VERSION_V2))
+        # SYNC sent, snapshot not: the parent holds a pending handshake
+        self._fault_point("mid-join-walk")
         for chunk in wire.encode_snapshot_chunks(snap.cpu().numpy()):
             if not self._send_blocking(uplink, chunk):
                 return  # uplink died mid-handshake; LINK_DOWN keeps the base
@@ -870,13 +1098,20 @@ class SharedTensorPeer:
                 self.st.ack_frame(link, entry[0])
         elif kind == wire.SYNC:
             self._on_sync(link, payload)
+        elif kind == wire.RANGE:
+            self._on_range(link, payload)
         elif kind == wire.CHUNK:
             buf = self._pending.get(link)
             if buf is not None:
                 wire.decode_chunk_into(payload, buf)
         elif kind == wire.DONE:
             buf = self._pending.pop(link, None)
-            if buf is not None:
+            if link in self._pending_sub:
+                # a subscriber's handshake (or resync) uploads no snapshot:
+                # the parent pushes its own down the control plane
+                self._attach_sub(link, self._pending_sub.pop(link))
+                self._wake.set()
+            elif buf is not None:
                 snap = np.frombuffer(bytes(buf), "<f4")
                 # WELCOME goes out BEFORE the codec link opens: per-link FIFO
                 # then puts it ahead of our first DATA, which the child would
@@ -932,13 +1167,81 @@ class SharedTensorPeer:
         elif flags & sum(_UNSERVED):
             asked = ", ".join(v for f, v in _UNSERVED.items() if flags & f)
             reason = f"this peer does not serve {asked}"
+        elif flags & wire.SYNC_FLAG_READ_ONLY:
+            # a subscriber's handshake, or its resync on a live link: a
+            # RANGE may follow before the DONE
+            self._pending_sub[link] = None
+            log.info("link %d joins read-only (subscriber handshake)", link)
+            return
         else:
             self._pending[link] = bytearray(mine.total * 4)
             return
+        self._reject(link, reason)
+
+    def _reject(self, link: int, reason: str) -> None:
         log.warning("rejecting link %d: %s", link, reason)
+        self._pending.pop(link, None)
+        self._pending_sub.pop(link, None)
         self._send_blocking(link, wire.encode_reject(reason))
         self.node.drop_link_flushed(link)
-        self._pending.pop(link, None)
+
+    def _on_range(self, link: int, payload: bytes) -> None:
+        """A subscriber's word range, between its SYNC and its DONE."""
+        wlo, wcnt = wire.decode_range(payload)
+        words = self.st.spec.total // 32
+        if link not in self._pending_sub:
+            log.warning("ignoring RANGE on link %d outside a subscriber handshake", link)
+        elif not (0 <= wlo and 0 < wcnt and wlo + wcnt <= words):
+            self._reject(link, f"range [{wlo}, {wlo + wcnt}) outside the {words}-word table")
+        else:
+            self._pending_sub[link] = (wlo, wcnt)
+
+    def _attach_sub(self, link: int, rng: Optional[tuple[int, int]]) -> None:
+        """Attach, or re-seed (a resync), a subscriber link, in this order:
+        a resync first detaches the old residual (the snapshot about to go
+        out supersedes it); the link's wire seq restarts at 1; the link is
+        marked a subscriber link BEFORE its codec link opens; WELCOME, the
+        snapshot of its words as CHUNKs, DONE and a FRESH mark stamped at
+        the snapshot are queued BEFORE the attach, so per-link FIFO has the
+        subscriber seeded before any data. The seed rides the control
+        plane, which faults never touch, so a resync completes however
+        lossy the data plane is. On the engine, attach and subscriber mode
+        are one native call."""
+        with self._sub_mu.setdefault(link, threading.Lock()):
+            resync = link in self._sub_links
+            if resync:
+                self.st.drop_link(link)
+            with self._ack_mu:
+                purged = self._unacked.pop(link, ())
+                for d in (self._tx_seq, self._acked, self._ack_progress, self._retx_rounds):
+                    d.pop(link, None)
+            self._release_slots(purged)
+            wlo, wcnt = rng if rng is not None else (0, 0)
+            self._sub_links[link] = rng
+            self._sub_fresh[link] = 0.0
+            self._sub_mask_ver.pop(link, None)
+            t_snap = time.monotonic_ns()
+            vals = self.st.snapshot_flat().cpu().numpy()
+            self._send_blocking(link, bytes([wire.WELCOME]))
+            for chunk in wire.encode_snapshot_chunks(vals[wlo * 32 : (wlo + wcnt) * 32] if rng is not None else vals):
+                self._send_blocking(link, chunk)
+            # last seq 0: the post-seed stream has not started
+            self._send_blocking(link, wire.encode_fresh(t_snap, 0))
+            if self._engine is not None:
+                self._engine.new_link_sub(
+                    link, vals, rx_init=self._rx_count.get(link, 0), word_lo=wlo, word_cnt=wcnt,
+                    fresh_interval_sec=self.config.serve.fresh_interval_sec,
+                )
+                self._engine_links.add(link)
+            else:
+                # residual = the adds and floods that raced the snapshot
+                # (usually none); _send_sub masks a range each pass
+                self.st.new_link_diff(link, vals)
+        log.info(
+            "link %d attached read-only%s%s", link,
+            f" (words [{wlo}, {wlo + wcnt}))" if rng is not None else " (the whole table)",
+            ", a resync re-seed" if resync else "",
+        )
 
 
 def create_or_fetch(

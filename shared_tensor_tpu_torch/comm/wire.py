@@ -20,6 +20,15 @@ inside the transport's length-prefixed framing, little-endian throughout.
   byte offset][f32 bytes]`` and DONE ``[3]``. The parent answers WELCOME
   ``[4][u8 flags]`` and seeds the link with (its replica - the snapshot),
   or REJECT ``[5][utf-8 reason]``.
+- The serving tier: a read-only subscriber's SYNC carries
+  ``SYNC_FLAG_READ_ONLY`` (and ``SYNC_FLAG_RANGE``, followed by RANGE
+  ``[9][u32 word lo][u32 word count]`` before its DONE); the parent answers
+  WELCOME, its snapshot of the subscribed words as CHUNKs and DONE, then
+  FRESH ``[10][u64 t ns][u32 last seq]``, and streams unledgered DATA/BURST,
+  or for a range RDATA ``[11][u32 seq][u32 word lo][u32 word count][trace?]
+  [scales L*f32][words count*u32]``, one frame sliced to the range. FRESH
+  says "as of t you have everything I have" and names the link's last
+  data seq, so a subscriber that missed the stream's tail can tell.
 
 Frames are numpy f32 scales and uint32 words at this boundary, what
 ``SharedTensor.finish_frame`` returns. The port emits neither the r14
@@ -52,9 +61,9 @@ REJECT = 5
 ACK = 6
 BURST = 7
 DIGEST = 8  # child -> parent metrics digest (not ported: dropped)
-RANGE = 9  # serving tier (not ported)
-FRESH = 10
-RDATA = 11
+RANGE = 9  # serving tier: a subscriber's word range
+FRESH = 10  # parent -> subscriber: drain mark
+RDATA = 11  # parent -> subscriber: one frame sliced to the range
 SNAP = 12  # cluster lifecycle (not ported)
 SNAP_ACK = 13
 RESUME = 14
@@ -89,9 +98,12 @@ TRACE_BYTES = 13
 DATA_HDR_T = DATA_HDR + TRACE_BYTES
 BURST_HDR_T = BURST_HDR + TRACE_BYTES
 _TRACE_FMT = "<IQB"  # origin node id, origin monotonic ns, hop count
-# Headers of messages the port never emits, counted in the receive bound:
+# Header of a message the port never emits, counted in the receive bound:
 HDR_V3 = 24  # r14 aligned DATA/BURST framing
-RDATA_HDR_T = 13 + TRACE_BYTES  # serving tier's ranged DATA, traced
+RDATA_HDR = 13  # kind + u32 seq + u32 word lo + u32 word count
+RDATA_HDR_T = RDATA_HDR + TRACE_BYTES
+_RANGE_FMT = "<II"  # word lo, word count
+_FRESH_FMT = "<QI"  # t ns, last data seq
 DIGEST_MAX_BYTES = 1 << 16  # control messages with JSON bodies
 
 # Process-wide count of non-finite scales zeroed at decode.
@@ -140,14 +152,16 @@ def frame_wire_bytes(spec: TableSpec) -> int:
 
 
 def data_seq(payload: bytes) -> int:
-    """The per-link seq of a DATA/BURST message."""
+    """The per-link seq of a DATA, BURST or RDATA message (byte 1 in
+    each)."""
     if len(payload) < DATA_HDR:
         raise ValueError(f"{len(payload)}-byte data message is too short to carry a seq")
     return struct.unpack_from("<I", payload, 1)[0]
 
 
 def data_trace(payload: bytes, spec: TableSpec) -> Optional[tuple[int, int, int]]:
-    """(origin, origin ns, hops) of a v2 DATA/BURST message, None for v1."""
+    """(origin, origin ns, hops) of a v2 DATA/BURST message, None for v1
+    and for RDATA, whose trace :func:`decode_rdata` returns."""
     per = frame_payload_bytes(spec)
     n = len(payload)
     if payload[0] == DATA and n == DATA_HDR_T + per:
@@ -376,3 +390,67 @@ def encode_ack(count: int) -> bytes:
 
 def decode_ack(payload: bytes) -> int:
     return struct.unpack_from("<Q", payload, 1)[0]
+
+
+# -- serving tier ----------------------------------------------------------------
+
+
+def encode_range(word_lo: int, word_cnt: int) -> bytes:
+    return bytes([RANGE]) + struct.pack(_RANGE_FMT, word_lo, word_cnt)
+
+
+def decode_range(payload: bytes) -> tuple[int, int]:
+    """(word lo, word count) of a RANGE message."""
+    return struct.unpack_from(_RANGE_FMT, payload, 1)
+
+
+def encode_fresh(t_ns: int, last_seq: int) -> bytes:
+    return bytes([FRESH]) + struct.pack(_FRESH_FMT, t_ns & 0xFFFFFFFFFFFFFFFF, last_seq & 0xFFFFFFFF)
+
+
+def decode_fresh(payload: bytes) -> tuple[int, int]:
+    """(t ns, last data seq) of a FRESH mark."""
+    return struct.unpack_from(_FRESH_FMT, payload, 1)
+
+
+def encode_rdata(frame: TableFrame, word_lo: int, word_cnt: int, seq: int, trace=None) -> bytes:
+    """One frame's scales (whole) and words [word_lo, word_lo + word_cnt)
+    of it: the unit a ranged subscriber receives."""
+    scales = np.asarray(frame.scales, dtype="<f4")
+    words = np.asarray(frame.words, dtype="<u4")[word_lo : word_lo + word_cnt]
+    if len(words) != word_cnt:
+        raise ValueError(
+            f"range [{word_lo}, {word_lo + word_cnt}) overruns the {np.asarray(frame.words).size}-word frame"
+        )
+    th = b"" if trace is None else struct.pack(_TRACE_FMT, *_clamp_trace(trace))
+    return (
+        bytes([RDATA]) + struct.pack("<I", seq & 0xFFFFFFFF) + struct.pack(_RANGE_FMT, word_lo, word_cnt)
+        + th + scales.tobytes() + words.tobytes()
+    )
+
+
+def decode_rdata(payload: bytes, spec: TableSpec):
+    """(scales f32[L], words u32[count], word lo, word count, trace or
+    None) of an RDATA message (v1 or v2, told apart by exact length), with
+    decode_frame's guard: non-finite scales are zeroed and counted."""
+    k = spec.num_leaves
+    word_lo, word_cnt = struct.unpack_from(_RANGE_FMT, payload, 5)
+    if word_cnt <= 0 or word_lo + word_cnt > spec.total // 32:
+        raise ValueError(f"RDATA range [{word_lo}, {word_lo + word_cnt}) outside the {spec.total // 32}-word table")
+    body = 4 * k + 4 * word_cnt
+    if len(payload) == RDATA_HDR + body:
+        off, trace = RDATA_HDR, None
+    elif len(payload) == RDATA_HDR_T + body:
+        off = RDATA_HDR_T
+        trace = struct.unpack_from(_TRACE_FMT, payload, RDATA_HDR)
+    else:
+        raise ValueError(f"RDATA is {len(payload)} bytes, its range wants {RDATA_HDR + body} or {RDATA_HDR_T + body}")
+    scales = np.frombuffer(payload, "<f4", count=k, offset=off).copy()
+    words = np.frombuffer(payload, "<u4", count=word_cnt, offset=off + 4 * k).copy()
+    bad = ~np.isfinite(scales)
+    if bad.any():
+        nbad = int(np.count_nonzero(bad))
+        log.warning("zeroing %d non-finite scale(s) in received RDATA (corrupt link?)", nbad)
+        _count_corrupt_scales(nbad)
+        scales[bad] = np.float32(0.0)
+    return scales, words, word_lo, word_cnt, trace

@@ -2,19 +2,21 @@
 
 Only what the port reads: the codec (scale policy, per-leaf scales,
 idle-frame suppression, the engine's cascade depth), the TCP transport,
-the peer's send loop and burst sizes, and the native engine switch. Names,
+the peer's send loop and burst sizes, the native engine switch, fault
+injection (``FaultConfig``) and the serving tier (``ServeConfig``). Names,
 defaults and meaning are those of ``shared_tensor_tpu.config``, so a port
 peer and a JAX peer built from the same settings produce the same frames
 and join the same tree. Knobs of features the port does not have (the
 reference wire format, link striping, the shared-memory lane, adaptive
-precision (sign2), fault injection, observability, serving, lifecycle,
-sharding) are absent, so asking for one is a ``TypeError``.
+precision (sign2), observability, lifecycle, sharding) are absent, so
+asking for one is a ``TypeError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+from typing import Optional
 
 
 class ScalePolicy(enum.Enum):
@@ -84,6 +86,84 @@ class TransportConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class FaultConfig:
+    """Deterministic, seeded fault injection at the wire boundary
+    (``comm/faults.py``); off by default, when a send pays one None check.
+
+    On the device tier and the Python host tier the peer consults a
+    :class:`~shared_tensor_tpu_torch.comm.faults.FaultPlan` built from this
+    config at its data send boundary. The native engine's C sender never
+    crosses that boundary: there the wire knobs reach the transport as the
+    ``ST_FAULT_PLAN`` / ``ST_FAULT_CRASH`` environment strings
+    (:func:`~shared_tensor_tpu_torch.comm.faults.to_env`), read when the
+    node is created, and the peer warns when wire faults are set on an
+    engine peer with no such string. The crash points fire on every tier.
+    Faults touch DATA, BURST and RDATA messages only, never the handshake,
+    ACK or FRESH traffic, so every injected fault exercises a recovery path
+    (ledger rollback, carry, re-graft, quarantine, subscriber resync)
+    instead of wedging a join."""
+
+    #: Master switch; False injects nothing, as no plan at all.
+    enabled: bool = False
+    #: RNG seed: the whole schedule is a function of (seed, per-link frame
+    #: sequence), so runs repeat.
+    seed: int = 0
+    #: Probability a data message is silently dropped (the sender believes
+    #: it delivered; its ledger entry stays unacknowledged).
+    drop_pct: float = 0.0
+    #: Probability a data message is sent twice (the receiver's seq check
+    #: discards the echo).
+    dup_pct: float = 0.0
+    #: Probability a data message is cut to a random shorter length (the
+    #: receiver's decode rejects it without consuming its seq; go-back-N
+    #: re-sends it whole).
+    truncate_pct: float = 0.0
+    #: Probability one bit is flipped: in a frame's sign words on the
+    #: Python tiers (one element mis-applied by 2*scale, a bounded fault);
+    #: anywhere in the message on the native tier (survival chaos only).
+    corrupt_pct: float = 0.0
+    #: Probability a data message's send is delayed by ``delay_sec``.
+    delay_pct: float = 0.0
+    delay_sec: float = 0.005
+    #: >= 0: every data message past the Nth (per link) is swallowed.
+    stall_after_frames: int = -1
+    #: > 0: tear the link down at its Nth data message.
+    sever_after_frames: int = 0
+    #: > 0: every fault only on this link id (a re-grafted link gets a new
+    #: id and runs clean). 0 = every link.
+    only_link: int = 0
+    #: Named protocol point at which to kill the process (os._exit):
+    #: "mid-join-walk" (SYNC sent, snapshot not), "mid-burst" (frames
+    #: ledgered, message not yet on the wire), "between-apply-and-ack"
+    #: (mass applied and flooded, ACK not sent). "" = never.
+    crash_point: str = ""
+    #: Fire the crash at the Nth arrival at the point (1 = first).
+    crash_after: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """The serving tier (``serve/``): read-only subscribers with verified
+    bounded-staleness reads. Read by ``serve.Subscriber`` and by a writer's
+    FRESH pacing on its subscriber links."""
+
+    #: Default bound of ``Subscriber.read()``: the read raises
+    #: ``StalenessError`` unless the subscriber can show its state is at
+    #: most this many seconds behind (the newest applied origin stamp or
+    #: the parent's FRESH mark; one host's CLOCK_MONOTONIC).
+    max_staleness_sec: float = 1.0
+    #: Seconds between FRESH marks on an idle subscriber link (residual
+    #: drained: "as of t you have everything I have").
+    fresh_interval_sec: float = 0.25
+    #: Least seconds between a subscriber's resync handshakes (a seq gap on
+    #: its unledgered link re-seeds it over the control plane).
+    resync_min_interval_sec: float = 0.25
+    #: Element range [lo, hi) to subscribe to, rounded outward to 32-element
+    #: words on the wire. None = the whole table.
+    range: Optional[tuple[int, int]] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     """A peer's configuration."""
 
@@ -113,3 +193,7 @@ class Config:
     #: loops); Python keeps the handshakes and membership. False selects
     #: the Python host tier.
     native_engine: bool = True
+    #: Fault injection (off by default).
+    faults: FaultConfig = dataclasses.field(default_factory=FaultConfig)
+    #: The serving tier: subscriber reads and the writers' FRESH pacing.
+    serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)

@@ -76,6 +76,37 @@ class DuplicateLink(ValueError):
     """A link id that is already attached."""
 
 
+class SnapshotPublisher:
+    """Lock-free publication of snapshots, for the serving tier.
+
+    The writer (a subscriber's receive thread) builds a new snapshot and
+    publishes it (:meth:`publish`) as one reference swap; readers :meth:`acquire`
+    the current (array, freshness ns, version) tuple, one attribute read
+    (atomic under the GIL), so a read never waits for an apply and an
+    apply never waits for a read. The writer hands over an array that it
+    no longer changes (a copy): that copy is the double buffer."""
+
+    __slots__ = ("_cur",)
+
+    def __init__(self):
+        self._cur: tuple = (None, 0, 0)  # (array, freshness_ns, version)
+
+    def publish(self, array, freshness_ns: int, version: int) -> None:
+        self._cur = (array, int(freshness_ns), int(version))
+
+    def touch(self, freshness_ns: int) -> None:
+        """Advance the freshness mark without a new array (an idle FRESH
+        mark: the state did not change, only its verified age)."""
+        arr, old, ver = self._cur
+        if freshness_ns > old:
+            self._cur = (arr, int(freshness_ns), ver)
+
+    def acquire(self) -> tuple:
+        """(array, freshness ns, version) of the latest publication; the
+        array is None before the first."""
+        return self._cur
+
+
 def resolve_device(device=None, host_tier: bool = False) -> torch.device:
     """``None`` means the GPU, or the CPU for the host tier; raise if there
     is no GPU (never carry on on the CPU unasked) and for a host tier on
@@ -428,7 +459,13 @@ class SharedTensor:
             self.updates += 1
 
     def mask_link_residual(self, link_id: int, elo: int, ehi: int) -> None:
-        """Zero a link's residual outside [elo, ehi) (ranged subscriber)."""
+        """Zero a link's residual outside [elo, ehi): a ranged subscriber
+        never receives that mass, so the sender drops it before the scales
+        are chosen (the engine does the same in C). In place, under the
+        lock: on a CUDA device the two fills go on the current stream,
+        ahead of the link's next quantize there (a burst graph's replay
+        included, which launches on the current stream); the port's
+        buffers are never shared, so no snapshot sees them."""
         with self._lock:
             r = self._links.get(link_id)
             if r is None:
@@ -645,7 +682,9 @@ class SharedTensor:
     # -- introspection -----------------------------------------------------
 
     def state_version(self) -> int:
-        """Monotone change counter: local adds + applied foreign frames."""
+        """Monotone change counter of the replica: local adds + applied
+        foreign frames (JAX's, on both tiers). A ranged subscriber link's
+        send pass masks its residual only when this moved."""
         return self.updates + self.frames_in
 
     def residual_rms(self, link_id: int) -> float:

@@ -32,3 +32,20 @@ def test_engine_bench_runs_both_peers_on_the_engine():
 def test_host_frame_time_is_positive_and_bounded():
     t = bench.host_frame_time(4096, target_seconds=0.05, budget_s=5.0)
     assert 0 < t < 1.0
+
+
+def test_serve_bench_runs_on_the_cpu(capsys):
+    """The serving bench's both arms at --device cpu --small: a device-tier
+    master and an engine writer adding, one subscriber read at every bound
+    (each attempt served or refused), and the hot swap's params() reads."""
+    from shared_tensor_tpu_torch.benchmarks import serve as serve_bench
+
+    serve_bench.main(["--device", "cpu", "--small", "--seconds", "0.3", "--repeats", "1"])
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert row["bench"] == "serve" and row["engine_writer"] and row["writers"] == 2
+    assert [p["bound_s"] for p in row["pareto"]] == list(serve_bench.BOUNDS)
+    for p in row["pareto"]:
+        (r,) = p["repeats"]
+        assert r["reads"] + r["refused"] > 0 and r["read_per_s"] >= 0
+    assert row["hot_swap"]["params_per_s"] > 0 and row["hot_swap"]["swaps"] >= 1
+    assert row["hot_swap"]["device"] == "cpu" and row["frames_applied"] > 0 and row["adds_per_s"] > 0

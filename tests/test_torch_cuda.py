@@ -416,6 +416,36 @@ def test_two_peer_round_trip_runs_the_kernels(cuda_device):
     assert CC.LAUNCHES["quantize_rows"] > 0 and CC.LAUNCHES["apply_rows_batch"] > 0, CC.LAUNCHES
 
 
+
+@pytest.mark.cuda
+def test_cuda_writer_serves_a_subscriber(cuda_device):
+    """A CUDA writer serves a read-only subscriber: kernel A quantizes the
+    subscriber link, the subscriber converges on the seed plus an add
+    within 1e-6 once fresh past the add, and its ServingHandle's tensors
+    are on the card and equal read()."""
+    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch, serve
+
+    cfg = Config(transport=TransportConfig(peer_timeout_sec=10.0))
+    seed = {"w": np.arange(4096, dtype=np.float32).reshape(64, 64), "b": np.ones(100, np.float32)}
+    zeros = {k: np.zeros_like(v) for k, v in seed.items()}
+    port = _free_port()
+    with create_or_fetch("127.0.0.1", port, seed, cfg, device=cuda_device) as m:
+        with serve.subscribe("127.0.0.1", port, zeros, cfg, timeout=30.0) as sub:
+            CC.reset_launches()
+            m.add({k: np.full_like(v, 0.5) for k, v in seed.items()})
+            sub.wait_fresh(serve.epoch(), timeout=30.0)
+            assert CC.LAUNCHES["quantize_rows"] > 0, CC.LAUNCHES
+            got = sub.read(max_staleness=10.0)
+            for k in seed:
+                np.testing.assert_allclose(got[k], seed[k] + 0.5, rtol=0, atol=1e-6)
+            handle = sub.serving_handle(max_staleness=10.0)
+            assert handle.refresh()
+            params = handle.params()
+            for k in seed:
+                assert params[k].device.type == "cuda"
+                np.testing.assert_array_equal(params[k].cpu().numpy(), got[k])
+            assert m.metrics()["st_sub_links"] == 1 and m.st.inflight_total() == 0
+
 def _pod_step_kernel_vs_plain(mesh, steps):
     """On each rank: one seeded pod state through ``steps`` sync steps with
     the kernels and again with their plain versions, on the card. Returns

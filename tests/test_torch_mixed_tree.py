@@ -13,7 +13,8 @@ host), the Python host tier (``native_engine=False``) and the device tier
 last tree mixes the port's three tiers with a JAX engine peer.
 
 Tolerance: test_peer.py's, rtol 1e-4 and atol 1e-6. Every wait has its
-own deadline."""
+own deadline. JAX subscribers under port writers are in
+test_torch_serve.py."""
 
 import time
 
@@ -183,9 +184,9 @@ def test_port_parent_ignores_digest_and_clock_traffic():
 
 
 def test_port_joiner_refuses_what_it_lacks():
-    """A JAX joiner that asks for a feature the port does not serve (here a
-    read-only subscriber's SYNC) gets a REJECT that names it; the port
-    parent carries on."""
+    """A JAX joiner that asks for a feature the port does not serve (the
+    cluster-sharded tensor: a SYNC with SYNC_FLAG_SHARD and its shard
+    claim) gets a REJECT that names it; the port parent carries on."""
     from shared_tensor_tpu.comm.transport import TransportNode as JaxNode
     from shared_tensor_tpu.comm import wire as JW
     from shared_tensor_tpu.ops.table import make_spec as jax_make_spec
@@ -197,7 +198,7 @@ def test_port_joiner_refuses_what_it_lacks():
             deadline = time.time() + 30
             while node.uplink is None and time.time() < deadline:
                 time.sleep(0.01)
-            sync = JW.encode_sync(jax_make_spec(seed), 2, flags=wire.SYNC_FLAG_READ_ONLY)
+            sync = JW.encode_sync(jax_make_spec(seed), 2, flags=wire.SYNC_FLAG_SHARD, shard=0)
             assert node.send(node.uplink, sync)
             reply = None
             while reply is None and time.time() < deadline:
@@ -206,6 +207,6 @@ def test_port_joiner_refuses_what_it_lacks():
                 except BrokenPipeError:
                     break
             assert reply is not None and reply[0] == JW.REJECT
-            assert "read-only subscribers" in JW.decode_reject(reply)
+            assert "the cluster-sharded tensor" in JW.decode_reject(reply)
         assert parent.threads_alive() and parent._error is None
         np.testing.assert_array_equal(_leaves(parent.read())[0], seed["b"])

@@ -377,7 +377,7 @@ def test_unported_config_knobs_are_type_errors():
     cases = (
         (CodecConfig, {"adaptive_precision": True}),
         (TransportConfig, {"wire_compat": True}),
-        (Config, {"faults": None}),
+        (Config, {"lifecycle": None}),
         (Config, {"obs": None}),
     )
     for cls, kw in cases:
