@@ -70,7 +70,7 @@ Phases, in order; any failure exits non-zero:
    the built-in pangram corpus, batches from --seed): the first 4 of phase
    10's 8 ranks (one parallel.run_mesh for both phases; the other 4 wait at
    a barrier), all on the one card with backend gloo (NCCL refuses two
-   ranks on one device; printed), 30 compressed steps then 10 with
+   ranks on one device; printed), 20 compressed steps then 5 with
    overlap=True;
    tokens/s, ms per step and its stages (grads, scales, A, collective, B,
    the rest) over the last 10 compressed steps, the loss at the first and
@@ -160,9 +160,34 @@ Phases, in order; any failure exits non-zero:
    in the phase (both > 0), then A and B against their plain versions on
    the master's state (tree_kernel_check), 0 mismatches required; the
    subscriber's host ms per applied frame. One {"serve": ...} line.
+14. The peer's wire capabilities (`/dev/shm`'s size printed first): (14a)
+   BASELINE config 1 on the reference wire: compat.createOrFetch on the card
+   (wire_compat) seeds arange(1, 241) as 4x5x6x2, the C reference peer
+   (native/stc_harness.c) joins as a leaf and a compat engine peer joins;
+   all three add; every reader (copyToTensor, the C peer's printout) must
+   hold seed + every add within 1e-6. (14b) one flat tensor of config 2's
+   width (3,870,976 elements) on the reference wire: a CUDA master, a
+   compat engine peer and a CUDA peer, each adding a seeded update in
+   turn; agreement within AGREE_REL within 30 s of each; seconds, frames/s
+   per link, bytes a frame; the master must send and apply frames (A and
+   B); then three more updates at once, their worst error read AT_ONCE_S
+   later (reported; the codec drains summed updates in thousands of
+   frames, tools/compat_tail.py). (14c)
+   config 2's table as a chain CUDA master (max_children 1) - engine E1 -
+   engine E2, ST_SIGN2=2 around E1's and E2's creation: every link on the
+   shared-memory lane at both ends (st_shm_active 2), E1-E2 at 2 bits with
+   sign2 frames sent, the master's link at 1 bit, agreement within
+   AGREE_REL (beside 12b's time in the same run); each link's ring bytes,
+   lane traffic and frames2; then the same chain with stripe_count 4 and
+   the lane off, E1's node made under to_env(FaultConfig(sever_after_frames
+   =3, only_link=1, only_stripe=2)): 4 stripes on every link, one death and
+   a re-route on E1's uplink, which stays up, and agreement. A and B against
+   their plain versions on each arm's CUDA master (tree_kernel_check: 14a's
+   and 14b's one-leaf tables, 14c's), 0 mismatches, reported by arm.
+   The launches of A and B by arm.
 The transport, the host codec and the engine (native/sttransport.cpp,
-stcodec.c, stengine.cpp) are compiled with g++ and gcc in phase 1, beside
-the kernels. Every rank's full results of phases 9, 10 and 11 go to
+stcodec.c, stengine.cpp) and the C reference peer (stc_harness.c) are
+compiled with g++ and gcc in phase 1, beside the kernels. Every rank's full results of phases 9, 10 and 11 go to
 profiles/pod.json.
 
 Prints the card's name and power limit (nvidia-smi), a {"kernels": [...]}
@@ -175,6 +200,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import math
 import os
 import socket
 import subprocess
@@ -199,7 +225,7 @@ MAX_ROUNDS = 400
 WORDS_BYTES = 4 * 4  # packed words per row x bytes per word
 SCALAR_SIZES = (17, 1000, 2**20 + 3, 2**24 + 5)  # phase 5: live counts, padded to 1024
 BIG_PAD = 2**30 + 1024  # phase 5: padded elements of the 64-bit indexing check
-BENCH_SECONDS = 1.0  # phase 6: target length of one timed chain
+BENCH_SECONDS = 0.5  # phase 6: target length of one timed chain
 SWEEP_LOG2 = (20, 24, 27, 30)  # phase 7: config 5's sizes, up to its "1B"
 SWEEP_SECONDS = 0.5  # phase 7: target length of one timed chain
 OUT_DIR = "profiles"  # phase 6 writes its profiler trace here
@@ -807,32 +833,45 @@ def _healthy(peers) -> None:
             raise AssertionError(f"peer {i}: receive faults {faults}")
 
 
-def _leaf_rel_err(peers, target, mag, spec) -> float:
-    """Worst per-leaf max |replica - target| / the leaf's max |target| over
-    ``peers``, computed on the device (target: flat f32 on the device)."""
+def _leaf_rel_errs(peers, target, mag, spec) -> list[float]:
+    """Each peer's worst per-leaf max |replica - target| / the leaf's max
+    |target|, computed on the device (target: flat f32 on the device)."""
     from shared_tensor_tpu_torch.ops import table as TT
 
     row_leaf = TT._consts(spec, str(target.device))[0]
-    worst = 0.0
+    out = []
     for p in peers:
         d = (p.st.snapshot_flat().to(target.device) - target).abs().view(-1, 128).amax(dim=1)
         leaf = torch.zeros(spec.num_leaves, device=target.device).scatter_reduce(0, row_leaf, d, reduce="amax")
-        worst = max(worst, float((leaf.double() / mag).max()))
-    return worst
+        out.append(float((leaf.double() / mag).max()))
+    return out
 
 
-def _wait_agree(peers, target, mag, spec, tol: float, deadline_s: float) -> tuple[float, float]:
-    """Poll until every replica is within ``tol``; returns (seconds, worst
-    error). Raises at the deadline or when a peer's thread died."""
+def _leaf_rel_err(peers, target, mag, spec) -> float:
+    """The worst of :func:`_leaf_rel_errs` over ``peers``."""
+    return max(_leaf_rel_errs(peers, target, mag, spec))
+
+
+def _wait_agree(peers, target, mag, spec, tol: float, deadline_s: float, poll_s: float = 0.05,
+                per_peer: dict | None = None) -> tuple[float, float]:
+    """Poll every ``poll_s`` until every replica is within ``tol``; returns
+    (seconds, worst error), and in ``per_peer`` (when given) the seconds at
+    which each peer's replica was first seen within ``tol``. Raises at the
+    deadline or when a peer's thread died."""
     t0 = time.perf_counter()
     while True:
         _healthy(peers)
-        err = _leaf_rel_err(peers, target, mag, spec)
+        errs = _leaf_rel_errs(peers, target, mag, spec)
+        if per_peer is not None:
+            for i, e in enumerate(errs):
+                if e <= tol:
+                    per_peer.setdefault(i, time.perf_counter() - t0)
+        err = max(errs)
         if err <= tol:
             return time.perf_counter() - t0, err
         if time.perf_counter() - t0 > deadline_s:
             raise AssertionError(f"replicas did not agree within {deadline_s} s: worst leaf error {err:.3e}")
-        time.sleep(0.05)
+        time.sleep(poll_s)
 
 
 def peer_example(device) -> dict:
@@ -1032,9 +1071,9 @@ def fetch_ab(template, device, k: int, depth: int = 8, bursts: int = 40) -> dict
 #: host buffers (parallel/mesh.py).
 POD_BACKEND = "gloo"
 CHAR_PEERS, CHAR_BATCH, CHAR_SEQ, CHAR_LR = 4, 32, 128, 0.5  # BASELINE config 2, the example's defaults
-CHAR_STEPS = 30  # compressed steps, the last CHAR_TIMED of them with stage times
+CHAR_STEPS = 20  # compressed steps, the last CHAR_TIMED of them with stage times
 CHAR_TIMED = 10
-OVERLAP_STEPS = 10
+OVERLAP_STEPS = 5
 DRAIN_STEPS = 10  # sync-only steps before replica_spread
 SHARDED_STEPS = 10  # 2 peers x 2 shards
 SHARDED_LR = 0.1  # at 0.5 the first 10 steps of SGD are too noisy to show the loss falling
@@ -1637,12 +1676,13 @@ def host_codec_check(template, seed: int, k: int = BATCH, n_targets: int = 2) ->
             "elements": spec.total_n, "leaves": spec.num_leaves}
 
 
-def mixed_tier_tree(template, device, seed: int, deadline_s: float = 30.0) -> dict:
+def mixed_tier_tree(template, device, seed: int, deadline_s: float = 30.0, poll_s: float = 0.05) -> dict:
     """12b: a CUDA device-tier port master and two host-tier port peers on
     the native engine joined below it, over loopback, on the char-RNN
     table; the master seeded, every peer adds a seeded update; every replica
     must reach seed + all updates within AGREE_REL of each leaf's max
-    |value| within ``deadline_s`` of the last add. Fails if a peer runs on
+    |value| within ``deadline_s`` of the last add, polled every ``poll_s``
+    (each peer's own time is reported too). Fails if a peer runs on
     another tier than asked."""
     from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch
     from shared_tensor_tpu_torch.ops.table import flatten, make_spec, tree_flatten, tree_unflatten
@@ -1676,7 +1716,8 @@ def mixed_tier_tree(template, device, seed: int, deadline_s: float = 30.0) -> di
         t1 = time.perf_counter()
         for p, d in zip(peers, deltas):
             p.add(d)
-        t_conv, err = _wait_agree(peers, target, mag, spec, AGREE_REL, deadline_s)
+        agree_each = {}
+        t_conv, err = _wait_agree(peers, target, mag, spec, AGREE_REL, deadline_s, poll_s, agree_each)
         window = time.perf_counter() - t1
         _sync(device)
         _healthy(peers)
@@ -1716,7 +1757,9 @@ def mixed_tier_tree(template, device, seed: int, deadline_s: float = 30.0) -> di
           f"last add to agreement {t_conv:.3f} s (worst leaf error {err:.3e}, limit {AGREE_REL}, "
           f"deadline {deadline_s} s)")
     return {"join_s": t_join, "seed_converge_s": t_seed, "seed_err": err_seed, "last_add_to_converged_s": t_conv,
-            "worst_rel_err": err, "window_s": window, "per_peer": per_peer}, master
+            "worst_rel_err": err, "window_s": window, "per_peer": per_peer,
+            "per_peer_agree_s": [agree_each.get(i) for i in range(len(peers))],
+            "lane_at_add": [{l: r.get("st_shm_active", 0) for l, r in _link_rows(b).items()} for b in before]}, master
 
 
 def tree_kernel_check(master, spec, tag: str = "12b") -> dict:
@@ -2005,6 +2048,416 @@ def sgd_arm(master, s1, loss_fn, batch, cfg_m, spec, offs) -> dict:
     return arm
 
 
+# -- phase 14 -------------------------------------------------------------------
+
+#: Phase 14a: seconds the C reference peer runs before it prints its replica.
+HARNESS_S = 2.5
+#: Phase 14b's last arm: seconds the three updates added at once get before
+#: their residual is read.
+AT_ONCE_S = 3.0
+#: Phase 14c: E1's seeded updates, added one at a time WIRE_ADD_GAP_S apart,
+#: so its uplink carries enough messages for the striped run's sever (3
+#: data messages on stripe 2 of 4, round-robin) to fire.
+E1_ADDS = 16
+WIRE_ADD_GAP_S = 0.02
+
+
+def _flat_target(seed_tree, deltas, spec, device):
+    """(seed flat, seed per-leaf max |v|, seed + every delta flat, its
+    per-leaf max |v|) on ``device``: the agreement targets."""
+    from shared_tensor_tpu_torch.ops.table import flatten, tree_flatten, tree_unflatten
+
+    leaves = [np.asarray(x, np.float64) for x in tree_flatten(seed_tree)[0]]
+    seed_mag = torch.tensor([np.abs(x).max() for x in leaves], dtype=torch.float64, device=device)
+    for d in deltas:
+        for j, x in enumerate(tree_flatten(d)[0]):
+            leaves[j] += x
+    target = flatten(tree_unflatten(spec.treedef, [x.astype(np.float32) for x in leaves]), spec, device)
+    mag = torch.tensor([np.abs(x).max() for x in leaves], dtype=torch.float64, device=device)
+    return flatten(seed_tree, spec, device), seed_mag, target, mag
+
+
+def _link_rows(metrics: dict) -> dict:
+    """{link: {metric: value}} of a peer's per-link metrics."""
+    out = {}
+    for k, v in metrics.items():
+        if "{link=" in k:
+            name, link = k.split("{link=")
+            out.setdefault(int(link.strip('"}')), {})[name] = v
+    return out
+
+
+def compat_example(device) -> tuple[dict, tuple]:
+    """14a, BASELINE config 1 on the reference wire: compat.createOrFetch on
+    the card seeds arange(1, 241) as 4x5x6x2 (wire_compat), the C reference
+    peer (native/stc_harness.c, the port's build) joins as a leaf and adds
+    0.25 at once, a port engine peer in compat mode joins; once every port
+    reader holds seed + 0.25 the master adds 1.0 and the engine peer 0.5.
+    Every reader (copyToTensor, and the C peer's printed replica) must hold
+    seed + 1.75 within 1e-6. (An add that lands while a link still streams
+    the seed can leave a residual whose tail no float32 replica near 240
+    represents, a property of the reference codec: the port's adds wait
+    for the seed.) Returns the report and the master's state for
+    tree_kernel_check."""
+    from shared_tensor_tpu_torch import Config, TransportConfig, _build, compat
+    from shared_tensor_tpu_torch.ops.table import flatten, make_spec
+
+    seed = np.arange(1.0, 241.0, dtype=np.float32).reshape(4, 5, 6, 2)
+    cfg = Config(transport=TransportConfig(peer_timeout_sec=10.0, wire_compat=True))
+    harness = str(_build.build_harness())
+    port = _free_port()
+    t0 = time.perf_counter()
+
+    def wait_for(handles, want, limit):
+        while True:
+            _healthy([h.peer for h in handles])
+            errs = [float(np.abs(h.copyToTensor().cpu().numpy() - want).max()) for h in handles]
+            if max(errs) <= 1e-6 or time.perf_counter() - t0 > limit:
+                return errs
+            time.sleep(0.01)
+
+    with compat.createOrFetch("127.0.0.1", port, seed, cfg, device=device) as a:
+        proc = subprocess.Popen([harness, "127.0.0.1", str(port), str(seed.size), str(HARNESS_S), "0.25"],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            while len(a.peer.node.links) < 1 and time.perf_counter() - t0 < 10:
+                time.sleep(0.005)
+            with compat.createOrFetch("127.0.0.1", port, np.zeros_like(seed), cfg, host_tier=True) as e:
+                if e.peer._engine is None or not (a.peer._compat and e.peer._compat):
+                    raise AssertionError("phase 14a: the joiner must be a compat engine peer")
+                seed_errs = wait_for((a, e), seed + 0.25, 10)
+                # and the master's link to the C peer has streamed it the seed
+                while any(a.peer.st.residual_rms(l) > 0 for l in a.peer.st.link_ids) \
+                        and time.perf_counter() - t0 < 10:
+                    time.sleep(0.005)
+                t_seed = time.perf_counter() - t0
+                links = len(a.peer.node.links)
+                a.addFromTensor(np.full_like(seed, 1.0))
+                e.addFromTensor(np.full_like(seed, 0.5))
+                errs = wait_for((a, e), seed + 1.75, 20)
+                t_port = time.perf_counter() - t0
+                frames = [a.peer.metrics()["st_frames_out_total"], e.peer.metrics()["st_frames_out_total"]]
+                state = a.peer.st.snapshot_all() + (flatten(np.full_like(seed, 1.0), make_spec(seed), device),
+                                                    a.peer.st.codec)
+                out, err = proc.communicate(timeout=HARNESS_S + 30)
+                if proc.returncode != 0:
+                    raise AssertionError(f"phase 14a: the C peer failed: {err[-300:]}")
+                c_vals = np.array([float(x) for x in out.split()], np.float32)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    c_err = float(np.abs(c_vals - (seed + 1.75).reshape(-1)).max()) if c_vals.size == seed.size else float("inf")
+    res = {"seconds_seed": t_seed, "seconds_port_agree": t_port, "seconds": time.perf_counter() - t0,
+           "seed_err": max(seed_errs), "max_abs_err_master": errs[0], "max_abs_err_engine": errs[1],
+           "max_abs_err_c_peer": c_err, "master_links": links, "frames_out": frames,
+           "compat_frame_bytes": 4 + (seed.size + 7) // 8}
+    print(f"[14a] config 1 on the reference wire: CUDA master, C peer (stc_harness) and compat engine peer "
+          f"({links} children); seed + the C peer's add everywhere after {t_seed:.3f} s; errors master "
+          f"{errs[0]:.3e}, engine {errs[1]:.3e}, C peer {c_err:.3e} (limit 1e-6) after {t_port:.3f} s; frames out "
+          f"{frames}; {res['compat_frame_bytes']} bytes a frame")
+    if max(errs[0], errs[1], c_err, res["seed_err"]) > 1e-6 or links != 2:
+        raise AssertionError(f"phase 14a: {res}")
+    return res, state
+
+
+def compat_wide(device, seed: int, n: int, deadline_s: float = 30.0) -> tuple[dict, tuple]:
+    """14b: one flat f32 tensor of ``n`` elements (config 2's width) on the
+    reference wire: a CUDA compat master seeded from ``seed``, a compat
+    engine peer and a compat device-tier peer on the card, each adding a
+    seeded update in turn; every replica within AGREE_REL of max |value|
+    within ``deadline_s`` of each add. The adds take turns because two
+    updates of unrelated power-of-two bounds summed on one link drain their
+    sparse outliers in thousands of frames under the reference's per-frame
+    scale (a property of the codec, JAX's peers alike: tools/compat_tail.py),
+    while one alone, relayed or not, drains in about 28 frames. The last
+    arm then adds three more seeded updates at once and reports the worst
+    error AT_ONCE_S later (or the seconds to agreement); it fails only on a
+    peer fault or a non-finite replica. The master must have sent and
+    applied frames (kernels A and B on its path). Returns the report and
+    the master's state for tree_kernel_check."""
+    from shared_tensor_tpu_torch import Config, TransportConfig, compat
+    from shared_tensor_tpu_torch.comm import wire
+    from shared_tensor_tpu_torch.ops.table import flatten, make_spec
+
+    template = np.zeros(n, np.float32)
+    spec = make_spec(template)
+    seed_tree, deltas = tree_updates(template, seed + 14, 3)
+    at_once = tree_updates(template, seed + 15, 3)[1]
+    seed_flat, seed_mag, _, _ = _flat_target(seed_tree, [], spec, device)
+    cfg = Config(transport=TransportConfig(peer_timeout_sec=30.0, wire_compat=True))
+    port = _free_port()
+    handles = []
+    try:
+        t0 = time.perf_counter()
+        handles.append(compat.createOrFetch("127.0.0.1", port, seed_tree, cfg, device=device))
+        handles.append(compat.createOrFetch("127.0.0.1", port, template, cfg, host_tier=True))
+        handles.append(compat.createOrFetch("127.0.0.1", port, template, cfg, device=device))
+        t_join = time.perf_counter() - t0
+        peers = [h.peer for h in handles]
+        want = torch.device(device).type
+        if peers[1]._engine is None or {peers[0].st.device.type, peers[2].st.device.type} != {want} \
+                or not all(p._compat for p in peers):
+            raise AssertionError(f"phase 14b: want a {want} master, a compat engine peer and a {want} peer")
+        t_seed, _ = _wait_agree(peers, seed_flat, seed_mag, spec, AGREE_REL, deadline_s)
+        before = [p.metrics() for p in peers]
+        t1 = time.perf_counter()
+        per_add = []
+        for i, (h, d) in enumerate(zip(handles, deltas)):
+            h.addFromTensor(d)
+            _, _, target_i, mag_i = _flat_target(seed_tree, deltas[: i + 1], spec, device)
+            per_add.append(_wait_agree(peers, target_i, mag_i, spec, AGREE_REL, deadline_s))
+        t_conv, err = per_add[-1]
+        window = time.perf_counter() - t1
+        _sync(device)
+        after = [p.metrics() for p in peers]
+        # the last arm: three updates at once, read AT_ONCE_S later
+        _, _, target2, mag2 = _flat_target(seed_tree, deltas + at_once, spec, device)
+        t2 = time.perf_counter()
+        for h, d in zip(handles, at_once):
+            h.addFromTensor(d)
+        once_s = None
+        while True:
+            _healthy(peers)
+            once_err = _leaf_rel_err(peers, target2, mag2, spec)
+            if once_err <= AGREE_REL:
+                once_s = time.perf_counter() - t2
+                break
+            if time.perf_counter() - t2 > AT_ONCE_S:
+                break
+            time.sleep(0.05)
+        once_frames = peers[0].metrics()["st_frames_out_total"] - after[0]["st_frames_out_total"]
+        state = peers[0].st.snapshot_all() + (flatten(deltas[0], spec, device), peers[0].st.codec)
+    finally:
+        for h in reversed(handles):
+            h.close()
+    m0 = {k: after[0][k] - before[0].get(k, 0) for k in ("st_frames_out_total", "st_frames_in_total")}
+    per_link = []
+    for i, (b, a) in enumerate(zip(before, after)):
+        lb, la = _link_rows(b), _link_rows(a)
+        for link, row in sorted(la.items()):
+            fo = row.get("st_link_frames_out_total", 0) - lb.get(link, {}).get("st_link_frames_out_total", 0)
+            mo = row.get("st_link_wire_msgs_out_total", 0) - lb.get(link, {}).get("st_link_wire_msgs_out_total", 0)
+            per_link.append({"peer": i, "link": link, "frames_out_per_s": fo / window, "msgs_out_per_s": mo / window})
+    res = {"n": n, "join_s": t_join, "seed_agree_s": t_seed, "add_to_agree_s": [x[0] for x in per_add],
+           "last_add_to_agree_s": t_conv, "worst_rel_err": err,
+           "compat_frame_bytes": wire.compat_frame_bytes(n), "master_frames": m0, "per_link": per_link,
+           "at_once": {"window_s": AT_ONCE_S, "add_to_agree_s": once_s, "worst_rel_err": once_err,
+                       "master_frames_out": once_frames}}
+    print(f"[14b] the reference wire at {n} elements ({res['compat_frame_bytes']} bytes a frame): CUDA master, "
+          f"compat engine and CUDA peers joined in {t_join:.3f} s, seed agreed in {t_seed:.3f} s; each add in turn "
+          f"(master, engine, CUDA peer) to agreement " + ", ".join(f"{x[0]:.3f}" for x in per_add)
+          + f" s (worst error {err:.3e}, limit {AGREE_REL}); master frames {m0}")
+    for row in per_link:
+        print(f"[14b]   peer {row['peer']} link {row['link']}: {row['frames_out_per_s']:.1f} frames/s out, "
+              f"{row['msgs_out_per_s']:.1f} wire messages/s")
+    print(f"[14b] three more updates added at once: " + (f"agreed in {once_s:.3f} s" if once_s is not None else
+          f"worst error {once_err:.3e} after {AT_ONCE_S} s") + f" (limit {AGREE_REL}); master frames out "
+          f"{once_frames}")
+    if not (m0["st_frames_out_total"] > 0 and m0["st_frames_in_total"] > 0):
+        raise AssertionError(f"phase 14b: the CUDA master sent or applied no frame: {m0}")
+    if not math.isfinite(once_err):
+        raise AssertionError(f"phase 14b: a replica is not finite after the adds at once: {once_err}")
+    return res, state
+
+
+def _with_env(env: dict, fn):
+    """fn() with ``env`` set, the environment restored after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def lane_chain(template, device, seed: int, striped: bool, deadline_s: float = 30.0) -> tuple[dict, tuple]:
+    """14c on config 2's table: a chain of a CUDA device-tier master
+    (max_children 1), engine peer E1 below it and engine peer E2 below E1.
+    Unstriped: the shared-memory lane on (the default) and ST_SIGN2=2
+    around E1's and E2's creation; every link must be on the lane at both
+    ends, E1-E2 at 2 bits with sign2 frames sent, the master's link at 1
+    bit. Striped: stripe_count 4, the lane off, E1's node made under
+    to_env(FaultConfig(sever_after_frames=3, only_link=1, only_stripe=2));
+    every link must have 4 stripes and E1's uplink lose one, re-route and
+    stay up. Each node adds a seeded update (E1 as E1_ADDS of them); every
+    replica within AGREE_REL within ``deadline_s``. Returns the report and
+    the master's state for tree_kernel_check."""
+    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch
+    from shared_tensor_tpu_torch.comm import faults
+    from shared_tensor_tpu_torch.config import FaultConfig
+    from shared_tensor_tpu_torch.ops.table import flatten, make_spec
+
+    tag = "14c striped" if striped else "14c"
+    spec = make_spec(template)
+    rng = np.random.default_rng(seed + (141 if striped else 140))
+    seed_tree = random_like(template, rng)
+    d_master, d_e2 = random_like(template, rng, 0.5), random_like(template, rng, 0.5)
+    d_e1 = [random_like(template, rng, 0.5 / E1_ADDS) for _ in range(E1_ADDS)]
+    seed_flat, seed_mag, target, mag = _flat_target(seed_tree, [d_master, d_e2, *d_e1], spec, device)
+    tcfg = TransportConfig(peer_timeout_sec=30.0, max_children=1, stripe_count=4 if striped else 1,
+                           shm_enabled=not striped)
+    cfg = Config(transport=tcfg)
+    env_e1 = (faults.to_env(FaultConfig(enabled=True, sever_after_frames=3, only_link=1, only_stripe=2))
+              if striped else {"ST_SIGN2": "2"})
+    env_e2 = {} if striped else {"ST_SIGN2": "2"}
+    port = _free_port()
+    peers = []
+    try:
+        t0 = time.perf_counter()
+        peers.append(create_or_fetch("127.0.0.1", port, seed_tree, cfg, timeout=60.0, device=device))
+        peers.append(_with_env(env_e1, lambda: create_or_fetch("127.0.0.1", port, template, cfg, timeout=60.0,
+                                                              host_tier=True)))
+        peers.append(_with_env(env_e2, lambda: create_or_fetch("127.0.0.1", port, template, cfg, timeout=60.0,
+                                                              host_tier=True)))
+        t_join = time.perf_counter() - t0
+        master, e1, e2 = peers
+        if e1._engine is None or e2._engine is None or len(master.node.links) != 1 or len(e1.node.links) != 2:
+            raise AssertionError(f"{tag}: want the chain master - E1 - E2 with E1 and E2 engine peers")
+        up0 = e1._uplink
+        t_seed, _ = _wait_agree(peers, seed_flat, seed_mag, spec, AGREE_REL, deadline_s)
+        t_lane = None
+        if not striped:
+            t1 = time.perf_counter()
+            while any(v != 2 for p in peers for v in
+                      [_link_rows(p.metrics()).get(l, {}).get("st_shm_active", 0) for l in p.node.links]):
+                if time.perf_counter() - t1 > 10:
+                    raise AssertionError(f"{tag}: a link is not on the lane: "
+                                         + str([{l: r.get("st_shm_active") for l, r in _link_rows(p.metrics()).items()}
+                                                for p in peers]))
+                time.sleep(0.02)
+            t_lane = time.perf_counter() - t1
+        before = [p.metrics() for p in peers]
+        t1 = time.perf_counter()
+        master.add(d_master)
+        e2.add(d_e2)
+        for d in d_e1:
+            e1.add(d)
+            time.sleep(WIRE_ADD_GAP_S)
+        t_conv, err = _wait_agree(peers, target, mag, spec, AGREE_REL, deadline_s)
+        window = time.perf_counter() - t1
+        _sync(device)
+        after = [p.metrics() for p in peers]
+        rows = [_link_rows(a) for a in after]
+        stripes = {f"{name} link {l}": p.node.stripe_stats(l) for name, p in zip(("master", "E1", "E2"), peers)
+                   for l in p.node.links}
+        prec = {"E1 up": e1._engine.link_precision(e1._uplink),
+                "E1 down": e1._engine.link_precision(next(l for l in e1.node.links if l != e1._uplink)),
+                "E2 up": e2._engine.link_precision(e2._uplink)}
+        e1_up_same = e1._uplink == up0
+        state = master.st.snapshot_all() + (flatten(d_master, spec, device), master.st.codec)
+    finally:
+        for p in reversed(peers):
+            p.close()
+    delta = [{k: a[k] - b.get(k, 0) for k in a if "{link=" not in k and isinstance(a[k], (int, float))}
+             for b, a in zip(before, after)]
+    res = {"striped": striped, "join_s": t_join, "seed_agree_s": t_seed, "lane_live_s": t_lane,
+           "first_add_to_agree_s": window, "last_add_to_agree_s": t_conv,
+           "worst_rel_err": err, "links": rows, "precision": prec, "stripe_stats": stripes,
+           "frames2_out": [d["st_frames2_out_total"] for d in delta[1:]],
+           "frames_out": [d["st_frames_out_total"] for d in delta], "shm_fallbacks": [a["st_shm_fallback_total"]
+                                                                                      for a in after]}
+    names = ("master", "E1", "E2")
+    print(f"[{tag}] chain CUDA master - E1 - E2 on the char-RNN table ({spec.num_leaves} leaves, {spec.total_n} "
+          f"elements): joined in {t_join:.3f} s, seed agreed in {t_seed:.3f} s"
+          + (f", every link on the lane {t_lane:.3f} s later" if t_lane is not None else "")
+          + f"; last add to agreement {t_conv:.3f} s, first add to agreement {window:.3f} s (E1's {E1_ADDS} adds "
+          f"{WIRE_ADD_GAP_S} s apart; worst error {err:.3e}, limit {AGREE_REL})")
+    for name, r, d in zip(names, rows, delta):
+        for l, row in sorted(r.items()):
+            print(f"[{tag}]   {name} link {l}: " + ", ".join(f"{k[3:]} {v}" for k, v in sorted(row.items())
+                                                       if k.startswith(("st_shm", "st_stripe", "st_link_precision"))))
+        print(f"[{tag}]   {name}: frames out {d['st_frames_out_total']}, in {d['st_frames_in_total']}, "
+              f"sign2 frames out {d.get('st_frames2_out_total', 0)} in {d.get('st_frames2_in_total', 0)}; shm msgs "
+              f"out {d.get('st_shm_msgs_out_total', 0)} in {d.get('st_shm_msgs_in_total', 0)}, bytes out "
+              f"{d.get('st_shm_bytes_out_total', 0)} in {d.get('st_shm_bytes_in_total', 0)}")
+    print(f"[{tag}] link precision {prec}; stripes {stripes}")
+    bad = []
+    if err > AGREE_REL:
+        bad.append(f"worst error {err:.3e}")
+    if striped:
+        if any(s is None or s["stripes"] != 4 for s in stripes.values()):
+            bad.append("a link without 4 stripes")
+        s1 = stripes.get(f"E1 link {up0}")
+        if not (s1 and s1["deaths"] >= 1 and s1["reroutes"] >= 1 and e1_up_same):
+            bad.append(f"E1's uplink did not lose a stripe, re-route and stay up: {s1}, same link {e1_up_same}")
+    else:
+        if prec["E1 down"] != 2 or prec["E2 up"] != 2 or prec["E1 up"] != 1:
+            bad.append(f"precision {prec}")
+        if not any(res["frames2_out"]):
+            bad.append("no sign2 frame sent on E1-E2")
+        if any(res["shm_fallbacks"]):
+            bad.append(f"lane fallbacks {res['shm_fallbacks']}")
+    if bad:
+        raise AssertionError(f"{tag}: " + "; ".join(bad))
+    return res, state
+
+
+def shm_df() -> str:
+    """``df -B1 /dev/shm`` (its last line), or why it could not run."""
+    try:
+        out = subprocess.run(["df", "-B1", "/dev/shm"], capture_output=True, text=True, timeout=10)
+        return out.stdout.strip().splitlines()[-1] if out.returncode == 0 else f"df failed: {out.stderr.strip()}"
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"df failed: {e}"
+
+
+def wire_phase(device, seed: int, agree_12b_s: float, smi: str) -> tuple[dict, dict, dict]:
+    """Phase 14: the peer's wire capabilities (14a, 14b, 14c). Returns the
+    report, the launches of A and B over the phase, and A and B against
+    their plain versions on each arm's CUDA master (14a's and 14b's one-leaf
+    compat tables, 14c's char-RNN table): {kernel: {"mismatches" (the sum),
+    "max_abs_err" (the worst), "by_arm": {arm: mismatches}}}."""
+    from shared_tensor_tpu_torch.ops import codec_cuda as CC
+    from shared_tensor_tpu_torch.ops.table import make_spec
+
+    t0 = time.perf_counter()
+    df = shm_df()
+    print(f"[14] /dev/shm: {df}")
+    CC.reset_launches()
+    out = {"dev_shm_df": df}
+    masters = {}
+    out["14a"], masters["14a"] = compat_example(device)
+    launches = {"14a": {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}}
+    char_template = char_rnn_template()
+    n = make_spec(char_template).total_n
+    CC.reset_launches()
+    out["14b"], masters["14b"] = compat_wide(device, seed, n)
+    launches["14b"] = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
+    CC.reset_launches()
+    out["14c"], masters["14c"] = lane_chain(char_template, device, seed, striped=False)
+    out["14c_striped"], _ = lane_chain(char_template, device, seed, striped=True)
+    launches["14c"] = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
+    total = {k: sum(v[k] for v in launches.values()) for k in ("quantize_rows", "apply_rows_batch")}
+    specs = {"14a": make_spec(np.zeros((4, 5, 6, 2), np.float32)), "14b": make_spec(np.zeros(n, np.float32)),
+             "14c": make_spec(char_template)}
+    by_arm = {arm: tree_kernel_check(masters[arm], specs[arm], arm) for arm in masters}
+    check = {k: {"mismatches": sum(c[k]["mismatches"] for c in by_arm.values()),
+                 "max_abs_err": max(c[k]["max_abs_err"] for c in by_arm.values()),
+                 "by_arm": {arm: c[k]["mismatches"] for arm, c in by_arm.items()}}
+             for k in ("quantize_rows", "apply_rows_batch")}
+    out["launches"] = launches
+    out["agree_s_vs_12b"] = {"14c_lane_sign2": out["14c"]["last_add_to_agree_s"],
+                             "14c_striped": out["14c_striped"]["last_add_to_agree_s"], "12b": agree_12b_s}
+    out["seconds"] = time.perf_counter() - t0
+    ring = {f"{p} link {l}": r.get("st_shm_ring_bytes") for p, rows in zip(("master", "E1", "E2"), out["14c"]["links"])
+            for l, r in rows.items()}
+    print(f"[14] ring bytes a direction per link {ring}; last add to agreement: 14c {out['14c']['last_add_to_agree_s']:.3f}"
+          f" s (lane, sign2 on E1-E2), striped {out['14c_striped']['last_add_to_agree_s']:.3f} s, 12b in this run "
+          f"{agree_12b_s:.3f} s")
+    print(f"[14] launches {launches}; phase 14 {out['seconds']:.3f} s; on {smi}")
+    if not (launches["14b"]["quantize_rows"] and launches["14b"]["apply_rows_batch"]) or not all(total.values()):
+        raise AssertionError(f"phase 14: a kernel of the path never launched: {launches}")
+    bad = {k: v["by_arm"] for k, v in check.items() if v["mismatches"]}
+    if bad:
+        raise AssertionError(f"phase 14: kernel vs plain mismatches on the masters' states: {bad}")
+    return out, total, check
+
+
 SOURCES = {
     "quantize_rows":("shared_tensor_tpu_torch/csrc/quantize_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:286"),
     "apply_rows_batch": ("shared_tensor_tpu_torch/csrc/apply_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:337"),
@@ -2040,13 +2493,16 @@ def main() -> int:
     from shared_tensor_tpu_torch import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(2) as pool:
         native = pool.submit(lambda: (_build.build_engine(), time.perf_counter() - t0))
+        harness = pool.submit(_build.build_harness)
         report = CC.build()
         lib, native_s = native.result()
+        harness.result()
     print(f"[1] build {time.perf_counter() - t0:.2f} s: "
           + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in report.items())
-          + f"; {_build.transport_path().name}, {_build.codec_path().name} and {lib.name} {native_s:.2f} s")
+          + f"; {_build.transport_path().name}, {_build.codec_path().name} and {lib.name} {native_s:.2f} s; "
+          f"{_build.harness_path().name}")
     for k, v in report.items():
         for line in v["log"].splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
@@ -2195,7 +2651,19 @@ def main() -> int:
     bad = {k: v["mismatches"] for k, v in check13.items() if v["mismatches"]}
     if bad:
         raise AssertionError(f"phase 13: kernel vs plain mismatches on the master's state: {bad}")
+
+    # 14. the peer's wire capabilities: the reference wire (with the C peer),
+    # the shared-memory lane, sign2 and striping (the launch counts of A and
+    # B are this phase's)
+    wire_out, wire_launches, check14 = wire_phase(dev, args.seed, mixed["last_add_to_converged_s"], smi)
+    for k, n in wire_launches.items():
+        t[k]["launches_phase14"] = n
+        t[k]["launches_phase14_by_arm"] = {arm: v[k] for arm, v in wire_out["launches"].items()}
+        t[k]["mismatches_phase14"] = check14[k]["mismatches"]
+        t[k]["mismatches_phase14_by_arm"] = check14[k]["by_arm"]
+        t[k]["max_abs_err_phase14"] = check14[k]["max_abs_err"]
     serve_out["script_s"] = time.perf_counter() - t_script
+    print(f"[14] script {serve_out['script_s']:.3f} s")
 
     print(smi)
     kernels = []
@@ -2215,6 +2683,7 @@ def main() -> int:
     print(json.dumps({"pod": pod["summary"]}))
     print(json.dumps({"host_codec": host, "mixed_tier_tree": mixed, "phase12_s": secs12}))
     print(json.dumps({"serve": serve_out}))
+    print(json.dumps({"wire": wire_out}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
 """The port's own builds of the native libraries: the TCP transport, the
-host codec loops and the link engine.
+host codec loops and the link engine; and of the reference-protocol C
+peer the compat tests and ``chip_smoke.py`` run beside the port.
 
 The counterpart of ``shared_tensor_tpu/_build.py``, which runs ``make`` in
 ``native/`` and builds every native library in place. The port compiles
@@ -15,7 +16,9 @@ kernels):
   (``-l:<name>``) with ``-Wl,-rpath,$ORIGIN``. It is compiled to an object
   (the rule's flags and ``-c``) while the two libraries compile beside it,
   then linked: its compile is the longest of the three, and a first build
-  (every run from a fresh checkout) would otherwise pay all three in turn.
+  (every run from a fresh checkout) would otherwise pay all three in turn;
+- ``native/stc_harness.c``, a standalone C peer that speaks the reference
+  wire format, with ``gcc``: the ``stc_harness`` rule (an executable).
 
 Each library is named by a hash of its sources, its flags and the names
 of the libraries it links, so an edit to any of them rebuilds it and the
@@ -56,6 +59,9 @@ ENGINE_SOURCES = ("stengine.cpp", *HEADERS)
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-pthread", "-shared")
 #: native/Makefile: the libstcodec.so rule
 CC_FLAGS = ("-O3", "-fPIC", "-Wall", "-Wextra", "-pthread", "-shared")
+#: native/Makefile: CFLAGS of the stc_harness rule (its -lm -lpthread
+#: follow the source)
+HARNESS_FLAGS = ("-O2", "-Wall", "-Wextra")
 
 
 @contextlib.contextmanager
@@ -129,6 +135,21 @@ def build_codec() -> Path:
     missing or the compile fails."""
     src = str(NATIVE_DIR / "stcodec.c")
     return _compile(codec_path(), "codec", "CC", "gcc", lambda o: [*CC_FLAGS, "-o", str(o), src])
+
+
+def harness_path() -> Path:
+    """Where the C reference peer for the current source lives."""
+    return _hashed("stc_harness", ("stc_harness.c",), HARNESS_FLAGS, suffix="")
+
+
+def build_harness() -> Path:
+    """Compile the reference-protocol C peer (``native/stc_harness.c``:
+    ``stc_harness <host> <port> <n> <seconds> <add> [children]``) if need
+    be and return the executable's path. Raises ``RuntimeError`` if
+    ``gcc`` is missing or the compile fails."""
+    src = str(NATIVE_DIR / "stc_harness.c")
+    return _compile(harness_path(), "reference peer", "CC", "gcc",
+                    lambda o: [*HARNESS_FLAGS, "-o", str(o), src, "-lm", "-lpthread"])
 
 
 def build_engine() -> Path:

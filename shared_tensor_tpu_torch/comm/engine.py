@@ -16,14 +16,16 @@ module is given and the engine's transport calls share one mapped copy of
 the transport. A failed build raises; nothing falls back to the Python
 tier unless the configuration asks for it (``Config.native_engine``).
 
-This binds the 1-bit engine: links by snapshot diff, the re-graft carry,
-read-only subscriber links (``new_link_sub``: unledgered, optionally
+This binds links by snapshot diff, the re-graft carry, read-only
+subscriber links (``new_link_sub``: unledgered, optionally
 range-filtered, with the engine's own FRESH marks), seal, pause,
-checkpoints and counters. The reference wire format, sign2 and
-shard-plane entry points of the C API wait for their slices; the engine
-runs with ``precision_mode`` 0 (fixed 1 bit), and
-the port's SYNC and WELCOME advertise no sign2, so no engine peer sends it
-2-bit frames.
+checkpoints and counters; the reference wire format
+(``compat_frame_bytes`` > 0: raw frames of one flat tensor, no ACK ledger,
+and ``compat_regraft`` for a leaf's re-graft); sign2 precision
+(``precision_mode``: 0 fixed 1 bit, 1 the telemetry governor, 2 pinned),
+emitted only on links marked ``link_allow_sign2`` (the peer advertised
+it); and the aligned v3 framing toward links marked ``link_wire_v3``.
+The shard-plane entry points of the C API wait for their slice.
 
 Returned arrays are CPU torch tensors (zero-copy over numpy), as the host
 tier's ``SharedTensor`` returns them.
@@ -93,6 +95,11 @@ _SIGNATURES = {
     # aux (nullable)
     "st_engine_restore_ex": (None, [_VP, _f32p, _I32, _i32p, _f32p, _VP]),
     "st_engine_restore": (None, [_VP, _f32p, _I32, _i32p, _f32p]),
+    # link, allow
+    "st_engine_link_allow_sign2": (_I32, [_VP, _I32, _I32]),
+    "st_engine_link_wire_v3": (_I32, [_VP, _I32, _I32]),
+    "st_engine_link_precision": (_I32, [_VP, _I32]),
+    "st_engine_compat_regraft": (_I32, [_VP, _I32]),
 }
 
 
@@ -142,7 +149,18 @@ class EngineTensor:
         ack_timeout_sec: float = 0.0,
         ack_retry_limit: int = 8,
         cascade_frames: int = 1,
+        compat_frame_bytes: int = 0,
+        trace_wire: bool = True,
+        precision_mode: int = 0,
+        precision_up_ratio: float = 0.0,
+        precision_down_ratio: float = 0.0,
+        precision_interval_sec: float = 0.0,
     ):
+        """``compat_frame_bytes`` > 0 speaks the reference wire format (a
+        one-leaf table); ``trace_wire`` selects v2 framing over v1;
+        ``precision_mode`` and the governor's knobs are
+        ``compat.sign2_mode``'s and ``CodecConfig``'s (0: the engine's own
+        defaults)."""
         self.spec: TableSpec = make_spec(template)
         self.codec = codec
         self.device = torch.device("cpu")
@@ -154,14 +172,15 @@ class EngineTensor:
             self.spec.num_leaves, self.spec.total, self.spec.total_n,
             None if init is None else init.ctypes.data_as(ctypes.c_void_p),
             _POLICY_CODE[codec.scale_policy], 1 if codec.per_leaf_scale else 0,
-            burst, recv_cap, 0, quarantine_send_failures, ack_timeout_sec, ack_retry_limit,
-            1,  # v2 framing with the trace stamp, as the port's Python peer sends
+            burst, recv_cap, compat_frame_bytes, quarantine_send_failures, ack_timeout_sec, ack_retry_limit,
+            1 if trace_wire else 0,
         )
         if not self._h:
             raise RuntimeError("st_engine_create failed")
-        # before start (the sender reads it unlocked): fixed 1-bit frames,
-        # the governor's knobs at their defaults, the cascade depth
-        self._lib.st_engine_set_codec(self._h, 0, 0.0, 0.0, 0.0, cascade_frames)
+        # before start (the sender reads these unlocked)
+        self._lib.st_engine_set_codec(
+            self._h, precision_mode, precision_up_ratio, precision_down_ratio, precision_interval_sec, cascade_frames
+        )
         # reused by poll_ctrl, sized for the largest wire message
         self._ctrl_buf = ctypes.create_string_buffer(max(recv_cap, 1 << 16))
         self._lib.st_engine_start(self._h)
@@ -265,6 +284,33 @@ class EngineTensor:
         if r == 0:
             raise DuplicateLink(f"link {link_id} already exists")
 
+    def link_allow_sign2(self, link_id: int, allow: bool = True) -> None:
+        """The peer on the link advertised sign2 decoding: the governor may
+        upshift the link. Without it a link stays 1-bit."""
+        if self._h:
+            self._lib.st_engine_link_allow_sign2(self._h, link_id, 1 if allow else 0)
+
+    def link_wire_v3(self, link_id: int, allow: bool = True) -> None:
+        """The peer on the link advertised ``SYNC_FLAG_SHM``: it decodes the
+        aligned v3 framing, which the engine then emits to it. Without it a
+        link stays on v2 (or v1)."""
+        if self._h:
+            self._lib.st_engine_link_wire_v3(self._h, link_id, 1 if allow else 0)
+
+    def link_precision(self, link_id: int) -> int:
+        """The link's wire precision in bits (1 or 2; 0: unknown link or a
+        destroyed engine)."""
+        if not self._h:
+            return 0
+        return int(self._lib.st_engine_link_precision(self._h, link_id))
+
+    def compat_regraft(self, link_id: int) -> None:
+        """The reference wire format's leaf re-graft, atomic in C: the
+        replica becomes the carry and the new uplink's residual the carry
+        (``core.SharedTensor.regraft_reset_to_carry``'s twin)."""
+        if self._lib.st_engine_compat_regraft(self._handle(), link_id) == 0:
+            raise DuplicateLink(f"link {link_id} already exists")
+
     def stash_carry(self, link_id: int) -> bool:
         """Park a dead uplink's residual (unacknowledged frames rolled back)
         in the engine's live carry slot, which keeps absorbing adds and
@@ -334,7 +380,10 @@ class EngineTensor:
         """The replica, every residual (the carry as link -1) and each
         link's wire state (``tx_seq``, the last DATA/BURST seq sent;
         ``rx_count``, the last in-order seq accepted; ``prec``, its wire
-        precision), under one engine lock: the checkpoint primitive."""
+        precision; ``sub``, ``sign2`` and ``ranged``, its mode and its
+        peer's sign2 capability; ``gov_prev``, the governor's last RMS
+        sample), under one engine lock: the checkpoint primitive, atomic
+        against cascade quantizes and sign2 frames in flight."""
         values = np.empty(self.spec.total, np.float32)
         ids = np.empty(_MAX_LINKS, np.int32)
         resids = np.empty((_MAX_LINKS, self.spec.total), np.float32)
@@ -346,7 +395,12 @@ class EngineTensor:
             lid = int(ids[i])
             links[lid] = torch.from_numpy(resids[i].copy())
             if lid >= 0:
-                meta[lid] = {"tx_seq": int(aux[i, 0]), "rx_count": int(aux[i, 1]), "prec": int(aux[i, 2]) & 0xFF}
+                packed = int(aux[i, 2])
+                meta[lid] = {
+                    "tx_seq": int(aux[i, 0]), "rx_count": int(aux[i, 1]), "prec": packed & 0xFF,
+                    "sub": bool(packed >> 8 & 1), "sign2": bool(packed >> 9 & 1), "ranged": bool(packed >> 10 & 1),
+                    "gov_prev": float(aux[i, 3:4].view(np.float64)[0]),
+                }
         return torch.from_numpy(values), links, meta
 
     def snapshot_all(self) -> tuple[torch.Tensor, dict[int, torch.Tensor]]:
@@ -356,8 +410,9 @@ class EngineTensor:
     def restore_ex(self, values, links: dict, meta: Optional[dict] = None) -> None:
         """Restore the replica and the residuals of the given links that
         exist (and the carry, link -1) atomically in C, with each link's
-        wire precision from ``meta``; live links keep their wire seqs.
-        Restored links are marked to stream."""
+        precision, capability flags and governor sample from ``meta``
+        (:meth:`snapshot_ex`'s); live links keep their wire seqs. Restored
+        links are marked to stream."""
         v = codec_np._f32(values)
         if v.shape != (self.spec.total,):
             raise ValueError(f"values shape {v.shape} != ({self.spec.total},)")
@@ -368,10 +423,11 @@ class EngineTensor:
             for i, lid in enumerate(ids):
                 m = meta.get(int(lid))
                 if m is not None:
+                    flags = (1 if m.get("sub") else 0) | (2 if m.get("sign2") else 0) | (4 if m.get("ranged") else 0)
                     aux[i, 0] = m.get("tx_seq", 0)
                     aux[i, 1] = m.get("rx_count", 0)
-                    aux[i, 2] = m.get("prec", 0) & 0xFF
-                    aux[i, 3] = np.float64(-1.0).view(np.uint64)
+                    aux[i, 2] = (m.get("prec", 0) & 0xFF) | flags << 8
+                    aux[i, 3:4] = np.asarray([m.get("gov_prev", -1.0)], np.float64).view(np.uint64)
             aux_ptr = aux.ctypes.data_as(ctypes.c_void_p)
         self._lib.st_engine_restore_ex(self._handle(), v, len(ids), ids, resids.reshape(-1), aux_ptr)
 
@@ -439,6 +495,10 @@ class EngineTensor:
             "st_traced_msgs_in_total": int(c[15]),
             "st_sub_msgs_out_total": int(c[16]),
             "st_sub_fresh_out_total": int(c[17]),
+            "st_precision_upshifts_total": int(c[18]),
+            "st_precision_downshifts_total": int(c[19]),
+            "st_frames2_out_total": int(c[20]),
+            "st_frames2_in_total": int(c[21]),
         }
 
     @property

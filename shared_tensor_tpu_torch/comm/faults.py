@@ -76,8 +76,10 @@ class FaultPlan:
     ``scale_bytes`` (4 * leaves) and ``trace_bytes`` (13 on a v2 sender)
     give :func:`corrupt` the frame geometry, so its flips land in sign
     words. ``wire_compat`` skips truncation and duplication, which the
-    reference's fixed-size framing cannot recover from (the port never
-    speaks it; the flag keeps the plan's decisions JAX's)."""
+    reference's fixed-size framing cannot recover from (it has no seq and
+    no re-send). ``FaultConfig.only_stripe`` aims the native transport's
+    faults at one socket of a striped link; this plan, at the Python send
+    boundary, sees whole messages and ignores it."""
 
     def __init__(
         self,
@@ -220,6 +222,8 @@ def to_env(cfg: FaultConfig) -> dict[str, str]:
         parts.append(f"sever_after={cfg.sever_after_frames}")
     if cfg.only_link > 0:
         parts.append(f"only_link={cfg.only_link}")
+    if cfg.only_stripe >= 0:
+        parts.append(f"only_stripe={cfg.only_stripe}")
     env = {"ST_FAULT_PLAN": ",".join(parts)}
     if cfg.crash_point:
         env["ST_FAULT_CRASH"] = f"{cfg.crash_point}:{max(1, cfg.crash_after)}"

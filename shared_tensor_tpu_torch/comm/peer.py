@@ -63,18 +63,51 @@ and the crash points fire at mid-join-walk, mid-burst and
 between-apply-and-ack. On the engine the wire faults come from the
 ``ST_FAULT_PLAN`` environment string read at node creation.
 
-Not ported (later slices): the reference wire format, link striping, the
-shared-memory lane, sign2, lifecycle and operator commands, sharding and
-the observability plane. A joiner that asks for the sharded tensor in its
-SYNC is refused with a REJECT that names it; metrics digests and clock
-probes from a JAX child are counted and dropped; any other message kind
-the port does not speak is logged, counted and dropped.
+Wire capabilities, negotiated per link in the SYNC and WELCOME tails
+(``compat.SYNC_FLAG_*``), so a peer that does not speak one just ignores
+it and the link keeps what both ends speak:
+
+- sign2 (``SYNC_FLAG_SIGN2``): native engines only. An engine peer
+  advertises it unless ``ST_SIGN2=0`` or ``CodecConfig.adaptive_precision``
+  is off, and arms the engine's governor on a link whose peer advertised
+  it too (``_arm_sign2``); the device and Python host tiers never
+  advertise it and never receive a 2-bit frame.
+- The same-host shared-memory lane (``SYNC_FLAG_SHM``), on every tier: a
+  joiner sends its host id, a parent on the same host creates the link's
+  /dev/shm segment and offers it in WELCOME, the child maps it, and the
+  transport moves the link's data plane onto its rings while TCP stays
+  the control and liveness channel. A failed attach keeps TCP, and is
+  logged at WARNING and counted (``st_shm_fallback_total``). The flag also
+  says "I decode the aligned v3 framing", which an engine then emits
+  toward that peer; every tier here decodes it. Subscriber links keep TCP,
+  v2 and 1 bit. ``ST_SHM=0`` or ``TransportConfig.shm_enabled`` off turns
+  it all off.
+- Link striping (``TransportConfig.stripe_count``) lives in the transport;
+  the peer reports it per link in ``metrics()``.
+
+The reference wire format (``TransportConfig.wire_compat``): one flat
+tensor, raw frames, no handshake, no seq and no ACK. A child link is
+seeded with the whole replica at LINK_UP; an uplink opens at once (with
+the carry as its residual after a re-graft) and the peer is ready at the
+first frame from it, keepalives included. Frames count as delivered when
+queued. A leaf that lost its uplink re-grafts as one atomic step: its
+replica becomes exactly its carry, which the new uplink owes (the parent
+re-seeds it with its whole replica); an interior node keeps its state and
+may double the re-seed, which the protocol cannot avoid (logged).
+
+Not ported (later slices): lifecycle and operator commands, sharding and
+the observability plane (metrics digests and the clock probe). A joiner
+that asks for the sharded tensor in its SYNC is refused with a REJECT that
+names it; metrics digests and clock probes from a JAX child are counted
+and dropped; any other message kind the port does not speak is logged,
+counted and dropped.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -82,12 +115,13 @@ from typing import Any, Optional
 
 import numpy as np
 
+from .. import compat
 from ..config import Config
 from ..core import SharedTensor, resolve_device
 from ..ops.table import make_spec
 from . import faults, wire
 from .engine import EngineTensor, engine_eligible
-from .transport import EventKind, TransportNode
+from .transport import SHM_JOIN_FAILURES, SHM_SERVE_FAILURES, EventKind, TransportNode
 
 log = logging.getLogger("shared_tensor_tpu_torch.peer")
 
@@ -103,18 +137,43 @@ SEND_WINDOW = 32
 #: Messages re-sent per retransmission round (the head of the tail is what
 #: restores in-order progress at the receiver).
 RETX_PREFIX = 4
-#: SYNC flags the port refuses, with what each asks for.
+#: SYNC flags the port refuses, with what each asks for (the sharding
+#: slice will serve them).
 _UNSERVED = {
-    wire.SYNC_FLAG_SHARD: "the cluster-sharded tensor",
+    compat.SYNC_FLAG_SHARD: "the cluster-sharded tensor",
 }
 #: Most frames a host-tier subscriber message carries: a subscriber's
 #: staleness floor is its queue depth times its apply time per message
 #: (the engine's kSubBurstCap).
 SUB_BURST_CAP = 32
 #: Control kinds a JAX child sends on its own (metrics digests, clock
-#: probes): dropped and counted.
+#: probes): dropped and counted until the observability slice, with its
+#: digest and clock probe, serves them.
 _IGNORED_KINDS = (wire.DIGEST, wire.CLOCK)
 _TIMERS = ("send_loop_busy", "encode", "send", "decode", "apply")
+
+
+_HOST_ID: Optional[bytes] = None
+
+
+def _shm_host_id() -> bytes:
+    """This host's 16-byte id for the shared-memory lane: the Linux boot
+    id (a hash of the host name where it cannot be read). Two peers whose
+    ids collide but cannot open each other's /dev/shm fail the segment's
+    token check and keep TCP."""
+    global _HOST_ID
+    if _HOST_ID is None:
+        try:
+            import uuid
+
+            with open("/proc/sys/kernel/random/boot_id") as f:
+                _HOST_ID = uuid.UUID(f.read().strip()).bytes
+        except (OSError, ValueError):
+            import hashlib
+            import socket
+
+            _HOST_ID = hashlib.sha256(socket.gethostname().encode()).digest()[:16]
+    return _HOST_ID
 
 
 class SpecMismatch(ConnectionError):
@@ -152,22 +211,37 @@ class SharedTensorPeer:
     ):
         self.config = config or Config()
         tcfg = self.config.transport
+        codec = self.config.codec
         dev = resolve_device(device, host_tier)  # before any socket: no GPU, no node
         spec = make_spec(template)
+        self._compat = tcfg.wire_compat
+        if self._compat and spec.num_leaves != 1:
+            raise ValueError("wire-compat mode syncs one flat tensor per port; use the native wire for tables")
+        # the DATA/BURST framing emitted: v2 (traced) unless ST_WIRE_TRACE=0
+        self._wire_version = compat.WIRE_VERSION_V1 if self._compat else compat.wire_protocol_version(self.config)
+        self._trace_wire = self._wire_version >= compat.WIRE_VERSION_V2
         cap = wire.burst_frames_cap(spec)
         use_engine = engine_eligible(self.config, host_tier)
         # bursts have no idle frames to send: without suppression, stream
-        burstable = self.config.codec.suppress_zero_frames
+        burstable = codec.suppress_zero_frames
         if not burstable:
             self._burst = 1
+        elif self._compat:
+            # K reference frames back to back in one message are K frames
+            # to any reference peer: only the engine bursts them, within
+            # the BURST byte budget
+            ccap = wire.compat_burst_frames_cap(spec.total_n)
+            self._burst = (ccap if self.config.frame_burst == 0 else min(max(1, self.config.frame_burst), ccap)) \
+                if use_engine else 1
         elif self.config.frame_burst == 0:
             # the engine fills the wire message budget; the Python host
             # tier bursts small tables only
             self._burst = cap if use_engine else _python_tier_auto_burst(spec)
         else:
             self._burst = max(1, self.config.frame_burst)
-        self._burst = min(self._burst, cap)  # every peer's receive bound
-        if host_tier or not burstable:
+        if not self._compat:
+            self._burst = min(self._burst, cap)  # every peer's receive bound
+        if host_tier or not burstable or self._compat:
             self._burst_device = 1
         elif self.config.device_frame_burst == 0:
             self._burst_device = min(16, cap)
@@ -176,12 +250,14 @@ class SharedTensorPeer:
         # one receive batch (one flood apply) takes at most one full burst
         self._batch_cap = cap
         # every peer sizes its receive buffer for the largest message of
-        # this spec any peer may send (handshake-identical layout)
+        # this spec any peer may send (handshake-identical layout); under
+        # compat the transport frames by the reference frame's size
+        frame_bytes = wire.compat_frame_bytes(spec.total_n) if self._compat else wire.frame_wire_bytes(spec)
         self.node = TransportNode(
             host,
             port,
             tcfg,
-            frame_bytes=wire.frame_wire_bytes(spec),
+            frame_bytes=frame_bytes,
             max_children=tcfg.max_children,
             keepalive_sec=min(1.0, max(0.05, tcfg.peer_timeout_sec / 4)),
         )
@@ -190,10 +266,17 @@ class SharedTensorPeer:
         # pays one None check); corrupt() is given the frame geometry and
         # the v2 trace, so its flips land in sign words
         self._faults: Optional[faults.FaultPlan] = (
-            faults.FaultPlan(self.config.faults, scale_bytes=4 * spec.num_leaves, trace_bytes=wire.TRACE_BYTES)
+            faults.FaultPlan(
+                self.config.faults, scale_bytes=4 * spec.num_leaves, wire_compat=self._compat,
+                trace_bytes=wire.TRACE_BYTES if self._trace_wire else 0,
+            )
             if self.config.faults.enabled
             else None
         )
+        # sign2 on the engine's native-framing links only (compat.sign2_mode
+        # is the config and ST_SIGN2 policy); advertised in SYNC and WELCOME
+        self._sign2_mode = compat.sign2_mode(self.config) if use_engine and not self._compat else 0
+        self._sign2 = self._sign2_mode != 0
         # the native engine's links (its receiver consumes their DATA, BURST
         # and ACK; the Python loops leave them alone)
         self._engine: Optional[EngineTensor] = None
@@ -201,11 +284,16 @@ class SharedTensorPeer:
         try:
             if use_engine:
                 self.st = self._engine = EngineTensor(
-                    template, self.config.codec, seed_values=self.is_master, node=self.node,
-                    burst=self._burst, recv_cap=wire.frame_wire_bytes(spec),
+                    template, codec, seed_values=self.is_master, node=self.node,
+                    burst=self._burst, recv_cap=frame_bytes,
                     quarantine_send_failures=tcfg.quarantine_send_failures,
                     ack_timeout_sec=tcfg.ack_timeout_sec, ack_retry_limit=tcfg.ack_retry_limit,
-                    cascade_frames=self.config.codec.cascade_frames,
+                    # a reference frame is re-measured every frame
+                    cascade_frames=1 if self._compat else codec.cascade_frames,
+                    compat_frame_bytes=frame_bytes if self._compat else 0,
+                    trace_wire=self._trace_wire, precision_mode=self._sign2_mode,
+                    precision_up_ratio=codec.precision_up_ratio, precision_down_ratio=codec.precision_down_ratio,
+                    precision_interval_sec=codec.precision_interval_sec,
                 )
             else:
                 self.st = SharedTensor(
@@ -249,6 +337,29 @@ class SharedTensorPeer:
         self._sent_snapshot = None
         self._mid_handshake_base = None
         self._sealed = False  # leave(): discard incoming data unacknowledged
+        # compat: a leaf that lost its uplink resets to its carry at the
+        # re-graft (set at LINK_DOWN, consumed at the next LINK_UP)
+        self._compat_reset_on_regraft = False
+        # compat: links whose LINK_UP opened their codec link. The receive
+        # loop leaves a link's frames queued until then: a child's frame
+        # applied before its link is seeded with the whole replica would
+        # come back to it in that seed
+        self._compat_open: set[int] = set()
+        # capabilities the peer on each link advertised, gathered in the
+        # handshake and consumed at the attach: it decodes sign2; it is on
+        # our host and its lane is wanted; it decodes v3 (the SHM flag)
+        self._peer_sign2: dict[int, bool] = {}
+        self._peer_shm: dict[int, bool] = {}
+        self._peer_r14: dict[int, bool] = {}
+        self._shm_ok = (
+            tcfg.shm_enabled
+            and not self._compat
+            and sys.platform.startswith("linux")
+            and os.path.isdir("/dev/shm")
+            and os.environ.get("ST_SHM", "1") != "0"
+        )
+        self._shm_host = _shm_host_id() if self._shm_ok else b""
+        self._shm_fallbacks = 0
         self._paused = False  # pause(): produce no new frames
         self._uplink: Optional[int] = None
         # the serving tier's writer side. _sub_links: attached read-only
@@ -407,13 +518,25 @@ class SharedTensorPeer:
         ``st_apply_dropped_total``, ``st_msg_errors_total``,
         ``st_recv_restarts_total``), the writer side of the serving tier
         (``st_sub_links``, ``st_sub_msgs_out_total``,
-        ``st_sub_fresh_out_total``), and the host seconds spent per stage
-        of the data path (``st_*_seconds_total``)."""
+        ``st_sub_fresh_out_total``), the wire capabilities per link
+        (``st_stripe_count``/``st_stripe_live`` of striped links and
+        ``st_stripe_deaths_total``/``st_stripe_reroutes_total``;
+        ``st_shm_active`` (1 mapped, 2 sending on the rings) and
+        ``st_shm_ring_bytes`` of links with a lane, ``st_shm_msgs_*`` and
+        ``st_shm_bytes_*`` over all of them, ``st_shm_fallback_total``;
+        ``st_link_precision`` of engine links and the engine's
+        ``st_frames2_*``/``st_precision_*shifts_total``), and the host
+        seconds spent per stage of the data path (``st_*_seconds_total``)."""
         if self._engine is not None:
             # one counter snapshot: separate reads would mix instants
             c = self._engine.counters()
             frames_out, frames_in, updates, msgs_out, msgs_in = (int(x) for x in c[:5])
             retransmits, dedup = int(c[8]), int(c[9])
+        elif self._compat:
+            # no ledger in the reference protocol: one frame, one message
+            frames_out, frames_in, updates = self.st.frames_out, self.st.frames_in, self.st.updates
+            msgs_out, msgs_in = frames_out, frames_in
+            retransmits, dedup = self._retransmits, self._dedup
         else:
             with self._ack_mu:
                 msgs_out = sum(self._acked.values()) + sum(len(v) for v in self._unacked.values())
@@ -443,6 +566,7 @@ class SharedTensorPeer:
             "st_sub_links": len(self._sub_links),
             "st_sub_msgs_out_total": self._sub_msgs_out,
             "st_sub_fresh_out_total": self._sub_fresh_out,
+            "st_shm_fallback_total": self._shm_fallbacks,
         }
         out.update({f"st_{k}_seconds_total": v for k, v in self._secs.items()})
         if self._engine is not None:
@@ -460,6 +584,25 @@ class SharedTensorPeer:
                 out[f'st_link_bytes_in_total{{link="{link}"}}'] = s.bytes_in
                 out[f'st_link_wire_msgs_out_total{{link="{link}"}}'] = s.frames_out
                 out[f'st_link_wire_msgs_in_total{{link="{link}"}}'] = s.frames_in
+            # the link's sockets (when striped) and its shared-memory lane
+            # (when mapped: its share of the link's traffic)
+            st = self.node.stripe_stats(link)
+            if st is not None and st["stripes"] > 1:
+                out[f'st_stripe_count{{link="{link}"}}'] = st["stripes"]
+                out[f'st_stripe_live{{link="{link}"}}'] = st["live"]
+                out["st_stripe_deaths_total"] = out.get("st_stripe_deaths_total", 0) + st["deaths"]
+                out["st_stripe_reroutes_total"] = out.get("st_stripe_reroutes_total", 0) + st["reroutes"]
+            sh = self.node.shm_stats(link)
+            if sh is not None and sh["state"] > 0:
+                out[f'st_shm_active{{link="{link}"}}'] = sh["state"]
+                out[f'st_shm_ring_bytes{{link="{link}"}}'] = sh["ring_bytes"]
+                for k in ("msgs_out", "msgs_in", "bytes_out", "bytes_in"):
+                    out[f"st_shm_{k}_total"] = out.get(f"st_shm_{k}_total", 0) + sh[k]
+        if self._engine is not None:
+            for link in self.st.link_ids:
+                prec = self._engine.link_precision(link) if link >= 0 else 0
+                if prec > 0:
+                    out[f'st_link_precision{{link="{link}"}}'] = prec
         return out
 
     def __enter__(self):
@@ -515,7 +658,7 @@ class SharedTensorPeer:
                     continue
                 if self._paused and not pipe.get(link):
                     continue  # paused: what is in the pipeline still goes out
-                if self._window_full(link):
+                if not self._compat and self._window_full(link):
                     continue  # residual mass waits until ACKs reopen the window
                 if host and self._burst > 1:
                     # the host burst: K halvings quantized in one call, one
@@ -566,7 +709,10 @@ class SharedTensorPeer:
                 self._link_frames_out[link] = self._link_frames_out.get(link, 0) + (len(frame) if k > 1 else 1)
                 # ledgered with its wire seq BEFORE the send: the ACK must
                 # never overtake the ledger entry it acknowledges
-                if k > 1:
+                if self._compat:
+                    payload = wire.encode_compat_frame(frame, spec)
+                    self._data_bytes_out += len(payload)
+                elif k > 1:
                     payload = self._register_data(
                         link, seq, lambda buf, s, t: wire.encode_burst_into(frame, spec, s, buf, trace=t)
                     )
@@ -576,6 +722,8 @@ class SharedTensorPeer:
                     )
                 self._fault_point("mid-burst")  # ledgered, not on the wire yet
                 if self._send_blocking(link, payload, data=True):
+                    if self._compat:
+                        self.st.ack_frame(link, seq)  # no ACK in the protocol: delivered when queued
                     sent_any = True
                 else:
                     # the link died with this frame (and its successors in
@@ -628,7 +776,7 @@ class SharedTensorPeer:
             # but never newer. With no stamp yet the frame goes untraced: a
             # stamp of our own clock would claim updates we never received.
             fresh_t = time.monotonic_ns()
-            trace = self._trace_stamp
+            trace = self._trace_stamp if self._trace_wire else None
             if self.st.host_tier:
                 out = self.st.begin_frame_burst(link, min(self._burst, SUB_BURST_CAP))
                 if out is None:
@@ -706,7 +854,9 @@ class SharedTensorPeer:
             txs = self._tx_seq.get(link, 0) + 1
             self._tx_seq[link] = txs
         trace = self._trace_stamp
-        if trace is None:
+        if not self._trace_wire:
+            trace = None  # v1 framing (ST_WIRE_TRACE=0)
+        elif trace is None:
             trace = (self.node.obs_id, time.monotonic_ns(), 0)
         slot = self._tx_pool.acquire()
         t0 = time.perf_counter()
@@ -857,6 +1007,12 @@ class SharedTensorPeer:
         spec = self.st.spec
         while not self._stop.is_set():
             busy = self._handle_events()
+            if self._compat and self._engine is not None and not self._ready.is_set() and self._uplink is not None:
+                # the engine consumes the uplink's reference frames: ready
+                # once the transport counts one in, keepalives included
+                s = self.node.stats(self._uplink)
+                if s is not None and s.frames_in > 0:
+                    self._ready.set()
             if self._engine is not None:
                 # control messages the engine's receiver handed back
                 while (c := self._engine.poll_ctrl()) is not None:
@@ -867,8 +1023,8 @@ class SharedTensorPeer:
                         self._msg_errors += 1
                         log.exception("dropping message of kind %d on link %d", c[1][0], c[0])
             for link in list(self.node.links):
-                if link in self._engine_links:
-                    continue  # the engine's receiver consumes these
+                if link in self._engine_links or (self._compat and link not in self._compat_open):
+                    continue  # the engine's receiver consumes these; a compat link waits for its LINK_UP
                 # Consecutive DATA/BURST messages of a link go into ONE flood
                 # apply; a control message flushes them first (order). msgs
                 # counts accepted messages (what the ACK acknowledges).
@@ -883,6 +1039,22 @@ class SharedTensorPeer:
                     if payload is None:
                         break
                     busy = True
+                    if self._compat:
+                        # every message is a reference frame: no seq, no ACK
+                        if link == self._uplink:
+                            self._ready.set()  # the parent's stream flows, keepalives too
+                        try:
+                            frame = wire.decode_compat_frame(payload, spec)
+                        except ValueError as e:
+                            log.warning("dropping bad frame on link %d: %s", link, e)
+                            continue
+                        if frame is not None:  # None: a keepalive or a non-finite scale
+                            if batch and len(batch) >= self._batch_cap:
+                                self._flush_frames(link, batch, 0, [])
+                                batch = []
+                            batch.append(frame)
+                            self._data_bytes_in += len(payload)
+                        continue
                     if payload[0] in (wire.DATA, wire.BURST):
                         if self._sealed:
                             continue  # leaving: the sender re-delivers it elsewhere
@@ -892,7 +1064,7 @@ class SharedTensorPeer:
                         # not decode, without consuming its seq
                         t0 = time.perf_counter()
                         try:
-                            seq = wire.data_seq(payload)
+                            seq = wire.data_seq(payload, spec)
                             want = (self._rx_count.get(link, 0) + msgs + 1) & 0xFFFFFFFF
                             if seq != want:
                                 log.debug("link %d: discarding out-of-order data (seq %d, expected %d)",
@@ -1003,7 +1175,48 @@ class SharedTensorPeer:
         if ev.is_uplink:
             self._uplink = ev.link_id
             self._error = None  # a re-graft supersedes an isolation verdict
-            self._start_join(ev.link_id)
+            if self._compat:
+                self._compat_open_uplink(ev.link_id)
+                self._compat_open.add(ev.link_id)
+            else:
+                self._start_join(ev.link_id)
+        elif self._compat:
+            # the reference join: the child is seeded with our whole
+            # replica through the codec stream
+            if self._engine is not None:
+                self._engine.new_link(ev.link_id, seed=True)
+                self._engine_links.add(ev.link_id)
+            else:
+                self.st.new_link(ev.link_id, seed=True)
+            self._compat_open.add(ev.link_id)
+
+    def _compat_open_uplink(self, link: int) -> None:
+        """The reference protocol has no handshake: stream up at once. A
+        re-grafting leaf resets its replica to exactly its carry, the mass
+        the tree does not have yet, since the new parent re-seeds it with
+        its whole replica (as a fresh joiner holding pending adds in its
+        replica and its residual); a reset to zero would lose the carry
+        here, as it floods everywhere else and split horizon never brings
+        it back. Otherwise the uplink's residual is the carry (and what
+        was added since), or 0 on a first join."""
+        if self._compat_reset_on_regraft:
+            self._compat_reset_on_regraft = False
+            if self._engine is not None:
+                self._engine.compat_regraft(link)
+            else:
+                self.st.regraft_reset_to_carry(CARRY_LINK, link)
+        elif self._engine is not None:
+            # the diff against live values keeps what lands between the two calls
+            carry, snap = self._engine.take_carry_and_snapshot()
+            if carry is not None:
+                self._engine.new_link_diff(link, snap - carry)
+            else:
+                self._engine.new_link(link, seed=False)
+        else:
+            carry, _ = self.st.take_link_and_snapshot(CARRY_LINK)
+            self.st.new_link(link, seed=False, residual=carry)
+        if self._engine is not None:
+            self._engine_links.add(link)
 
     def _on_membership_event(self, ev) -> None:
         if ev.kind == EventKind.LINK_DOWN:
@@ -1019,6 +1232,9 @@ class SharedTensorPeer:
                     self._sub_fresh.pop(ev.link_id, None)
                     self._sub_mask_ver.pop(ev.link_id, None)
             self._engine_links.discard(ev.link_id)
+            self._compat_open.discard(ev.link_id)
+            for d in (self._peer_sign2, self._peer_shm, self._peer_r14):
+                d.pop(ev.link_id, None)
             with self._ack_mu:
                 purged = self._unacked.pop(ev.link_id, ())
                 for d in (self._tx_seq, self._acked, self._rx_count, self._ack_sent, self._ack_progress,
@@ -1037,6 +1253,18 @@ class SharedTensorPeer:
                     self._mid_handshake_base = self._sent_snapshot
                 self._sent_snapshot = None
                 self._uplink = None
+                if self._compat:
+                    # the new parent will re-seed us with its whole replica
+                    # (there is no diff handshake): a leaf resets to its
+                    # carry at the re-graft (not now: the rejoin may make
+                    # us the master, whose state is then the seed); an
+                    # interior node keeps its state, as a reset would
+                    # double its children's
+                    if not [l for l in self.st.link_ids if l >= 0]:
+                        self._compat_reset_on_regraft = True
+                    else:
+                        log.warning("wire-compat interior node lost its uplink: the re-seed may double state "
+                                    "(the reference protocol has no diff handshake)")
             else:
                 self.st.drop_link(ev.link_id)
         elif ev.kind == EventKind.BECAME_MASTER:
@@ -1048,6 +1276,7 @@ class SharedTensorPeer:
             else:
                 self.st.take_link_and_snapshot(CARRY_LINK)
             self._mid_handshake_base = None
+            self._compat_reset_on_regraft = False
             self._uplink = None
             self.is_master = True
             self._error = None
@@ -1072,7 +1301,10 @@ class SharedTensorPeer:
         if carry is not None:
             snap = snap - carry
         self._sent_snapshot = snap
-        self._send_blocking(uplink, wire.encode_sync(self.st.spec, wire.WIRE_VERSION_V2))
+        # capabilities: sign2 decoding (engine), and the shared-memory lane
+        # with our host id (which also says we decode v3)
+        flags = (compat.SYNC_FLAG_SIGN2 if self._sign2 else 0) | (compat.SYNC_FLAG_SHM if self._shm_ok else 0)
+        self._send_blocking(uplink, wire.encode_sync(self.st.spec, self._wire_version, flags, self._shm_host))
         # SYNC sent, snapshot not: the parent holds a pending handshake
         self._fault_point("mid-join-walk")
         for chunk in wire.encode_snapshot_chunks(snap.cpu().numpy()):
@@ -1115,11 +1347,31 @@ class SharedTensorPeer:
                 snap = np.frombuffer(bytes(buf), "<f4")
                 # WELCOME goes out BEFORE the codec link opens: per-link FIFO
                 # then puts it ahead of our first DATA, which the child would
-                # otherwise apply AND count again in its attach diff
-                self._send_blocking(link, wire.encode_welcome(0))
+                # otherwise apply AND count again in its attach diff. It
+                # carries our capabilities and, for a child on our host, the
+                # lane's segment, created before the offer goes out
+                flags = (compat.SYNC_FLAG_SIGN2 if self._sign2 else 0) | (compat.SYNC_FLAG_SHM if self._shm_ok else 0)
+                offer = None
+                if self._peer_shm.pop(link, False):
+                    served, code = self.node.shm_serve(link, self._shm_ring_bytes())
+                    if served is not None:
+                        offer = (self._shm_host, served[1], served[0])
+                    else:
+                        self._shm_fallback(link, SHM_SERVE_FAILURES.get(code, f"serve code {code}"))
+                self._send_blocking(link, wire.encode_welcome(flags, offer))
                 self._attach_diff(link, snap)
                 self._wake.set()
         elif kind == wire.WELCOME:
+            wflags = wire.welcome_flags(payload)
+            self._peer_sign2[link] = bool(wflags & compat.SYNC_FLAG_SIGN2)
+            # the flag marks a v3 decoder; gated on our own lane switch so
+            # ST_SHM=0 pins v2 emission too
+            self._peer_r14[link] = bool(self._shm_ok and wflags & compat.SYNC_FLAG_SHM)
+            offer = wire.welcome_shm(payload)
+            if offer is not None and self._shm_ok and offer[0] == self._shm_host:
+                code = self.node.shm_join(link, offer[2], offer[1])
+                if code != 0:
+                    self._shm_fallback(link, SHM_JOIN_FAILURES.get(code, f"join code {code}"))
             snap, self._sent_snapshot = self._sent_snapshot, None
             if snap is not None:
                 # owed upward: everything the snapshot did not claim (the
@@ -1128,6 +1380,7 @@ class SharedTensorPeer:
             elif self._engine is not None:  # a duplicate WELCOME
                 self._engine.new_link(link, seed=False, rx_init=self._rx_count.get(link, 0))
                 self._engine_links.add(link)
+                self._arm_sign2(link)
             else:
                 self.st.new_link(link, seed=False)
             self._ready.set()
@@ -1151,12 +1404,40 @@ class SharedTensorPeer:
             self._engine_links.add(link)
         else:
             self.st.new_link_diff(link, snap)
+        self._arm_sign2(link)
+
+    def _arm_sign2(self, link: int) -> None:
+        """On the engine: let the governor upshift the link when both ends
+        advertised sign2, and emit v3 toward a peer that advertised the
+        SHM flag. The Python tiers emit neither."""
+        sign2 = self._peer_sign2.pop(link, False)
+        r14 = self._peer_r14.pop(link, False)
+        if self._engine is None:
+            return
+        if self._sign2 and sign2:
+            self._engine.link_allow_sign2(link)
+        if r14:
+            self._engine.link_wire_v3(link)
+
+    def _shm_ring_bytes(self) -> int:
+        """One ring's bytes for this table: twice the largest traced sign2
+        burst (the widest message an engine emits), so the lane holds two
+        messages, at least 1 MiB and at most
+        ``TransportConfig.shm_ring_bytes``."""
+        spec = self.st.spec
+        want = 2 * (wire.HDR_V3 + wire.burst_frames_cap(spec) * wire.frame_payload2_bytes(spec) + 64)
+        return min(self.config.transport.shm_ring_bytes, max(1 << 20, want))
+
+    def _shm_fallback(self, link: int, reason: str) -> None:
+        """A same-host link whose lane did not attach stays on TCP."""
+        self._shm_fallbacks += 1
+        log.warning("link %d keeps TCP: the shared-memory lane did not attach (%s)", link, reason)
 
     def _on_sync(self, link: int, payload: bytes) -> None:
         n_leaves, n, digest = wire.decode_sync(payload)
-        if wire.sync_wire_version(payload) != wire.WIRE_VERSION_V2:
-            log.info("link %d joins with wire framing v%d (ours: v2); decoders take both",
-                     link, wire.sync_wire_version(payload))
+        if wire.sync_wire_version(payload) != self._wire_version:
+            log.info("link %d joins with wire framing v%d (ours: v%d); decoders take every framing",
+                     link, wire.sync_wire_version(payload), self._wire_version)
         mine = self.st.spec
         flags = wire.sync_flags(payload)
         if digest != mine.layout_digest():
@@ -1167,13 +1448,19 @@ class SharedTensorPeer:
         elif flags & sum(_UNSERVED):
             asked = ", ".join(v for f, v in _UNSERVED.items() if flags & f)
             reason = f"this peer does not serve {asked}"
-        elif flags & wire.SYNC_FLAG_READ_ONLY:
+        elif flags & compat.SYNC_FLAG_READ_ONLY:
             # a subscriber's handshake, or its resync on a live link: a
             # RANGE may follow before the DONE
             self._pending_sub[link] = None
             log.info("link %d joins read-only (subscriber handshake)", link)
             return
         else:
+            # the joiner's capabilities, for its attach at DONE: sign2;
+            # v3 decoding (the SHM flag, host match or not); a lane when
+            # it is on our host
+            self._peer_sign2[link] = bool(flags & compat.SYNC_FLAG_SIGN2)
+            self._peer_r14[link] = bool(self._shm_ok and flags & compat.SYNC_FLAG_SHM)
+            self._peer_shm[link] = bool(self._shm_ok and wire.sync_shm_host(payload) == self._shm_host)
             self._pending[link] = bytearray(mine.total * 4)
             return
         self._reject(link, reason)
@@ -1207,6 +1494,8 @@ class SharedTensorPeer:
         plane, which faults never touch, so a resync completes however
         lossy the data plane is. On the engine, attach and subscriber mode
         are one native call."""
+        for d in (self._peer_sign2, self._peer_shm, self._peer_r14):
+            d.pop(link, None)  # a subscriber link keeps TCP, v2 and 1 bit
         with self._sub_mu.setdefault(link, threading.Lock()):
             resync = link in self._sub_links
             if resync:

@@ -7,10 +7,14 @@ layer and the peer (``comm/peer.py``) gives them meaning.
 
 The library is the port's own build (``_build.build_transport``), loaded
 at first use. Its process-wide event ring for observability is switched
-off, since the port has no observability layer to drain it. Node
-settings that select features the port does not have are fixed to the
-values that turn them off: the native framing (not the reference's raw
-frames) and one socket per link.
+off, since the port has no observability layer to drain it.
+
+The node speaks the native framing or, with ``TransportConfig.wire_compat``,
+the reference's raw frames of ``frame_bytes`` each; a link may run over
+``stripe_count`` sockets (:meth:`TransportNode.stripe_stats`), and its
+data plane may move onto a same-host shared-memory lane that the peer
+negotiates (:meth:`TransportNode.shm_serve` on the parent,
+:meth:`TransportNode.shm_join` on the child, :meth:`TransportNode.shm_stats`).
 """
 
 from __future__ import annotations
@@ -110,6 +114,19 @@ _SIGNATURES = {
     "st_node_drop_link": (_I32, [_VP, _I32]),
     "st_node_close": (None, [_VP]),
     "st_obs_set_enabled": (None, [_I32]),
+    "st_node_stripe_stats": (_I32, [_VP, _I32, ctypes.POINTER(ctypes.c_uint64)]),
+    # link, ring bytes, name out, its capacity, token out
+    "st_node_shm_serve": (_I32, [_VP, _I32, ctypes.c_int64, ctypes.c_char_p, _I32, ctypes.POINTER(ctypes.c_uint64)]),
+    "st_node_shm_join": (_I32, [_VP, _I32, ctypes.c_char_p, ctypes.c_uint64]),
+    "st_node_shm_stats": (_I32, [_VP, _I32, ctypes.POINTER(ctypes.c_uint64)]),
+}
+
+#: Why ``st_node_shm_serve`` / ``st_node_shm_join`` refused, by return code.
+SHM_SERVE_FAILURES = {-1: "link, mode or state refuses a lane", -2: "could not create the /dev/shm segment"}
+SHM_JOIN_FAILURES = {
+    -1: "link, mode or state refuses a lane, or the segment would not open",
+    -2: "could not map the segment",
+    -3: "the segment's name, header or token does not match the offer",
 }
 
 
@@ -141,11 +158,13 @@ class TransportNode:
         queue_depth: int = 8,
         keepalive_sec: float = 1.0,
     ):
+        """``frame_bytes`` sizes the receive buffer; under ``wire_compat``
+        it is the reference frame's size, which the transport frames by."""
         cfg = config or TransportConfig()
         self._lib = _load()
         c = _StConfigC(
-            wire_compat=0,
-            compat_frame_bytes=0,
+            wire_compat=1 if cfg.wire_compat else 0,
+            compat_frame_bytes=frame_bytes,
             listen_backlog=cfg.listen_backlog,
             bandwidth_cap_bps=cfg.bandwidth_cap_bytes_per_sec,
             peer_timeout_sec=cfg.peer_timeout_sec,
@@ -156,7 +175,7 @@ class TransportNode:
             rejoin_backoff_sec=0.2,
             connect_timeout_sec=cfg.connect_timeout_sec,
             join_timeout_sec=cfg.join_timeout_sec,
-            stripe_count=1,
+            stripe_count=cfg.stripe_count,
         )
         is_master = _I32(0)
         self._h = self._lib.st_node_create(host.encode(), port, ctypes.byref(c), ctypes.byref(is_master))
@@ -229,6 +248,53 @@ class TransportNode:
         if self._lib.st_node_stats(self._h, link_id, ctypes.byref(s)) < 0:
             return None
         return LinkStats(s.bytes_out, s.bytes_in, s.frames_out, s.frames_in, s.send_queue, s.recv_queue)
+
+    def stripe_stats(self, link_id: int) -> Optional[dict]:
+        """The link's sockets: negotiated (``stripes``) and alive
+        (``live``), stripe deaths and messages re-routed off a dying
+        stripe. None for an unknown link or a closed node."""
+        if not self._h:
+            return None
+        out = (ctypes.c_uint64 * 4)()
+        if self._lib.st_node_stripe_stats(self._h, link_id, out) < 0:
+            return None
+        return {"stripes": int(out[0]), "live": int(out[1]), "deaths": int(out[2]), "reroutes": int(out[3])}
+
+    def shm_serve(self, link_id: int, ring_bytes: int) -> tuple[Optional[tuple[str, int]], int]:
+        """The parent's half of the shared-memory lane: create the link's
+        /dev/shm segment (two rings of ``ring_bytes``, clamped to 64 KiB..1
+        GiB by the library). Returns ((name, token), 0) to offer the child,
+        or (None, the library's code) when no lane can be served (see
+        ``SHM_SERVE_FAILURES``): the link then stays on TCP."""
+        if not self._h:
+            return None, -1
+        name = ctypes.create_string_buffer(96)
+        token = ctypes.c_uint64(0)
+        r = self._lib.st_node_shm_serve(self._h, link_id, int(ring_bytes), name, len(name), ctypes.byref(token))
+        if r != 0:
+            return None, int(r)
+        return (name.value.decode(), int(token.value)), 0
+
+    def shm_join(self, link_id: int, name: str, token: int) -> int:
+        """The child's half: map and validate the parent's segment. 0 on
+        success, else the library's code (``SHM_JOIN_FAILURES``), and the
+        link stays on TCP."""
+        if not self._h:
+            return -1
+        return int(self._lib.st_node_shm_join(self._h, link_id, name.encode(), token))
+
+    def shm_stats(self, link_id: int) -> Optional[dict]:
+        """The link's lane: ``state`` 0 (TCP only), 1 (segment mapped) or 2
+        (sending on the rings), messages and bytes each way over it, the
+        ring's bytes and futex sleeps each way. None for an unknown link
+        or a closed node."""
+        if not self._h:
+            return None
+        out = (ctypes.c_uint64 * 8)()
+        if self._lib.st_node_shm_stats(self._h, link_id, out) < 0:
+            return None
+        keys = ("state", "msgs_out", "msgs_in", "bytes_out", "bytes_in", "ring_bytes", "tx_waits", "rx_waits")
+        return {k: int(v) for k, v in zip(keys, out)}
 
     def drop_link(self, link_id: int) -> None:
         if self._h:

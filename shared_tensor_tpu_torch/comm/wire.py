@@ -30,12 +30,27 @@ inside the transport's length-prefixed framing, little-endian throughout.
   says "as of t you have everything I have" and names the link's last
   data seq, so a subscriber that missed the stream's tail can tell.
 
+- The aligned v3 framing, which a native engine emits toward a peer whose
+  SYNC or WELCOME carried ``SYNC_FLAG_SHM``: one 24-byte header for DATA
+  and BURST, ``[kind][u8 k][pad u16][u32 seq][u32 origin][u64 origin ns]
+  [u8 hops][pad x3]``, so the frame bodies land 8-aligned. Every decoder
+  here takes it, told apart by exact length (24 is a multiple of 4 and
+  collides with neither 5/18 nor 6/19).
+- sign2 frames (the kind byte's 0x80 bit, ``[scales][sign words][magnitude
+  words]``) flow only between native engines that both advertised
+  ``SYNC_FLAG_SIGN2``; the Python tiers never advertise it and so never
+  receive one, but the receive bound (:func:`frame_wire_bytes`) counts
+  them, because it must equal every other peer's.
+- The same-host shared-memory lane: a joiner with ``SYNC_FLAG_SHM``
+  appends its 16-byte host id to SYNC; a parent on the same host answers
+  with the flag and a segment offer ``[host id][u64 token][u8 len][name]``
+  in WELCOME's tail. Peers that do not speak it ignore the tails.
+- The reference (compat) wire format has no typed messages at all: one
+  ``[f32 scale][ceil(n/8)-byte LSB-first bitmask]`` frame per transport
+  message, of one flat tensor (:func:`encode_compat_frame`).
+
 Frames are numpy f32 scales and uint32 words at this boundary, what
-``SharedTensor.finish_frame`` returns. The port emits neither the r14
-aligned (v3) framing nor sign2 frames and never advertises them
-(``SYNC_FLAG_SHM``, ``SYNC_FLAG_SIGN2``), so no peer sends either to it;
-the receive-buffer bound (:func:`frame_wire_bytes`) still counts them,
-because it must equal every other peer's.
+``SharedTensor.finish_frame`` returns.
 """
 
 from __future__ import annotations
@@ -75,12 +90,16 @@ CLOCK = 18  # clock-offset probe (not ported: dropped)
 # DATA/BURST framing versions, advertised in SYNC (compat.WIRE_VERSION_*)
 WIRE_VERSION_V1 = 1
 WIRE_VERSION_V2 = 2
-# handshake capability flags (compat.SYNC_FLAG_*)
+# handshake capability flags (compat re-exports them as compat.SYNC_FLAG_*)
 SYNC_FLAG_READ_ONLY = 0x01
 SYNC_FLAG_RANGE = 0x02
 SYNC_FLAG_SIGN2 = 0x04
 SYNC_FLAG_SHM = 0x08
 SYNC_FLAG_SHARD = 0x10
+#: The bit that gates the SYNC and WELCOME shared-memory tails.
+SHM_FLAG = SYNC_FLAG_SHM
+#: The kind byte's bit that marks a sign2 (2-bit) DATA/BURST frame.
+PRECISION_BIT = 0x80
 
 _SYNC_FMT = "<IQ16s"  # num_leaves, total_n, layout digest
 _CHUNK_HDR = "<Q"  # byte offset into the flat f32 snapshot
@@ -98,8 +117,7 @@ TRACE_BYTES = 13
 DATA_HDR_T = DATA_HDR + TRACE_BYTES
 BURST_HDR_T = BURST_HDR + TRACE_BYTES
 _TRACE_FMT = "<IQB"  # origin node id, origin monotonic ns, hop count
-# Header of a message the port never emits, counted in the receive bound:
-HDR_V3 = 24  # r14 aligned DATA/BURST framing
+HDR_V3 = 24  # the aligned DATA/BURST framing a native engine emits
 RDATA_HDR = 13  # kind + u32 seq + u32 word lo + u32 word count
 RDATA_HDR_T = RDATA_HDR + TRACE_BYTES
 _RANGE_FMT = "<II"  # word lo, word count
@@ -130,6 +148,12 @@ def frame_payload_bytes(spec: TableSpec) -> int:
     return 4 * spec.num_leaves + 4 * (spec.total // 32)
 
 
+def frame_payload2_bytes(spec: TableSpec) -> int:
+    """Bytes of one sign2 frame's wire body: scales, sign words and
+    magnitude words."""
+    return 4 * spec.num_leaves + 8 * (spec.total // 32)
+
+
 def burst_frames_cap(spec: TableSpec) -> int:
     """Most frames one BURST may carry for this spec (>= 1), against the v2
     header."""
@@ -141,7 +165,7 @@ def frame_wire_bytes(spec: TableSpec) -> int:
     """Largest message any peer of this spec may send: the receive buffer
     every peer sizes (a larger message would be cut by the transport)."""
     per = frame_payload_bytes(spec)
-    sign2 = 4 * spec.num_leaves + 8 * (spec.total // 32)  # 2-bit frame body
+    sign2 = frame_payload2_bytes(spec)
     hdr = max(DATA_HDR_T, HDR_V3)
     burst = max(BURST_HDR_T, HDR_V3) + burst_frames_cap(spec) * per
     chunk = 1 + struct.calcsize(_CHUNK_HDR) + CHUNK_BYTES
@@ -151,19 +175,36 @@ def frame_wire_bytes(spec: TableSpec) -> int:
 # -- DATA / BURST --------------------------------------------------------------
 
 
-def data_seq(payload: bytes) -> int:
-    """The per-link seq of a DATA, BURST or RDATA message (byte 1 in
-    each)."""
+def _is_v3(payload, spec: TableSpec) -> bool:
+    """A v3 DATA/BURST message: k (byte 1) frames after a 24-byte header,
+    of the width the kind byte's precision bit names."""
+    n = len(payload)
+    if n <= HDR_V3 or not payload[1]:
+        return False
+    per = frame_payload2_bytes(spec) if payload[0] & PRECISION_BIT else frame_payload_bytes(spec)
+    return n == HDR_V3 + payload[1] * per
+
+
+def data_seq(payload: bytes, spec: Optional[TableSpec] = None) -> int:
+    """The per-link seq of a DATA, BURST or RDATA message: byte 1 in each
+    framing but v3, where it is byte 4. Pass ``spec`` when the sender may
+    be a native engine: only the exact length tells v3 apart."""
     if len(payload) < DATA_HDR:
         raise ValueError(f"{len(payload)}-byte data message is too short to carry a seq")
+    if spec is not None and _is_v3(payload, spec):
+        return struct.unpack_from("<I", payload, 4)[0]
     return struct.unpack_from("<I", payload, 1)[0]
 
 
 def data_trace(payload: bytes, spec: TableSpec) -> Optional[tuple[int, int, int]]:
-    """(origin, origin ns, hops) of a v2 DATA/BURST message, None for v1
-    and for RDATA, whose trace :func:`decode_rdata` returns."""
+    """(origin, origin ns, hops) of a v2 or v3 DATA/BURST message, None for
+    v1 and for RDATA, whose trace :func:`decode_rdata` returns."""
     per = frame_payload_bytes(spec)
     n = len(payload)
+    if not n:
+        return None
+    if n > HDR_V3 and payload[1] and n == HDR_V3 + payload[1] * per:
+        return struct.unpack_from(_TRACE_FMT, payload, 8)
     if payload[0] == DATA and n == DATA_HDR_T + per:
         return struct.unpack_from(_TRACE_FMT, payload, DATA_HDR)
     if payload[0] == BURST and n > BURST_HDR_T:
@@ -259,28 +300,33 @@ def _decode_one_frame(payload, off: int, spec: TableSpec) -> TableFrame:
 
 
 def decode_frame(payload: bytes, spec: TableSpec) -> TableFrame:
-    """One DATA message (v1 or v2)."""
+    """One DATA message (v1, v2 or v3)."""
     per = frame_payload_bytes(spec)
     if len(payload) == DATA_HDR + per:
         off = DATA_HDR
     elif len(payload) == DATA_HDR_T + per:
         off = DATA_HDR_T
+    elif len(payload) == HDR_V3 + per and payload[1] == 1:
+        off = HDR_V3
     else:
         raise ValueError(
-            f"DATA frame is {len(payload)} bytes, the spec wants {DATA_HDR + per} or "
-            f"{DATA_HDR_T + per}: peer table layout mismatch"
+            f"DATA frame is {len(payload)} bytes, the spec wants {DATA_HDR + per}, "
+            f"{DATA_HDR_T + per} or {HDR_V3 + per}: peer table layout mismatch"
         )
     return _decode_one_frame(payload, off, spec)
 
 
 def decode_burst(payload: bytes, spec: TableSpec) -> list[TableFrame]:
-    """One BURST message (v1 or v2)."""
+    """One BURST message (v1, v2 or v3)."""
     if len(payload) < BURST_HDR:
         raise ValueError(f"BURST message of {len(payload)} bytes has no header")
+    per = frame_payload_bytes(spec)
+    if payload[1] > 0 and len(payload) == HDR_V3 + payload[1] * per:
+        # v3 keeps k at byte 1 (byte 5 is inside its seq): checked first
+        return [_decode_one_frame(payload, HDR_V3 + i * per, spec) for i in range(payload[1])]
     k = payload[BURST_HDR - 1]
     if k == 0:
         raise ValueError("BURST with k_frames == 0")  # would ACK a message that delivered nothing
-    per = frame_payload_bytes(spec)
     if len(payload) == BURST_HDR + k * per:
         hdr = BURST_HDR
     elif len(payload) == BURST_HDR_T + k * per:
@@ -323,15 +369,17 @@ class FramePool:
 # -- handshake -----------------------------------------------------------------
 
 
-def encode_sync(spec: TableSpec, wire_version: int = WIRE_VERSION_V2, flags: int = 0) -> bytes:
-    """Join request. The port never sets ``SYNC_FLAG_SHM`` or
-    ``SYNC_FLAG_SHARD``, so the message has no tail after the flags."""
-    if flags & (SYNC_FLAG_SHM | SYNC_FLAG_SHARD):
-        raise ValueError("the port does not speak the shm lane or the sharded tensor")
+def encode_sync(spec: TableSpec, wire_version: int = WIRE_VERSION_V2, flags: int = 0, shm_host: bytes = b"") -> bytes:
+    """Join request. With ``SYNC_FLAG_SHM`` the joiner's 16-byte host id
+    (``shm_host``) follows the flags. The port never sets
+    ``SYNC_FLAG_SHARD``, whose claim tail it does not speak."""
+    if flags & SYNC_FLAG_SHARD:
+        raise ValueError("the port does not speak the sharded tensor")
     return (
         bytes([SYNC])
         + struct.pack(_SYNC_FMT, spec.num_leaves, spec.total_n, spec.layout_digest())
         + bytes([wire_version & 0xFF, flags & 0xFF])
+        + (shm_host[:16] if flags & SHM_FLAG else b"")
     )
 
 
@@ -350,13 +398,42 @@ def sync_flags(payload: bytes) -> int:
     return payload[base] if len(payload) > base else 0
 
 
-def encode_welcome(flags: int = 0) -> bytes:
-    """WELCOME with the parent's capability flags (0 from the port)."""
-    return bytes([WELCOME, flags & 0xFF])
+def sync_shm_host(payload: bytes) -> Optional[bytes]:
+    """The joiner's 16-byte host id, or None when its SYNC has no
+    ``SYNC_FLAG_SHM`` (or the tail is cut)."""
+    if not sync_flags(payload) & SHM_FLAG:
+        return None
+    base = 3 + struct.calcsize(_SYNC_FMT)
+    return bytes(payload[base : base + 16]) if len(payload) >= base + 16 else None
+
+
+def encode_welcome(flags: int = 0, shm_offer=None) -> bytes:
+    """WELCOME with the parent's capability flags (``SYNC_FLAG_SIGN2``,
+    ``SYNC_FLAG_SHM``) and, with the SHM flag, the shared-memory segment
+    offer ``shm_offer = (host id, token, /dev/shm name)`` in its tail."""
+    out = bytes([WELCOME, flags & 0xFF])
+    if flags & SHM_FLAG and shm_offer is not None:
+        host, token, name = shm_offer
+        nb = name.encode()
+        out += host[:16].ljust(16, b"\0") + struct.pack("<Q", token & 0xFFFFFFFFFFFFFFFF) + bytes([len(nb) & 0xFF]) + nb
+    return out
 
 
 def welcome_flags(payload: bytes) -> int:
     return payload[1] if len(payload) > 1 else 0
+
+
+def welcome_shm(payload: bytes) -> Optional[tuple[bytes, int, str]]:
+    """The parent's segment offer (host id, token, name), or None when its
+    WELCOME carries none (or the tail is cut): the link stays on TCP."""
+    if not welcome_flags(payload) & SHM_FLAG or len(payload) < 2 + 16 + 8 + 1:
+        return None
+    host = bytes(payload[2:18])
+    (token,) = struct.unpack_from("<Q", payload, 18)
+    nlen = payload[26]
+    if len(payload) < 27 + nlen:
+        return None
+    return host, token, bytes(payload[27 : 27 + nlen]).decode(errors="replace")
 
 
 def encode_reject(reason: str) -> bytes:
@@ -454,3 +531,47 @@ def decode_rdata(payload: bytes, spec: TableSpec):
         _count_corrupt_scales(nbad)
         scales[bad] = np.float32(0.0)
     return scales, words, word_lo, word_cnt, trace
+
+
+# -- the reference (compat) wire format --------------------------------------------
+
+
+def compat_frame_bytes(n: int) -> int:
+    """A reference frame of an n-element tensor: the f32 scale and the
+    ceil(n/8)-byte LSB-first bitmask."""
+    return 4 + (n + 7) // 8
+
+
+def compat_burst_frames_cap(n: int) -> int:
+    """Most reference frames one wire message of the native engine may
+    carry for an n-element tensor (>= 1): the BURST byte budget."""
+    return max(1, min(BURST_MAX_FRAMES, BURST_MAX_BYTES // compat_frame_bytes(n)))
+
+
+def encode_compat_frame(frame: TableFrame, spec: TableSpec) -> bytes:
+    """A frame of a one-leaf table as reference bytes. The u32 LSB-first
+    words laid out little-endian are the reference's byte packing
+    (``data[i/8] |= 1 << (i%8)``), so the mask is a slice of them."""
+    if spec.num_leaves != 1:
+        raise ValueError("wire-compat mode syncs a single tensor, not a table")
+    scale = float(np.asarray(frame.scales).reshape(-1)[0])
+    mask = np.ascontiguousarray(frame.words, "<u4").tobytes()
+    return struct.pack("<f", scale) + mask[: compat_frame_bytes(spec.total_n) - 4]
+
+
+def decode_compat_frame(payload: bytes, spec: TableSpec) -> Optional[TableFrame]:
+    """Reference bytes as a one-leaf frame, or None for a frame that must
+    not be applied: an idle keepalive (scale 0) or a non-finite scale,
+    which is dropped and counted as :func:`decode_frame` zeroes one."""
+    if len(payload) != compat_frame_bytes(spec.total_n):
+        raise ValueError(f"compat frame is {len(payload)} bytes, expected {compat_frame_bytes(spec.total_n)}")
+    (scale,) = struct.unpack_from("<f", payload, 0)
+    if scale == 0.0 or not np.isfinite(scale):
+        if not np.isfinite(scale):
+            log.warning("dropping compat frame with non-finite scale")
+            _count_corrupt_scales(1)
+        return None
+    nwords = spec.total // 32
+    raw = bytes(payload[4:]).ljust(nwords * 4, b"\x00")
+    words = np.frombuffer(raw, "<u4", count=nwords)
+    return TableFrame(np.full((1,), scale, np.float32), np.ascontiguousarray(words))

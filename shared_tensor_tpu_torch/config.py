@@ -1,15 +1,16 @@
 """Configuration for the PyTorch/CUDA port.
 
 Only what the port reads: the codec (scale policy, per-leaf scales,
-idle-frame suppression, the engine's cascade depth), the TCP transport,
-the peer's send loop and burst sizes, the native engine switch, fault
+idle-frame suppression, adaptive sign2 precision and its governor, the
+engine's cascade depth), the TCP transport (the reference wire format,
+link striping and the same-host shared-memory lane among its knobs), the
+peer's send loop and burst sizes, the native engine switch, fault
 injection (``FaultConfig``) and the serving tier (``ServeConfig``). Names,
 defaults and meaning are those of ``shared_tensor_tpu.config``, so a port
 peer and a JAX peer built from the same settings produce the same frames
-and join the same tree. Knobs of features the port does not have (the
-reference wire format, link striping, the shared-memory lane, adaptive
-precision (sign2), observability, lifecycle, sharding) are absent, so
-asking for one is a ``TypeError``.
+and join the same tree. Knobs of features the port does not have
+(observability, lifecycle, sharding) are absent, so asking for one is a
+``TypeError``.
 """
 
 from __future__ import annotations
@@ -42,6 +43,20 @@ class CodecConfig:
     #: Skip sending a frame whose scales are all 0 (it is a no-op on every
     #: receiver).
     suppress_zero_frames: bool = True
+    #: Telemetry-adaptive link precision (native engine, native framing):
+    #: a link whose residual RMS stops decaying upshifts to the sign2 2-bit
+    #: codec (sign + magnitude bit: +/-s or +/-3s), a quiet link downshifts
+    #: back to 1 bit. Emission is capability-gated per link (the SIGN2 flag
+    #: of SYNC and WELCOME), so links toward peers that do not advertise it
+    #: stay 1-bit. ``ST_SIGN2=0`` in the environment turns it off,
+    #: ``ST_SIGN2=2`` pins sign2 on every capable link.
+    adaptive_precision: bool = True
+    #: The governor: upshift after 2 consecutive beats where the link's
+    #: residual RMS grows past up_ratio x the previous beat's, downshift
+    #: after 2 beats below down_ratio x; one beat every interval seconds.
+    precision_up_ratio: float = 1.05
+    precision_down_ratio: float = 0.5
+    precision_interval_sec: float = 0.1
     #: Frames the native engine quantizes per memory pass over a residual:
     #: frame 0's scales are measured, frames 1..k-1 take the halving
     #: schedule the measured sequence converges to (the scales ride the
@@ -56,6 +71,12 @@ class TransportConfig:
 
     #: Max outgoing wire bytes/sec per link; 0 = unlimited.
     bandwidth_cap_bytes_per_sec: int = 0
+    #: Speak the reference's exact wire format: raw [f32 scale][LSB-first
+    #: bitmask] frames of one flat tensor, the 'Y'/'N' + sockaddr join, no
+    #: handshake and no ACKs; idle links send one zero-scale keepalive
+    #: frame per keepalive interval (in the native transport). Interoperates
+    #: with reference (C) peers.
+    wire_compat: bool = False
     listen_backlog: int = 128
     #: Seconds of link silence before a peer is declared dead and the link
     #: torn down and re-grafted.
@@ -79,10 +100,30 @@ class TransportConfig:
     #: Consecutive failed send attempts (~0.1 s each) before a link whose
     #: peer stopped draining is torn down for re-graft; 0 = never.
     quarantine_send_failures: int = 100
+    #: TCP connections per link (native framing), messages round-robin
+    #: across them and reassembled in order by a per-message stripe
+    #: sequence. A stripe whose death the sender sees degrades the link to
+    #: the stripes left; the last stripe's death is the link's. A joiner
+    #: with more than one stripe opens with the STT4 hello. 1..8.
+    stripe_count: int = 1
+    #: The same-host shared-memory lane: when both ends of a link are on
+    #: one host (boot id, exchanged in the SYNC and WELCOME tails), its data
+    #: plane moves into two SPSC rings of a /dev/shm segment while TCP
+    #: stays the control and liveness channel. Any mismatch or failed
+    #: attach keeps the link on TCP. ``ST_SHM=0`` in the environment turns
+    #: it off.
+    shm_enabled: bool = True
+    #: Cap on one ring's bytes (two rings a link); the peer sizes them to
+    #: twice its table's largest sign2 burst, at least 1 MiB.
+    shm_ring_bytes: int = 1 << 26
 
     def __post_init__(self):
         if not 1 <= self.max_children <= 16:
             raise ValueError(f"max_children must be in 1..16, got {self.max_children}")
+        if not 1 <= self.stripe_count <= 8:
+            raise ValueError(f"stripe_count must be in 1..8, got {self.stripe_count}")
+        if self.shm_ring_bytes < (1 << 16):
+            raise ValueError(f"shm_ring_bytes must be >= 64 KiB, got {self.shm_ring_bytes}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +173,10 @@ class FaultConfig:
     #: > 0: every fault only on this link id (a re-grafted link gets a new
     #: id and runs clean). 0 = every link.
     only_link: int = 0
+    #: >= 0: every (native-tier) fault only on this stripe index of each
+    #: striped link; ``sever_after_frames`` then kills just that socket and
+    #: the link must degrade to the stripes left. -1 = every stripe.
+    only_stripe: int = -1
     #: Named protocol point at which to kill the process (os._exit):
     #: "mid-join-walk" (SYNC sent, snapshot not), "mid-burst" (frames
     #: ledgered, message not yet on the wire), "between-apply-and-ack"

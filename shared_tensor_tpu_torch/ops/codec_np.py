@@ -65,6 +65,13 @@ _SIGNATURES = {
     "stc_apply_frames": [_f32p, _f32p, _i64p, _i64p, _i64p, _I64, _I64, _I32, _f32p, _u32p,
                          _f64p_opt, _f64p_opt, _f64p_opt],
     "stc_accumulate_update_to": [_f32p, _f32p, _f32p, _i64p, _i64p, _i64p, _I64],
+    # sign2: K frames of [sign words][magnitude words] per pass (row stride
+    # in words), with the next frame's scale partials; and the K-frame apply
+    "stc_quantize2_ef_cascade": [_f32p, _f32p, _i64p, _i64p, _i64p, _I64, _I32, _f32p, _u32p, _I64, _I64,
+                                 _f64p, _f64p, _f64p],
+    "stc_apply_frames2": [_f32p, _f32p, _i64p, _i64p, _i64p, _I64, _I64, _I32, _f32p, _u32p,
+                          _f64p_opt, _f64p_opt, _f64p_opt],
+    "stc_apply_frame2": [_f32p, _f32p, _i64p, _i64p, _i64p, _I64, _I64, _f32p, _u32p],
 }
 
 
@@ -270,6 +277,58 @@ def accumulate_table_np(arrays, update, spec: TableSpec, inplace: bool = False) 
     return tuple(out)
 
 
+# -- sign2 (2-bit) frames: the native engine's codec between capable engines --------
+#
+# A sign2 frame is [scales L*f32][sign words W*u32][magnitude words W*u32]:
+# bit neg = r <= 0, bit big = |r| > 2s, and the element moves by +-s, or
+# +-3s where big. The engine runs these loops itself; the wrappers below
+# hold them against their plain versions (tests, chip_smoke).
+
+
+def quantize2_table_np(residual, spec: TableSpec, scales) -> tuple[np.ndarray, np.ndarray]:
+    """K sign2 frames in one pass at the given scales (f32[K, L], the
+    engine's cascade schedule): returns (words u32[K, 2W], the residual
+    after the K frames)."""
+    r = _f32(residual)
+    sched = np.ascontiguousarray(np.asarray(scales, np.float32).reshape(-1, spec.num_leaves))
+    k, w = sched.shape[0], spec.total // 32
+    offs, ns, padded = _layout(spec)
+    L = spec.num_leaves
+    words = np.empty((k, 2 * w), np.uint32)
+    out = np.empty_like(r)
+    amax, ss, sabs = np.zeros(L), np.zeros(L), np.zeros(L)
+    native().stc_quantize2_ef_cascade(r, out, offs, ns, padded, L, k, sched, words.reshape(-1), 2 * w, w,
+                                      amax, ss, sabs)
+    return words, out
+
+
+def apply2_table_np(arrays, scales, words, spec: TableSpec) -> tuple[np.ndarray, ...]:
+    """K sign2 frames (scales f32[K, L], words u32[K, 2W]) applied to each
+    array in one fused pass, clipped to +-SAT; new arrays."""
+    sched = np.ascontiguousarray(np.asarray(scales, np.float32).reshape(-1, spec.num_leaves))
+    wds = np.ascontiguousarray(_u32(words).reshape(sched.shape[0], -1))
+    offs, ns, padded = _layout(spec)
+    out = []
+    for a in arrays:
+        v = _f32(a)
+        o = np.empty_like(v)
+        native().stc_apply_frames2(v, o, offs, ns, padded, spec.num_leaves, spec.total // 32, sched.shape[0],
+                                   sched.reshape(-1), wds.reshape(-1), None, None, None)
+        out.append(o)
+    return tuple(out)
+
+
+def apply2_frame_np(array, scales, words, spec: TableSpec) -> np.ndarray:
+    """One sign2 frame applied through ``stc_apply_frame2`` (the ledger's
+    rollback loop); a new array."""
+    v = _f32(array)
+    o = np.empty_like(v)
+    offs, ns, padded = _layout(spec)
+    native().stc_apply_frame2(v, o, offs, ns, padded, spec.num_leaves, spec.total // 32,
+                              np.ascontiguousarray(scales, np.float32).reshape(-1), _u32(words).reshape(-1))
+    return o
+
+
 # -- the plain numpy versions (tests and chip_smoke only) --------------------------
 
 
@@ -367,3 +426,53 @@ def accumulate_table_plain(arrays, update, spec: TableSpec) -> tuple[np.ndarray,
     u[~live] = 0.0
     np.nan_to_num(u, copy=False, nan=0.0, posinf=SAT, neginf=-SAT)
     return tuple(np.clip(np.asarray(a, np.float32) + u, -SAT, SAT) for a in arrays)
+
+
+def quantize2_table_plain(
+    residual,
+    spec: TableSpec,
+    policy: ScalePolicy = ScalePolicy.POW2_RMS,
+    per_leaf: bool = True,
+    scales: Optional[np.ndarray] = None,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """One sign2 sender frame in numpy: (scales f32[L], sign words, magnitude
+    words, the new residual). ``scales`` quantizes at given scales."""
+    r = np.asarray(residual, np.float32)
+    if scales is None:
+        scales = compute_scales_plain(r, spec, policy, per_leaf)
+    scales = np.asarray(scales, np.float32)
+    live = _live_mask(spec)
+    s_el = _scale_per_element(scales, spec)
+    neg = r <= 0
+    big = np.abs(r) > np.float32(2.0) * s_el
+    sign_words = np.packbits(neg & live, bitorder="little").view("<u4").astype(np.uint32)
+    mag_words = np.packbits(big & live, bitorder="little").view("<u4").astype(np.uint32)
+    mag = np.where(big, np.float32(3.0) * s_el, s_el)
+    sent = np.where(neg, -mag, mag)
+    new_r = np.where(live & (s_el > 0), r - sent, np.where(live, r, 0.0)).astype(np.float32)
+    return scales, sign_words, mag_words, new_r
+
+
+def apply2_table_plain(arrays, scales, words, spec: TableSpec) -> tuple[np.ndarray, ...]:
+    """The numpy sign2 receiver for K frames (scales f32[K, L], words
+    u32[K, 2W]: the sign plane, then the magnitude plane): the deltas
+    s*(1-2neg)*(1+2big) summed over frames, then clipped once."""
+    scales = np.asarray(scales, np.float32).reshape(-1, spec.num_leaves)
+    words = _u32(words).reshape(scales.shape[0], -1)
+    w = spec.total // 32
+    live = _live_mask(spec)
+    delta = np.zeros(spec.total, np.float32)
+    for row, wrow in zip(scales, words):
+        if not row.any():
+            continue
+        neg = np.unpackbits(np.ascontiguousarray(wrow[:w]).view(np.uint8), bitorder="little")[: spec.total]
+        big = np.unpackbits(np.ascontiguousarray(wrow[w:]).view(np.uint8), bitorder="little")[: spec.total]
+        delta += _scale_per_element(row, spec) * (1.0 - 2.0 * neg.astype(np.float32)) * (
+            1.0 + 2.0 * big.astype(np.float32))
+    delta[~live] = 0.0
+    out = []
+    for a in arrays:
+        v = np.clip(np.asarray(a, np.float32) + delta, -SAT, SAT)
+        v[~live] = 0.0
+        out.append(v)
+    return tuple(out)

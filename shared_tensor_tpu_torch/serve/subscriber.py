@@ -46,6 +46,7 @@ from typing import Any, Optional
 
 import numpy as np
 
+from .. import compat
 from ..comm import wire
 from ..comm.transport import EventKind, TransportNode
 from ..config import Config
@@ -141,6 +142,11 @@ class Subscriber:
         self.config = config or Config()
         tcfg = self.config.transport
         scfg = self.config.serve
+        if tcfg.wire_compat:
+            raise ValueError(
+                "the serving tier needs the native protocol (the reference wire format has no handshake to "
+                "advertise a read-only subscriber on)"
+            )
         self.spec = make_spec(template)
         words = self.spec.total // 32
         if scfg.range is not None:
@@ -343,8 +349,9 @@ class Subscriber:
         self._seeding = False
         self._await_welcome = True
         self._handshake_t0 = time.monotonic()
-        flags = wire.SYNC_FLAG_READ_ONLY | (wire.SYNC_FLAG_RANGE if self._ranged else 0)
-        ok = self._send_ctrl(uplink, wire.encode_sync(self.spec, wire.WIRE_VERSION_V2, flags))
+        # no SIGN2 and no SHM: a subscriber link stays 1-bit, v2 and on TCP
+        flags = compat.SYNC_FLAG_READ_ONLY | (compat.SYNC_FLAG_RANGE if self._ranged else 0)
+        ok = self._send_ctrl(uplink, wire.encode_sync(self.spec, compat.WIRE_VERSION_V2, flags))
         if ok and self._ranged:
             ok = self._send_ctrl(uplink, wire.encode_range(self._wlo, self._wcnt))
         if ok:

@@ -291,3 +291,76 @@ def test_trainer_adam_port_to_jax(files):
         np.testing.assert_array_equal(np.asarray(got).reshape(2, -1), want)
     losses, _ = tr.step(tr.shard_batch(jm.make_batches(B.CHAR_TEXT, 4, 16, jax.random.key(9), n_peer=2, vocab=64)))
     assert np.isfinite(np.asarray(losses)).all()
+
+
+def test_engine_snapshot_roundtrip_sign2_cascade_inflight(tmp_path, monkeypatch):
+    """test_checkpoint.py's sign2 case on a port engine pair pinned to sign2
+    (ST_SIGN2=2): the joiner's uplink stalls (ST_FAULT_PLAN around its
+    creation) so cascade-quantized sign2 messages sit ledgered, in flight,
+    with their error feedback already taken from the residual. Then
+    snapshot_ex, restore_ex, snapshot_ex round-trips the replica, every
+    residual and each link's aux (seqs, precision, the sign2 capability)
+    bit for bit; a crafted precision and governor sample survive a
+    restore; and save_shared / load_shared round-trip the same state into
+    the live engine bit for bit."""
+    import time
+
+    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch
+    from shared_tensor_tpu_torch.comm import faults
+    from shared_tensor_tpu_torch.config import FaultConfig
+    from tests._ports import free_port
+
+    monkeypatch.setenv("ST_SIGN2", "2")
+    port = free_port()
+    seed = np.zeros(2048, np.float32)
+    # ack_timeout 0: the stalled link keeps its ledger (no go-back-N teardown)
+    cfg = Config(transport=TransportConfig(ack_timeout_sec=0.0))
+    master = create_or_fetch("127.0.0.1", port, seed, cfg, host_tier=True)
+    env = faults.to_env(FaultConfig(enabled=True, seed=3, stall_after_frames=0, only_link=1))
+    monkeypatch.setenv("ST_FAULT_PLAN", env["ST_FAULT_PLAN"])
+    child = create_or_fetch("127.0.0.1", port, seed, cfg, host_tier=True)
+    monkeypatch.delenv("ST_FAULT_PLAN")
+    try:
+        eng = child._engine
+        assert eng is not None
+        rng = np.random.default_rng(2)
+        for _ in range(40):
+            child.add(rng.uniform(-1, 1, 2048).astype(np.float32))
+            time.sleep(0.01)  # a message or more per add, not one burst for all
+        deadline = time.time() + 20.0
+        while time.time() < deadline and eng.inflight_total() < 8:
+            time.sleep(0.05)
+        last = -1
+        while time.time() < deadline:  # the sender quiescent (window shut or residual drained)
+            cur = eng.frames_out
+            if cur == last:
+                break
+            last = cur
+            time.sleep(0.3)
+        inflight = eng.inflight_total()
+        assert inflight >= 8, f"no in-flight ledger built up ({inflight})"
+        assert child.metrics()["st_frames2_out_total"] > 0, "the stalled messages are not sign2"
+        v1, l1, a1 = eng.snapshot_ex()
+        assert a1[1]["sign2"], "the peer's sign2 capability is missing from the aux"
+        assert a1[1]["tx_seq"] >= inflight and a1[1]["rx_count"] == 0
+        eng.restore_ex(v1, l1, a1)
+        v2, l2, a2 = eng.snapshot_ex()
+        np.testing.assert_array_equal(v1.numpy(), v2.numpy())
+        assert set(l1) == set(l2)
+        for lid in l1:
+            np.testing.assert_array_equal(l1[lid].numpy(), l2[lid].numpy())
+        assert a1 == a2
+        eng.restore_ex(v1, l1, {1: dict(a1[1], prec=2, gov_prev=0.25)})
+        assert eng.link_precision(1) == 2
+        _, _, a3 = eng.snapshot_ex()
+        assert a3[1]["prec"] == 2 and a3[1]["gov_prev"] == pytest.approx(0.25)
+        path = str(tmp_path / "engine.npz")
+        ckpt.save_shared(eng, path)
+        ckpt.load_shared(eng, path)
+        v4, l4, _ = eng.snapshot_ex()
+        np.testing.assert_array_equal(v4.numpy(), v1.numpy())
+        for lid in l1:
+            np.testing.assert_array_equal(l4[lid].numpy(), l1[lid].numpy())
+    finally:
+        child.close()
+        master.close()

@@ -418,6 +418,39 @@ def test_two_peer_round_trip_runs_the_kernels(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [240, 3870976])
+def test_kernels_on_a_compat_frame_match_plain(cuda_device, n):
+    """A and B on a one-leaf table, the frame the reference wire carries:
+    A's words, scale and residual bit-equal to the plain version's, the
+    frame byte-identical to the reference bytes the plain frame encodes
+    to, and B's apply of the decoded frame into the replica and a residual
+    bit-equal to the plain version's."""
+    from shared_tensor_tpu_torch.comm import wire
+    from shared_tensor_tpu_torch.ops import table as TT
+
+    rng = np.random.default_rng(n)
+    tmpl = np.zeros(n, np.float32)
+    spec = TT.make_spec(tmpl)
+    resid = torch.from_numpy(rng.normal(size=spec.total).astype(np.float32) * (np.arange(spec.total) < n)).to(
+        cuda_device)
+    fk, rk = TT.quantize_table(resid.clone(), spec, impl="kernel")
+    fp, rp = TT.quantize_table(resid.clone(), spec, impl="plain")
+    torch.cuda.synchronize()
+    assert _same_bits(fk.words, fp.words) and _same_bits(fk.scales, fp.scales) and _same_bits(rk, rp)
+    host = [TT.TableFrame(f.scales.cpu().numpy(), f.words.cpu().numpy().view(np.uint32)) for f in (fk, fp)]
+    payload = wire.encode_compat_frame(host[0], spec)
+    assert payload == wire.encode_compat_frame(host[1], spec) and len(payload) == wire.compat_frame_bytes(n)
+    back = wire.decode_compat_frame(payload, spec)
+    dev = TT.TableFrame(torch.from_numpy(back.scales).to(cuda_device).reshape(1, -1),
+                        torch.from_numpy(back.words.view(np.int32).copy()).to(cuda_device).reshape(1, -1))
+    vals = torch.from_numpy(rng.normal(size=spec.total).astype(np.float32)).to(cuda_device)
+    ak = TT.apply_table_batch((vals.clone(), rk.clone()), dev, spec, "kernel")
+    ap = TT.apply_table_batch((vals.clone(), rk.clone()), dev, spec, "plain")
+    torch.cuda.synchronize()
+    assert all(_same_bits(x, y) for x, y in zip(ak, ap))
+
+
+@pytest.mark.cuda
 def test_cuda_writer_serves_a_subscriber(cuda_device):
     """A CUDA writer serves a read-only subscriber: kernel A quantizes the
     subscriber link, the subscriber converges on the seed plus an add

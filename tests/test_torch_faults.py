@@ -16,7 +16,6 @@ The two striped cases of test_faults.py wait for link striping
 (TransportConfig.stripe_count), which the port does not have yet.
 """
 
-import dataclasses
 import logging
 import os
 import socket
@@ -193,8 +192,9 @@ def test_fault_plan_rejects_unknown_crash_point():
              crash_after=2),
         dict(enabled=True, seed=3, dup_pct=0.2, truncate_pct=0.05, corrupt_pct=0.01, delay_pct=0.5, delay_sec=0.02,
              stall_after_frames=0, crash_point="between-apply-and-ack"),
+        dict(enabled=True, seed=9, sever_after_frames=3, only_link=1, only_stripe=2),
     ],
-    ids=["disabled", "seed-only", "sever", "all-classes"],
+    ids=["disabled", "seed-only", "sever", "all-classes", "one-stripe"],
 )
 def test_to_env_equals_jax(kw):
     env = faults.to_env(FaultConfig(**kw))
@@ -202,18 +202,12 @@ def test_to_env_equals_jax(kw):
     if kw.get("seed") == 5:
         assert env["ST_FAULT_PLAN"] == "seed=5,drop=0.1,sever_after=7,only_link=1"
         assert env["ST_FAULT_CRASH"] == "mid-join-walk:2"
+    if kw.get("only_stripe") == 2:
+        assert env["ST_FAULT_PLAN"] == "seed=9,sever_after=3,only_link=1,only_stripe=2"
     if kw == dict(enabled=True, seed=1):
         assert "stall_after" not in env["ST_FAULT_PLAN"]
     if not kw:
         assert env == {}
-
-
-def test_only_stripe_waits_for_link_striping():
-    """The port's links have one stripe: the per-stripe knob is absent, as
-    the other knobs of unported features are, not silently accepted."""
-    assert "only_stripe" in {f.name for f in dataclasses.fields(JFaultConfig)}
-    with pytest.raises(TypeError):
-        FaultConfig(enabled=True, only_stripe=0)
 
 
 # -- peers under faults: the Python boundary (device and Python host tiers) -------------------
@@ -467,6 +461,74 @@ def test_engine_warns_when_wire_faults_cannot_inject(caplog):
         p = _peer(port, np.zeros(64, np.float32), "engine", FaultConfig(enabled=True, drop_pct=0.5))
         p.close()
     assert any("inject nothing" in r.message for r in caplog.records)
+
+
+def test_striped_link_survives_single_stripe_sever(monkeypatch):
+    """test_faults.py's striped sever on port engine peers: four stripes a
+    link, the master's transport kills stripe 2 of its first link at its
+    3rd data message (ST_FAULT_PLAN around the master's creation). The
+    link degrades to three stripes (a death and re-routed messages on the
+    master's side), stays up, and every update converges; the per-stripe
+    plan pins the link to TCP (the lane would carry the data past it)."""
+    port = free_port()
+    seed = np.full((4096,), 1.0, np.float32)
+    env = faults.to_env(FaultConfig(enabled=True, seed=9, sever_after_frames=3, only_link=1, only_stripe=2))
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    m = _peer(port, seed, "engine", stripe_count=4)
+    for k in env:
+        monkeypatch.delenv(k)
+    j = _peer(port, np.zeros_like(seed), "engine", cls=SharedTensorPeer, stripe_count=4)
+    try:
+        j.wait_ready(60.0)
+        _check_tier(m, "engine")
+        wait_converged([j], seed, tol=1e-5)
+        rng = np.random.default_rng(21)
+        total = seed.astype(np.float64)
+        for _ in range(12):
+            u = rng.normal(0, 0.5, 4096).astype(np.float32)
+            total = total + u
+            m.add(u)
+            time.sleep(0.01)
+        wait_converged([m, j], total.astype(np.float32), tol=1e-4, timeout=60.0)
+        ss = m.node.stripe_stats(1)
+        assert ss is not None and ss["stripes"] == 4
+        assert ss["deaths"] >= 1, "the injected stripe sever never fired"
+        assert ss["live"] == ss["stripes"] - ss["deaths"]
+        assert ss["reroutes"] >= 1, "no message re-routed off the dead stripe"
+        assert 1 in m.node.links, "the link must survive a stripe's death"
+        mm = m.metrics()
+        assert mm["st_stripe_deaths_total"] >= 1 and mm['st_stripe_count{link="1"}'] == 4
+        assert not [k for k in mm if k.startswith("st_shm_active")], "a per-stripe plan keeps the link on TCP"
+    finally:
+        j.close()
+        m.close()
+
+
+def test_striped_link_stall_tears_down_cleanly_not_wedged(monkeypatch):
+    """test_faults.py's other striped shape: stripe 1 of the joiner's uplink
+    swallows every message past its 6th. Reassembly at the master wedges
+    on the hole, the joiner's go-back-N tears the link down, the carry
+    re-grafts on a fresh link, and the update converges exactly."""
+    port = free_port()
+    seed = np.full((4096,), 2.0, np.float32)
+    m = _peer(port, seed, "engine", stripe_count=2)
+    env = faults.to_env(FaultConfig(enabled=True, seed=4, stall_after_frames=6, only_link=1, only_stripe=1))
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    j = _peer(port, np.zeros_like(seed), "engine", cls=SharedTensorPeer, stripe_count=2, ack_timeout_sec=1.0,
+              ack_retry_limit=2)
+    for k in env:
+        monkeypatch.delenv(k)
+    try:
+        j.wait_ready(60.0)
+        wait_converged([j], seed, tol=1e-5)
+        delta = np.random.default_rng(8).normal(size=(4096,)).astype(np.float32)
+        j.add(delta)
+        wait_converged([m, j], seed + delta, tol=1e-5, timeout=90.0)
+    finally:
+        j.close()
+        m.close()
 
 
 @pytest.mark.parametrize("tier", ["engine", "device"])

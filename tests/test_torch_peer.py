@@ -375,10 +375,9 @@ def test_device_none_needs_a_gpu():
 
 def test_unported_config_knobs_are_type_errors():
     cases = (
-        (CodecConfig, {"adaptive_precision": True}),
-        (TransportConfig, {"wire_compat": True}),
         (Config, {"lifecycle": None}),
         (Config, {"obs": None}),
+        (Config, {"shard": None}),
     )
     for cls, kw in cases:
         with pytest.raises(TypeError):

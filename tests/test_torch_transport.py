@@ -124,10 +124,8 @@ def test_closed_node_introspection_is_empty():
 
 
 def test_unported_transport_knobs_are_type_errors():
-    with pytest.raises(TypeError):
-        TransportConfig(wire_compat=True)
-    with pytest.raises(TypeError):
-        TransportConfig(stripe_count=2)
+    with pytest.raises(ValueError):
+        TransportConfig(stripe_count=9)
     with pytest.raises(ValueError):
         TransportConfig(max_children=0)
 

@@ -110,8 +110,14 @@ def test_sync_bytes_identical_and_carry_the_layout_digest(version, flags):
     n, total, digest = TW.decode_sync(want)
     assert (n, total, digest) == JW.decode_sync(got) == (ts.num_leaves, ts.total_n, js.layout_digest())
     assert TW.sync_wire_version(want) == version and TW.sync_flags(want) == flags
+    # the shared-memory lane's host id rides the tail; the sharded claim
+    # (not spoken by the port) is refused
+    host = bytes(range(16))
+    shm = TW.encode_sync(ts, version, flags=flags | TW.SYNC_FLAG_SHM, shm_host=host)
+    assert shm == JW.encode_sync(js, version, flags=flags | TW.SYNC_FLAG_SHM, shm_host=host)
+    assert TW.sync_shm_host(shm) == JW.sync_shm_host(shm) == host and TW.sync_shm_host(want) is None
     with pytest.raises(ValueError):
-        TW.encode_sync(ts, version, flags=TW.SYNC_FLAG_SHM)
+        TW.encode_sync(ts, version, flags=TW.SYNC_FLAG_SHARD)
 
 
 def test_capability_flags_equal_the_jax_package():
