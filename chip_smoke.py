@@ -185,6 +185,24 @@ Phases, in order; any failure exits non-zero:
    their plain versions on each arm's CUDA master (tree_kernel_check: 14a's
    and 14b's one-leaf tables, 14c's), 0 mismatches, reported by arm.
    The launches of A and B by arm.
+15. The observability plane on BASELINE config 2's table (the default
+   CharRNNConfig, benchmarks/serve.tables' power-of-two data from --seed):
+   a CUDA master M (max_children 3; cluster_json_path and health_json_path
+   under profiles/, digests and clock probes every OBS_BEAT_S, a staleness
+   objective of OBS_SLO_S), an engine child E whose stamps are skewed
+   +OBS_SKEW_S, a CUDA child C skewed -OBS_SKEW_S and a subscriber S, all
+   below M. E, C and M add in turn (each add agreed within AGREE_REL, the
+   adding child drained, S fresh past it). Fails unless: M's cluster view
+   counts 4 nodes within OBS_VIEW_S of the last add, its summed
+   st_frames_out_total equal to the nodes' own; E's and C's clock offsets
+   lie within their uncertainty of their skews; health.json parses and its
+   correction of M's link to E is E's skew within the record's
+   uncertainty; obs.top renders one row per live node of cluster.json; the
+   hub's timeline exports as Chrome trace JSON (profiles/phase15_trace.json)
+   holding a contiguous path from an update's origin to every other writer;
+   M's st_encode_seconds and st_apply_seconds and E's st_update_hops
+   counted; and A and B match their plain versions on M's state
+   (tree_kernel_check). The launches of A and B in the phase.
 The transport, the host codec and the engine (native/sttransport.cpp,
 stcodec.c, stengine.cpp) and the C reference peer (stc_harness.c) are
 compiled with g++ and gcc in phase 1, beside the kernels. Every rank's full results of phases 9, 10 and 11 go to
@@ -953,7 +971,7 @@ def peer_tree(template, device, seed: int, n_peers: int = 4, deadline_s: float =
             p.close()
     per_peer = []
     for i, (b, a) in enumerate(zip(before, after)):
-        d = {k: a[k] - b.get(k, 0) for k in a if not k.startswith("st_link_")}
+        d = {k: a[k] - b.get(k, 0) for k in a if not k.startswith("st_link_") and isinstance(a[k], (int, float))}
         links = {}
         for k, v in a.items():
             if k.startswith("st_link_"):
@@ -971,7 +989,7 @@ def peer_tree(template, device, seed: int, n_peers: int = 4, deadline_s: float =
               f"in {d['st_frames_in_total']}, msgs out {d['st_msgs_out_total']} in {d['st_msgs_in_total']}, "
               f"data MB out {d['st_data_bytes_out_total'] / 1e6:.1f} in {d['st_data_bytes_in_total'] / 1e6:.1f}, "
               f"retransmits {d['st_retransmit_msgs_total']}, dedup {d['st_dedup_discards_total']}, "
-              f"ignored ctrl {d['st_ctrl_ignored_total']}, faults "
+              f"digests in {d.get('st_digest_msgs_in_total', 0)}, faults "
               + ", ".join(f"{k[3:-6]} {d[k]}" for k in FAULTS))
         for link, v in sorted(pp["links"].items()):
             fo = v.get("st_link_frames_out_total", 0)
@@ -1729,7 +1747,7 @@ def mixed_tier_tree(template, device, seed: int, deadline_s: float = 30.0, poll_
             p.close()
     per_peer = []
     for i, (tier, b, a) in enumerate(zip(tiers, before, after)):
-        d = {k: a[k] - b.get(k, 0) for k in a if not k.startswith("st_link_")}
+        d = {k: a[k] - b.get(k, 0) for k in a if not k.startswith("st_link_") and isinstance(a[k], (int, float))}
         links = {}
         for k, v in a.items():
             if k.startswith("st_link_"):
@@ -2458,6 +2476,196 @@ def wire_phase(device, seed: int, agree_12b_s: float, smi: str) -> tuple[dict, d
     return out, total, check
 
 
+# -- phase 15 -------------------------------------------------------------------
+
+#: Phase 15: the digest and clock-probe interval of every node, the skew
+#: simulated on E's and C's stamps, the staleness objective of M's health
+#: analyzer, and how long after the last add the cluster view may take.
+OBS_BEAT_S = 0.2
+OBS_SKEW_S = 0.05
+OBS_SLO_S = 1.0
+OBS_VIEW_S = 3.0
+OBS_CLOCK_REPLIES = 3
+
+
+def obs_phase(device, seed: int, smi: str, cfg_m=None) -> tuple[dict, tuple]:
+    """Phase 15 (module docstring): the observability plane on the table of
+    the char-RNN ``cfg_m`` (None: config 2's). Returns the report and the
+    master's state for tree_kernel_check."""
+    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch, obs, serve
+    from shared_tensor_tpu_torch.benchmarks import serve as serve_bench
+    from shared_tensor_tpu_torch.config import ObsConfig
+    from shared_tensor_tpu_torch.models.char_rnn import CharRNNConfig
+    from shared_tensor_tpu_torch.obs import aggregate, top, trace_export
+    from shared_tensor_tpu_torch.ops.table import flatten, make_spec, tree_flatten, tree_unflatten
+
+    template, seed_tree, deltas = serve_bench.tables(cfg_m or CharRNNConfig(), seed + 15, n=3)
+    spec = make_spec(template)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    cluster_path, health_path = (os.path.join(OUT_DIR, n) for n in ("cluster.json", "health.json"))
+    trace_path = os.path.join(OUT_DIR, "phase15_trace.json")
+    for p in (cluster_path, health_path):
+        if os.path.exists(p):
+            os.remove(p)
+    beats = dict(digest_interval_sec=OBS_BEAT_S, clock_sync_interval_sec=OBS_BEAT_S)
+    tcfg = TransportConfig(peer_timeout_sec=30.0, max_children=3)
+    cfg_m = Config(transport=tcfg, obs=ObsConfig(cluster_json_path=cluster_path, health_json_path=health_path,
+                                                 staleness_slo_sec=OBS_SLO_S, **beats))
+    cfg_e = Config(transport=tcfg, obs=ObsConfig(clock_skew_sim_sec=OBS_SKEW_S, **beats))
+    cfg_c = Config(transport=tcfg, obs=ObsConfig(clock_skew_sim_sec=-OBS_SKEW_S, **beats))
+    # the timeline of this phase alone, large enough for every trace_apply
+    hub = obs.hub()
+    hub.poll_native()
+    hub.recorder.clear()
+    hub.recorder.set_capacity(1 << 18)
+    port = _free_port()
+    peers, sub, out = [], None, {}
+    t0 = time.perf_counter()
+    try:
+        m = create_or_fetch("127.0.0.1", port, seed_tree, cfg_m, timeout=60.0, device=device)
+        peers.append(m)
+        e = create_or_fetch("127.0.0.1", port, template, cfg_e, timeout=60.0, host_tier=True)
+        peers.append(e)
+        c = create_or_fetch("127.0.0.1", port, template, cfg_c, timeout=60.0, device=device)
+        peers.append(c)
+        sub = serve.subscribe("127.0.0.1", port, template, Config(transport=tcfg, obs=ObsConfig(**beats)),
+                              timeout=60.0)
+        ids = {"M": m.node.obs_id, "E": e.node.obs_id, "C": c.node.obs_id, "S": sub.node.obs_id}
+        if e._engine is None or c._engine is not None or c.st.device.type != torch.device(device).type \
+                or len(m.node.links) != 3 or e._uplink is None or c._uplink is None:
+            raise AssertionError(f"phase 15: want a {device} master with an engine child, a {device} child and a "
+                                 f"subscriber below it; the master has {len(m.node.links)} links")
+        out["join_s"] = time.perf_counter() - t0
+        leaves = [np.asarray(x, np.float64) for x in tree_flatten(seed_tree)[0]]
+        # the writers add in turn, E first, each add agreed, the adding
+        # child drained and S fresh past it before the next: a link residual
+        # holding two updates of unrelated bounds drains in thousands of
+        # frames (PERF.md §4), and E never sends after its add, so M's link
+        # to E keeps E's stamp as the oldest origin M holds (check 4 reads
+        # that link)
+        for who, p, d in (("E", e, deltas[0]), ("C", c, deltas[1]), ("M", m, deltas[2])):
+            for j, x in enumerate(tree_flatten(d)[0]):
+                leaves[j] += x
+            target = flatten(tree_unflatten(spec.treedef, [x.astype(np.float32) for x in leaves]), spec, device)
+            mag = torch.tensor([np.abs(x).max() for x in leaves], dtype=torch.float64, device=device)
+            p.add(d)
+            t_add = time.perf_counter()
+            out[f"agree_s_{who}"], out[f"err_{who}"] = _wait_agree(peers, target, mag, spec, AGREE_REL, 30.0, 0.01)
+            if p is not m and not p.drain(timeout=10.0):
+                raise AssertionError(f"phase 15: {who} did not drain its add")
+            sub.wait_fresh(serve.epoch(), timeout=10.0)
+            out[f"fresh_s_{who}"] = time.perf_counter() - t_add
+        master = m.st.snapshot_all() + (flatten(deltas[2], spec, device), m.st.codec)
+        # 2: the cluster view at M: four nodes (the subscriber counted), and
+        # the summed frames equal to the nodes' own counts at quiescence
+        while True:
+            view = m.metrics(cluster=True)
+            own = sum(p.metrics()["st_frames_out_total"] for p in peers)
+            got = view["counters"].get("st_frames_out_total", 0)
+            late = time.perf_counter() - t_add > OBS_VIEW_S
+            if aggregate.cluster_nodes(view) == 4 and got == own and not late:
+                break
+            if late:
+                raise AssertionError(f"phase 15: {OBS_VIEW_S} s after the last add M's view has "
+                                     f"{aggregate.cluster_nodes(view)} nodes, frames out {got} against {own}")
+            time.sleep(0.02)
+        out["view_s"] = time.perf_counter() - t_add
+        out["cluster"] = {"nodes": aggregate.cluster_nodes(view), "frames_out": got, "own_frames_out": own,
+                          "st_cluster_nodes": m.metrics()["st_cluster_nodes"], "ids": ids}
+        # 3: the clock: E's and C's offsets within their uncertainty of the skew
+        deadline = time.perf_counter() + OBS_VIEW_S
+        while not all(p._clock.replies >= OBS_CLOCK_REPLIES for p in (e, c)) and time.perf_counter() < deadline:
+            time.sleep(0.02)
+        clock = {}
+        for who, p, skew in (("E", e, OBS_SKEW_S), ("C", c, -OBS_SKEW_S)):
+            mm = p.metrics()
+            clock[who] = {"offset_s": mm.get("st_clock_offset_seconds"), "unc_s": mm.get("st_clock_uncertainty_seconds"),
+                          "skew_s": skew, "probes": mm["st_clock_probes_total"], "replies": p._clock.replies}
+            if clock[who]["offset_s"] is None or abs(clock[who]["offset_s"] - skew) > clock[who]["unc_s"]:
+                raise AssertionError(f"phase 15: {who}'s clock offset {clock[who]} misses its skew")
+        out["clock"] = clock
+        # 4: health.json: M's record is its link to E (E added first), whose
+        # correction is E's offset (M's is 0) within the record's uncertainty
+        deadline = time.perf_counter() + OBS_VIEW_S
+        while True:
+            try:
+                with open(health_path) as fh:
+                    health = json.load(fh)
+            except (OSError, ValueError):
+                health = {}
+            rec = health.get("staleness", {}).get("nodes", {}).get(str(ids["M"]))
+            if rec is not None and rec["origin"] == ids["E"] and rec["unc_sec"] is not None \
+                    and str(ids["E"]) in health.get("clock", {}):
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"phase 15: health.json has no corrected record of M's link to E: {rec}")
+            time.sleep(0.02)
+        shift = rec["corrected_sec"] - rec["raw_sec"]
+        out["health"] = {"m_link_to_e": rec, "correction_s": shift, "clock": health["clock"],
+                         "slo": {"alert": health["slo"]["alert"], "bad_beats": m.metrics().get("st_slo_bad_beats_total")},
+                         "heat_shards": len(health["heat"]["shards"]), "beats": health["beats"]}
+        if abs(shift - OBS_SKEW_S) > rec["unc_sec"]:
+            raise AssertionError(f"phase 15: the correction of M's link to E, {shift} s, misses E's offset "
+                                 f"{OBS_SKEW_S} s by more than {rec['unc_sec']} s")
+        # 5: obs.top renders one row per live node of cluster.json
+        with open(cluster_path) as fh:
+            cdoc = json.load(fh)
+        frame = top.render(cdoc, None, 0.0)
+        rows = [ln.split()[0] for ln in frame.splitlines() if ln.split() and ln.split()[0].isdigit()]
+        out["top_rows"] = len(rows)
+        if sorted(rows) != sorted(str(i) for i in ids.values()):
+            raise AssertionError(f"phase 15: obs.top rows {rows} are not the live nodes {ids}")
+        # 6: the trace export: valid Chrome trace JSON with a causal path from
+        # an update's origin to every other writer
+        hub.poll_native()
+        timeline = hub.recorder.timeline()
+        trace_export.export_file(trace_path, timeline)
+        with open(trace_path) as fh:
+            tdoc = json.load(fh)
+        if not tdoc["traceEvents"] or any("ph" not in t or "pid" not in t for t in tdoc["traceEvents"]):
+            raise AssertionError("phase 15: the exported trace is not Chrome trace JSON")
+        paths = trace_export.trace_paths(timeline)
+        writers = {ids["M"], ids["E"], ids["C"]}
+        full = [(k, v) for k, v in paths.items() if k[0] in writers and writers - {k[0]} <= {r["node"] for r in v}
+                and trace_export.contiguous(v)]
+        stats = trace_export.path_stats(paths)
+        out["trace"] = {"events": len(timeline), "paths": stats, "paths_to_every_writer": len(full),
+                        "file": trace_path, "trace_events": len(tdoc["traceEvents"])}
+        if not full:
+            raise AssertionError(f"phase 15: no update's path reaches every other writer: {stats}")
+        # 7: histograms and hops
+        mm, em = m.metrics(), e.metrics()
+        out["hist"] = {"m_encode": mm["st_encode_seconds"], "m_apply": mm["st_apply_seconds"],
+                       "m_ack_rtt": mm["st_ack_rtt_seconds"], "e_hops_count": em["st_update_hops_count"],
+                       "e_hops_sum": em["st_update_hops_sum"]}
+        if not (mm["st_encode_seconds"]["count"] > 0 and mm["st_apply_seconds"]["count"] > 0
+                and em["st_update_hops_count"] > 0):
+            raise AssertionError(f"phase 15: histograms or hops did not count: {out['hist']}")
+        out["events"] = dict(hub.recorder.counts)
+        out["obs_events_dropped"] = mm["st_obs_events_dropped_total"]
+        _healthy(peers)
+    finally:
+        if sub is not None:
+            sub.close()
+        for p in reversed(peers):
+            p.close()
+        hub.recorder.set_capacity(4096)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[15] M, E (engine, +{OBS_SKEW_S} s), C (-{OBS_SKEW_S} s) and S joined in {out['join_s']:.3f} s; "
+          f"agreement after each add: E {out['agree_s_E']:.3f}, C {out['agree_s_C']:.3f}, M {out['agree_s_M']:.3f} s")
+    print(f"[15] cluster view {out['view_s']:.3f} s after the last add: {out['cluster']}")
+    print(f"[15] clock: E {clock['E']['offset_s']:.6f} +- {clock['E']['unc_s']:.6f} s, "
+          f"C {clock['C']['offset_s']:.6f} +- {clock['C']['unc_s']:.6f} s")
+    print(f"[15] health: M's link to E raw {rec['raw_sec']:.4f} s, corrected {rec['corrected_sec']:.4f} s "
+          f"(+{shift:.6f} +- {rec['unc_sec']:.6f}); top rows {out['top_rows']}; trace {out['trace']['paths']}, "
+          f"{out['trace']['paths_to_every_writer']} paths reach every writer")
+    print(f"[15] M encode {mm['st_encode_seconds']['count']} ({mm['st_encode_seconds']['sum']:.4f} s), apply "
+          f"{mm['st_apply_seconds']['count']} ({mm['st_apply_seconds']['sum']:.4f} s); E hops count "
+          f"{em['st_update_hops_count']}; phase 15 {out['seconds']:.3f} s; on {smi}")
+    print(frame)
+    return out, master
+
+
 SOURCES = {
     "quantize_rows":("shared_tensor_tpu_torch/csrc/quantize_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:286"),
     "apply_rows_batch": ("shared_tensor_tpu_torch/csrc/apply_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:337"),
@@ -2662,8 +2870,27 @@ def main() -> int:
         t[k]["mismatches_phase14"] = check14[k]["mismatches"]
         t[k]["mismatches_phase14_by_arm"] = check14[k]["by_arm"]
         t[k]["max_abs_err_phase14"] = check14[k]["max_abs_err"]
+
+    # 15. the observability plane on config 2's table (the launch counts of A
+    # and B are this phase's)
+    CC.reset_launches()
+    obs_out, master = obs_phase(dev, args.seed, smi)
+    obs_launches = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
+    if not all(obs_launches.values()):
+        raise AssertionError(f"a kernel of the observability phase never launched: {obs_launches}")
+    check15 = tree_kernel_check(master, make_spec(char_template), "15")
+    del master
+    obs_out["launches"] = obs_launches
+    for k, n in obs_launches.items():
+        t[k]["launches_phase15"] = n
+        t[k]["mismatches_phase15"] = check15[k]["mismatches"]
+        t[k]["max_abs_err_phase15"] = check15[k]["max_abs_err"]
+    bad = {k: v["mismatches"] for k, v in check15.items() if v["mismatches"]}
+    if bad:
+        raise AssertionError(f"phase 15: kernel vs plain mismatches on the master's state: {bad}")
+    print(f"[15] launches {obs_launches}")
     serve_out["script_s"] = time.perf_counter() - t_script
-    print(f"[14] script {serve_out['script_s']:.3f} s")
+    print(f"[15] script {serve_out['script_s']:.3f} s")
 
     print(smi)
     kernels = []
@@ -2684,6 +2911,7 @@ def main() -> int:
     print(json.dumps({"host_codec": host, "mixed_tier_tree": mixed, "phase12_s": secs12}))
     print(json.dumps({"serve": serve_out}))
     print(json.dumps({"wire": wire_out}))
+    print(json.dumps({"obs": obs_out}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

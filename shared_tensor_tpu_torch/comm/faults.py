@@ -39,8 +39,11 @@ Frames only: the plan never sees handshake (SYNC, CHUNK, DONE, WELCOME,
 REJECT), ACK or FRESH traffic, so injected chaos exercises recovery and
 never wedges a join that the protocol has no retry for.
 
-The JAX plan also emits each fault onto its observability timeline; the
-port has no such plane yet, so this one only counts (``counts``).
+Every injected event is counted (``counts``) and, with obs on, lands on
+the process's timeline (``obs.hub()``) under the names the native injector
+puts on the ring (``obs/events.py``'s fault codes), so a chaos run's
+timeline accounts for every hit, whichever tier injected it. A crash point
+dumps the flight recorder's postmortem before its ``os._exit``.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ import threading
 from collections import Counter
 from typing import Callable, Optional
 
+from .. import obs as _obs
 from ..config import FaultConfig
 
 log = logging.getLogger("shared_tensor_tpu_torch.faults")
@@ -101,6 +105,11 @@ class FaultPlan:
         self._mu = threading.Lock()
         self._on_crash = on_crash
         self.counts: Counter = Counter()
+        self._hub = _obs.hub() if _obs.obs_enabled() else None
+
+    def _event(self, name: str, link: int, arg: int = 0) -> None:
+        if self._hub is not None:
+            self._hub.emit(name, link=link, arg=arg)
 
     @property
     def active(self) -> bool:
@@ -121,26 +130,33 @@ class FaultPlan:
             r = self._rng
             if cfg.sever_after_frames > 0 and n >= cfg.sever_after_frames:
                 self.counts["severed"] += 1
+                self._event("fault_sever", link, n)
                 return [], 0.0, True
             if cfg.stall_after_frames >= 0 and n > cfg.stall_after_frames:
                 self.counts["stalled"] += 1
+                self._event("fault_stall", link, n)
                 return [], 0.0, False
             delay = 0.0
             if cfg.delay_pct > 0 and r.random() < cfg.delay_pct:
                 self.counts["delayed"] += 1
+                self._event("fault_delay", link, int(cfg.delay_sec * 1e3))
                 delay = cfg.delay_sec
             if cfg.drop_pct > 0 and r.random() < cfg.drop_pct:
                 self.counts["dropped"] += 1
+                self._event("fault_drop", link, n)
                 return [], delay, False
             out = payload
             if cfg.corrupt_pct > 0 and len(payload) > 1 and r.random() < cfg.corrupt_pct:
                 self.counts["corrupted"] += 1
+                self._event("fault_corrupt", link, n)
                 out = corrupt(out, r, self.scale_bytes, self.trace_bytes)
             if cfg.truncate_pct > 0 and not self.wire_compat and len(out) > 2 and r.random() < cfg.truncate_pct:
                 self.counts["truncated"] += 1
+                self._event("fault_truncate", link, n)
                 out = out[: r.randrange(1, len(out))]
             if cfg.dup_pct > 0 and not self.wire_compat and r.random() < cfg.dup_pct:
                 self.counts["duplicated"] += 1
+                self._event("fault_dup", link, n)
                 return [out, out], delay, False
             return [out], delay, False
 
@@ -156,10 +172,17 @@ class FaultPlan:
             if hits < max(1, cfg.crash_after):
                 return
             self.counts["crashed"] += 1
+        self._event("crash_point", 0, hits)
         if self._on_crash is not None:
             self._on_crash(name)
             return
         log.warning("fault plan killing the process at protocol point %r", name)
+        # the last act before the kill: the postmortem (the merged timeline
+        # and every registry's snapshot); the exit follows whatever the
+        # dump's fate
+        if self._hub is not None:
+            self._hub.poll_native()
+            self._hub.dump(f"crash_point:{name}")
         os._exit(CRASH_EXIT_CODE)
 
 

@@ -95,17 +95,41 @@ replica becomes exactly its carry, which the new uplink owes (the parent
 re-seeds it with its whole replica); an interior node keeps its state and
 may double the re-seed, which the protocol cannot avoid (logged).
 
-Not ported (later slices): lifecycle and operator commands, sharding and
-the observability plane (metrics digests and the clock probe). A joiner
-that asks for the sharded tensor in its SYNC is refused with a REJECT that
-names it; metrics digests and clock probes from a JAX child are counted
-and dropped; any other message kind the port does not speak is logged,
-counted and dropped.
+The observability plane (``obs/``, ``Config.obs``), as the JAX peer's
+``_PeerObs``: each peer keeps a metrics registry (``metrics()`` is its
+snapshot; ``_obs_collect`` samples everything that is not a live
+instrument) registered with the process hub under ``peer-<obs_id>``. Its
+histograms ``st_ack_rtt_seconds``, ``st_encode_seconds`` and
+``st_apply_seconds`` are observed on the device and Python host tiers (on
+the device tier they time the host work around kernels A and B and their
+copies, never device time; the engine reports none of them per message),
+and those tiers also keep the live ``st_retransmit_msgs_total``,
+``st_dedup_discards_total`` and ``st_update_hops``. Its receive thread
+runs the housekeeping beat: the native ring's drain every
+``native_drain_interval_sec``, the subtree's metrics digest up the tree
+(DIGEST) every ``digest_interval_sec``, the uplink's clock probe (CLOCK)
+every ``clock_sync_interval_sec``, and at a root the ``cluster_json_path``
+write and the health analyzer (``health_json_path``). A parent merges its
+children's digests (JAX children's too) and answers their probes; on the
+engine both arrive through ``poll_ctrl``. Digests and probes are off on
+the reference wire and under v1 framing. Every stamp another node compares
+(trace stamps, probes, digest times, FRESH marks) reads ``_now_ns``, the
+monotonic clock plus the simulated skew (``ST_CLOCK_SKEW_SEC`` or
+``ObsConfig.clock_skew_sim_sec``); the engine stamps its own adds on the
+native clock, as JAX's does. A go-back-N teardown and a receive-thread
+exception dump a postmortem.
+
+Not ported (later slices): lifecycle and operator commands, and sharding.
+A joiner that asks for the sharded tensor in its SYNC is refused with a
+REJECT that names it; any other message kind the port does not speak is
+logged, counted and dropped.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import math
 import os
 import sys
 import threading
@@ -116,7 +140,13 @@ from typing import Any, Optional
 import numpy as np
 
 from .. import compat
+from .. import obs as _obs
 from ..config import Config
+from ..obs import aggregate
+from ..obs import events as _events
+from ..obs import schema as _schema
+from ..obs.clock import ClockSync
+from ..obs.health import HealthAnalyzer
 from ..core import SharedTensor, resolve_device
 from ..ops.table import make_spec
 from . import faults, wire
@@ -146,11 +176,16 @@ _UNSERVED = {
 #: staleness floor is its queue depth times its apply time per message
 #: (the engine's kSubBurstCap).
 SUB_BURST_CAP = 32
-#: Control kinds a JAX child sends on its own (metrics digests, clock
-#: probes): dropped and counted until the observability slice, with its
-#: digest and clock probe, serves them.
-_IGNORED_KINDS = (wire.DIGEST, wire.CLOCK)
-_TIMERS = ("send_loop_busy", "encode", "send", "decode", "apply")
+#: Host seconds by stage of the data path, under their metric names.
+_TIMERS = (
+    "st_send_loop_busy_seconds_total",
+    "st_encode_seconds_total",
+    "st_send_seconds_total",
+    "st_decode_seconds_total",
+    "st_apply_seconds_total",
+)
+#: Buckets of the st_update_hops histogram (the JAX peer's).
+HOPS_BUCKETS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
 
 
 _HOST_ID: Optional[bytes] = None
@@ -178,6 +213,80 @@ def _shm_host_id() -> bytes:
 
 class SpecMismatch(ConnectionError):
     """The tree holds a different table layout, or refused this joiner."""
+
+
+class _PeerObs:
+    """One peer's observability bundle: a metrics registry (the live
+    instruments below plus the peer's collector) registered with the
+    process hub, and the peer's handle on the hub (flight recorder, native
+    ring drain, postmortems). A peer with obs off holds None in its place.
+
+    The histograms time host work per message on the device and Python
+    host tiers; the engine's C threads never call into Python, and export
+    their aggregates through the counters instead. So the live
+    retransmit and dedup counters and the hops histogram exist on the
+    Python tiers only: an engine peer's truth comes from the collector, and
+    a live instrument of the same name would shadow it."""
+
+    def __init__(self, peer: "SharedTensorPeer"):
+        self.hub = _obs.hub()
+        self.registry = _obs.Registry()
+        h = self.registry.histogram
+        self.ack_rtt = h("st_ack_rtt_seconds", help="ledger-append to cumulative-ACK-pop round trip")
+        self.encode = h("st_encode_seconds", help="wire-encode latency per DATA/BURST")
+        self.apply = h("st_apply_seconds", help="decode+apply latency per received batch")
+        self.retransmits = self.dedup = self.hops = None
+        if peer._engine is None:
+            self.retransmits = self.registry.counter(
+                "st_retransmit_msgs_total", help="go-back-N messages re-sent byte-identical"
+            )
+            self.dedup = self.registry.counter(
+                "st_dedup_discards_total", help="duplicate/out-of-order data messages discarded unapplied"
+            )
+            self.hops = h("st_update_hops", buckets=HOPS_BUCKETS,
+                          help="tree hops traversed by applied traced updates")
+        self.digest_out = self.registry.counter(
+            "st_digest_sends_total", help="cluster metrics digests sent up the tree"
+        )
+        self.digest_in = self.registry.counter(
+            "st_digest_msgs_in_total", help="cluster metrics digests received from subtree links"
+        )
+        self.cluster_nodes = self.registry.gauge(
+            "st_cluster_nodes", help="nodes represented in the latest merged cluster digest"
+        )
+        self.registry.register_collector(peer._obs_collect)
+        self.label = f"peer-{peer.node.obs_id}"
+        self.hub.register_registry(self.label, self.registry)
+        ocfg = peer.config.obs
+        self.drain_interval = ocfg.native_drain_interval_sec
+        if ocfg.jsonl_path:
+            self.registry.start_jsonl_sink(ocfg.jsonl_path, ocfg.jsonl_interval_sec)
+        # on the engine, the C receiver's trace_apply ring events carry
+        # (origin << 8 | hop): a drain tap takes this peer's out of each
+        # batch, so the origin of each link's freshest update is known
+        # there too (the Python tiers note it in _note_trace)
+        self._peer = peer
+        self._tap = self._on_native_batch if peer._engine is not None else None
+        if self._tap is not None:
+            self.hub.add_tap(self._tap)
+
+    def _on_native_batch(self, batch) -> None:
+        peer = self._peer
+        me = peer.node.obs_id
+        for e in batch:
+            if e.name == "trace_apply" and e.node == me:
+                peer._stale_origin[e.link] = e.extra >> 8
+
+    def event(self, name: str, node: int = 0, link: int = 0, arg: int = 0, detail: str = "",
+              extra: int = 0) -> None:
+        self.hub.emit(name, node=node, link=link, arg=arg, detail=detail, extra=extra)
+
+    def close(self) -> None:
+        self.registry.stop_jsonl_sink()
+        if self._tap is not None:
+            self.hub.remove_tap(self._tap)
+        self.hub.poll_native()  # the last drain: no event stays stranded in the ring
+        self.hub.unregister_registry(self.label)
 
 
 def _python_tier_auto_burst(spec) -> int:
@@ -403,7 +512,6 @@ class SharedTensorPeer:
         # counters and host-side seconds by stage, for metrics()
         self._retransmits = 0
         self._dedup = 0
-        self._ctrl_ignored = 0
         self._unknown_msgs = 0
         # faults the receive path survives: frames dropped because their
         # apply raised (acknowledged all the same, so never re-sent),
@@ -415,6 +523,42 @@ class SharedTensorPeer:
         self._data_bytes_in = 0
         self._link_frames_out: dict[int, int] = {}
         self._secs = dict.fromkeys(_TIMERS, 0.0)
+        # the observability plane. Per link: the origin generation stamp and
+        # hops of the latest traced apply (the Python tiers; the collector
+        # ages it live, so a stalled link's staleness grows) and the origin
+        # node of that update (on the engine too, through the ring's tap);
+        # each child link's latest digest, merged at the next build
+        ocfg = self.config.obs
+        self._staleness: dict[int, tuple[int, int]] = {}
+        self._stale_origin: dict[int, int] = {}
+        self._traced_in = 0
+        self._child_digests: dict[int, dict] = {}
+        # digests and probes ride typed control messages, which the
+        # reference wire has not, and presume a peer of the v2 framing: a
+        # peer pinned to v1 must not send kinds an older parent would log
+        # as unknown every beat
+        beats = not self._compat and self._wire_version >= compat.WIRE_VERSION_V2
+        self._digest_interval = ocfg.digest_interval_sec if beats else 0.0
+        self._clock_interval = ocfg.clock_sync_interval_sec if beats else 0.0
+        self._digest_last = 0.0
+        self._clock_last = 0.0
+        # the simulated skew of this node's cross-node stamps (tests and
+        # benches: a real skew for the offset estimator on one host)
+        skew_env = os.environ.get("ST_CLOCK_SKEW_SEC", "")
+        self._skew_ns = int(float(skew_env if skew_env else ocfg.clock_skew_sim_sec) * 1e9)
+        # a master is the tree's root (offset 0 +- 0); a joiner probes its
+        # uplink. The health analyzer runs at a root with a health path
+        self._clock = ClockSync(self._now_ns, is_root=self.is_master)
+        self._health = None
+        if self.is_master and ocfg.health_json_path:
+            self._health = HealthAnalyzer(
+                path=ocfg.health_json_path, history=ocfg.health_history, objective_sec=ocfg.staleness_slo_sec,
+                budget=ocfg.slo_budget, windows=ocfg.slo_windows, skew_ratio=ocfg.heat_skew_ratio,
+                emit=self._health_event,
+            )
+        self._obs: Optional[_PeerObs] = None
+        if _obs.obs_enabled() and ocfg.enabled:
+            self._obs = _PeerObs(self)
         # on the engine, its own sender thread sends on every link
         self._threads = (threading.Thread(target=self._recv_loop, daemon=True, name="st-recv"),)
         if self._engine is None:
@@ -434,7 +578,7 @@ class SharedTensorPeer:
         peer asynchronously."""
         self.st.add(delta)
         if self._engine is None:  # the engine stamps inside its add
-            self._trace_stamp = (self.node.obs_id, time.monotonic_ns(), 0)
+            self._trace_stamp = (self.node.obs_id, self._now_ns(), 0)
         self._wake.set()
 
     def wait_ready(self, timeout: float = 30.0) -> None:
@@ -470,7 +614,9 @@ class SharedTensorPeer:
         is discarded unacknowledged, so its senders re-deliver it around
         us), drain what we owe, close. Returns the drain's verdict."""
         if self._engine is not None:
-            self._engine.seal()
+            self._engine.seal()  # the engine puts its seal on the ring
+        elif self._obs is not None:
+            self._obs.event("seal", self.node.obs_id)
         self._sealed = True
         ok = self.drain(timeout=timeout, tol=tol)
         self.close()
@@ -485,6 +631,10 @@ class SharedTensorPeer:
         if self._engine is not None:
             # its threads wait inside the node's queues: stop them first
             self._engine.stop()
+        if self._obs is not None:
+            # the last drain and the registry's teardown, before the node
+            # closes, so the close path's events merge in
+            self._obs.close()
         self.node.close()
         if self._engine is not None:
             self._engine.destroy()
@@ -509,24 +659,33 @@ class SharedTensorPeer:
         the engine receive only."""
         return all(t.is_alive() for t in self._threads)
 
-    def metrics(self) -> dict:
-        """Counters under the JAX package's names (``st_frames_*``: non-idle
-        codec frames; ``st_msgs_*``: DATA/BURST messages; ``st_link_*``:
-        the transport's per-link totals of live links, control messages and
-        framing included), the port's own counters (non-idle frames sent
-        per link, ever; the receive faults survived, 0 on a healthy peer:
-        ``st_apply_dropped_total``, ``st_msg_errors_total``,
-        ``st_recv_restarts_total``), the writer side of the serving tier
-        (``st_sub_links``, ``st_sub_msgs_out_total``,
-        ``st_sub_fresh_out_total``), the wire capabilities per link
-        (``st_stripe_count``/``st_stripe_live`` of striped links and
-        ``st_stripe_deaths_total``/``st_stripe_reroutes_total``;
-        ``st_shm_active`` (1 mapped, 2 sending on the rings) and
-        ``st_shm_ring_bytes`` of links with a lane, ``st_shm_msgs_*`` and
-        ``st_shm_bytes_*`` over all of them, ``st_shm_fallback_total``;
-        ``st_link_precision`` of engine links and the engine's
-        ``st_frames2_*``/``st_precision_*shifts_total``), and the host
-        seconds spent per stage of the data path (``st_*_seconds_total``)."""
+    def metrics(self, cluster: bool = False) -> dict:
+        """The peer's metrics under the schema's names (``obs/schema.py``):
+        the registry's snapshot (its live histograms and counters, and the
+        collector :meth:`_obs_collect`), or the collector alone with obs
+        off. ``cluster=True`` returns the merged digest of this node's
+        subtree instead (:meth:`cluster_metrics`); at the root, the whole
+        tree's.
+
+        The counters: ``st_frames_*`` count non-idle codec frames,
+        ``st_msgs_*`` DATA/BURST messages, ``st_link_*`` the transport's
+        per-link totals of live links, control messages and framing
+        included. The port's own names (the schema's last section) add the
+        non-idle frames sent per link, ever; the receive faults survived
+        (``st_apply_dropped_total``, ``st_msg_errors_total``,
+        ``st_recv_restarts_total``, ``st_unknown_msgs_total``; 0 on a healthy
+        peer); the shared-memory lane's ring bytes and failed attaches; and
+        the host seconds spent per stage of the data path
+        (``st_*_seconds_total``)."""
+        if cluster:
+            return self.cluster_metrics()
+        if self._obs is not None:
+            return self._obs.registry.snapshot()
+        return self._obs_collect()
+
+    def _obs_collect(self) -> dict:
+        """The registry's collector: everything the peer reports that is
+        not a live instrument, sampled at each snapshot."""
         if self._engine is not None:
             # one counter snapshot: separate reads would mix instants
             c = self._engine.counters()
@@ -552,7 +711,6 @@ class SharedTensorPeer:
             "st_inflight_msgs": self.st.inflight_total(),
             "st_retransmit_msgs_total": retransmits,
             "st_dedup_discards_total": dedup,
-            "st_ctrl_ignored_total": self._ctrl_ignored,
             "st_unknown_msgs_total": self._unknown_msgs,
             "st_apply_dropped_total": self._apply_dropped,
             "st_msg_errors_total": self._msg_errors,
@@ -560,6 +718,7 @@ class SharedTensorPeer:
             "st_data_bytes_out_total": self._data_bytes_out,
             "st_data_bytes_in_total": self._data_bytes_in,
             "st_corrupt_scales_zeroed_total": wire.corrupt_scales_zeroed(),
+            "st_obs_events_dropped_total": _events.native_dropped(),
             "st_fetch_wait_seconds_total": self.st.fetch_wait_s,
             "st_h2d_seconds_total": self.st.h2d_s,
             "st_apply_lock_wait_seconds_total": self.st.apply_lock_wait_s,
@@ -567,43 +726,224 @@ class SharedTensorPeer:
             "st_sub_msgs_out_total": self._sub_msgs_out,
             "st_sub_fresh_out_total": self._sub_fresh_out,
             "st_shm_fallback_total": self._shm_fallbacks,
+            "st_wire_version": self._wire_version,
+            "st_lifecycle_paused": 1 if self._paused else 0,
+            "st_clock_probes_total": self._clock.probes,
         }
-        out.update({f"st_{k}_seconds_total": v for k, v in self._secs.items()})
+        out.update(self._secs)
+        tp = self.node.pool_stats()
+        out["st_transport_tx_acquires_total"] = tp["tx_acquires"]
+        out["st_transport_tx_misses_total"] = tp["tx_misses"]
+        out["st_transport_rx_acquires_total"] = tp["rx_acquires"]
+        out["st_transport_rx_misses_total"] = tp["rx_misses"]
+        out["st_transport_zc_msgs_total"] = tp["zc_msgs"]
+        # the L2 norm over every residual, the carry's too (owed mass): 0
+        # when quiesced. The engine keeps its carry outside its link list
+        links = list(self.st.link_ids)
+        if self._engine is not None:
+            links.append(CARRY_LINK)
+        n = self.st.spec.total_n
+        out["st_residual_norm"] = math.sqrt(sum(self.st.residual_rms(l) ** 2 * n for l in links))
         if self._engine is not None:
             out.update(self._engine.obs_stats())
             p = self._engine.pool_stats()
             out["st_tx_slot_acquires_total"] = p["tx_slot_acquires"]
             out["st_tx_slot_alloc_events_total"] = p["tx_slot_alloc_events"]
             out["st_tx_slots_allocated"] = p["tx_slots_allocated"]
-        for link, n in list(self._link_frames_out.items()):
-            out[f'st_link_frames_out_total{{link="{link}"}}'] = n
+            # staleness and hops of each link's latest traced apply, as the
+            # C receiver recorded them (its age at the apply)
+            for link in self.st.link_ids:
+                lo = self._engine.link_obs(link) if link >= 0 else None
+                if lo is not None and lo[1] > 0:
+                    out[_schema.link_key("st_staleness_seconds", link)] = lo[0]
+                    out[_schema.link_key("st_update_hops_last", link)] = lo[1]
+                prec = self._engine.link_precision(link) if link >= 0 else 0
+                if prec > 0:
+                    out[_schema.link_key("st_link_precision", link)] = prec
+        else:
+            # aged now: a stalled link's staleness grows between applies
+            now_ns = self._now_ns()
+            for link, (gen, hop) in list(self._staleness.items()):
+                out[_schema.link_key("st_staleness_seconds", link)] = max(0.0, (now_ns - gen) / 1e9)
+                out[_schema.link_key("st_update_hops_last", link)] = hop
+            out["st_traced_msgs_in_total"] = self._traced_in
+        # the origin node of each link's freshest update and this node's
+        # offset to the root: the health analyzer corrects staleness with both
+        for link, origin in list(self._stale_origin.items()):
+            out[_schema.link_key("st_staleness_origin", link)] = origin
+        if self._clock.known:
+            out["st_clock_offset_seconds"] = self._clock.offset_seconds
+            out["st_clock_uncertainty_seconds"] = self._clock.uncertainty_seconds
+        if self._health is not None:
+            out.update(self._health.metrics())
+        for link, n_frames in list(self._link_frames_out.items()):
+            out[_schema.link_key("st_link_frames_out_total", link)] = n_frames
         for link in self.node.links:
             s = self.node.stats(link)
             if s is not None:
-                out[f'st_link_bytes_out_total{{link="{link}"}}'] = s.bytes_out
-                out[f'st_link_bytes_in_total{{link="{link}"}}'] = s.bytes_in
-                out[f'st_link_wire_msgs_out_total{{link="{link}"}}'] = s.frames_out
-                out[f'st_link_wire_msgs_in_total{{link="{link}"}}'] = s.frames_in
+                out[_schema.link_key("st_link_bytes_out_total", link)] = s.bytes_out
+                out[_schema.link_key("st_link_bytes_in_total", link)] = s.bytes_in
+                out[_schema.link_key("st_link_wire_msgs_out_total", link)] = s.frames_out
+                out[_schema.link_key("st_link_wire_msgs_in_total", link)] = s.frames_in
+                out[_schema.link_key("st_link_residual_rms", link)] = self.st.residual_rms(link)
+                out[_schema.link_key("st_link_send_queue", link)] = s.send_queue
+                out[_schema.link_key("st_link_recv_queue", link)] = s.recv_queue
             # the link's sockets (when striped) and its shared-memory lane
             # (when mapped: its share of the link's traffic)
             st = self.node.stripe_stats(link)
             if st is not None and st["stripes"] > 1:
-                out[f'st_stripe_count{{link="{link}"}}'] = st["stripes"]
-                out[f'st_stripe_live{{link="{link}"}}'] = st["live"]
+                out[_schema.link_key("st_stripe_count", link)] = st["stripes"]
+                out[_schema.link_key("st_stripe_live", link)] = st["live"]
                 out["st_stripe_deaths_total"] = out.get("st_stripe_deaths_total", 0) + st["deaths"]
                 out["st_stripe_reroutes_total"] = out.get("st_stripe_reroutes_total", 0) + st["reroutes"]
             sh = self.node.shm_stats(link)
             if sh is not None and sh["state"] > 0:
-                out[f'st_shm_active{{link="{link}"}}'] = sh["state"]
-                out[f'st_shm_ring_bytes{{link="{link}"}}'] = sh["ring_bytes"]
-                for k in ("msgs_out", "msgs_in", "bytes_out", "bytes_in"):
-                    out[f"st_shm_{k}_total"] = out.get(f"st_shm_{k}_total", 0) + sh[k]
-        if self._engine is not None:
-            for link in self.st.link_ids:
-                prec = self._engine.link_precision(link) if link >= 0 else 0
-                if prec > 0:
-                    out[f'st_link_precision{{link="{link}"}}'] = prec
+                out[_schema.link_key("st_shm_active", link)] = sh["state"]
+                out[_schema.link_key("st_shm_ring_bytes", link)] = sh["ring_bytes"]
+                out["st_shm_msgs_out_total"] = out.get("st_shm_msgs_out_total", 0) + sh["msgs_out"]
+                out["st_shm_msgs_in_total"] = out.get("st_shm_msgs_in_total", 0) + sh["msgs_in"]
+                out["st_shm_bytes_out_total"] = out.get("st_shm_bytes_out_total", 0) + sh["bytes_out"]
+                out["st_shm_bytes_in_total"] = out.get("st_shm_bytes_in_total", 0) + sh["bytes_in"]
         return out
+
+    # -- the cluster digest and the clock probe -----------------------------------
+
+    def _now_ns(self) -> int:
+        """The monotonic clock plus the simulated skew: every stamp another
+        node compares (trace generations, probes, digest times, FRESH
+        marks) reads it, so a skewed node looks like a skewed host."""
+        return time.monotonic_ns() + self._skew_ns
+
+    def _health_event(self, name: str, arg: int, detail: str) -> None:
+        """The analyzer's events, onto the timeline."""
+        obs = self._obs
+        if obs is not None:
+            obs.event(name, self.node.obs_id, 0, arg, detail=detail)
+
+    def _build_digest(self) -> dict:
+        """This subtree's merged digest: our own snapshot folded with each
+        child link's latest digest, bounded before it reaches the wire."""
+        doc = aggregate.from_snapshot(self.node.obs_id, self.metrics(), self._now_ns())
+        # the node's name in its breakdown, as a JAX peer without a
+        # lifecycle name sends it
+        doc["nodes"][str(int(self.node.obs_id))]["name"] = f"node-{self.node.obs_id}"
+        for child in list(self._child_digests.values()):
+            aggregate.merge(doc, child)
+        aggregate.bounded(doc)
+        if self._obs is not None:
+            self._obs.cluster_nodes.set(aggregate.cluster_nodes(doc))
+        return doc
+
+    def _publish_digest(self) -> dict:
+        """One digest beat: the subtree's digest to the uplink, or at the
+        root the health analyzer's beat and the ``cluster_json_path``
+        write. Lossy: a beat that meets backpressure is skipped, and the
+        next one carries fresher totals."""
+        doc = self._build_digest()
+        up = self._uplink
+        if up is not None:
+            try:
+                # 50 ms, not 0: a busy data plane keeps the transport queue
+                # full, and a zero-timeout beat would never get through
+                if self.node.send(up, wire.encode_digest(doc), timeout=0.05) and self._obs is not None:
+                    self._obs.digest_out.inc()
+            except BrokenPipeError:
+                pass  # the uplink died; the next beat goes to the new one
+        else:
+            if self._health is not None:
+                try:
+                    self._health.beat(doc, self._now_ns())
+                except Exception as e:  # the beat must not take the receive loop down
+                    log.debug("health beat failed: %s", e)
+            path = self.config.obs.cluster_json_path
+            if path:
+                tmp = f"{path}.tmp.{os.getpid()}"
+                try:
+                    with open(tmp, "w") as f:
+                        json.dump(doc, f)
+                        f.write("\n")
+                    os.replace(tmp, path)  # never a torn read
+                except OSError as e:
+                    log.debug("cluster digest write failed: %s", e)
+        return doc
+
+    def push_digest(self) -> dict:
+        """One digest beat now (the periodic beat goes on): tests and
+        quiescent accounting move exact totals up without waiting out the
+        interval."""
+        self._digest_last = time.monotonic()
+        return self._publish_digest()
+
+    def cluster_metrics(self) -> dict:
+        """The merged digest of this node's subtree: its own registry and
+        every digest its children reported. At the root, the cluster."""
+        return self._build_digest()
+
+    def cluster_prometheus_text(self) -> str:
+        """Prometheus text of :meth:`cluster_metrics`."""
+        return aggregate.prometheus_text(self._build_digest())
+
+    def _housekeeping(self) -> None:
+        """The receive thread's beat: drain the native ring (rate-limited
+        inside ``poll_native``), send the digest or publish the root's view,
+        and probe the uplink's clock. Gated on the run-time obs switch too,
+        so the overhead bench's off arm runs none of it."""
+        obs = self._obs
+        if obs is None:
+            return
+        obs.hub.poll_native(obs.drain_interval)
+        if self._digest_interval <= 0 or not _obs.obs_enabled():
+            return
+        now = time.monotonic()
+        # a root with nowhere to publish builds its view on demand only
+        if now - self._digest_last >= self._digest_interval and (
+            self._uplink is not None or self.config.obs.cluster_json_path or self._health is not None
+        ):
+            self._digest_last = now
+            try:
+                self._publish_digest()
+            except Exception as e:  # a lossy beat: the next one retries
+                log.debug("digest publish failed: %s", e)
+        self._clock_beat(now)
+
+    def _clock_beat(self, now: float) -> None:
+        """Probe the uplink's clock every ``clock_sync_interval_sec`` (the
+        root never probes; it is the reference). Lossy like the digest."""
+        if self._clock_interval <= 0 or self.is_master or now - self._clock_last < self._clock_interval:
+            return
+        up = self._uplink
+        if up is None:
+            return
+        self._clock_last = now
+        try:
+            self.node.send(up, wire.encode_clock(self._clock.probe_payload()), timeout=0.05)
+        except BrokenPipeError:
+            pass  # the uplink died; the next probe goes to the new one
+
+    def _note_trace(self, link: int, payload) -> None:
+        """The trace bookkeeping of one accepted data message on the Python
+        tiers (the engine's receiver does the same in C): advance the
+        pending stamp one hop, note the link's staleness, hops and origin,
+        and put a trace_apply event on the timeline. With obs off only the
+        stamp advance remains, which propagation needs."""
+        obs = self._obs
+        if obs is None and not self._trace_wire:
+            return
+        tr = wire.data_trace(payload, self.st.spec)
+        if tr is None:
+            return
+        origin, gen, hops = tr
+        hop = min(hops + 1, 255)
+        if self._trace_wire:
+            self._trace_stamp = (origin, gen, hop)
+        if obs is None:
+            return
+        self._staleness[link] = (gen, hop)
+        self._stale_origin[link] = origin
+        self._traced_in += 1
+        if obs.hops is not None:
+            obs.hops.observe(hop)
+        obs.event("trace_apply", self.node.obs_id, link, gen, extra=(origin << 8) | hop)
 
     def __enter__(self):
         return self
@@ -733,7 +1073,7 @@ class SharedTensorPeer:
                     hot.discard(link)
                     self.st.nack_frame(link)
             self._check_retransmit(links)
-            self._secs["send_loop_busy"] += time.perf_counter() - t_pass
+            self._secs["st_send_loop_busy_seconds_total"] += time.perf_counter() - t_pass
             if self._stop.is_set():
                 return
             if interval > 0:
@@ -775,7 +1115,7 @@ class SharedTensorPeer:
             # stamp may be older than its mass (a read that under-claims)
             # but never newer. With no stamp yet the frame goes untraced: a
             # stamp of our own clock would claim updates we never received.
-            fresh_t = time.monotonic_ns()
+            fresh_t = self._now_ns()
             trace = self._trace_stamp if self._trace_wire else None
             if self.st.host_tier:
                 out = self.st.begin_frame_burst(link, min(self._burst, SUB_BURST_CAP))
@@ -839,7 +1179,7 @@ class SharedTensorPeer:
     def _sub_fresh_beat(self, link: int) -> None:
         """A paused sender's FRESH mark: only for a drained residual,
         stamped before the check, as in :meth:`_send_sub`."""
-        fresh_t = time.monotonic_ns()
+        fresh_t = self._now_ns()
         if self.st.residual_rms(link) > 0.0:
             return
         self._sub_fresh_mark(link, fresh_t)
@@ -857,11 +1197,14 @@ class SharedTensorPeer:
         if not self._trace_wire:
             trace = None  # v1 framing (ST_WIRE_TRACE=0)
         elif trace is None:
-            trace = (self.node.obs_id, time.monotonic_ns(), 0)
+            trace = (self.node.obs_id, self._now_ns(), 0)
         slot = self._tx_pool.acquire()
         t0 = time.perf_counter()
         payload = slot[: encode_into(slot, txs, trace)]
-        self._secs["encode"] += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self._secs["st_encode_seconds_total"] += dt
+        if self._obs is not None:
+            self._obs.encode.observe(dt)
         self._data_bytes_out += len(payload)
         with self._ack_mu:
             if link not in self._tx_seq:
@@ -915,10 +1258,17 @@ class SharedTensorPeer:
             if rounds > max(1, tcfg.ack_retry_limit):
                 log.warning("link %d: no ACK progress after %d retransmission rounds; tearing down for re-graft",
                             link, rounds - 1)
+                if self._obs is not None:
+                    # the verdict a postmortem should explain
+                    self._obs.event("blackhole_teardown", self.node.obs_id, link, rounds - 1)
+                    self._obs.hub.dump("goback_teardown")
                 self.node.drop_link(link)
                 continue
             log.info("link %d: retransmitting %d unacked message(s), round %d", link, len(tail), rounds)
             self._retransmits += len(tail)
+            if self._obs is not None:
+                self._obs.retransmits.inc(len(tail))
+                self._obs.event("retransmit", self.node.obs_id, link, len(tail))
             for payload in tail:
                 self._data_bytes_out += len(payload)
                 if not self._send_blocking(link, payload, data=True):
@@ -977,11 +1327,13 @@ class SharedTensorPeer:
                 if quarantine > 0 and fails >= quarantine:
                     log.warning("quarantining link %d after %d consecutive send failures; tearing down for re-graft",
                                 link, fails)
+                    if self._obs is not None:
+                        self._obs.event("quarantine", self.node.obs_id, link, fails)
                     self.node.drop_link(link)
                     return False
             return False
         finally:
-            self._secs["send"] += time.perf_counter() - t0
+            self._secs["st_send_seconds_total"] += time.perf_counter() - t0
 
     # -- receive side --------------------------------------------------------------
 
@@ -997,6 +1349,9 @@ class SharedTensorPeer:
                 failures += 1
                 self._recv_restarts += 1
                 log.exception("recv thread hit an unhandled exception (restart %d/3)", failures)
+                if self._obs is not None:
+                    self._obs.hub.poll_native()
+                    self._obs.hub.dump("recv_thread_exception")
                 if failures >= 3:
                     self._error = e
                     self._ready.set()
@@ -1006,6 +1361,7 @@ class SharedTensorPeer:
     def _recv_loop_inner(self) -> None:
         spec = self.st.spec
         while not self._stop.is_set():
+            self._housekeeping()
             busy = self._handle_events()
             if self._compat and self._engine is not None and not self._ready.is_set() and self._uplink is not None:
                 # the engine consumes the uplink's reference frames: ready
@@ -1070,6 +1426,12 @@ class SharedTensorPeer:
                                 log.debug("link %d: discarding out-of-order data (seq %d, expected %d)",
                                           link, seq, want)
                                 self._dedup += 1
+                                if self._obs is not None:
+                                    # an engine peer may meet one before a
+                                    # link's handoff: it has no live counter
+                                    if self._obs.dedup is not None:
+                                        self._obs.dedup.inc()
+                                    self._obs.event("dedup_discard", self.node.obs_id, link, seq)
                                 continue
                             if payload[0] == wire.DATA:
                                 frames = [wire.decode_frame(payload, spec)]
@@ -1079,7 +1441,7 @@ class SharedTensorPeer:
                             log.warning("dropping bad frame on link %d: %s", link, e)
                             continue
                         finally:
-                            self._secs["decode"] += time.perf_counter() - t0
+                            self._secs["st_decode_seconds_total"] += time.perf_counter() - t0
                         if batch and len(batch) + len(frames) > self._batch_cap:
                             self._flush_frames(link, batch, msgs, traced)
                             batch, traced, msgs = [], [], 0
@@ -1118,17 +1480,17 @@ class SharedTensorPeer:
                     except Exception as e:
                         self._apply_dropped += 1
                         log.warning("dropping bad frame on link %d: %s", link, e)
-            self._secs["apply"] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self._secs["st_apply_seconds_total"] += dt
+            if self._obs is not None:
+                self._obs.apply.observe(dt)
             self._wake.set()  # the flood refilled the other links' residuals
         if msgs:
             # mass applied and flooded, ACK not sent: the sender re-delivers
             self._fault_point("between-apply-and-ack")
             self._ack_received(link, msgs)
         for p in traced:
-            tr = wire.data_trace(p, self.st.spec)
-            if tr is not None:
-                origin, gen, hops = tr
-                self._trace_stamp = (origin, gen, min(hops + 1, 255))
+            self._note_trace(link, p)
 
     def _ack_received(self, link: int, n: int) -> None:
         self._rx_count[link] = self._rx_count.get(link, 0) + n
@@ -1149,9 +1511,20 @@ class SharedTensorPeer:
 
     # -- membership ----------------------------------------------------------------
 
+    #: Transport event -> timeline event name (the native codes 1..4, so
+    #: every native membership event pairs with a later Python-tier twin)
+    _EVENT_NAMES = {
+        EventKind.LINK_UP: "link_up",
+        EventKind.LINK_DOWN: "link_down",
+        EventKind.BECAME_MASTER: "became_master",
+        EventKind.REJOIN_FAILED: "isolated",
+    }
+
     def _handle_events(self) -> bool:
         evs = self.node.poll_events(timeout=0.0)
         for ev in evs:
+            if self._obs is not None:
+                self._obs.event(self._EVENT_NAMES[ev.kind], self.node.obs_id, ev.link_id, int(ev.is_uplink))
             try:
                 if ev.kind == EventKind.LINK_UP:
                     self._on_link_up(ev)
@@ -1233,7 +1606,8 @@ class SharedTensorPeer:
                     self._sub_mask_ver.pop(ev.link_id, None)
             self._engine_links.discard(ev.link_id)
             self._compat_open.discard(ev.link_id)
-            for d in (self._peer_sign2, self._peer_shm, self._peer_r14):
+            for d in (self._peer_sign2, self._peer_shm, self._peer_r14, self._staleness, self._stale_origin,
+                      self._child_digests):
                 d.pop(ev.link_id, None)
             with self._ack_mu:
                 purged = self._unacked.pop(ev.link_id, ())
@@ -1326,6 +1700,10 @@ class SharedTensorPeer:
                     self._ack_progress[link] = time.monotonic()
                     self._retx_rounds.pop(link, None)
             self._release_slots(popped)
+            if self._obs is not None and popped:
+                now = time.monotonic()
+                for entry in popped:
+                    self._obs.ack_rtt.observe(now - entry[4])  # entry[4]: the ledger append
             for entry in popped:
                 self.st.ack_frame(link, entry[0])
         elif kind == wire.SYNC:
@@ -1357,7 +1735,8 @@ class SharedTensorPeer:
                     if served is not None:
                         offer = (self._shm_host, served[1], served[0])
                     else:
-                        self._shm_fallback(link, SHM_SERVE_FAILURES.get(code, f"serve code {code}"))
+                        # the library puts no event on the ring for this side
+                        self._shm_fallback(link, SHM_SERVE_FAILURES.get(code, f"serve code {code}"), code)
                 self._send_blocking(link, wire.encode_welcome(flags, offer))
                 self._attach_diff(link, snap)
                 self._wake.set()
@@ -1388,8 +1767,23 @@ class SharedTensorPeer:
         elif kind == wire.REJECT:
             self._error = SpecMismatch(wire.decode_reject(payload))
             self._ready.set()
-        elif kind in _IGNORED_KINDS:
-            self._ctrl_ignored += 1
+        elif kind == wire.DIGEST:
+            # a subtree's digest: the latest per link, merged at the next build
+            self._child_digests[link] = wire.decode_digest(payload)
+            if self._obs is not None:
+                self._obs.digest_in.inc()
+        elif kind == wire.CLOCK:
+            # a child's probe (answered at once on the same link: the
+            # turnaround is inside the child's round trip either way), or
+            # our uplink's reply. Control traffic: faults never touch it
+            doc = wire.decode_clock(payload)
+            if doc.get("op") == "probe":
+                try:
+                    self.node.send(link, wire.encode_clock(self._clock.reply_payload(doc)), timeout=0.05)
+                except BrokenPipeError:
+                    pass  # the prober died
+            elif doc.get("op") == "reply" and link == self._uplink:
+                self._clock.on_reply(doc)
         else:
             self._unknown_msgs += 1
             log.warning("link %d: ignoring message kind %d, which this peer does not speak", link, kind)
@@ -1428,10 +1822,15 @@ class SharedTensorPeer:
         want = 2 * (wire.HDR_V3 + wire.burst_frames_cap(spec) * wire.frame_payload2_bytes(spec) + 64)
         return min(self.config.transport.shm_ring_bytes, max(1 << 20, want))
 
-    def _shm_fallback(self, link: int, reason: str) -> None:
-        """A same-host link whose lane did not attach stays on TCP."""
+    def _shm_fallback(self, link: int, reason: str, serve_code: int = 0) -> None:
+        """A same-host link whose lane did not attach stays on TCP. A failed
+        join is on the timeline already (the transport's ring event, its
+        arg the reason); a failed serve is put there here, with the
+        library's code as its arg and the reason as its detail."""
         self._shm_fallbacks += 1
         log.warning("link %d keeps TCP: the shared-memory lane did not attach (%s)", link, reason)
+        if serve_code and self._obs is not None:
+            self._obs.event("shm_fallback", self.node.obs_id, link, serve_code, detail=reason)
 
     def _on_sync(self, link: int, payload: bytes) -> None:
         n_leaves, n, digest = wire.decode_sync(payload)
@@ -1509,7 +1908,7 @@ class SharedTensorPeer:
             self._sub_links[link] = rng
             self._sub_fresh[link] = 0.0
             self._sub_mask_ver.pop(link, None)
-            t_snap = time.monotonic_ns()
+            t_snap = self._now_ns()
             vals = self.st.snapshot_flat().cpu().numpy()
             self._send_blocking(link, bytes([wire.WELCOME]))
             for chunk in wire.encode_snapshot_chunks(vals[wlo * 32 : (wlo + wcnt) * 32] if rng is not None else vals):
@@ -1526,6 +1925,8 @@ class SharedTensorPeer:
                 # residual = the adds and floods that raced the snapshot
                 # (usually none); _send_sub masks a range each pass
                 self.st.new_link_diff(link, vals)
+        if self._obs is not None:
+            self._obs.event("sub_resync" if resync else "sub_attach", self.node.obs_id, link, wcnt)
         log.info(
             "link %d attached read-only%s%s", link,
             f" (words [{wlo}, {wlo + wcnt}))" if rng is not None else " (the whole table)",

@@ -6,8 +6,11 @@ streaming, pacing, liveness and rejoin; messages are opaque bytes at this
 layer and the peer (``comm/peer.py``) gives them meaning.
 
 The library is the port's own build (``_build.build_transport``), loaded
-at first use. Its process-wide event ring for observability is switched
-off, since the port has no observability layer to drain it.
+at first use. It owns the process-wide native event ring that ``obs``
+drains (``st_obs_drain``, ``st_obs_now_ns``, ``st_obs_dropped``); the ring,
+and with it the engine's per-message trace bookkeeping, is on unless
+``obs.obs_enabled()`` is false (``ST_OBS=0``, which the library also reads
+itself, or ``obs.set_enabled(False)`` before the first load).
 
 The node speaks the native framing or, with ``TransportConfig.wire_compat``,
 the reference's raw frames of ``frame_bytes`` each; a link may run over
@@ -114,6 +117,11 @@ _SIGNATURES = {
     "st_node_drop_link": (_I32, [_VP, _I32]),
     "st_node_close": (None, [_VP]),
     "st_obs_set_enabled": (None, [_I32]),
+    "st_obs_drain": (_I32, [_VP, _I32]),
+    "st_obs_now_ns": (ctypes.c_uint64, []),
+    "st_obs_dropped": (ctypes.c_uint64, []),
+    "st_obs_emit": (None, [ctypes.c_uint32, ctypes.c_uint32, _I32, ctypes.c_uint64]),
+    "st_node_pool_stats": (None, [_VP, ctypes.POINTER(ctypes.c_uint64)]),
     "st_node_stripe_stats": (_I32, [_VP, _I32, ctypes.POINTER(ctypes.c_uint64)]),
     # link, ring bytes, name out, its capacity, token out
     "st_node_shm_serve": (_I32, [_VP, _I32, ctypes.c_int64, ctypes.c_char_p, _I32, ctypes.POINTER(ctypes.c_uint64)]),
@@ -139,7 +147,10 @@ def _load() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.restype = restype
                 fn.argtypes = argtypes
-            lib.st_obs_set_enabled(0)
+            from .. import obs
+
+            if not obs.obs_enabled():
+                lib.st_obs_set_enabled(0)
             _lib = lib
     return _lib
 
@@ -248,6 +259,16 @@ class TransportNode:
         if self._lib.st_node_stats(self._h, link_id, ctypes.byref(s)) < 0:
             return None
         return LinkStats(s.bytes_out, s.bytes_in, s.frames_out, s.frames_in, s.send_queue, s.recv_queue)
+
+    def pool_stats(self) -> dict:
+        """The transport's buffer pools: tx and rx buffer acquires against
+        misses (fresh allocations), and zero-copy sends. In steady state
+        the acquires grow and the misses stay flat."""
+        out = (ctypes.c_uint64 * 5)()
+        if self._h:
+            self._lib.st_node_pool_stats(self._h, out)
+        return {"tx_acquires": out[0], "tx_misses": out[1], "rx_acquires": out[2], "rx_misses": out[3],
+                "zc_msgs": out[4]}
 
     def stripe_stats(self, link_id: int) -> Optional[dict]:
         """The link's sockets: negotiated (``stripes``) and alive

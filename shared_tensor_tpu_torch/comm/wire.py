@@ -45,6 +45,11 @@ inside the transport's length-prefixed framing, little-endian throughout.
   appends its 16-byte host id to SYNC; a parent on the same host answers
   with the flag and a segment offer ``[host id][u64 token][u8 len][name]``
   in WELCOME's tail. Peers that do not speak it ignore the tails.
+- The observability plane's control messages: DIGEST ``[8][JSON]``, a
+  subtree's bounded cluster metrics digest (``obs/aggregate.py``), sent up
+  the tree once per ``ObsConfig.digest_interval_sec``; CLOCK ``[18][JSON]``,
+  a four-stamp clock-offset probe or its reply (``obs/clock.py``). Both
+  bodies are compact JSON (no spaces) of at most ``DIGEST_MAX_BYTES``.
 - The reference (compat) wire format has no typed messages at all: one
   ``[f32 scale][ceil(n/8)-byte LSB-first bitmask]`` frame per transport
   message, of one flat tensor (:func:`encode_compat_frame`).
@@ -55,6 +60,7 @@ Frames are numpy f32 scales and uint32 words at this boundary, what
 
 from __future__ import annotations
 
+import json
 import logging
 import struct
 import threading
@@ -75,7 +81,7 @@ WELCOME = 4
 REJECT = 5
 ACK = 6
 BURST = 7
-DIGEST = 8  # child -> parent metrics digest (not ported: dropped)
+DIGEST = 8  # child -> parent: a subtree's cluster metrics digest (JSON)
 RANGE = 9  # serving tier: a subscriber's word range
 FRESH = 10  # parent -> subscriber: drain mark
 RDATA = 11  # parent -> subscriber: one frame sliced to the range
@@ -85,7 +91,7 @@ RESUME = 14
 CTL = 15
 SHARD = 16  # cluster-sharded tensor (not ported)
 FWD = 17
-CLOCK = 18  # clock-offset probe (not ported: dropped)
+CLOCK = 18  # clock-offset probe or reply (JSON)
 
 # DATA/BURST framing versions, advertised in SYNC (compat.WIRE_VERSION_*)
 WIRE_VERSION_V1 = 1
@@ -122,7 +128,9 @@ RDATA_HDR = 13  # kind + u32 seq + u32 word lo + u32 word count
 RDATA_HDR_T = RDATA_HDR + TRACE_BYTES
 _RANGE_FMT = "<II"  # word lo, word count
 _FRESH_FMT = "<QI"  # t ns, last data seq
-DIGEST_MAX_BYTES = 1 << 16  # control messages with JSON bodies
+#: Cap of one JSON control message's body (DIGEST, CLOCK); every peer's
+#: receive buffer carries at least this much (frame_wire_bytes).
+DIGEST_MAX_BYTES = 1 << 16
 
 # Process-wide count of non-finite scales zeroed at decode.
 _corrupt_mu = threading.Lock()
@@ -467,6 +475,43 @@ def encode_ack(count: int) -> bytes:
 
 def decode_ack(payload: bytes) -> int:
     return struct.unpack_from("<Q", payload, 1)[0]
+
+
+# -- observability plane ---------------------------------------------------------
+
+
+def _encode_json(kind: int, doc: dict, what: str) -> bytes:
+    body = json.dumps(doc, separators=(",", ":")).encode()
+    if len(body) > DIGEST_MAX_BYTES:
+        raise ValueError(f"{what} is {len(body)} bytes, cap {DIGEST_MAX_BYTES}")
+    return bytes([kind]) + body
+
+
+def _decode_json(payload: bytes, what: str) -> dict:
+    doc = json.loads(payload[1:].decode("utf-8"))
+    if not isinstance(doc, dict):
+        raise ValueError(f"{what} body is not a JSON object")
+    return doc
+
+
+def encode_digest(doc: dict) -> bytes:
+    """Child -> parent: one bounded cluster metrics digest (the caller
+    bounds it first, ``obs.aggregate.bounded``)."""
+    return _encode_json(DIGEST, doc, "digest")
+
+
+def decode_digest(payload: bytes) -> dict:
+    return _decode_json(payload, "digest")
+
+
+def encode_clock(doc: dict) -> bytes:
+    """One clock-offset probe or reply (``obs.clock.ClockSync``'s
+    payloads)."""
+    return _encode_json(CLOCK, doc, "clock message")
+
+
+def decode_clock(payload: bytes) -> dict:
+    return _decode_json(payload, "clock message")
 
 
 # -- serving tier ----------------------------------------------------------------

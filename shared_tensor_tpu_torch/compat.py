@@ -66,11 +66,11 @@ def sign2_mode(config: Config | None = None) -> int:
 
 def wire_protocol_version(config: Config | None = None) -> int:
     """The DATA/BURST framing this peer emits: v2 unless ``ST_WIRE_TRACE=0``
-    pins v1 (for trees of peers whose decoders reject the trace). The JAX
-    package's ``ObsConfig.trace_wire`` pins it too; that knob comes with
-    the observability slice. The reference wire format ignores this."""
-    del config  # read by the observability slice's knob
+    or ``ObsConfig.trace_wire=False`` pins v1 (for trees of peers whose
+    decoders reject the trace). The reference wire format ignores this."""
     if os.environ.get("ST_WIRE_TRACE", "1") == "0":
+        return WIRE_VERSION_V1
+    if config is not None and not config.obs.trace_wire:
         return WIRE_VERSION_V1
     return WIRE_VERSION_V2
 

@@ -5,12 +5,12 @@ idle-frame suppression, adaptive sign2 precision and its governor, the
 engine's cascade depth), the TCP transport (the reference wire format,
 link striping and the same-host shared-memory lane among its knobs), the
 peer's send loop and burst sizes, the native engine switch, fault
-injection (``FaultConfig``) and the serving tier (``ServeConfig``). Names,
+injection (``FaultConfig``), the serving tier (``ServeConfig``) and the
+observability plane (``ObsConfig``). Names,
 defaults and meaning are those of ``shared_tensor_tpu.config``, so a port
 peer and a JAX peer built from the same settings produce the same frames
 and join the same tree. Knobs of features the port does not have
-(observability, lifecycle, sharding) are absent, so asking for one is a
-``TypeError``.
+(lifecycle, sharding) are absent, so asking for one is a ``TypeError``.
 """
 
 from __future__ import annotations
@@ -187,6 +187,82 @@ class FaultConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ObsConfig:
+    """The observability plane (``shared_tensor_tpu_torch/obs``), with the
+    JAX package's names and defaults. On by default; ``ST_OBS=0`` in the
+    environment disables it process-wide whatever this config says (the
+    overhead bench's paired arms flip it with ``obs.set_enabled``)."""
+
+    #: Master switch for THIS peer's Python-tier instrumentation (registry
+    #: histograms, event emission, native-ring draining). The native ring
+    #: itself is process-wide (env ST_OBS).
+    enabled: bool = True
+    #: How often this peer's recv loop drains the native event ring into
+    #: the process flight recorder. Small enough that a 2048-event
+    #: per-thread ring survives chaos bursts; large enough to stay off the
+    #: drain mutex.
+    native_drain_interval_sec: float = 0.2
+    #: Background JSONL metrics sink: one snapshot line per interval
+    #: appended to this path ("" = no sink).
+    jsonl_path: str = ""
+    jsonl_interval_sec: float = 5.0
+    #: trace propagation: stamp outgoing DATA/BURST messages with the
+    #: v2 wire framing's 13-byte trace context (origin node, origin
+    #: monotonic ns, hop count — compat.WIRE_VERSION). Decoders accept
+    #: both framings regardless; ST_WIRE_TRACE=0 force-pins v1 emission
+    #: (e.g. to join a tree of pre-peers). The obs-overhead gate holds
+    #: the stamping cost inside the same <2% budget.
+    trace_wire: bool = True
+    #: in-band metric aggregation: how often this peer piggybacks its
+    #: subtree's bounded metrics digest up the tree on the existing link
+    #: (counters merged by sum, histograms by bucket-add, gauges by
+    #: labeled max/min — obs/aggregate.py). The root's
+    #: ``peer.metrics(cluster=True)`` / Prometheus exposition then serve a
+    #: live whole-tree view. 0 = digests off. Native framing only (the
+    #: reference compat protocol has no typed control messages).
+    digest_interval_sec: float = 0.5
+    #: Root-side live cluster view: when set, a peer with no uplink (the
+    #: tree root) writes the merged cluster digest JSON to this path every
+    #: digest interval — the file ``python -m shared_tensor_tpu_torch.obs.top``
+    #: tails for its terminal dashboard. "" = don't write.
+    cluster_json_path: str = ""
+    #: fleet health plane (root-side, obs/health.py): when set, the
+    #: tree root runs the health analyzer every digest beat — time-series
+    #: store, per-shard heat, staleness SLO burn-rate alerts — and writes
+    #: the machine-readable health document to this path (atomic replace,
+    #: same discipline as cluster_json_path). "" = analyzer off.
+    health_json_path: str = ""
+    #: Ring depth per time-series (beats kept). 256 beats at the default
+    #: 0.5s digest interval is ~2 minutes of history.
+    health_history: int = 256
+    #: Staleness SLO objective: a digest beat is "bad" when the fleet's
+    #: worst offset-corrected staleness exceeds this many seconds.
+    staleness_slo_sec: float = 1.0
+    #: SLO error budget: the tolerated bad-beat fraction (burn rate 1.0
+    #: means burning exactly the budget).
+    slo_budget: float = 0.01
+    #: Multi-window burn-rate severities: (name, long_sec, short_sec,
+    #: threshold). A severity fires when BOTH windows burn past the
+    #: threshold and clears when the short window recovers.
+    slo_windows: tuple = (
+        ("page", 60.0, 5.0, 14.4),
+        ("ticket", 300.0, 30.0, 6.0),
+    )
+    #: Zipf-skew naming bar: the hot shard must out-rate the mean of the
+    #: other shards by this factor before health.json names it.
+    heat_skew_ratio: float = 3.0
+    #: clock plane: how often a non-root node probes its uplink with a
+    #: wire.CLOCK offset sample (obs/clock.py; chaos-exempt control op).
+    #: 0 = clock sync off (staleness stays raw).
+    clock_sync_interval_sec: float = 1.0
+    #: TEST/BENCH ONLY — simulated clock skew in seconds applied to this
+    #: node's cross-node-comparable stamps (trace stamps, clock probes).
+    #: Lets a single-host harness prove the offset estimator recovers a
+    #: known skew. Env ``ST_CLOCK_SKEW_SEC`` overrides. 0 = off.
+    clock_skew_sim_sec: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """The serving tier (``serve/``): read-only subscribers with verified
     bounded-staleness reads. Read by ``serve.Subscriber`` and by a writer's
@@ -242,3 +318,6 @@ class Config:
     faults: FaultConfig = dataclasses.field(default_factory=FaultConfig)
     #: The serving tier: subscriber reads and the writers' FRESH pacing.
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
+    #: The observability plane: metrics registry, native event ring,
+    #: cluster digests, the clock probe and the root's health analyzer.
+    obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)

@@ -30,10 +30,13 @@ host numpy, as the JAX package's is: it unpacks and applies each frame to
 its pages on the CPU; ``serve.ServingHandle`` moves a verified snapshot to
 the card.
 
-Not yet ported, waiting for the observability slice: the
-``st_read_staleness_seconds`` histogram, and the DIGEST beat that puts a
-subscriber's metrics into its root's cluster view. ``metrics()`` has the
-JAX subscriber's counters and gauges under their names.
+Observability, as the JAX subscriber's: a registry under the
+``st_read_*``/``st_sub_*`` names (``metrics()``), with the
+``st_read_staleness_seconds`` histogram of the staleness each served read
+verified; with obs on, the registry is registered with the process hub,
+a DIGEST of it goes up the tree every ``ObsConfig.digest_interval_sec``
+(so the root's cluster view counts the subscriber), and the receive loop
+drains the native event ring.
 """
 
 from __future__ import annotations
@@ -47,10 +50,12 @@ from typing import Any, Optional
 import numpy as np
 
 from .. import compat
+from .. import obs as _obs
 from ..comm import wire
 from ..comm.transport import EventKind, TransportNode
 from ..config import Config
 from ..core import SnapshotPublisher
+from ..obs import aggregate
 from ..ops.codec import SAT
 from ..ops.codec_np import _layout, unflatten_np
 from ..ops.table import make_spec
@@ -176,12 +181,7 @@ class Subscriber:
         self._error: Optional[Exception] = None
         self._stop = threading.Event()
         self._ready = threading.Event()
-        # counters under the JAX subscriber's names; reads count from any
-        # thread, so under a lock
-        self._mu = threading.Lock()
-        self._counts = dict.fromkeys(
-            ("st_read_total", "st_read_stale_total", "st_sub_resyncs_total", "st_sub_gap_discards_total",
-             "st_sub_fresh_marks_total"), 0)
+        self._digest_last = 0.0
         # host seconds and frames of the page apply (the serving tier's
         # cost on the CPU, for the benches)
         self.apply_s = 0.0
@@ -198,6 +198,24 @@ class Subscriber:
                 f"no tree to subscribe to at {host}:{port}: a read-only subscriber cannot become master; "
                 "start a writer first"
             )
+        # the JAX subscriber's registry and names; its instruments lock
+        # themselves, as reads count from any thread
+        self._obs_on = _obs.obs_enabled() and self.config.obs.enabled
+        self._hub = _obs.hub() if self._obs_on else None
+        self._reg = _obs.Registry()
+        self._m_reads = self._reg.counter("st_read_total", help="serving reads served (bound verified)")
+        self._m_stale = self._reg.counter("st_read_stale_total", help="reads refused: staleness bound not verifiable")
+        self._m_staleness = self._reg.histogram(
+            "st_read_staleness_seconds", buckets=(0.001, 0.005, 0.02, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 10.0),
+            help="verified staleness observed at read time",
+        )
+        self._m_resyncs = self._reg.counter("st_sub_resyncs_total", help="re-seed handshakes")
+        self._m_gaps = self._reg.counter("st_sub_gap_discards_total", help="data messages discarded while desynced")
+        self._m_fresh = self._reg.counter("st_sub_fresh_marks_total", help="FRESH drain marks applied")
+        self._reg.register_collector(self._collect)
+        self._label = f"sub-{self.node.obs_id}"
+        if self._hub is not None:
+            self._hub.register_registry(self._label, self._reg)
         self._thread = threading.Thread(target=self._loop, daemon=True, name="st-sub")
         self._thread.start()
 
@@ -222,21 +240,22 @@ class Subscriber:
         bound = self.config.serve.max_staleness_sec if max_staleness is None else float(max_staleness)
         err = self._error
         if err is not None:
-            self._count("st_read_stale_total")
+            self._m_stale.inc()
             raise StalenessError(f"subscriber failed: {err}") from err
         arr, fresh_ns, ver = self._pub.acquire()
         if arr is None or fresh_ns <= 0:
-            self._count("st_read_stale_total")
+            self._m_stale.inc()
             raise StalenessError("no verified-fresh state yet (still seeding)")
         staleness = max(0.0, (time.monotonic_ns() - fresh_ns) / 1e9)
         if staleness > bound:
-            self._count("st_read_stale_total")
+            self._m_stale.inc()
             raise StalenessError(
                 f"state is {staleness:.3f}s behind, bound {bound:.3f}s (desynced or writer unreachable: reads "
                 "refuse rather than serve silently stale weights)",
                 staleness,
             )
-        self._count("st_read_total")
+        self._m_reads.inc()
+        self._m_staleness.observe(staleness)
         return arr, staleness, ver
 
     def wait_fresh(self, epoch_ns: int, timeout: float = 30.0) -> None:
@@ -295,17 +314,20 @@ class Subscriber:
         return ServingHandle(self, max_staleness=max_staleness, device=device)
 
     def metrics(self) -> dict:
-        """The JAX subscriber's counters (``st_read_total``,
-        ``st_read_stale_total``, ``st_sub_resyncs_total``,
-        ``st_sub_gap_discards_total``, ``st_sub_fresh_marks_total``) and
-        gauges (``st_sub_freshness_seconds``, -1 before the first
-        verification; ``st_sub_range_words``)."""
+        """The registry's snapshot under the JAX subscriber's names: the
+        counters ``st_read_total``, ``st_read_stale_total``,
+        ``st_sub_resyncs_total``, ``st_sub_gap_discards_total`` and
+        ``st_sub_fresh_marks_total``, the ``st_read_staleness_seconds``
+        histogram, and the gauges ``st_sub_freshness_seconds`` (-1 before
+        the first verification) and ``st_sub_range_words``."""
+        return self._reg.snapshot()
+
+    def _collect(self) -> dict:
         fresh_ns = self._pub.acquire()[1]
-        with self._mu:
-            out = dict(self._counts)
-        out["st_sub_freshness_seconds"] = (time.monotonic_ns() - fresh_ns) / 1e9 if fresh_ns > 0 else -1.0
-        out["st_sub_range_words"] = self._wcnt
-        return out
+        return {
+            "st_sub_freshness_seconds": (time.monotonic_ns() - fresh_ns) / 1e9 if fresh_ns > 0 else -1.0,
+            "st_sub_range_words": self._wcnt,
+        }
 
     def close(self) -> None:
         """Stop the receive thread and leave the tree; reads go on serving
@@ -316,6 +338,9 @@ class Subscriber:
         self._thread.join(timeout=30.0)
         if self._thread.is_alive():
             raise RuntimeError("the subscriber's receive thread did not stop; its node is left open")
+        if self._hub is not None:
+            self._hub.poll_native()  # the last drain: no event stays stranded in the ring
+            self._hub.unregister_registry(self._label)
         self.node.close()
 
     def __enter__(self):
@@ -326,9 +351,9 @@ class Subscriber:
 
     # -- protocol ------------------------------------------------------------
 
-    def _count(self, name: str) -> None:
-        with self._mu:
-            self._counts[name] += 1
+    def _event(self, name: str, link: int = 0, arg: int = 0) -> None:
+        if self._hub is not None:
+            self._hub.emit(name, node=self.node.obs_id, link=link, arg=arg)
 
     def _send_ctrl(self, link: int, payload: bytes) -> bool:
         """A small control send, retried a bounded number of times."""
@@ -357,7 +382,8 @@ class Subscriber:
         if ok:
             ok = self._send_ctrl(uplink, bytes([wire.DONE]))
         if ok and resync:
-            self._count("st_sub_resyncs_total")
+            self._m_resyncs.inc()
+            self._event("sub_resync", uplink)
         if not ok:
             log.warning("subscriber handshake send failed (uplink down?)")
 
@@ -395,13 +421,13 @@ class Subscriber:
         """One DATA, BURST or RDATA message; True if the state changed."""
         seq = wire.data_seq(payload)
         if not self._synced:
-            self._count("st_sub_gap_discards_total")
+            self._m_gaps.inc()
             return False
         if seq != self._expected_seq & 0xFFFFFFFF:
             if seq == (self._expected_seq - 1) & 0xFFFFFFFF:
                 return False  # a duplicate: drop it quietly
             # nothing re-delivers on this link: desync and re-seed
-            self._count("st_sub_gap_discards_total")
+            self._m_gaps.inc()
             self._desync("seq gap", seq)
             return False
         kind = payload[0]
@@ -422,7 +448,7 @@ class Subscriber:
             # a sheared or garbled message: its seq is not consumed, and as
             # nothing re-sends it, only a re-seed repairs the loss
             log.warning("undecodable data message (seq %d): %s", seq, e)
-            self._count("st_sub_gap_discards_total")
+            self._m_gaps.inc()
             self._desync("undecodable", seq)
             return False
         self._expected_seq += 1
@@ -465,12 +491,12 @@ class Subscriber:
             if last_seq != (self._expected_seq - 1) & 0xFFFFFFFF:
                 # the mark covers messages we never saw (the stream's tail
                 # was lost, which no later data would show on an idle tree)
-                self._count("st_sub_gap_discards_total")
+                self._m_gaps.inc()
                 self._desync("fresh-mark seq mismatch", last_seq)
                 return True
             if t > self._fresh_ns:
                 self._fresh_ns = t
-                self._count("st_sub_fresh_marks_total")
+                self._m_fresh.inc()
                 self._pub.touch(self._fresh_ns)
                 self._ready.set()
             return True
@@ -545,8 +571,25 @@ class Subscriber:
                     except _MALFORMED as e:
                         log.warning("dropping bad child message: %s", e)
             self._maybe_resync()
+            if self._hub is not None:
+                self._beat()
             if not busy:
                 time.sleep(0.002)
+
+    def _beat(self) -> None:
+        """The housekeeping of the loop with obs on: the digest up the
+        tree every ``digest_interval_sec``, and the native ring's drain."""
+        interval = self.config.obs.digest_interval_sec
+        now = time.monotonic()
+        if interval > 0 and self._uplink is not None and now - self._digest_last >= interval:
+            self._digest_last = now
+            doc = aggregate.from_snapshot(self.node.obs_id, self._reg.snapshot(), time.monotonic_ns())
+            aggregate.bounded(doc)
+            try:
+                self.node.send(self._uplink, wire.encode_digest(doc), timeout=0.05)
+            except BrokenPipeError:
+                pass  # the uplink died; the next beat goes to the new one
+        self._hub.poll_native(self.config.obs.native_drain_interval_sec)
 
 
 def subscribe(host: str, port: int, template: Any, config: Config | None = None, timeout: float = 30.0) -> Subscriber:

@@ -49,3 +49,21 @@ def test_serve_bench_runs_on_the_cpu(capsys):
         assert r["reads"] + r["refused"] > 0 and r["read_per_s"] >= 0
     assert row["hot_swap"]["params_per_s"] > 0 and row["hot_swap"]["swaps"] >= 1
     assert row["hot_swap"]["device"] == "cpu" and row["frames_applied"] > 0 and row["adds_per_s"] > 0
+
+
+def test_obs_overhead_bench_runs_on_the_cpu(capsys):
+    """The obs overhead bench at --device cpu --small: its three paired arms
+    and the python arm each measure frames/s with obs on and off, and it
+    prints its document as its last line."""
+    from shared_tensor_tpu_torch.benchmarks import obs_overhead
+
+    res = obs_overhead.main(["--device", "cpu", "--small"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["bench"] == "obs_overhead" and line == json.loads(json.dumps(res))
+    for arm in ("engine_arm", "trace_arm", "health_arm"):
+        a = line[arm]
+        assert len(a["fps_obs_on"]) == len(a["fps_obs_off"]) == 2 and min(a["fps_obs_off"]) > 0, a
+        assert a["overhead_pct_lower90"] <= a["overhead_pct_mean"]
+    assert line["trace_arm"]["trace_wire"] and line["health_arm"]["health"] and not line["engine_arm"]["trace_wire"]
+    py = line["python_arm_informational"]
+    assert py["device"] == "cpu" and py["fps_obs_on"] > 0 and py["fps_obs_off"] > 0

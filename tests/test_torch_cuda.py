@@ -416,6 +416,37 @@ def test_two_peer_round_trip_runs_the_kernels(cuda_device):
     assert CC.LAUNCHES["quantize_rows"] > 0 and CC.LAUNCHES["apply_rows_batch"] > 0, CC.LAUNCHES
 
 
+@pytest.mark.cuda
+def test_cuda_peer_pair_with_obs_on(cuda_device):
+    """Two CUDA peers with obs on (fast digest and clock beats): the
+    histograms that time the host work around kernels A and B count, the
+    child's digest reaches the root's cluster view, and the child learns
+    its offset (skewed +50 ms) within its uncertainty."""
+    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch
+    from shared_tensor_tpu_torch.config import ObsConfig
+
+    fast = dict(digest_interval_sec=0.1, clock_sync_interval_sec=0.1)
+    seed = np.arange(1.0, 241.0, dtype=np.float32).reshape(4, 5, 6, 2)
+    port = _free_port()
+    with create_or_fetch("127.0.0.1", port, seed, Config(transport=TransportConfig(peer_timeout_sec=10.0),
+                                                         obs=ObsConfig(**fast)), device=cuda_device) as m, \
+            create_or_fetch("127.0.0.1", port, np.zeros_like(seed), Config(
+                transport=TransportConfig(peer_timeout_sec=10.0), obs=ObsConfig(clock_skew_sim_sec=0.05, **fast)),
+                device=cuda_device) as j:
+        j.add(np.full_like(seed, 0.5))
+        m.add(np.full_like(seed, 1.0))
+        deadline = time.time() + 30
+        while time.time() < deadline:
+            if str(j.node.obs_id) in m.metrics(cluster=True)["nodes"] and j._clock.replies >= 3 and \
+                    np.allclose(m.read().cpu().numpy(), seed + 1.5, atol=1e-6):
+                break
+            time.sleep(0.05)
+        mm, jm = m.metrics(), j.metrics()
+        assert mm["st_encode_seconds"]["count"] > 0 and mm["st_apply_seconds"]["count"] > 0, mm
+        assert jm["st_ack_rtt_seconds"]["count"] > 0 and mm["st_update_hops"]["count"] > 0
+        assert str(j.node.obs_id) in m.metrics(cluster=True)["nodes"]
+        assert abs(jm["st_clock_offset_seconds"] - 0.05) <= jm["st_clock_uncertainty_seconds"]
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [240, 3870976])

@@ -161,8 +161,10 @@ def test_port_tiers_and_a_jax_engine_in_one_tree():
 
 def test_port_parent_ignores_digest_and_clock_traffic():
     """A JAX child sends a metrics digest every 0.5 s and a clock probe every
-    1 s up its uplink. A port parent counts and drops them for several
-    intervals: the link stays up (no re-graft) and the tree still syncs."""
+    1 s up its uplink. The port parent no longer drops them: it merges the
+    digests into its cluster view and answers the probes, so the child
+    learns its clock offset; none of it is an unknown message, the link
+    stays up (no re-graft) and the tree still syncs."""
     port = free_port()
     seed = _seed()
     with create_or_fetch("127.0.0.1", port, seed, TORCH_CFG, device="cpu") as parent:
@@ -172,8 +174,10 @@ def test_port_parent_ignores_digest_and_clock_traffic():
             link, uplink = parent.node.links, child._uplink
             time.sleep(2.6)
             m = parent.metrics()
-            assert m["st_ctrl_ignored_total"] >= 4, m  # >= 4 digests + 2 probes in 2.6 s
+            assert m["st_digest_msgs_in_total"] >= 4, m  # >= 4 digests in 2.6 s
             assert m["st_unknown_msgs_total"] == 0
+            assert str(child.node.obs_id) in parent.metrics(cluster=True)["nodes"]
+            assert child._clock.known and child._clock.probes >= 2
             assert parent.node.links == link and child._uplink == uplink
             assert parent.threads_alive() and parent._error is None
             delta = {k: np.full(v.shape, 0.5, np.float32) for k, v in seed.items()}

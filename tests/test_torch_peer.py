@@ -376,7 +376,6 @@ def test_device_none_needs_a_gpu():
 def test_unported_config_knobs_are_type_errors():
     cases = (
         (Config, {"lifecycle": None}),
-        (Config, {"obs": None}),
         (Config, {"shard": None}),
     )
     for cls, kw in cases:
