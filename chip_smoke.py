@@ -203,6 +203,29 @@ Phases, in order; any failure exits non-zero:
    M's st_encode_seconds and st_apply_seconds and E's st_update_hops
    counted; and A and B match their plain versions on M's state
    (tree_kernel_check). The launches of A and B in the phase.
+16. The cluster lifecycle on BASELINE config 2's table (benchmarks/serve.tables'
+   power-of-two data from --seed): a CUDA master m (LifecycleConfig.ctl_dir
+   under profiles/), an engine peer e below it, a CUDA peer c below e (m
+   takes two children, e then the subscriber s, so c is redirected below e
+   and the marker and the acks cross an engine hop). (16a) m, e and c each
+   add an update and m.snapshot_cluster(profiles/phase16_snap) starts
+   before they agree: 3 shards, verify_manifest clean, the seconds and the
+   shard bytes; the tree then agrees on the cut's total. (16b) two more
+   adds, agreed and held by s; m.restore_cluster in place: every writer
+   back at the cut's total within AGREE_REL within LC_AGREE_S, and no read
+   of s verified by a mark stamped after the restore began holds the two
+   adds (its projection on them stays under LC_SUB_PROJ) while s returns to
+   the cut. (16c) e adds once more and `ctl drain e` (the port's CLI, through
+   cmd.json in m's ctl_dir): e leaves, c re-grafts under m, and m and c
+   agree on the cut plus e's add. (16d) everything closed, m, e and c
+   restart from their shards of 16a's cut (restore_path) in the same chain
+   on a new port: re-converged to the cut's total within LC_RESTART_S (the
+   JAX kill-restore arm's 45 s). (16e) A and B against their plain versions
+   on m's state after 16b (tree_kernel_check); the launches of A and B in
+   16a-16d. Then the kill-restore arm of benchmarks/lifecycle.py (seven
+   engine peers, 25% drops on one link, the whole tree killed and restarted
+   from its shards, against an uninterrupted arm). One {"lifecycle": ...}
+   line.
 The transport, the host codec and the engine (native/sttransport.cpp,
 stcodec.c, stengine.cpp) and the C reference peer (stc_harness.c) are
 compiled with g++ and gcc in phase 1, beside the kernels. Every rank's full results of phases 9, 10 and 11 go to
@@ -220,6 +243,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -2666,6 +2690,202 @@ def obs_phase(device, seed: int, smi: str, cfg_m=None) -> tuple[dict, tuple]:
     return out, master
 
 
+# -- phase 16 -------------------------------------------------------------------
+
+#: Phase 16: the deadline of each agreement, the restart's re-convergence
+#: budget (the JAX kill-restore arm's), and the projection of a verified
+#: subscriber read onto the post-snapshot adds above which it holds them.
+LC_AGREE_S = 30.0
+LC_RESTART_S = 45.0
+LC_SUB_PROJ = 0.5
+
+
+def _lc_target(seed_tree, deltas, spec, device):
+    """(flat target on ``device``, per-leaf max |target|, flat f64 on the
+    host) of the seed plus ``deltas``."""
+    from shared_tensor_tpu_torch.ops import codec_np
+    from shared_tensor_tpu_torch.ops.table import flatten, tree_flatten, tree_unflatten
+
+    leaves = [np.asarray(x, np.float64) for x in tree_flatten(seed_tree)[0]]
+    for d in deltas:
+        for j, x in enumerate(tree_flatten(d)[0]):
+            leaves[j] += x
+    tree = tree_unflatten(spec.treedef, [x.astype(np.float32) for x in leaves])
+    mag = torch.tensor([np.abs(x).max() for x in leaves], dtype=torch.float64, device=device)
+    return flatten(tree, spec, device), mag, codec_np.flatten_np(tree, spec).astype(np.float64)
+
+
+def lifecycle_phase(device, seed: int, smi: str, cfg_m=None) -> tuple[dict, tuple]:
+    """Phase 16 (module docstring): the cluster lifecycle on the table of
+    the char-RNN ``cfg_m`` (None: config 2's). Returns the report and the
+    master's state after 16b for tree_kernel_check."""
+    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch, ctl, serve
+    from shared_tensor_tpu_torch.benchmarks import serve as serve_bench
+    from shared_tensor_tpu_torch.config import LifecycleConfig
+    from shared_tensor_tpu_torch.models.char_rnn import CharRNNConfig
+    from shared_tensor_tpu_torch.ops import codec_np
+    from shared_tensor_tpu_torch.ops.table import flatten, make_spec
+    from shared_tensor_tpu_torch.serve import StalenessError
+    from shared_tensor_tpu_torch.utils import checkpoint as ckpt
+
+    template, seed_tree, deltas = serve_bench.tables(cfg_m or CharRNNConfig(), seed + 16, n=6)
+    spec = make_spec(template)
+    snapdir, ctl_dir = os.path.join(OUT_DIR, "phase16_snap"), os.path.join(OUT_DIR, "phase16_ctl")
+    for d in (snapdir, ctl_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(ctl_dir)
+
+    def cfg(name: str, restore: str = "", **lc):
+        # m takes two children (e, then s): c is redirected below e
+        return Config(transport=TransportConfig(peer_timeout_sec=30.0, max_children=2),
+                      lifecycle=LifecycleConfig(node_name=name, restore_path=restore, **lc))
+
+    port = _free_port()
+    peers, sub, out, steps = [], None, {}, {}
+    t0 = time.perf_counter()
+
+    def step(name: str) -> None:  # the wall seconds of each step, in order
+        steps[name] = time.perf_counter() - t0 - sum(steps.values())
+
+    try:
+        m = create_or_fetch("127.0.0.1", port, seed_tree, cfg("m", ctl_dir=ctl_dir), timeout=60.0, device=device)
+        peers.append(m)
+        e = create_or_fetch("127.0.0.1", port, template, cfg("e"), timeout=60.0, host_tier=True)
+        peers.append(e)
+        sub = serve.subscribe("127.0.0.1", port, template, Config(transport=TransportConfig(peer_timeout_sec=30.0)),
+                              timeout=60.0)
+        c = create_or_fetch("127.0.0.1", port, template, cfg("c"), timeout=60.0, device=device)
+        peers.append(c)
+        deadline = time.perf_counter() + 10.0
+        while len(e.node.links) < 2 and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        if e._engine is None or c._engine is not None or len(m.node.links) != 2 or len(e.node.links) != 2:
+            raise AssertionError(f"phase 16: want {device} m - engine e - {device} c with a subscriber below m; "
+                                 f"m has {len(m.node.links)} links, e {len(e.node.links)}")
+        out["join_s"] = time.perf_counter() - t0
+        step("join")
+        # 16a: each writer adds, and the snapshot starts before they agree
+        for p, d in zip((m, e, c), deltas[:3]):
+            p.add(d)
+        res = m.snapshot_cluster(snapdir)
+        problems = ckpt.verify_manifest(snapdir)
+        man = ckpt.load_manifest(snapdir)
+        out["snapshot"] = {"duration_sec": res["duration_sec"], "nodes": res["nodes"],
+                           "shard_bytes": sum(x["bytes"] for x in man["nodes"]), "verify": problems}
+        if res["nodes"] != 3 or problems:
+            raise AssertionError(f"phase 16a: snapshot {out['snapshot']}")
+        cut, cut_mag, cut_np = _lc_target(seed_tree, deltas[:3], spec, device)
+        out["cut_agree_s"], _ = _wait_agree(peers, cut, cut_mag, spec, AGREE_REL, LC_AGREE_S, 0.01)
+        step("16a")
+        # 16b: two more adds, agreed, and held by s; then the in-place restore
+        m.add(deltas[3])
+        e.add(deltas[4])
+        post, post_mag, _ = _lc_target(seed_tree, deltas[:5], spec, device)
+        out["post_agree_s"], _ = _wait_agree(peers, post, post_mag, spec, AGREE_REL, LC_AGREE_S, 0.01)
+        after = codec_np.flatten_np(deltas[3], spec).astype(np.float64) + codec_np.flatten_np(deltas[4], spec)
+        norm = float(after @ after)
+
+        def proj(arr) -> float:  # the share of the post-snapshot adds that ``arr`` holds
+            return float((arr.astype(np.float64) - cut_np) @ after) / norm
+
+        t1 = time.perf_counter()
+        deadline = t1 + LC_AGREE_S
+        while proj(sub._pub.acquire()[0]) < 1.0 - LC_SUB_PROJ:
+            if time.perf_counter() > deadline:
+                raise AssertionError("phase 16b: s never took in the post-snapshot adds")
+            time.sleep(0.01)
+        out["sub_hold_s"] = time.perf_counter() - t1
+        t_restore_ns = time.monotonic_ns()
+        t1 = time.perf_counter()
+        res = m.restore_cluster(snapdir)
+        out["restore"] = {"duration_sec": res["duration_sec"], "nodes": res["nodes"],
+                          "call_s": time.perf_counter() - t1}
+        out["restore"]["agree_s"], out["restore"]["err"] = _wait_agree(peers, cut, cut_mag, spec, AGREE_REL,
+                                                                       LC_AGREE_S, 0.01)
+        master = m.st.snapshot_all() + (flatten(deltas[0], spec, device), m.st.codec)
+        # s: m re-seeded it at the cut, so a read verified by a mark stamped
+        # after the restore began holds none of the post-snapshot adds (a
+        # refused read is the contract's other answer); its state returns
+        # to the cut
+        reads = {"verified": 0, "refused": 0, "old_marks": 0, "worst_proj": 0.0}
+        tol = AGREE_REL * float(cut_mag.max())
+        deadline = time.perf_counter() + LC_AGREE_S
+        while True:
+            try:
+                arr, stale, _ = sub.read_flat(max_staleness=1.0)
+                reads["verified"] += 1
+                if time.monotonic_ns() - stale * 1e9 < t_restore_ns:
+                    reads["old_marks"] += 1
+                else:
+                    reads["worst_proj"] = max(reads["worst_proj"], proj(arr))
+                    if reads["worst_proj"] > LC_SUB_PROJ:
+                        raise AssertionError(f"phase 16b: s read as fresh across the cut: {reads}")
+            except StalenessError:
+                reads["refused"] += 1
+            if float(np.abs(sub._pub.acquire()[0] - cut_np).max()) <= tol:
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"phase 16b: s never came back to the cut: {reads}")
+            time.sleep(0.01)
+        reads["back_s"] = time.perf_counter() - t1
+        out["subscriber"] = reads
+        step("16b")
+        # 16c: e owes an add when ctl drains it; c re-grafts under m, no mass lost
+        e.add(deltas[5])
+        t1 = time.perf_counter()
+        rc = ctl.main(["--ctl-dir", ctl_dir, "--timeout", str(LC_AGREE_S), "drain", "e"])
+        if rc != 0:
+            raise AssertionError(f"phase 16c: ctl drain e exited {rc}")
+        deadline = time.perf_counter() + LC_AGREE_S
+        while not (e._stop.is_set() and c._uplink is not None and len(m.node.links) == 2):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"phase 16c: e closed {e._stop.is_set()}, m has {len(m.node.links)} links")
+            time.sleep(0.01)
+        drained, drained_mag, _ = _lc_target(seed_tree, deltas[:3] + [deltas[5]], spec, device)
+        out["drain"] = {"regraft_s": time.perf_counter() - t1, "drain_total": e.metrics()["st_drain_total"]}
+        out["drain"]["agree_s"], _ = _wait_agree([m, c], drained, drained_mag, spec, AGREE_REL, LC_AGREE_S, 0.01)
+        _healthy([m, c])
+        step("16c")
+    finally:
+        if sub is not None:
+            sub.close()
+        for p in reversed(peers):
+            p.close()
+    step("close")
+    # 16d: every writer restarts from its shard of 16a's cut (e's holds what
+    # it owed at the cut) in the same chain on a new port
+    t1 = time.perf_counter()
+    port, peers = _free_port(), []
+    try:
+        for name, tree in (("m", seed_tree), ("e", template), ("c", template)):
+            restore = os.path.join(snapdir, ckpt.shard_filename(name))
+            c1 = Config(transport=TransportConfig(peer_timeout_sec=30.0, max_children=1),
+                        lifecycle=LifecycleConfig(node_name=name, restore_path=restore))
+            kw = {"host_tier": True} if name == "e" else {"device": device}
+            peers.append(create_or_fetch("127.0.0.1", port, tree, c1, timeout=60.0, **kw))
+        agree_s, err = _wait_agree(peers, cut, cut_mag, spec, AGREE_REL, LC_RESTART_S, 0.01)
+        out["restart"] = {"seconds": time.perf_counter() - t1, "agree_s": agree_s, "err": err,
+                          "restored": [p.metrics()["st_restore_total"] for p in peers]}
+        _healthy(peers)
+        step("16d")
+    finally:
+        for p in reversed(peers):
+            p.close()
+    step("close_16d")
+    out["steps_s"] = steps
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[16] m ({device}), e (engine), c ({device}) and s joined in {out['join_s']:.3f} s; 16a snapshot "
+          f"{out['snapshot']['duration_sec']:.3f} s, {out['snapshot']['nodes']} shards, "
+          f"{out['snapshot']['shard_bytes']} bytes, manifest verified; cut agreed {out['cut_agree_s']:.3f} s later")
+    print(f"[16] 16b restore {out['restore']['duration_sec']:.3f} s (call {out['restore']['call_s']:.3f} s), "
+          f"back at the cut {out['restore']['agree_s']:.3f} s later; s {reads}")
+    print(f"[16] 16c ctl drain e: c re-grafted under m {out['drain']['regraft_s']:.3f} s, m and c agreed "
+          f"{out['drain']['agree_s']:.3f} s later; 16d restart from shards re-converged in "
+          f"{out['restart']['seconds']:.3f} s; phase 16 {out['seconds']:.3f} s ({', '.join(f'{k} {v:.3f}' for k, v in steps.items())}); "
+          f"on {smi}")
+    return out, master
+
+
 SOURCES = {
     "quantize_rows":("shared_tensor_tpu_torch/csrc/quantize_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:286"),
     "apply_rows_batch": ("shared_tensor_tpu_torch/csrc/apply_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:337"),
@@ -2889,8 +3109,38 @@ def main() -> int:
     if bad:
         raise AssertionError(f"phase 15: kernel vs plain mismatches on the master's state: {bad}")
     print(f"[15] launches {obs_launches}")
+
+    # 16. the cluster lifecycle on config 2's table (the launch counts of A
+    # and B are 16a-16d's), then the kill-restore arm
+    CC.reset_launches()
+    lc_out, master = lifecycle_phase(dev, args.seed, smi)
+    lc_launches = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
+    if not all(lc_launches.values()):
+        raise AssertionError(f"a kernel of the lifecycle phase never launched: {lc_launches}")
+    check16 = tree_kernel_check(master, make_spec(char_template), "16")
+    del master
+    lc_out["launches"] = lc_launches
+    for k, n in lc_launches.items():
+        t[k]["launches_phase16"] = n
+        t[k]["mismatches_phase16"] = check16[k]["mismatches"]
+        t[k]["max_abs_err_phase16"] = check16[k]["max_abs_err"]
+    bad = {k: v["mismatches"] for k, v in check16.items() if v["mismatches"]}
+    if bad:
+        raise AssertionError(f"phase 16e: kernel vs plain mismatches on the master's state: {bad}")
+    print(f"[16] launches {lc_launches}")
+    from shared_tensor_tpu_torch.benchmarks import lifecycle as lc_bench
+
+    bench_dir = os.path.join(OUT_DIR, "phase16_kill_restore")
+    shutil.rmtree(bench_dir, ignore_errors=True)
+    lc_out["kill_restore"] = lc_bench.run_kill_restore(bench_dir)
+    kr = lc_out["kill_restore"]
+    print(f"[16] kill-restore arm ({kr['nodes']} engine peers, n={kr['n']}, 25% drops): snapshot "
+          f"{kr['snapshot']['duration_sec']:.3f} s, restart re-converged {kr['restore']['duration_sec']:.3f} s, "
+          f"arms max dev {kr['arms_max_deviation']:.3e}, {kr['seconds']:.3f} s: {'PASS' if kr['pass'] else 'FAIL'}")
+    if not kr["pass"]:
+        raise AssertionError(f"phase 16: the kill-restore arm failed: {kr}")
     serve_out["script_s"] = time.perf_counter() - t_script
-    print(f"[15] script {serve_out['script_s']:.3f} s")
+    print(f"[16] script {serve_out['script_s']:.3f} s")
 
     print(smi)
     kernels = []
@@ -2912,6 +3162,7 @@ def main() -> int:
     print(json.dumps({"serve": serve_out}))
     print(json.dumps({"wire": wire_out}))
     print(json.dumps({"obs": obs_out}))
+    print(json.dumps({"lifecycle": lc_out}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

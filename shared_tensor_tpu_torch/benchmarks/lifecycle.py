@@ -1,0 +1,212 @@
+"""The cluster lifecycle's kill-restore arm: a snapshot under chaos, the
+whole tree killed, restarted from its shards and held against an
+uninterrupted run.
+
+    python -m shared_tensor_tpu_torch.benchmarks.lifecycle [--dir D] [--out FILE]
+
+The counterpart of the ``--kill-restore`` arm of the root
+``benchmarks/cluster_chaos.py``, with its constants: a tree of ``NODES``
+native-engine peers (``host_tier=True``) on one ``N``-element table, the
+last node's uplink under 25% drop chaos (``faults.to_env`` around its
+creation, so the engine injects it). The steps:
+
+1. ``ADDS`` seeded adds, alternating between the root and the chaotic
+   node, 15 ms apart; mid-soak, with updates still in flight under the
+   drops, the root takes a consistent-cut snapshot (``snapshot_cluster``,
+   budget ``SNAP_BUDGET_S``).
+2. Every node closes: the kill.
+3. The tree restarts on a new port, each node from its shard
+   (``LifecycleConfig.restore_path``), node 1 with v1 wire emission (the
+   version-skew arm: old and new framings interoperate mid-upgrade); it
+   must re-converge to the snapshot's total within ``RESTORE_BUDGET_S``.
+4. ``max(4, ADDS // 2)`` more adds under the same chaos; every replica
+   converges and drains.
+5. An uninterrupted tree takes both schedules; its root's replica and the
+   restored root's agree within 1e-3.
+
+Gates: the snapshot succeeded within its budget, the restored tree
+re-converged within its budget with two wire versions live, the chaos
+fired and was repaired (retransmits > 0), both arms converged, and the
+arms agree. The JAX arm's trace-conformance gate (``tools/protospec``)
+and its ``--shm`` and ``--sharded`` arms are left out. Prints one JSON
+document on its last line (and writes it to ``--out``); exits 1 when a
+gate fails. ``chip_smoke.py`` phase 16 calls :func:`run_kill_restore`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import socket
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+#: The JAX arm's constants (benchmarks/cluster_chaos.py).
+NODES = 7
+N = 2048
+ADDS = 40
+SEED = 9
+RESTORE_BUDGET_S = 45.0
+SNAP_BUDGET_S = 30.0
+#: Both arms' final replicas agree within this (drop chaos and go-back-N
+#: converge exactly: the bound is float accumulation slack).
+ARMS_BOUND = 1e-3
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_kill_restore(snapdir: str, nodes: int = NODES, n: int = N, adds: int = ADDS, seed: int = SEED) -> dict:
+    """The arm (module docstring); the shards go to ``snapdir``. Returns
+    the report, its verdict under ``pass``."""
+    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch
+    from shared_tensor_tpu_torch.comm import faults
+    from shared_tensor_tpu_torch.config import FaultConfig, LifecycleConfig, ObsConfig
+
+    chaos_idx = nodes - 1
+    skew_idx = 1  # restarted with v1 emission
+    zeros = np.zeros((n,), np.float32)
+    env = faults.to_env(FaultConfig(enabled=True, seed=seed, drop_pct=0.25, only_link=1))
+    rng = np.random.default_rng(seed)
+    # one add schedule for both arms, before the snapshot and after the restore
+    p1 = [rng.uniform(-0.5, 0.5, n).astype(np.float32) for _ in range(adds)]
+    p2 = [rng.uniform(-0.5, 0.5, n).astype(np.float32) for _ in range(max(4, adds // 2))]
+    total1 = np.sum(p1, axis=0, dtype=np.float64)
+    total_all = total1 + np.sum(p2, axis=0, dtype=np.float64)
+
+    def cfg(i: int, restore: str = "", skew: bool = False) -> Config:
+        return Config(
+            lifecycle=LifecycleConfig(node_name=f"n{i}", restore_path=restore),
+            transport=TransportConfig(peer_timeout_sec=20.0, ack_timeout_sec=0.4),
+            obs=ObsConfig(digest_interval_sec=0.2, trace_wire=not skew),
+        )
+
+    def build(port: int, restore_dir: str = "", skew: bool = False) -> list:
+        peers = []
+        try:
+            for i in range(nodes):
+                if i == chaos_idx:
+                    os.environ["ST_FAULT_PLAN"] = env["ST_FAULT_PLAN"]
+                try:
+                    restore = os.path.join(restore_dir, f"shard_n{i}.npz") if restore_dir else ""
+                    peers.append(create_or_fetch("127.0.0.1", port, zeros, cfg(i, restore, skew and i == skew_idx),
+                                                 timeout=60.0, host_tier=True))
+                finally:
+                    os.environ.pop("ST_FAULT_PLAN", None)
+        except BaseException:
+            for p in peers:
+                p.close()
+            raise
+        return peers
+
+    def soak(peers, deltas) -> None:
+        for i, d in enumerate(deltas):
+            peers[0 if i % 2 else chaos_idx].add(d)
+            time.sleep(0.015)
+
+    def converge(peers, total, budget: float) -> bool:
+        deadline = time.time() + budget
+        while time.time() < deadline:
+            if all(np.allclose(p.read().numpy(), total, atol=1e-3) for p in peers):
+                return True
+            time.sleep(0.05)
+        return False
+
+    def close(peers) -> None:
+        for p in reversed(peers):  # leaves first: nobody re-grafts in the kill
+            p.close()
+
+    out: dict = {
+        "bench": "lifecycle_kill_restore", "nodes": nodes, "n": n,
+        "adds": {"phase1": len(p1), "phase2": len(p2)}, "seed": seed,
+        "chaos": {"drop_pct": 0.25, "node_index": chaos_idx}, "skew_node": skew_idx,
+        "budgets": {"restore_sec": RESTORE_BUDGET_S, "snapshot_sec": SNAP_BUDGET_S},
+    }
+    t_all = time.perf_counter()
+    # the kill-restore arm: a snapshot mid-soak, then the whole tree killed
+    peers = build(_free_port())
+    try:
+        out["engine_tier"] = all(p._engine is not None for p in peers)
+        soak(peers, p1)
+        t0 = time.monotonic()
+        res = peers[0].snapshot_cluster(snapdir, timeout=SNAP_BUDGET_S)
+        out["snapshot"] = {"ok": res["ok"], "nodes": res["nodes"], "duration_sec": time.monotonic() - t0,
+                           "barrier_sec": res["duration_sec"]}
+    finally:
+        close(peers)
+    t0 = time.monotonic()
+    peers = build(_free_port(), restore_dir=snapdir, skew=True)
+    try:
+        restored = converge(peers, total1, RESTORE_BUDGET_S)
+        out["restore"] = {"reconverged_pre_kill_mass": restored, "duration_sec": time.monotonic() - t0,
+                          "wire_versions": sorted({p._wire_version for p in peers})}
+        soak(peers, p2)
+        t1 = time.monotonic()
+        kr_converged = converge(peers, total_all, 120.0)
+        out["restore"]["post_restore_converge_sec"] = time.monotonic() - t1
+        kr_final = peers[0].read().numpy().astype(np.float64)
+        drained = all(p.drain(timeout=30.0, tol=1e-30) for p in peers)
+        snaps = [p.metrics() for p in peers]
+        out["restored_arm"] = {
+            "converged": kr_converged, "drained": drained,
+            "retransmits": sum(int(s.get("st_retransmit_msgs_total", 0)) for s in snaps),
+            "restore_total": sum(int(s.get("st_restore_total", 0)) for s in snaps),
+        }
+    finally:
+        close(peers)
+    # the uninterrupted arm: the same schedule, no kill
+    peers = build(_free_port())
+    try:
+        soak(peers, p1)
+        soak(peers, p2)
+        t1 = time.monotonic()
+        out["uninterrupted_arm"] = {"converged": converge(peers, total_all, 120.0),
+                                    "converge_sec": time.monotonic() - t1}
+        un_final = peers[0].read().numpy().astype(np.float64)
+    finally:
+        close(peers)
+    dev = float(np.max(np.abs(kr_final - un_final)))
+    out["arms_max_deviation"] = dev
+    out["bound"] = ARMS_BOUND
+    out["seconds"] = time.perf_counter() - t_all
+    out["pass"] = bool(
+        out["snapshot"]["ok"]
+        and out["snapshot"]["duration_sec"] <= SNAP_BUDGET_S
+        and out["restore"]["reconverged_pre_kill_mass"]
+        and out["restore"]["duration_sec"] <= RESTORE_BUDGET_S
+        and len(out["restore"]["wire_versions"]) == 2  # the skew was real
+        and out["restored_arm"]["converged"]
+        and out["restored_arm"]["drained"]
+        and out["restored_arm"]["retransmits"] >= 1  # the chaos fired and was repaired
+        and out["uninterrupted_arm"]["converged"]
+        and dev <= ARMS_BOUND
+    )
+    return out
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--dir", default="", help="the snapshot's directory (default: a new temporary one)")
+    ap.add_argument("--out", default="", help="also write the JSON document here")
+    args = ap.parse_args(argv)
+    out = run_kill_restore(args.dir or tempfile.mkdtemp(prefix="lifecycle-"))
+    doc = json.dumps(out)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(doc + "\n")
+    print(f"lifecycle kill-restore: snapshot {out['snapshot']['duration_sec']:.2f} s, restore "
+          f"{out['restore']['duration_sec']:.2f} s, arms max dev {out['arms_max_deviation']:.2e} -> "
+          f"{'PASS' if out['pass'] else 'FAIL'}", file=sys.stderr)
+    print(doc)
+    return out
+
+
+if __name__ == "__main__":
+    sys.exit(0 if main()["pass"] else 1)

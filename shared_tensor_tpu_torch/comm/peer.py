@@ -119,10 +119,38 @@ monotonic clock plus the simulated skew (``ST_CLOCK_SKEW_SEC`` or
 native clock, as JAX's does. A go-back-N teardown and a receive-thread
 exception dump a postmortem.
 
-Not ported (later slices): lifecycle and operator commands, and sharding.
-A joiner that asks for the sharded tensor in its SYNC is refused with a
-REJECT that names it; any other message kind the port does not speak is
-logged, counted and dropped.
+The cluster lifecycle (``Config.lifecycle``), as the JAX peer's:
+
+- ``snapshot_cluster`` at the root: a consistent cut with empty channels.
+  The root pauses its own production; each node that enters the barrier
+  pauses (synchronously: the Python send loop's in-flight pass and the
+  engine's are waited out), and once every frame it sent before the pause
+  is acknowledged floods a SNAP marker down its writer links, so per-link
+  FIFO puts the marker behind its last pre-cut data. A node whose
+  children have all acked (SNAP_ACK) and whose ledgers and send queues
+  are empty writes its shard (``utils/checkpoint.save_cluster_shard``, the
+  device tier's tensors taken to the host once, at the cut) and acks up;
+  the root writes ``MANIFEST.json`` and releases the tree with RESUME. A
+  barrier past its budget, or a node whose RESUME never comes, resumes
+  anyway: a lifecycle operation may fail, the cluster never stays paused.
+- ``restore_cluster``: the same barrier, with each node loading its shard
+  at the cut instead (``SharedTensor.restore_state``, or the engine's
+  ``restore_ex``); subscriber links are re-seeded from the restored
+  replica. ``LifecycleConfig.restore_path`` restarts a node from its shard
+  before the data plane starts: the replica, and on a joiner the uplink's
+  residual and the carry as the re-graft carry.
+- ``drain_node``: a CTL routed down the tree to the named node, which runs
+  ``leave()``; the root also polls ``LifecycleConfig.ctl_dir`` for the
+  commands of ``python -m shared_tensor_tpu_torch.ctl``.
+
+All barrier state belongs to the receive thread (``_lc_tick`` on each of
+its passes, and the SNAP, SNAP_ACK, RESUME and CTL handlers; on the engine
+these kinds come through ``poll_ctrl``); the public calls queue a request
+and wait for its verdict.
+
+Not ported (a later slice): sharding. A joiner that asks for the sharded
+tensor in its SYNC is refused with a REJECT that names it; any other
+message kind the port does not speak is logged, counted and dropped.
 """
 
 from __future__ import annotations
@@ -134,6 +162,7 @@ import os
 import sys
 import threading
 import time
+import uuid
 from collections import deque
 from typing import Any, Optional
 
@@ -426,6 +455,41 @@ class SharedTensorPeer:
                 "nothing on engine links; render them into the environment with faults.to_env() around the "
                 "node's creation (crash points still fire)"
             )
+        # the cluster lifecycle. Barrier state belongs to the receive thread
+        # (_lc_tick and the SNAP/SNAP_ACK/RESUME handlers); the public calls
+        # queue a request and wait on _lc_done. _paused gates new production
+        # on every tier while what is in flight keeps draining: the cut is
+        # "paused + every ledger empty". _send_pass counts the Python send
+        # loop's passes, so a pause waits out the pass in flight (_set_paused)
+        self._lc_requests: deque = deque()
+        self._lc_api_mu = threading.Lock()  # one barrier request at a time
+        self._lc_op: Optional[dict] = None
+        self._lc_done = threading.Event()
+        self._lc_result: Optional[dict] = None
+        self._paused = False
+        self._pause_deadline = 0.0
+        self._send_pass = 0
+        self._snap_total = 0
+        self._snap_acks = 0
+        self._snap_last_dur = 0.0
+        self._restore_total = 0
+        self._drain_total = 0
+        self._draining = False
+        self._lc_errors = 0
+        self._ctl_last_poll = 0.0
+        self._restored_from: Optional[str] = None
+        if self.config.lifecycle.restore_path:
+            # the full-cluster restart: this node's shard loads before the
+            # data plane starts (no thread runs yet)
+            try:
+                self._restore_at_startup(self.config.lifecycle.restore_path)
+            except BaseException:
+                if self._engine is not None:
+                    self._engine.stop()
+                self.node.close()
+                if self._engine is not None:
+                    self._engine.destroy()
+                raise
         # v2 trace stamp (origin node, origin monotonic ns, hops) sent with
         # every DATA/BURST: re-seeded by add(), advanced by each applied
         # traced message. A tuple, assigned whole.
@@ -436,6 +500,8 @@ class SharedTensorPeer:
             self._ready.set()
         self._stop = threading.Event()
         self._wake = threading.Event()
+        self._close_mu = threading.Lock()
+        self._closed = False
         # parent side of the handshake: link -> snapshot being received
         self._pending: dict[int, bytearray] = {}
         # child side: the snapshot sent to the parent ("state the tree has
@@ -469,7 +535,6 @@ class SharedTensorPeer:
         )
         self._shm_host = _shm_host_id() if self._shm_ok else b""
         self._shm_fallbacks = 0
-        self._paused = False  # pause(): produce no new frames
         self._uplink: Optional[int] = None
         # the serving tier's writer side. _sub_links: attached read-only
         # links -> their word range (None: the whole table); unledgered
@@ -561,8 +626,10 @@ class SharedTensorPeer:
             self._obs = _PeerObs(self)
         # on the engine, its own sender thread sends on every link
         self._threads = (threading.Thread(target=self._recv_loop, daemon=True, name="st-recv"),)
+        self._send_thread: Optional[threading.Thread] = None
         if self._engine is None:
-            self._threads += (threading.Thread(target=self._send_loop, daemon=True, name="st-send"),)
+            self._send_thread = threading.Thread(target=self._send_loop, daemon=True, name="st-send")
+            self._threads += (self._send_thread,)
         for t in self._threads:
             t.start()
 
@@ -623,32 +690,36 @@ class SharedTensorPeer:
         return ok
 
     def close(self) -> None:
-        """Leave the tree; the other peers re-graft and carry on."""
+        """Leave the tree; the other peers re-graft and carry on. Once: a
+        second call (a routed drain closes the peer on a thread of its own)
+        waits for the first to finish and returns."""
         self._stop.set()
         self._wake.set()
-        for t in self._threads:
-            t.join(timeout=5.0)
-        if self._engine is not None:
-            # its threads wait inside the node's queues: stop them first
-            self._engine.stop()
-        if self._obs is not None:
-            # the last drain and the registry's teardown, before the node
-            # closes, so the close path's events merge in
-            self._obs.close()
-        self.node.close()
-        if self._engine is not None:
-            self._engine.destroy()
+        with self._close_mu:
+            if self._closed:
+                return
+            for t in self._threads:
+                t.join(timeout=5.0)
+            if self._engine is not None:
+                # its threads wait inside the node's queues: stop them first
+                self._engine.stop()
+            if self._obs is not None:
+                # the last drain and the registry's teardown, before the node
+                # closes, so the close path's events merge in
+                self._obs.close()
+            self.node.close()
+            if self._engine is not None:
+                self._engine.destroy()
+            self._closed = True
 
     def pause(self, paused: bool = True) -> None:
-        """Stop (or resume) producing new frames; what is in flight is
-        still delivered and acknowledged. On the engine this returns once
-        the sender's current pass is over; the Python send loop checks the
-        flag at each link."""
-        self._paused = paused
-        if self._engine is not None:
-            self._engine.pause(paused)
-        if not paused:
-            self._wake.set()
+        """Stop (or resume) producing new frames; what is already quantized
+        (the device tier's pipeline) still goes out, and what is in flight
+        is still delivered and acknowledged. Returns once the sender's pass
+        in flight is over (the engine's, or the Python send loop's), so no
+        new frame is quantized after this returns. A lifecycle barrier's
+        release resumes the peer too."""
+        self._set_paused(paused, expire=False)
 
     @property
     def ready(self) -> bool:
@@ -727,9 +798,20 @@ class SharedTensorPeer:
             "st_sub_fresh_out_total": self._sub_fresh_out,
             "st_shm_fallback_total": self._shm_fallbacks,
             "st_wire_version": self._wire_version,
-            "st_lifecycle_paused": 1 if self._paused else 0,
             "st_clock_probes_total": self._clock.probes,
         }
+        # the lifecycle rows (obs.top's, and ctl versions reads the wire
+        # version above from the digest's per-node breakdown)
+        op = self._lc_op
+        out["st_lifecycle_paused"] = 1 if self._paused else 0
+        out["st_snapshot_in_progress"] = 1 if op is not None and op.get("op") == "save" else 0
+        out["st_snapshot_shards_acked"] = self._snap_acks
+        out["st_snapshot_total"] = self._snap_total
+        out["st_snapshot_last_duration_seconds"] = self._snap_last_dur
+        out["st_restore_total"] = self._restore_total
+        out["st_drain_in_progress"] = 1 if self._draining else 0
+        out["st_drain_total"] = self._drain_total
+        out["st_lifecycle_errors_total"] = self._lc_errors
         out.update(self._secs)
         tp = self.node.pool_stats()
         out["st_transport_tx_acquires_total"] = tp["tx_acquires"]
@@ -806,6 +888,538 @@ class SharedTensorPeer:
                 out["st_shm_bytes_in_total"] = out.get("st_shm_bytes_in_total", 0) + sh["bytes_in"]
         return out
 
+    # -- the cluster lifecycle ----------------------------------------------------
+    #
+    # The consistent cut. The root pauses its own production and floods a
+    # SNAP marker down every writer link; each node on SNAP pauses, forwards
+    # the marker, waits for (a) every child's SNAP_ACK and (b) its own
+    # ledgers to drain empty, then writes its shard (or loads it: op "load"
+    # is the in-place restore) and acks up. The marker follows the sender's
+    # last pre-pause data on its link, a child's SNAP_ACK follows its last
+    # pre-capture data, and "ledger empty" means that everything sent was
+    # applied: at every capture both ends of every link agree on the stream
+    # and nothing is in flight, so a restore needs no seq surgery and no
+    # re-send. Control messages are outside the fault plan's classes, so a
+    # barrier completes under data-plane chaos too.
+
+    @property
+    def node_name(self) -> str:
+        """The stable lifecycle name (``LifecycleConfig.node_name``, else
+        ``node-<obs_id>``, unique in the process)."""
+        return self.config.lifecycle.node_name or f"node-{self.node.obs_id}"
+
+    def snapshot_cluster(self, dirpath: str, snap_id: Optional[str] = None, timeout: Optional[float] = None) -> dict:
+        """A consistent-cut snapshot of the whole tree into ``dirpath``, from
+        the root: one shard per node and ``MANIFEST.json`` with each shard's
+        sha256. Blocks until the barrier is over; the tree is resumed before
+        this returns, on success, failure or timeout. Returns the result
+        (``manifest``, ``duration_sec``, ``nodes``, ...)."""
+        if self._uplink is not None:
+            raise RuntimeError(
+                "snapshot_cluster is root-initiated: this node has an uplink (use ctl against the root, or call it "
+                "there)"
+            )
+        return self._lc_request(
+            {"op": "save", "dir": str(dirpath), "id": str(snap_id or f"snap-{time.monotonic_ns():x}")}, timeout
+        )
+
+    def restore_cluster(self, dirpath: str, timeout: Optional[float] = None) -> dict:
+        """An in-place restore of the live tree to the cut under ``dirpath``,
+        from the root: the barrier of :meth:`snapshot_cluster`, but at the
+        quiesced instant every node loads its shard (replica, the residuals
+        of the links that still exist, the carry, the engine's precision
+        state) instead of writing one. Wire seqs are never rewound: the
+        drained ledgers make the restored residuals consistent pairwise.
+        Subscriber links are re-seeded from the restored replica, so no FRESH
+        mark verifies a read across the cut. Full fidelity needs the
+        membership of the snapshot: residuals of links that are gone are
+        dropped (their subtrees' own diff handshakes repaired that mass)."""
+        from ..utils import checkpoint as ckpt
+
+        problems = ckpt.verify_manifest(dirpath)
+        if problems:
+            raise ValueError(f"snapshot at {dirpath} fails its manifest audit: " + "; ".join(problems))
+        if self._uplink is not None:
+            raise RuntimeError("restore_cluster is root-initiated")
+        return self._lc_request(
+            {"op": "load", "dir": str(dirpath), "id": str(ckpt.load_manifest(dirpath).get("snap_id", "?"))}, timeout
+        )
+
+    def drain_node(self, target: str) -> None:
+        """A planned migration: route a drain command (CTL) down the tree to
+        ``target``, which then leaves gracefully (seal, drain what it owes,
+        close); its children re-graft with no loss of mass. Fire and
+        forget: ``obs.top``'s drain row and the membership events show the
+        end."""
+        if self._uplink is not None:
+            raise RuntimeError("drain_node is root-initiated")
+        if self._compat:
+            raise RuntimeError("drain routing needs the native protocol's control plane")
+        if str(target) == self.node_name:
+            raise ValueError("cannot drain the root from itself: fail the root over first, or drain its children")
+        if self._obs is not None:
+            self._obs.event("ctl_cmd", self.node.obs_id, detail="drain")
+        self._ctl_forward({"op": "drain", "target": str(target), "from": self.node_name}, exclude=None)
+
+    def _lc_request(self, req: dict, timeout: Optional[float]) -> dict:
+        """Queue a barrier for the receive thread and wait for its verdict.
+        One request at a time (``_lc_api_mu``), and results are matched to
+        requests by a uid: a caller that timed out leaves its barrier
+        running, and that barrier's late verdict is never handed to the
+        next caller."""
+        if self._compat:
+            raise RuntimeError(
+                "the lifecycle barrier needs the native protocol's typed control plane: the reference wire "
+                "format cannot carry it"
+            )
+        budget = timeout if timeout is not None else self.config.lifecycle.snapshot_timeout_sec
+        req["req"] = uuid.uuid4().hex
+        with self._lc_api_mu:
+            req["deadline"] = time.monotonic() + budget
+            req["budget_sec"] = budget
+            self._lc_done.clear()
+            self._lc_result = None
+            self._lc_requests.append(req)
+            self._wake.set()
+            deadline = time.monotonic() + budget + 10.0
+            while True:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise TimeoutError(f"lifecycle {req['op']} barrier did not complete inside {budget} s (+grace)")
+                if not self._lc_done.wait(min(remaining, 1.0)):
+                    continue
+                res = self._lc_result
+                if res is not None and res.get("req") == req["req"]:
+                    break
+                self._lc_done.clear()  # an abandoned barrier's late verdict
+        if not res.get("ok"):
+            raise RuntimeError(f"lifecycle {req['op']} failed: {res.get('error')}")
+        return res
+
+    def _set_paused(self, paused: bool, expire: bool = True) -> None:
+        """Quiesce (or resume) data production, synchronously across the
+        sender's pass in flight on every tier: the engine's pause waits out
+        its sender's pass, and here the Python send loop's pass counter must
+        advance twice, since a pass already past its paused check when the
+        flag lands may still quantize and send from pre-pause state, and the
+        SNAP marker must follow the last such message on its link. With
+        ``expire`` a pause that outlives ``pause_timeout_sec`` with no
+        barrier is lifted by ``_lc_tick``."""
+        if paused == self._paused:
+            return
+        self._paused = paused
+        if self._engine is not None:
+            self._engine.pause(paused)
+        elif paused and self._send_thread is not None and self._send_thread.is_alive():
+            g0 = self._send_pass
+            deadline = time.monotonic() + 2.0
+            while self._send_pass < g0 + 2 and time.monotonic() < deadline and not self._stop.is_set():
+                self._wake.set()
+                time.sleep(0.001)
+        self._pause_deadline = time.monotonic() + self.config.lifecycle.pause_timeout_sec if paused and expire else 0.0
+        if self._obs is not None:
+            self._obs.event("lifecycle_pause" if paused else "lifecycle_resume", self.node.obs_id)
+        self._wake.set()
+
+    def _lc_children(self, exclude: Optional[int] = None) -> list[int]:
+        """The writer links a barrier or a CTL floods: every attached codec
+        link but the uplink, subscriber links (no shard, no drain: they
+        re-seed from scratch) and ``exclude`` (the marker's source)."""
+        up = self._uplink
+        return [l for l in self.st.link_ids if l >= 0 and l != up and l != exclude and l not in self._sub_links]
+
+    def _ctl_forward(self, doc: dict, exclude: Optional[int]) -> None:
+        payload = wire.encode_lifecycle(wire.CTL, doc)
+        for link in self._lc_children(exclude):
+            try:
+                self._send_blocking(link, payload)
+            except Exception:
+                log.exception("CTL forward failed on link %d", link)
+
+    def _lc_begin(self, doc: dict, from_link: Optional[int]) -> None:
+        """Enter a barrier (the receive thread). ``from_link`` is the uplink
+        the SNAP marker came on; None at the root."""
+        if self._lc_op is not None:
+            if doc.get("id") == self._lc_op["id"]:
+                return  # a duplicate marker: already in it
+            msg = f"{self.node_name}: lifecycle barrier overlap ({self._lc_op['id']} active, {doc.get('id')} refused)"
+            log.warning(msg)
+            self._lc_errors += 1
+            if from_link is None:
+                self._lc_result = {"ok": False, "error": msg, "req": doc.get("req")}
+                self._lc_done.set()
+            else:
+                # a NACK, so the parent's barrier ends with the error named
+                # instead of waiting on this subtree
+                self._send_blocking(
+                    from_link, wire.encode_lifecycle(wire.SNAP_ACK, {"id": doc.get("id"), "nodes": [], "errors": [msg]})
+                )
+            return
+        lc = self.config.lifecycle
+        op = {
+            "op": doc.get("op", "save"),
+            "id": str(doc.get("id")),
+            "dir": str(doc.get("dir", "")),
+            "req": doc.get("req"),
+            "from": from_link,
+            "t0": time.monotonic(),
+            "deadline": doc.get("deadline"),
+            # the root's remaining budget, as the marker carries it; a marker
+            # without one falls back to the local pause timeout
+            "budget": float(
+                doc.get("budget_sec", lc.snapshot_timeout_sec if from_link is None else lc.pause_timeout_sec)
+            ),
+            "waiting": set(self._lc_children(from_link)),
+            "entries": [],
+            "errors": [],
+            "marked": False,  # markers flood from _lc_tick once every pre-cut frame is delivered
+            "captured": False,
+            "acked": False,  # SNAP_ACK delivered (re-tried until it is)
+        }
+        self._lc_op = op
+        self._set_paused(True)
+        # the pause's safety deadline covers the barrier's whole budget (and
+        # 5 s for the RESUME to come down): a captured child that resumed
+        # mid-barrier would tear the cut the root then reports as good
+        self._pause_deadline = time.monotonic() + op["budget"] + 5.0
+        if self._obs is not None:
+            self._obs.event("snap_begin", self.node.obs_id, arg=len(op["waiting"]), detail=op["op"])
+
+    def _lc_mark_children(self, op: dict) -> None:
+        """Flood the SNAP marker down, only once every data message this node
+        sends before the cut has been delivered: the pause waited out the
+        send pass in flight, and the ledger must be empty. On the device
+        tier a frame enters the core's ledger when it is quantized
+        (``begin_frame*``), so a frame still in the send loop's pipeline, its
+        fetch pending, counts in ``inflight_total`` too: an empty ledger
+        means an empty pipeline, and no separate gauge of it is kept. The
+        ledger condition makes the cut sound under loss: a dropped frame's
+        re-send would otherwise arrive after the marker, past the
+        receiver's capture while our shard records it delivered."""
+        if self.st.inflight_total() != 0:
+            return  # undelivered pre-cut data; the re-send timer is on it
+        op["marked"] = True
+        now = time.monotonic()
+        remaining = (
+            op["deadline"] - now if op["from"] is None and op.get("deadline") else op["budget"] - (now - op["t0"])
+        )
+        fwd = wire.encode_lifecycle(
+            wire.SNAP,
+            {
+                "op": op["op"], "id": op["id"], "dir": op["dir"], "parent": self.node_name,
+                # the root's remaining budget rides the marker, so every
+                # node's pause deadline covers the whole barrier
+                "budget_sec": max(5.0, remaining),
+            },
+        )
+        for link in list(op["waiting"]):
+            if not self._send_blocking(link, fwd):
+                op["waiting"].discard(link)
+                op["errors"].append(f"{self.node_name}: SNAP marker send failed on link {link}")
+
+    def _lc_quiesced(self) -> bool:
+        """Paused and nothing in flight: every ledger empty (our sends were
+        applied) and every transport send queue drained (our markers and
+        acks left)."""
+        if self.st.inflight_total() != 0:
+            return False
+        for link in self.node.links:
+            s = self.node.stats(link)
+            if s is not None and s.send_queue != 0:
+                return False
+        return True
+
+    def _lc_tick(self) -> None:
+        """One pass of the barrier (the receive thread, every loop)."""
+        while self._lc_requests:
+            self._lc_begin(self._lc_requests.popleft(), None)
+        op = self._lc_op
+        now = time.monotonic()
+        if op is None:
+            if self._paused and self._pause_deadline and now > self._pause_deadline:
+                log.warning("lifecycle pause expired with no barrier; resuming")
+                self._lc_errors += 1
+                self._set_paused(False)
+            self._ctl_poll(now)
+            return
+        if op["from"] is None:
+            if op.get("deadline") and now > op["deadline"]:
+                missing = sorted(op["waiting"])
+                op["errors"].append(
+                    f"{self.node_name}: barrier timeout (awaiting links {missing})" if missing
+                    else f"{self.node_name}: barrier timeout (quiesce)"
+                )
+                self._lc_finish(ok=False)
+                return
+        elif now > self._pause_deadline:
+            # no RESUME (the root or the parent died mid-barrier): resume
+            # rather than stay frozen; the barrier is abandoned
+            log.warning("lifecycle barrier %s: no RESUME before the pause deadline; resuming", op["id"])
+            self._lc_errors += 1
+            self._lc_op = None
+            self._set_paused(False)
+            return
+        if not op["marked"]:
+            self._lc_mark_children(op)
+        if op["captured"]:
+            if op["from"] is not None and not op["acked"]:
+                self._lc_send_ack(op)  # re-try until delivered or abandoned
+            return
+        if not op["marked"] or op["waiting"] or not self._lc_quiesced():
+            return
+        # the subtree is done and this node is quiesced: its cut instant
+        try:
+            if op["op"] == "save":
+                op["entries"].append(self._write_shard(op["dir"], op["id"]))
+                self._snap_total += 1
+            else:
+                self._load_shard_inplace(op["dir"])
+                op["entries"].append({"node": self.node_name, "restored": True})
+                self._restore_total += 1
+        except Exception as e:
+            log.exception("lifecycle %s failed at %s", op["op"], self.node_name)
+            op["errors"].append(f"{self.node_name}: {e!r}")
+            self._lc_errors += 1
+        op["captured"] = True
+        if op["from"] is not None:
+            self._lc_send_ack(op)  # and stay paused until the root's RESUME
+        else:
+            self._lc_finish(ok=not op["errors"])
+
+    def _lc_send_ack(self, op: dict) -> None:
+        doc = {"id": op["id"], "nodes": op["entries"], "errors": op["errors"]}
+        try:
+            payload = wire.encode_lifecycle(wire.SNAP_ACK, doc)
+        except ValueError:
+            # the subtree's manifest is over the wire cap: the verdict goes
+            # up without the entries, and the root fails the barrier naming
+            # this node
+            doc = {
+                "id": op["id"], "nodes": [],
+                "errors": op["errors"][:8] + [
+                    f"{self.node_name}: subtree manifest exceeded the wire cap ({len(op['entries'])} shard entries "
+                    "dropped)"
+                ],
+            }
+            payload = wire.encode_lifecycle(wire.SNAP_ACK, doc)
+        if self._send_blocking(op["from"], payload):
+            op["acked"] = True
+
+    def _lc_finish(self, ok: bool) -> None:
+        """The root's end of a barrier on every path: write the manifest (a
+        save), release the tree, resume, and hand the verdict over."""
+        op = self._lc_op
+        dur = time.monotonic() - op["t0"]
+        result: dict = {
+            "ok": ok, "op": op["op"], "id": op["id"], "req": op.get("req"), "dir": op["dir"], "duration_sec": dur,
+            "nodes": len(op["entries"]), "errors": op["errors"],
+        }
+        if op["errors"]:
+            result["error"] = "; ".join(str(e) for e in op["errors"])
+        if ok and op["op"] == "save":
+            from ..utils import checkpoint as ckpt
+
+            try:
+                result["manifest"] = ckpt.write_manifest(
+                    op["dir"], op["id"], op["entries"], extra={"root": self.node_name, "duration_sec": dur}
+                )
+            except OSError as e:
+                result["ok"] = False
+                result["error"] = f"manifest write failed: {e}"
+        self._snap_last_dur = dur
+        resume = wire.encode_lifecycle(wire.RESUME, {"id": op["id"]})
+        for link in self._lc_children():
+            self._send_blocking(link, resume)
+        self._lc_op = None
+        self._set_paused(False)
+        if self._obs is not None:
+            self._obs.event("snap_done", self.node.obs_id, arg=result["nodes"], detail=op["op"])
+        self._lc_result = result
+        self._lc_done.set()
+
+    def _write_shard(self, dirpath: str, snap_id: str) -> dict:
+        """This node's shard at the quiesced cut. The engine's capture is one
+        native lock (``snapshot_ex``); the SharedTensor's is one state lock
+        (``snapshot_all``), whose device tensors are taken to the host here,
+        once. The per-link wire state comes from the ledger's seqs."""
+        from ..utils import checkpoint as ckpt
+
+        up = self._uplink
+        if self._engine is not None:
+            values, links, meta = self._engine.snapshot_ex()
+        else:
+            values, links = self.st.snapshot_all()
+            with self._ack_mu:
+                tx = dict(self._tx_seq)
+            meta = {
+                lid: {"tx_seq": tx.get(lid, 0), "rx_count": self._rx_count.get(lid, 0), "prec": 1,
+                      "sub": lid in self._sub_links}
+                for lid in links if lid >= 0
+            }
+        entries = []
+        for lid, resid in links.items():
+            if lid < 0:
+                entries.append({"id": lid, "role": "carry", "resid": resid.cpu().numpy()})
+                continue
+            m = meta.get(lid, {})
+            sub = bool(m.get("sub")) or lid in self._sub_links
+            entries.append({
+                "id": lid,
+                "role": "up" if lid == up else ("sub" if sub else "child"),
+                "tx_seq": m.get("tx_seq", 0),
+                "rx_count": m.get("rx_count", 0),
+                "prec": m.get("prec", 1),
+                # a subscriber link keeps its meta only: it re-seeds from scratch
+                "resid": None if sub else resid.cpu().numpy(),
+            })
+        entry = ckpt.save_cluster_shard(
+            dirpath, self.node_name, snap_id, self.st.spec.layout_digest(), values.cpu().numpy(), entries,
+            wire_version=self._wire_version,
+        )
+        if self._obs is not None:
+            self._obs.event("snap_shard", self.node.obs_id, arg=len(entries))
+        return entry
+
+    def _load_shard_inplace(self, dirpath: str) -> None:
+        """The in-place restore at the quiesced cut: the replica, the
+        residuals of the writer links that still exist, the carry and the
+        engine's precision state from this node's shard, through
+        ``restore_state`` (``restore_ex`` on the engine); then every
+        subscriber link is re-seeded from the restored replica, since across
+        the cut its state is superseded and no seq gap would show it. On the
+        device tier the restored residuals are new tensors, so each link's
+        burst graph is captured anew at its next burst."""
+        from ..utils import checkpoint as ckpt
+
+        path = os.path.join(dirpath, ckpt.shard_filename(self.node_name))
+        shard = ckpt.load_cluster_shard(path)
+        if shard["layout"] != self.st.spec.layout_digest():
+            raise ValueError(f"shard {path} was written for a different table layout")
+        live = set(self.st.link_ids)
+        links: dict[int, np.ndarray] = {}
+        meta: dict[int, dict] = {}
+        for lid, ent in shard["links"].items():
+            if ent.get("role") == "carry":
+                if ent.get("resid") is not None:
+                    links[CARRY_LINK] = ent["resid"]
+                continue
+            if ent.get("role") == "sub" or ent.get("resid") is None:
+                continue
+            if lid in live:
+                links[lid] = ent["resid"]
+                meta[lid] = {"prec": ent.get("prec", 1)}
+        if self._engine is not None:
+            self._engine.restore_ex(shard["values"], links, meta)
+        else:
+            self.st.restore_state(shard["values"], links)
+        for lid, rng in list(self._sub_links.items()):
+            self._attach_sub(lid, rng)
+        self._wake.set()
+
+    def _restore_at_startup(self, path: str) -> None:
+        """The full-cluster restart (``LifecycleConfig.restore_path``), before
+        the data plane starts. The values load into the replica; a joiner's
+        checkpointed uplink residual (and carry) becomes the re-graft carry,
+        so its join handshake re-delivers exactly the up-flow it owed (the
+        snapshot it sends claims ``values - carry``). The master drops its
+        carry: its replica is the seed, and every child's diff join pulls
+        what it misses from it. Child-link residuals are dropped on both:
+        the children's own diff joins re-derive the down-flow."""
+        from ..utils import checkpoint as ckpt
+
+        shard = ckpt.load_cluster_shard(path)
+        if shard["layout"] != self.st.spec.layout_digest():
+            raise ValueError(f"restore shard {path} was written for a different table layout")
+        carry = None if self.is_master else ckpt.restore_carry_from_shard(shard)
+        self.st.restore_state(shard["values"], {} if carry is None else {CARRY_LINK: carry})
+        self._restored_from = path
+        self._restore_total += 1
+        log.info("restored %s from shard %s (snap %s)%s", self.node_name, path, shard["meta"].get("snap_id"),
+                 "" if carry is None else " with a re-graft carry")
+
+    def _start_drain(self) -> None:
+        """This node is a CTL drain's target: leave gracefully on a thread of
+        its own (``leave`` joins the receive thread, so it never runs on
+        it)."""
+        if self._draining:
+            return
+        self._draining = True
+        self._drain_total += 1
+        if self._obs is not None:
+            self._obs.event("drain_begin", self.node.obs_id)
+        grace = self.config.lifecycle.drain_grace_sec
+
+        def run():
+            try:
+                ok = self.leave(timeout=grace)
+                log.info("drain of %s %s", self.node_name, "complete" if ok else "timed out (closed anyway)")
+            except Exception:
+                log.exception("drain of %s failed", self.node_name)
+
+        threading.Thread(target=run, daemon=True, name="st-drain").start()
+
+    def _handle_ctl_msg(self, doc: dict, from_link: Optional[int]) -> None:
+        op = doc.get("op")
+        if op == "drain":
+            if doc.get("target") == self.node_name:
+                self._start_drain()
+            else:
+                self._ctl_forward(doc, exclude=from_link)
+        else:
+            log.warning("ignoring unknown CTL op %r", op)
+
+    def _ctl_poll(self, now: float) -> None:
+        """The root's operator channel: take a ``cmd.json`` that
+        ``python -m shared_tensor_tpu_torch.ctl`` wrote into
+        ``LifecycleConfig.ctl_dir`` and run it on a thread of its own (a
+        snapshot waits on the barrier this receive thread drives)."""
+        lc = self.config.lifecycle
+        if not lc.ctl_dir or self._uplink is not None or now - self._ctl_last_poll < 0.25:
+            return
+        self._ctl_last_poll = now
+        cmd_path = os.path.join(lc.ctl_dir, "cmd.json")
+        try:
+            with open(cmd_path) as f:
+                cmd = json.load(f)
+            os.unlink(cmd_path)  # claimed
+        except (OSError, ValueError):
+            return  # absent, or mid-write: the next poll takes it
+        if self._obs is not None:
+            self._obs.event("ctl_cmd", self.node.obs_id, detail=str(cmd.get("op")))
+        threading.Thread(target=self._ctl_execute, args=(cmd,), daemon=True, name="st-ctl").start()
+
+    def _ctl_execute(self, cmd: dict) -> None:
+        from ..utils.checkpoint import atomic_write_json
+
+        res: dict = {"req_id": cmd.get("req_id"), "op": cmd.get("op")}
+        try:
+            op = cmd.get("op")
+            if op == "snapshot":
+                r = self.snapshot_cluster(cmd["dir"], cmd.get("id"))
+                res.update(ok=True, id=r["id"], nodes=r["nodes"], duration_sec=r["duration_sec"],
+                           manifest=r.get("manifest"))
+            elif op == "restore":
+                r = self.restore_cluster(cmd["dir"])
+                res.update(ok=True, id=r["id"], nodes=r["nodes"], duration_sec=r["duration_sec"])
+            elif op == "drain":
+                self.drain_node(cmd["target"])
+                res.update(ok=True, target=cmd["target"], initiated=True)
+            else:
+                res.update(ok=False, error=f"unknown ctl op {op!r}")
+        except Exception as e:
+            res.update(ok=False, error=str(e))
+        path = os.path.join(self.config.lifecycle.ctl_dir, "result.json")
+        try:
+            atomic_write_json(path, res)
+        except Exception as e:
+            # the CLI waits for some verdict: a result that does not
+            # serialize must not leave it timing out with no reason
+            log.exception("ctl result write failed")
+            try:
+                atomic_write_json(path, {"req_id": res.get("req_id"), "ok": False, "error": f"result write failed: {e}"})
+            except Exception:
+                pass
+
     # -- the cluster digest and the clock probe -----------------------------------
 
     def _now_ns(self) -> int:
@@ -824,9 +1438,9 @@ class SharedTensorPeer:
         """This subtree's merged digest: our own snapshot folded with each
         child link's latest digest, bounded before it reaches the wire."""
         doc = aggregate.from_snapshot(self.node.obs_id, self.metrics(), self._now_ns())
-        # the node's name in its breakdown, as a JAX peer without a
-        # lifecycle name sends it
-        doc["nodes"][str(int(self.node.obs_id))]["name"] = f"node-{self.node.obs_id}"
+        # the lifecycle name in the node's breakdown: ctl drain and ctl
+        # versions address nodes by it
+        doc["nodes"][str(int(self.node.obs_id))]["name"] = self.node_name
         for child in list(self._child_digests.values()):
             aggregate.merge(doc, child)
         aggregate.bounded(doc)
@@ -979,6 +1593,7 @@ class SharedTensorPeer:
             return self.st.finish_frame_burst(df) if k > 1 else self.st.finish_frame(df)
 
         while not self._stop.is_set():
+            self._send_pass += 1  # a pass boundary (_set_paused waits for two)
             t_pass = time.perf_counter()
             sent_any = False
             links = [l for l in self.st.link_ids if l >= 0]  # not the carry
@@ -1023,8 +1638,9 @@ class SharedTensorPeer:
                     continue
                 q = pipe.setdefault(link, deque())
                 # a cold link risks one speculative frame, a hot one keeps
-                # the whole pipeline of fetches in flight
-                while len(q) < (depth if link in hot else 1):
+                # the whole pipeline of fetches in flight, and a paused one
+                # only drains it
+                while len(q) < (0 if self._paused else depth if link in hot else 1):
                     df = self.st.begin_frame_burst_device(link, k) if k > 1 else self.st.begin_frame(link)
                     if df is None:
                         break  # link dropped concurrently
@@ -1363,6 +1979,13 @@ class SharedTensorPeer:
         while not self._stop.is_set():
             self._housekeeping()
             busy = self._handle_events()
+            try:
+                # an active barrier and the operator channel; a failed
+                # lifecycle step ends through its own error path, never
+                # the loop
+                self._lc_tick()
+            except Exception:
+                log.exception("lifecycle tick failed (the receive thread goes on)")
             if self._compat and self._engine is not None and not self._ready.is_set() and self._uplink is not None:
                 # the engine consumes the uplink's reference frames: ready
                 # once the transport counts one in, keepalives included
@@ -1388,6 +2011,8 @@ class SharedTensorPeer:
                 traced: list = []
                 msgs = 0
                 for _ in range(256):  # bounded so other links are not starved
+                    if self._stop.is_set():
+                        break  # closing: a streaming link must not hold close() up for 256 applies
                     try:
                         payload = self.node.recv(link, timeout=0.0)
                     except BrokenPipeError:
@@ -1784,6 +2409,34 @@ class SharedTensorPeer:
                     pass  # the prober died
             elif doc.get("op") == "reply" and link == self._uplink:
                 self._clock.on_reply(doc)
+        elif kind == wire.SNAP:
+            # a barrier marker from our parent: per-link FIFO has every
+            # pre-pause data message of the link applied before this runs
+            self._lc_begin(wire.decode_lifecycle(payload), link)
+        elif kind == wire.SNAP_ACK:
+            doc = wire.decode_lifecycle(payload)
+            op = self._lc_op
+            if op is None or str(doc.get("id")) != op["id"]:
+                log.warning("stray SNAP_ACK on link %d (id %s)", link, doc.get("id"))
+                return
+            op["waiting"].discard(link)
+            op["entries"].extend(doc.get("nodes", []))
+            op["errors"].extend(doc.get("errors", []))
+            self._snap_acks += max(1, len(doc.get("nodes", [])))
+        elif kind == wire.RESUME:
+            doc = wire.decode_lifecycle(payload)
+            op = self._lc_op
+            if op is not None and str(doc.get("id")) != op["id"]:
+                # the release of a barrier we refused (and so our subtree
+                # never entered): ours, or the pause deadline, releases us
+                log.warning("ignoring RESUME for foreign barrier %s (active: %s)", doc.get("id"), op["id"])
+                return
+            for child in self._lc_children(exclude=link):  # the subtree first
+                self._send_blocking(child, payload)
+            self._lc_op = None
+            self._set_paused(False)
+        elif kind == wire.CTL:
+            self._handle_ctl_msg(wire.decode_lifecycle(payload), link)
         else:
             self._unknown_msgs += 1
             log.warning("link %d: ignoring message kind %d, which this peer does not speak", link, kind)

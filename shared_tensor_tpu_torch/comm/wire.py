@@ -50,6 +50,10 @@ inside the transport's length-prefixed framing, little-endian throughout.
   the tree once per ``ObsConfig.digest_interval_sec``; CLOCK ``[18][JSON]``,
   a four-stamp clock-offset probe or its reply (``obs/clock.py``). Both
   bodies are compact JSON (no spaces) of at most ``DIGEST_MAX_BYTES``.
+- The cluster lifecycle's control messages, compact JSON under the same
+  cap: SNAP ``[12]`` (the barrier marker, down), SNAP_ACK ``[13]`` (the
+  subtree's shard entries, up), RESUME ``[14]`` (the barrier's release,
+  down) and CTL ``[15]`` (a routed operator command, down).
 - The reference (compat) wire format has no typed messages at all: one
   ``[f32 scale][ceil(n/8)-byte LSB-first bitmask]`` frame per transport
   message, of one flat tensor (:func:`encode_compat_frame`).
@@ -85,10 +89,10 @@ DIGEST = 8  # child -> parent: a subtree's cluster metrics digest (JSON)
 RANGE = 9  # serving tier: a subscriber's word range
 FRESH = 10  # parent -> subscriber: drain mark
 RDATA = 11  # parent -> subscriber: one frame sliced to the range
-SNAP = 12  # cluster lifecycle (not ported)
-SNAP_ACK = 13
-RESUME = 14
-CTL = 15
+SNAP = 12  # parent -> child: lifecycle barrier marker (JSON)
+SNAP_ACK = 13  # child -> parent: barrier ack + the subtree's shard entries (JSON)
+RESUME = 14  # parent -> child: release the lifecycle barrier (JSON)
+CTL = 15  # parent -> child: a routed operator command (JSON)
 SHARD = 16  # cluster-sharded tensor (not ported)
 FWD = 17
 CLOCK = 18  # clock-offset probe or reply (JSON)
@@ -512,6 +516,20 @@ def encode_clock(doc: dict) -> bytes:
 
 def decode_clock(payload: bytes) -> dict:
     return _decode_json(payload, "clock message")
+
+
+def encode_lifecycle(kind: int, doc: dict) -> bytes:
+    """One lifecycle control message (SNAP, SNAP_ACK, RESUME or CTL): the
+    kind byte and a JSON body under ``DIGEST_MAX_BYTES``. A SNAP_ACK whose
+    subtree manifest exceeds the cap raises rather than truncates: a
+    partial manifest would verify as complete."""
+    if kind not in (SNAP, SNAP_ACK, RESUME, CTL):
+        raise ValueError(f"{kind} is not a lifecycle message kind")
+    return _encode_json(kind, doc, "lifecycle message")
+
+
+def decode_lifecycle(payload: bytes) -> dict:
+    return _decode_json(payload, "lifecycle message")
 
 
 # -- serving tier ----------------------------------------------------------------

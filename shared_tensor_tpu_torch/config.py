@@ -5,12 +5,13 @@ idle-frame suppression, adaptive sign2 precision and its governor, the
 engine's cascade depth), the TCP transport (the reference wire format,
 link striping and the same-host shared-memory lane among its knobs), the
 peer's send loop and burst sizes, the native engine switch, fault
-injection (``FaultConfig``), the serving tier (``ServeConfig``) and the
-observability plane (``ObsConfig``). Names,
-defaults and meaning are those of ``shared_tensor_tpu.config``, so a port
-peer and a JAX peer built from the same settings produce the same frames
-and join the same tree. Knobs of features the port does not have
-(lifecycle, sharding) are absent, so asking for one is a ``TypeError``.
+injection (``FaultConfig``), the serving tier (``ServeConfig``), the
+observability plane (``ObsConfig``) and the cluster lifecycle
+(``LifecycleConfig``). Names, defaults and meaning are those of
+``shared_tensor_tpu.config``, so a port peer and a JAX peer built from the
+same settings produce the same frames and join the same tree. The knob of
+the one feature the port does not have yet (sharding) is absent, so asking
+for it is a ``TypeError``.
 """
 
 from __future__ import annotations
@@ -285,6 +286,50 @@ class ServeConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LifecycleConfig:
+    """The cluster lifecycle: consistent-cut snapshot and restore, the
+    restart from shards, the routed drain, and the
+    ``python -m shared_tensor_tpu_torch.ctl`` operator surface. The
+    snapshot barrier is root-initiated (``peer.snapshot_cluster``): a
+    quiesce marker (``wire.SNAP``) floods down the tree on the control
+    plane, every node pauses new production, drains its in-flight ledgers
+    to empty, writes a shard file and acks up; the root writes
+    ``MANIFEST.json`` with each shard's sha256 and releases the barrier
+    (``wire.RESUME``)."""
+
+    #: Stable node name used for shard files (``shard_<name>.npz``) and as
+    #: the ``ctl drain`` target. "" = ``node-<obs_id>`` (unique in the
+    #: process but NOT stable across restarts: set explicit names in any
+    #: deployment that intends to restore).
+    node_name: str = ""
+    #: Shard file to restore from BEFORE joining the tree (the full-cluster
+    #: restart): values load into the replica, and a non-master node's
+    #: checkpointed uplink residual (+ old carry) becomes the re-graft
+    #: carry, so the join's diff handshake re-delivers exactly the owed
+    #: mass. "" = fresh start.
+    restore_path: str = ""
+    #: Root-side operator command channel: when set, a peer with no uplink
+    #: polls ``<ctl_dir>/cmd.json`` for commands written by
+    #: ``python -m shared_tensor_tpu_torch.ctl`` (snapshot / restore /
+    #: drain) and writes ``<ctl_dir>/result.json`` back. File-based like
+    #: ``ObsConfig.cluster_json_path``, so the CLI needs no socket into the
+    #: cluster. "" = disabled.
+    ctl_dir: str = ""
+    #: Root-side budget for one whole-cluster snapshot/restore barrier
+    #: (marker flood + drain-to-quiesce + shard I/O + acks). Past it the
+    #: root RESUMEs the tree anyway and reports failure: a lifecycle
+    #: operation may fail, but it must never leave the cluster paused.
+    snapshot_timeout_sec: float = 60.0
+    #: Safety net on every non-root node: if a barrier's RESUME never
+    #: arrives (the root died mid-barrier), unpause after this long and
+    #: log.
+    pause_timeout_sec: float = 30.0
+    #: ``leave()`` budget for a routed ``ctl drain <node>`` (seal + drain +
+    #: close on the target node).
+    drain_grace_sec: float = 30.0
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     """A peer's configuration."""
 
@@ -321,3 +366,5 @@ class Config:
     #: The observability plane: metrics registry, native event ring,
     #: cluster digests, the clock probe and the root's health analyzer.
     obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
+    #: The cluster lifecycle: snapshot, restore, drain and the ctl channel.
+    lifecycle: LifecycleConfig = dataclasses.field(default_factory=LifecycleConfig)

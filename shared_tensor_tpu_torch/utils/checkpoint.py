@@ -24,6 +24,13 @@ the port and a port checkpoint into the JAX package.
   restores onto a mesh with another shard count: JAX's loader slices one
   covering shard (a finer mesh); this one also joins several (a coarser
   mesh, such as JAX's 8 device shards onto a port mesh of 2 x 2).
+- The cluster lifecycle's consistent-cut snapshot: :func:`save_cluster_shard`
+  / :func:`load_cluster_shard`, one ``shard_<name>.npz`` per node (keys
+  ``values``, ``layout``, ``resid_<id>``, ``meta``), and
+  :func:`write_manifest` / :func:`verify_manifest`, the root's
+  ``MANIFEST.json`` with each shard's sha256. These take numpy arrays: the
+  caller brings tensors to the host. A shard or a manifest either package
+  writes loads and verifies in the other.
 
 The pod functions are collective over the mesh: every rank calls them with
 the same arguments. Writes are atomic (a temporary file, then a rename).
@@ -31,9 +38,12 @@ the same arguments. Writes are atomic (a temporary file, then a rename).
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import tempfile
+import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -287,3 +297,171 @@ def load_pod_sharded(path: str, mesh: Mesh, spec: TableSpec) -> PeerSyncState:
             f"no saved shards cover peer {mesh.peer} [{lo}, {hi}): checkpoint written with an incompatible sharding"
         )
     return PeerSyncState(*(torch.from_numpy(out[f]).to(mesh.device) for f in ("values", "residual")))
+
+
+# -- the cluster lifecycle: one shard per node, the root's manifest ----------------
+#
+# One consistent-cut snapshot of a tree is one shard file per node and
+# MANIFEST.json at the root. A shard holds what the quiesce barrier froze:
+# the replica, every writer link's error-feedback residual, the re-graft
+# carry, and each link's role, wire seqs at the cut and precision.
+# Subscriber links keep their meta only: a read-only leaf re-seeds from
+# scratch on restore. The per-link seqs are for post-mortem reading; link
+# ids are node-local, so the audit does not pair them.
+
+MANIFEST_NAME = "MANIFEST.json"
+
+
+def shard_filename(node_name: str) -> str:
+    """The shard file of a node name (sanitized: names land in filenames)."""
+    safe = "".join(c if c.isalnum() or c in "-_." else "_" for c in str(node_name))
+    return f"shard_{safe}.npz"
+
+
+def file_sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def save_cluster_shard(
+    dirpath: str,
+    node_name: str,
+    snap_id: str,
+    layout_digest: bytes,
+    values: np.ndarray,
+    links: list[dict],
+    wire_version: int = 0,
+) -> dict:
+    """Write one node's shard. ``links`` entries: ``{"id", "role" ("up",
+    "child", "sub" or "carry"), "tx_seq", "rx_count", "prec", "resid" (an
+    f32 array or None)}``. Returns the manifest entry ``{"node", "file",
+    "sha256", "bytes", "links"}``."""
+    os.makedirs(dirpath, exist_ok=True)
+    fname = shard_filename(node_name)
+    path = os.path.join(dirpath, fname)
+    arrays = {"values": np.ascontiguousarray(values, np.float32), "layout": _u8(layout_digest)}
+    meta_links = []
+    for entry in links:
+        lid = int(entry["id"])
+        resid = entry.get("resid")
+        if resid is not None:
+            arrays[f"resid_{lid}"] = np.ascontiguousarray(resid, np.float32)
+        meta_links.append({
+            "id": lid,
+            "role": entry.get("role", "child"),
+            "tx_seq": int(entry.get("tx_seq", 0)),
+            "rx_count": int(entry.get("rx_count", 0)),
+            "prec": int(entry.get("prec", 1)),
+            "has_resid": resid is not None,
+        })
+    arrays["meta"] = _u8(json.dumps({
+        "format": _FORMAT,
+        "kind": "cluster_shard",
+        "snap_id": str(snap_id),
+        "node": str(node_name),
+        "wire_version": int(wire_version),
+        "time": time.time(),
+        "links": meta_links,
+    }).encode())
+    _atomic_savez(path, **arrays)
+    return {
+        "node": str(node_name),
+        "file": fname,
+        "sha256": file_sha256(path),
+        "bytes": os.path.getsize(path),
+        "links": meta_links,
+    }
+
+
+def load_cluster_shard(path: str) -> dict:
+    """Read a shard back: ``{"values", "layout", "meta", "links": {id:
+    {"role", "tx_seq", "rx_count", "prec", "resid" (or None)}}}``."""
+    with np.load(path) as z:
+        meta = _meta(z)
+        if meta.get("kind") != "cluster_shard":
+            raise ValueError(f"{path} is not a cluster shard")
+        values = np.asarray(z["values"], np.float32)
+        layout = z["layout"].tobytes()
+        links: dict[int, dict] = {}
+        for entry in meta.get("links", []):
+            lid = int(entry["id"])
+            links[lid] = dict(entry)
+            key = f"resid_{lid}"
+            links[lid]["resid"] = np.asarray(z[key], np.float32) if entry.get("has_resid") and key in z else None
+    return {"values": values, "layout": layout, "meta": meta, "links": links}
+
+
+def restore_carry_from_shard(shard: dict) -> Optional[np.ndarray]:
+    """The re-graft carry a restarted node re-joins with: its checkpointed
+    uplink residual plus any checkpointed carry. Only up-flow mass rides
+    the carry; child-link residuals are dropped, because the children's own
+    re-join diff handshakes re-derive the down-flow they are missing
+    (summing both directions into one carry would deliver an add twice)."""
+    out = None
+    for entry in shard["links"].values():
+        if entry.get("role") in ("up", "carry") and entry.get("resid") is not None:
+            r = np.asarray(entry["resid"], np.float32)
+            out = r if out is None else out + r
+    return out
+
+
+def atomic_write_json(path: str, doc: dict) -> str:
+    """A JSON write through a temporary file and a rename: the manifest,
+    the peer's ctl result and the CLI's command file all go through it."""
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "w") as f:
+            json.dump(doc, f, indent=2)
+            f.write("\n")
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+    return path
+
+
+def write_manifest(dirpath: str, snap_id: str, entries: list[dict], extra: Optional[dict] = None) -> str:
+    doc = {
+        "format": _FORMAT,
+        "kind": "cluster_manifest",
+        "snap_id": str(snap_id),
+        "time": time.time(),
+        "nodes": sorted(entries, key=lambda e: e["node"]),
+    }
+    if extra:
+        doc.update(extra)
+    return atomic_write_json(os.path.join(dirpath, MANIFEST_NAME), doc)
+
+
+def load_manifest(dirpath: str) -> dict:
+    with open(os.path.join(dirpath, MANIFEST_NAME)) as f:
+        doc = json.load(f)
+    if doc.get("kind") != "cluster_manifest":
+        raise ValueError(f"{dirpath} holds no cluster manifest")
+    return doc
+
+
+def verify_manifest(dirpath: str) -> list[str]:
+    """Audit a snapshot directory against its manifest: the manifest
+    parses, every shard is there and every sha256 matches. Returns the
+    problems ([] = clean)."""
+    problems: list[str] = []
+    try:
+        doc = load_manifest(dirpath)
+    except (OSError, ValueError) as e:
+        return [f"manifest unreadable: {e}"]
+    for entry in doc.get("nodes", []):
+        path = os.path.join(dirpath, entry["file"])
+        if not os.path.exists(path):
+            problems.append(f"{entry['node']}: shard {entry['file']} missing")
+            continue
+        digest = file_sha256(path)
+        if digest != entry.get("sha256"):
+            problems.append(f"{entry['node']}: shard digest mismatch ({digest[:12]} != {entry.get('sha256', '')[:12]})")
+    return problems

@@ -547,3 +547,70 @@ def test_pod_step_kernels_match_plain_on_two_gloo_ranks(cuda_device):
                                          timeout_s=300):
         assert mismatches == 0
         assert launches == {"quantize_rows": 3, "apply_rows_batch": 3, "quantize": 0, "apply_frame_many": 0}
+
+
+@pytest.mark.cuda
+def test_inplace_restore_recaptures_the_burst_graph(cuda_device):
+    """A CUDA peer restores in place (restore_cluster) a link residual that
+    its burst graph did not capture: the first burst after the restore
+    quantizes the RESTORED residual, its frames and the residual it leaves
+    bit-equal to the plain codec's on that residual, through a graph
+    captured anew on the restored tensor."""
+    import tempfile
+    import threading
+
+    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch
+    from shared_tensor_tpu_torch.config import LifecycleConfig
+    from shared_tensor_tpu_torch.ops.table import quantize_table_burst
+
+    def cfg(name):
+        return Config(transport=TransportConfig(peer_timeout_sec=10.0), lifecycle=LifecycleConfig(node_name=name))
+
+    rng = np.random.default_rng(11)
+    n = 1 << 16
+    port = _free_port()
+    with create_or_fetch("127.0.0.1", port, np.zeros(n, np.float32), cfg("m"), device=cuda_device) as m, \
+            create_or_fetch("127.0.0.1", port, np.zeros(n, np.float32), cfg("j"), device=cuda_device) as j, \
+            tempfile.TemporaryDirectory() as snap:
+        link = m.st.link_ids[0]
+        # paused, the add stays in m's link residual: the cut holds it whole
+        m.pause()
+        x = rng.uniform(-1, 1, n).astype(np.float32)
+        m.add(x)
+        assert m.snapshot_cluster(snap)["ok"]
+        m.add(rng.uniform(-1, 1, n).astype(np.float32))
+        deadline = time.time() + 30
+        while time.time() < deadline and not m.drain(timeout=0.5):
+            pass
+        old_graph = m.st._graphs[link]
+        rec, armed = [], threading.Event()
+        begin, restore = m.st.begin_frame_burst_device, m.st.restore_state
+
+        def recording_begin(lid, k):
+            if lid != link or not armed.is_set() or rec:
+                return begin(lid, k)
+            before = m.st._links[lid].clone()
+            out = begin(lid, k)
+            torch.cuda.synchronize()
+            rec.append((before, out[1].scales.clone(), out[1].words.clone(), m.st._links[lid].clone(), k))
+            return out
+
+        def arming_restore(values, links):
+            restore(values, links)
+            armed.set()
+
+        m.st.begin_frame_burst_device, m.st.restore_state = recording_begin, arming_restore
+        assert m.restore_cluster(snap)["ok"]
+        deadline = time.time() + 30
+        while not rec and time.time() < deadline:
+            time.sleep(0.01)
+        assert rec, "no burst after the restore"
+        before, scales, words, after, k = rec[0]
+        np.testing.assert_array_equal(before.cpu().numpy(), x)  # the restored residual, whole
+        want, resid = quantize_table_burst(before.clone(), m.st.spec, k, m.st.codec.scale_policy,
+                                           m.st.codec.per_leaf_scale, "plain")
+        torch.cuda.synchronize()
+        assert _same_bits(scales, want.scales) and _same_bits(words, want.words)
+        assert _same_bits(after, resid)
+        assert m.st._graphs[link] is not old_graph and m.st._graphs[link].resid is m.st._links[link]
+        assert j.threads_alive() and m.threads_alive()

@@ -46,6 +46,26 @@ def test_sources_name_no_jax(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path.name} imports {name}"
 
 
+@pytest.mark.parametrize("module", ["shared_tensor_tpu_torch.ctl", "shared_tensor_tpu_torch.benchmarks.lifecycle"])
+def test_cli_modules_load_no_jax(module):
+    """The operator CLI and the lifecycle bench, each imported alone (and
+    the CLI's help run as ``python -m``), load no jax and nothing of the
+    JAX package."""
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{module!r}, '--help']\n"
+        "try:\n"
+        f"    runpy.run_module({module!r}, run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "usage" in out.stdout
+
+
 def test_transport_builds_its_own_library_without_make(tmp_path):
     """The port's transport compiles native/sttransport.cpp with g++ into its
     own build directory: no ``make``, nothing written into native/, and no

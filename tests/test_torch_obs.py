@@ -161,7 +161,8 @@ def _native_symbols() -> set[str]:
 
 #: st_ literals of the package that name no metric and no native symbol.
 NON_METRICS = {"st_mesh_": "the pod tier's temporary directory prefix (parallel/mesh.py)",
-               "st_trace": "the Chrome trace_event category of update flows (obs/trace_export.py)"}
+               "st_trace": "the Chrome trace_event category of update flows (obs/trace_export.py)",
+               "st_ctl": "the operator CLI's default command directory, JAX's name (ctl.py)"}
 #: st_ prefixes of names built by formatting that are no metric names.
 DYNAMIC_NON_METRICS = {"st_postmortem_": "the postmortem file name (obs/recorder.py)"}
 

@@ -374,10 +374,7 @@ def test_device_none_needs_a_gpu():
 
 
 def test_unported_config_knobs_are_type_errors():
-    cases = (
-        (Config, {"lifecycle": None}),
-        (Config, {"shard": None}),
-    )
+    cases = ((Config, {"shard": None}),)
     for cls, kw in cases:
         with pytest.raises(TypeError):
             cls(**kw)
