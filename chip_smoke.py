@@ -226,6 +226,33 @@ Phases, in order; any failure exits non-zero:
    engine peers, 25% drops on one link, the whole tree killed and restarted
    from its shards, against an uninterrupted arm). One {"lifecycle": ...}
    line.
+17. The cluster-sharded tensor on BASELINE config 2's table (the default
+   CharRNNConfig: 9 leaves, 3,870,976 elements; benchmarks/serve.tables'
+   power-of-two data from --seed), ShardRun: n_shards 4, the master n0 and
+   n1 on the engine lane, n2 on the Python plane, n3 on the lane joined at
+   n1's address so that it sits below n1 and its FWD frames cross a relay;
+   every node with the ACK timeout of JAX's sharded benches (SHARD_ACK_S).
+   (17a) each node adds one whole-table update (three quarters of it leave
+   as FWD); every node drains within SHARD_WAIT_S (the seconds from the
+   last add reported); FWD messages out, in, relayed (> 0) and
+   dedup-discarded, park drops 0; each node's alloc_bytes after the drain
+   under half of the table (and its peak during the adds, with up to three
+   outboxes alive); a ShardGather over the four owners at the total within
+   AGREE_REL of each leaf's max |value|. (17b) torch_view() on the card,
+   bit-equal to the gather; its milliseconds and the copy's alone. (17c) a
+   CUDA classic master and a create_or_fetch_sharded joiner (n_shards 4),
+   which falls back to a classic peer on the card (sharded False); both
+   add and agree within AGREE_REL within SHARD_WAIT_S. (17d) n2 leaves:
+   its parent n0 adopts shard 2 at a higher epoch, with n2's end-to-end
+   dedup windows, and a new gather reads the total (no mass lost, none
+   applied twice). (17e) every node's save_shards into profiles/phase17/,
+   a manifest and verify_shard_coverage clean; every node closes and
+   restarts from the files (ShardConfig.restore_dir) on a new port, n0
+   re-claiming both its shards, and a gather reads the cut's total. Then
+   the launches of A and B in 17a-17e (17c's peers), and A and B against
+   their plain versions on 17c's master's state (tree_kernel_check), 0
+   mismatches. Each wait has SHARD_WAIT_S, the phase SHARD_PHASE_S; any
+   miss fails. One {"shard": ...} line.
 The transport, the host codec and the engine (native/sttransport.cpp,
 stcodec.c, stengine.cpp) and the C reference peer (stc_harness.c) are
 compiled with g++ and gcc in phase 1, beside the kernels. Every rank's full results of phases 9, 10 and 11 go to
@@ -2886,6 +2913,272 @@ def lifecycle_phase(device, seed: int, smi: str, cfg_m=None) -> tuple[dict, tupl
     return out, master
 
 
+# -- phase 17 -------------------------------------------------------------------
+
+#: Phase 17: the shards of config 2's table, the phase's budget, and each
+#: wait's deadline (a drain, an alloc settle, an adoption, a restart).
+SHARD_N = 4
+SHARD_PHASE_S = 10.0
+SHARD_WAIT_S = 8.0
+#: Phase 17's go-back-N ACK timeout, the one JAX's sharded benches and lane
+#: tests run with (benchmarks/shard_bench.py, cluster_chaos.py --sharded):
+#: a FWD or an ACK that bounces off a full send queue waits for this timer
+#: in both packages, and at the 5 s default one such wait (then 10 s) ran a
+#: node past SHARD_WAIT_S.
+SHARD_ACK_S = 0.4
+SHARD_FWD_KEYS = ("st_shard_fwd_msgs_out_total", "st_shard_fwd_msgs_in_total", "st_shard_fwd_relayed_total",
+                  "st_shard_fwd_dedup_total", "st_shard_park_drops_total", "st_shard_fwd_retx_total")
+
+
+def _flat_rel_err(flat, target, spec) -> float:
+    """Worst per-leaf max |flat - target| / the leaf's max |target| of two
+    flat host arrays of the padded layout."""
+    from shared_tensor_tpu_torch.ops.codec_np import _layout
+
+    offs, ns, _ = _layout(spec)
+    worst = 0.0
+    for o, n in zip(offs, ns):
+        t = np.asarray(target[o:o + n], np.float64)
+        mag = float(np.abs(t).max())
+        err = float(np.abs(np.asarray(flat[o:o + n], np.float64) - t).max())
+        worst = max(worst, err / mag if mag > 0 else err)
+    return worst
+
+
+class ShardRun:
+    """Phase 17's sharded cluster on the table of the char-RNN ``cfg_m``
+    (None: config 2's), data from ``seed``: n0 (the master) and n1 on the
+    engine lane, n2 on the Python plane, n3 on the lane below n1."""
+
+    def __init__(self, seed: int, cfg_m=None):
+        from shared_tensor_tpu_torch.benchmarks import serve as serve_bench
+        from shared_tensor_tpu_torch.models.char_rnn import CharRNNConfig
+        from shared_tensor_tpu_torch.ops import codec_np
+        from shared_tensor_tpu_torch.ops.table import make_spec
+
+        self.template, self.seed_tree, self.deltas = serve_bench.tables(cfg_m or CharRNNConfig(), seed + 17, n=6)
+        self.spec = make_spec(self.template)
+        self.full = self.spec.total * 4
+        self.total = np.sum([codec_np.flatten_np(d, self.spec).astype(np.float64) for d in self.deltas[:SHARD_N]],
+                            axis=0)
+        self.hs: list = []
+        self.out: dict = {}
+
+    def cfg(self, i: int, lane: bool = True, restore: str = ""):
+        from shared_tensor_tpu_torch import Config, TransportConfig
+        from shared_tensor_tpu_torch.config import LifecycleConfig, ShardConfig
+
+        return Config(shard=ShardConfig(n_shards=SHARD_N, shard_index=i, engine_lane=lane, restore_dir=restore),
+                      lifecycle=LifecycleConfig(node_name=f"n{i}"),
+                      transport=TransportConfig(peer_timeout_sec=30.0, ack_timeout_sec=SHARD_ACK_S))
+
+    def cluster(self, port: int, restore: str = "", lanes=(True, True, False, True), names=(0, 1, 2, 3)) -> list:
+        """The nodes, joined in order. n3 joins at n1's address, so it sits
+        below n1 and its FWD frames cross a relay: a ShardNode's fan-out is
+        ShardConfig.max_children, and capping n0's would turn the gather's
+        leg to shard 0 away too."""
+        from shared_tensor_tpu_torch.shard import create_or_fetch_sharded
+
+        hs = []
+        try:
+            for i, lane in zip(names, lanes):
+                at = hs[1].node.node.listen_port if i == 3 else port
+                hs.append(create_or_fetch_sharded("127.0.0.1", at, self.template, self.cfg(i, lane, restore),
+                                                  timeout=60.0))
+        except BaseException:
+            for h in reversed(hs):
+                h.close()
+            raise
+        self.hs = hs
+        return hs
+
+    def gather(self, node) -> tuple[float, np.ndarray, float]:
+        """(worst per-leaf error against the total, the flat gather, seconds)."""
+        from shared_tensor_tpu_torch.shard import ShardGather
+
+        t1 = time.perf_counter()
+        with ShardGather(node, self.template) as g:
+            flat, _worst = g.read(max_staleness=60.0)
+        return _flat_rel_err(flat, self.total, self.spec), flat, time.perf_counter() - t1
+
+    @staticmethod
+    def wait(pred, what: str) -> float:
+        t1 = time.perf_counter()
+        while not pred():
+            if time.perf_counter() - t1 > SHARD_WAIT_S:
+                raise AssertionError(f"phase 17: {what} not within {SHARD_WAIT_S} s")
+            time.sleep(0.005)
+        return time.perf_counter() - t1
+
+    def close(self) -> None:
+        for h in reversed(self.hs):
+            h.close()
+        self.hs = []
+
+    def phase_a(self) -> np.ndarray:
+        """17a: the join, one whole-table add on each node (three quarters of
+        each leave as FWD), the drain, each node's alloc against the table,
+        and a gather at the total. Returns the gather."""
+        out, t0 = self.out, time.perf_counter()
+        n0, n1, n2, n3 = hs = self.cluster(_free_port())
+        lanes = [h.node._lane is not None for h in hs]
+        if not all(h.sharded for h in hs) or lanes != [True, True, False, True] or n3.node.is_master \
+                or len(n0.node.node.links) != 2 or len(n1.node.node.links) != 2:
+            raise AssertionError(f"phase 17: want n0, n1 (lane), n2 (Python plane) below n0 and n3 (lane) below "
+                                 f"n1; lanes {lanes}, n0 links {len(n0.node.node.links)}, n1 links "
+                                 f"{len(n1.node.node.links)}")
+        out["join_s"] = time.perf_counter() - t0
+        peak, stop = [0] * len(hs), threading.Event()
+
+        def sample():  # each node's peak, with up to three outboxes alive
+            while not stop.is_set():
+                for i, h in enumerate(hs):
+                    peak[i] = max(peak[i], h.node.alloc_bytes())
+                time.sleep(0.002)
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        try:
+            for h, d in zip(hs, self.deltas):
+                h.add(d)
+            t_add = time.perf_counter()
+            for h in hs:
+                if not h.drain(timeout=SHARD_WAIT_S):
+                    state = [{"drained": x.node.drained(), "outbox_bytes": x.node.metrics().get("st_shard_outbox_bytes"),
+                              "parked": x.node.metrics().get("st_shard_parked_msgs"),
+                              **{k: x.node.metrics().get(k) for k in SHARD_FWD_KEYS}} for x in hs]
+                    raise AssertionError(f"phase 17a: {h.node.node_name} did not drain within {SHARD_WAIT_S} s: "
+                                         f"{state}")
+            out["drain_s"] = time.perf_counter() - t_add
+        finally:
+            stop.set()
+            sampler.join()
+        # idle outboxes are freed on the plane's next pass
+        full = self.full
+        out["settle_s"] = self.wait(lambda: all(h.node.alloc_bytes() < full // 2 for h in hs), "idle outboxes freed")
+        alloc = [h.node.alloc_bytes() for h in hs]
+        snaps = [h.node.metrics() for h in hs]
+        out["fwd"] = {k: [int(m_.get(k, 0)) for m_ in snaps] for k in SHARD_FWD_KEYS}
+        out["alloc"] = {"full_bytes": full, "after_drain": alloc, "after_drain_frac": [b / full for b in alloc],
+                        "peak": peak, "peak_frac": [b / full for b in peak]}
+        if sum(out["fwd"]["st_shard_park_drops_total"]) or not sum(out["fwd"]["st_shard_fwd_relayed_total"]):
+            raise AssertionError(f"phase 17a: park drops or no relay: {out['fwd']}")
+        err, flat, gather_s = self.gather(n0.node)
+        out["gather"] = {"err": err, "seconds": gather_s}
+        if not err <= AGREE_REL:
+            raise AssertionError(f"phase 17a: the gather is {err:.3e} off the total")
+        fw = out["fwd"]
+        print(f"[17] n0, n1, n3 (lane) and n2 (Python plane), n3 below n1, joined in {out['join_s']:.3f} s; 17a "
+              f"drained {out['drain_s']:.3f} s after the last add; FWD out {sum(fw['st_shard_fwd_msgs_out_total'])}, "
+              f"in {sum(fw['st_shard_fwd_msgs_in_total'])}, relayed {sum(fw['st_shard_fwd_relayed_total'])}, dedup "
+              f"{sum(fw['st_shard_fwd_dedup_total'])}, park drops {sum(fw['st_shard_park_drops_total'])}, "
+              f"retransmitted {sum(fw['st_shard_fwd_retx_total'])}; alloc "
+              f"after the drain {[round(x, 4) for x in out['alloc']['after_drain_frac']]} of the table, peak "
+              f"{[round(x, 4) for x in out['alloc']['peak_frac']]}; gather err {err:.3e} ({gather_s:.3f} s)")
+        return flat
+
+    def phase_d(self) -> None:
+        """17d: n2 (the Python plane) leaves; its parent n0 adopts shard 2 at
+        a higher epoch with n2's dedup windows; a new gather at the total."""
+        n0, n1, n2, n3 = self.hs
+        t1 = time.perf_counter()
+        epoch = n0.node.map.owners[2].epoch
+        ok = n2.leave(timeout=SHARD_WAIT_S)
+        self.hs = [n0, n1, n3]
+        if not ok:
+            raise AssertionError("phase 17d: n2's leave did not complete")
+        self.wait(lambda: n0.node.owned_shards() == [0, 2], "n0's adoption of shard 2")
+        err, _, _ = self.gather(n0.node)
+        d = self.out["handoff"] = {"seconds": time.perf_counter() - t1, "epoch": [epoch, n0.node.map.owners[2].epoch],
+                                   "err": err, "handoffs": int(n0.node.metrics().get("st_shard_handoffs_total", 0))}
+        if not err <= AGREE_REL or d["epoch"][1] <= epoch:
+            raise AssertionError(f"phase 17d: {d}")
+
+    def phase_e(self, snapdir: str) -> None:
+        """17e: every node writes its shard state into ``snapdir``, the
+        exactly-one-owner audit is clean, the nodes close and restart from
+        the files on a new port, and a gather reads the cut's total."""
+        from shared_tensor_tpu_torch.utils import checkpoint as ckpt
+
+        shutil.rmtree(snapdir, ignore_errors=True)
+        t1 = time.perf_counter()
+        entries = [h.node.save_shards(snapdir) for h in self.hs]
+        ckpt.write_manifest(snapdir, "phase17", entries)
+        problems = ckpt.verify_shard_coverage(snapdir, SHARD_N)
+        self.out["snapshot"] = {"seconds": time.perf_counter() - t1, "problems": problems,
+                                "bytes": sum(e["bytes"] for e in entries)}
+        if problems:
+            raise AssertionError(f"phase 17e: coverage audit {problems}")
+        self.close()
+        t1 = time.perf_counter()
+        hs = self.cluster(_free_port(), snapdir, lanes=(True, True, True), names=(0, 1, 3))
+        owned = [h.node.owned_shards() for h in hs]
+        err, _, _ = self.gather(hs[0].node)
+        d = self.out["restart"] = {"seconds": time.perf_counter() - t1, "owned": owned, "err": err}
+        if owned != [[0, 2], [1], [3]] or not err <= AGREE_REL:
+            raise AssertionError(f"phase 17e: {d}")
+
+
+def shard_phase(device, seed: int, smi: str, cfg_m=None) -> tuple[dict, tuple]:
+    """Phase 17 (module docstring) on the table of the char-RNN ``cfg_m``
+    (None: config 2's). Returns the report and 17c's CUDA master's state
+    for tree_kernel_check."""
+    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch
+    from shared_tensor_tpu_torch.ops.table import flatten
+    from shared_tensor_tpu_torch.shard import create_or_fetch_sharded
+
+    run = ShardRun(seed, cfg_m)
+    out, spec = run.out, run.spec
+    t0 = time.perf_counter()
+    try:
+        flat = run.phase_a()
+        # 17b: the view on the card is that gather, copied; then the copy alone
+        t1 = time.perf_counter()
+        view = run.hs[0].torch_view(device=device)
+        _sync(device)
+        view_s = time.perf_counter() - t1
+        same = _bitdiff(view, torch.from_numpy(flat).to(device))
+        t1 = time.perf_counter()
+        torch.from_numpy(flat).to(device)
+        _sync(device)
+        out["view"] = {"device": str(view.device), "mismatches": same, "torch_view_ms": view_s * 1e3,
+                       "copy_ms": (time.perf_counter() - t1) * 1e3, "bytes": flat.nbytes}
+        if same or view.device.type != device.type:
+            raise AssertionError(f"phase 17b: torch_view is not the gather on {device}: {out['view']}")
+        # 17c: the fallback on the device tier: a classic master on the card
+        # and a sharded joiner, which comes back as a classic peer on the card
+        t1 = time.perf_counter()
+        port = _free_port()
+        c2 = Config(transport=TransportConfig(peer_timeout_sec=30.0))
+        with create_or_fetch("127.0.0.1", port, run.seed_tree, c2, timeout=60.0, device=device) as m:
+            with create_or_fetch_sharded("127.0.0.1", port, run.template, run.cfg(1), timeout=60.0,
+                                         device=device) as j:
+                if j.sharded or j.peer.st.device.type != device.type or j.peer._engine is not None:
+                    raise AssertionError(f"phase 17c: the joiner did not fall back to a {device} classic peer")
+                m.add(run.deltas[4])
+                j.add(run.deltas[5])
+                target, mag, _ = _lc_target(run.seed_tree, run.deltas[4:6], spec, device)
+                agree_s, cerr = _wait_agree([m, j.peer], target, mag, spec, AGREE_REL, SHARD_WAIT_S, 0.01)
+                _healthy([m, j.peer])
+                master = m.st.snapshot_all() + (flatten(run.deltas[4], spec, device), m.st.codec)
+        out["fallback"] = {"agree_s": agree_s, "err": cerr, "seconds": time.perf_counter() - t1}
+        run.phase_d()
+        run.phase_e(os.path.join(OUT_DIR, "phase17"))
+    finally:
+        run.close()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[17] 17b torch_view {out['view']['torch_view_ms']:.3f} ms, the copy {out['view']['copy_ms']:.3f} ms "
+          f"({flat.nbytes} bytes); 17c fallback on {device}: agreed {agree_s:.3f} s after the adds "
+          f"({out['fallback']['seconds']:.3f} s with the joins)")
+    print(f"[17] 17d handoff {out['handoff']['seconds']:.3f} s, epoch {out['handoff']['epoch']}, gather err "
+          f"{out['handoff']['err']:.3e}; 17e {out['snapshot']['bytes']} bytes of shard state in "
+          f"{out['snapshot']['seconds']:.3f} s, audit clean, restart and gather {out['restart']['seconds']:.3f} s "
+          f"(owned {out['restart']['owned']}); phase 17 {out['seconds']:.3f} s; on {smi}")
+    if out["seconds"] > SHARD_PHASE_S:
+        raise AssertionError(f"phase 17 took {out['seconds']:.3f} s, over its {SHARD_PHASE_S} s budget")
+    return out, master
+
+
 SOURCES = {
     "quantize_rows":("shared_tensor_tpu_torch/csrc/quantize_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:286"),
     "apply_rows_batch": ("shared_tensor_tpu_torch/csrc/apply_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:337"),
@@ -3139,8 +3432,27 @@ def main() -> int:
           f"arms max dev {kr['arms_max_deviation']:.3e}, {kr['seconds']:.3f} s: {'PASS' if kr['pass'] else 'FAIL'}")
     if not kr["pass"]:
         raise AssertionError(f"phase 16: the kill-restore arm failed: {kr}")
+
+    # 17. the cluster-sharded tensor on config 2's table (the launch counts of
+    # A and B are 17a-17e's: the fallback's CUDA peers in 17c)
+    CC.reset_launches()
+    shard_out, master = shard_phase(dev, args.seed, smi)
+    shard_launches = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
+    if not all(shard_launches.values()):
+        raise AssertionError(f"a kernel of the sharded phase never launched: {shard_launches}")
+    check17 = tree_kernel_check(master, make_spec(char_template), "17c")
+    del master
+    shard_out["launches"] = shard_launches
+    for k, n in shard_launches.items():
+        t[k]["launches_phase17"] = n
+        t[k]["mismatches_phase17"] = check17[k]["mismatches"]
+        t[k]["max_abs_err_phase17"] = check17[k]["max_abs_err"]
+    bad = {k: v["mismatches"] for k, v in check17.items() if v["mismatches"]}
+    if bad:
+        raise AssertionError(f"phase 17c: kernel vs plain mismatches on the master's state: {bad}")
+    print(f"[17] launches {shard_launches}")
     serve_out["script_s"] = time.perf_counter() - t_script
-    print(f"[16] script {serve_out['script_s']:.3f} s")
+    print(f"[17] script {serve_out['script_s']:.3f} s")
 
     print(smi)
     kernels = []
@@ -3163,6 +3475,7 @@ def main() -> int:
     print(json.dumps({"wire": wire_out}))
     print(json.dumps({"obs": obs_out}))
     print(json.dumps({"lifecycle": lc_out}))
+    print(json.dumps({"shard": shard_out}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

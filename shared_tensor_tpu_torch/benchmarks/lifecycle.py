@@ -1,8 +1,9 @@
 """The cluster lifecycle's kill-restore arm: a snapshot under chaos, the
 whole tree killed, restarted from its shards and held against an
-uninterrupted run.
+uninterrupted run; and its sharded arm.
 
     python -m shared_tensor_tpu_torch.benchmarks.lifecycle [--dir D] [--out FILE]
+    python -m shared_tensor_tpu_torch.benchmarks.lifecycle --sharded [--dir D] [--out FILE]
 
 The counterpart of the ``--kill-restore`` arm of the root
 ``benchmarks/cluster_chaos.py``, with its constants: a tree of ``NODES``
@@ -55,6 +56,10 @@ SNAP_BUDGET_S = 30.0
 #: Both arms' final replicas agree within this (drop chaos and go-back-N
 #: converge exactly: the bound is float accumulation slack).
 ARMS_BOUND = 1e-3
+#: The sharded arm's table and the model's size over one node's allowance
+#: (the JAX arm's ``ST_SHARD_N`` and ``ST_SHARD_FACTOR`` defaults).
+SHARD_N = 16384
+SHARD_FACTOR = 2
 
 
 def _free_port() -> int:
@@ -191,16 +196,196 @@ def run_kill_restore(snapdir: str, nodes: int = NODES, n: int = N, adds: int = A
     return out
 
 
+def run_sharded(snapdir: str, nodes: int = NODES, n: int = SHARD_N, adds: int = ADDS, seed: int = SEED) -> dict:
+    """The sharded arm (module docstring); the shard-state files go to
+    ``snapdir``. Returns the report, its verdict under ``pass``."""
+    from shared_tensor_tpu_torch import obs
+    from shared_tensor_tpu_torch.comm import faults
+    from shared_tensor_tpu_torch.config import Config, FaultConfig, LifecycleConfig, ShardConfig, TransportConfig
+    from shared_tensor_tpu_torch.ops.table import make_spec
+    from shared_tensor_tpu_torch.shard import ShardGather, create_or_fetch_sharded
+    from shared_tensor_tpu_torch.utils import checkpoint as ckpt
+
+    tmpl = {"t": np.zeros(n, np.float32)}
+    spec = make_spec(tmpl)
+    full_bytes = spec.total * 4  # a full replica's floor
+    bound = full_bytes // SHARD_FACTOR  # one node's allowance, checked at every sample
+    chaos_idx = nodes - 1
+    env = faults.to_env(FaultConfig(enabled=True, seed=seed, drop_pct=0.25, only_link=1))
+
+    def cfg(i: int, restore: str = "") -> Config:
+        return Config(
+            shard=ShardConfig(n_shards=nodes, shard_index=i, restore_dir=restore),
+            lifecycle=LifecycleConfig(node_name=f"s{i}"),
+            transport=TransportConfig(peer_timeout_sec=20.0, ack_timeout_sec=0.4),
+        )
+
+    def build(port: int, restore_dir: str = "") -> list:
+        handles = []
+        try:
+            for i in range(nodes):
+                if i == chaos_idx:
+                    os.environ["ST_FAULT_PLAN"] = env["ST_FAULT_PLAN"]
+                try:
+                    handles.append(create_or_fetch_sharded("127.0.0.1", port, tmpl, cfg(i, restore_dir),
+                                                           timeout=60.0))
+                finally:
+                    os.environ.pop("ST_FAULT_PLAN", None)
+        except BaseException:
+            for h in handles:
+                h.close()
+            raise
+        return handles
+
+    # sparse adds (windows of about one shard): no writer needs the whole
+    # table resident, which is the point of the sharded tensor
+    rng = np.random.default_rng(seed)
+    win = max(64, n // nodes)
+
+    def mk_deltas(count: int) -> list:
+        out = []
+        for _ in range(count):
+            lo = int(rng.integers(0, n - win))
+            d = np.zeros(n, np.float32)
+            d[lo:lo + win] = rng.uniform(-0.5, 0.5, win).astype(np.float32)
+            out.append(d)
+        return out
+
+    p1 = mk_deltas(adds)
+    p2 = mk_deltas(max(4, adds // 2))
+    total1 = np.sum(p1, axis=0, dtype=np.float64)
+    total_all = total1 + np.sum(p2, axis=0, dtype=np.float64)
+    alloc = {"violations": 0, "peak": 0, "samples": 0, "stalls": 0}
+    slice_bytes = (spec.total // nodes + 32) * 4  # one shard slice: the admission unit
+
+    def soak(handles, deltas) -> None:
+        for i, d in enumerate(deltas):
+            h = handles[0 if i % 2 else chaos_idx]
+            # a writer adds only while its resident bytes leave room for two
+            # outbox slices (a window can straddle a shard boundary): the
+            # backpressure a training step's sync point gives
+            deadline = time.time() + 30.0
+            while h.node.alloc_bytes() > bound - 2 * slice_bytes and time.time() < deadline:
+                alloc["stalls"] += 1
+                time.sleep(0.005)
+            h.add({"t": d})
+            for hh in handles:
+                b = hh.node.alloc_bytes()
+                alloc["samples"] += 1
+                alloc["peak"] = max(alloc["peak"], b)
+                alloc["violations"] += int(b > bound)
+            time.sleep(0.015)
+
+    def gathered(handles, total, budget: float, atol: float = 1e-3) -> tuple[bool, float]:
+        deadline = time.time() + budget
+        while time.time() < deadline:
+            if all(h.node.drained() for h in handles):
+                with ShardGather(handles[0].node, tmpl) as g:
+                    got = np.asarray(g.read_tree(max_staleness=60.0)["t"])
+                if np.allclose(got, total, atol=atol):
+                    return True, float(np.max(np.abs(got - total)))
+            time.sleep(0.25)
+        with ShardGather(handles[0].node, tmpl) as g:
+            got = np.asarray(g.read_tree(max_staleness=60.0)["t"])
+        return False, float(np.max(np.abs(got - total)))
+
+    out: dict = {
+        "bench": "lifecycle_sharded", "nodes": nodes, "n_shards": nodes, "n": n,
+        "adds": {"phase1": len(p1), "phase2": len(p2)}, "seed": seed,
+        "chaos": {"drop_pct": 0.25, "only_link": 1, "node_index": chaos_idx},
+        "memory_model": {"full_replica_bytes_per_node": full_bytes, "per_node_alloc_bound": bound,
+                         "model_over_node_factor": SHARD_FACTOR},
+        "budgets": {"restore_sec": RESTORE_BUDGET_S},
+    }
+    hub = obs.hub()
+    hub.poll_native()
+    hub.recorder.clear()
+    t_all = time.perf_counter()
+    handles = build(_free_port())
+    try:
+        out["sharded"] = all(h.sharded for h in handles)
+        out["engine_lane"] = all(h.node._lane is not None for h in handles)
+        t0 = time.monotonic()
+        soak(handles, p1)
+        ok1, dev1 = gathered(handles, total1, 120.0)
+        out["pre_kill"] = {"converged": ok1, "max_dev": dev1, "seconds": time.monotonic() - t0}
+        # steady state: outboxes drained and freed; the gather's legs tear
+        # down asynchronously at each owner, so let them settle
+        settle = time.time() + 5.0
+        while time.time() < settle:
+            steady = max(h.node.alloc_bytes() for h in handles)
+            if steady <= full_bytes * 2.0 / nodes:
+                break
+            time.sleep(0.05)
+        out["memory_model"]["steady_state_max_bytes"] = steady
+        out["memory_model"]["steady_over_full_ratio"] = steady / full_bytes
+        out["ownership_pre_kill"] = {str(i): h.node.owned_shards() for i, h in enumerate(handles)}
+        t0 = time.monotonic()
+        entries = [e for e in (h.node.save_shards(snapdir) for h in handles) if e is not None]
+        ckpt.write_manifest(snapdir, "lifecycle-sharded", entries)
+        out["snapshot"] = {"nodes": len(entries), "coverage_problems": ckpt.verify_shard_coverage(snapdir, nodes),
+                           "duration_sec": time.monotonic() - t0}
+    finally:
+        for h in handles:
+            h.close()  # the whole-cluster kill
+    t0 = time.monotonic()
+    handles = build(_free_port(), restore_dir=snapdir)
+    try:
+        ok_r, dev_r = gathered(handles, total1, RESTORE_BUDGET_S)
+        out["restore"] = {"reconverged_pre_kill_mass": ok_r, "max_dev": dev_r, "duration_sec": time.monotonic() - t0}
+        t0 = time.monotonic()
+        soak(handles, p2)
+        ok2, dev2 = gathered(handles, total_all, 120.0)
+        out["restored_arm"] = {"converged": ok2, "max_dev": dev2, "seconds": time.monotonic() - t0}
+        out["ownership_restored"] = {str(i): h.node.owned_shards() for i, h in enumerate(handles)}
+        snaps = [h.node.metrics() for h in handles]
+        out["fwd"] = {k: int(sum(s.get(k, 0) for s in snaps)) for k in (
+            "st_shard_fwd_msgs_out_total", "st_shard_fwd_msgs_in_total", "st_shard_fwd_relayed_total",
+            "st_shard_fwd_dedup_total", "st_shard_park_drops_total")}
+        hub.poll_native()
+        out["injected"] = {"fault_drop": hub.recorder.counts.get("fault_drop", 0)}
+        out["alloc"] = dict(alloc)
+    finally:
+        for h in handles:
+            h.close()
+    out["seconds"] = time.perf_counter() - t_all
+    out["pass"] = bool(
+        out["sharded"]
+        and out["pre_kill"]["converged"]
+        and out["snapshot"]["coverage_problems"] == []
+        and out["snapshot"]["nodes"] == nodes
+        and out["restore"]["reconverged_pre_kill_mass"]
+        and out["restore"]["duration_sec"] <= RESTORE_BUDGET_S
+        and out["restored_arm"]["converged"]
+        and out["ownership_restored"] == out["ownership_pre_kill"]  # every node re-owned its shards
+        and out["injected"]["fault_drop"] >= 1  # the chaos fired on the FWD plane
+        and out["fwd"]["st_shard_fwd_msgs_out_total"] >= 1
+        and out["fwd"]["st_shard_park_drops_total"] == 0  # no silent loss
+        and alloc["violations"] == 0
+        and out["memory_model"]["steady_over_full_ratio"] <= 2.0 / nodes
+    )
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dir", default="", help="the snapshot's directory (default: a new temporary one)")
     ap.add_argument("--out", default="", help="also write the JSON document here")
+    ap.add_argument("--sharded", action="store_true", help="run the sharded arm instead")
     args = ap.parse_args(argv)
-    out = run_kill_restore(args.dir or tempfile.mkdtemp(prefix="lifecycle-"))
+    snapdir = args.dir or tempfile.mkdtemp(prefix="lifecycle-")
+    out = run_sharded(snapdir) if args.sharded else run_kill_restore(snapdir)
     doc = json.dumps(out)
     if args.out:
         with open(args.out, "w") as f:
             f.write(doc + "\n")
+    if args.sharded:
+        print(f"lifecycle --sharded: steady/full {out['memory_model']['steady_over_full_ratio']:.3f} (bound "
+              f"{2.0 / NODES:.3f}), alloc violations {out['alloc']['violations']}/{out['alloc']['samples']}, drops "
+              f"{out['injected']['fault_drop']}, restore {out['restore']['duration_sec']:.2f} s -> "
+              f"{'PASS' if out['pass'] else 'FAIL'}", file=sys.stderr)
+        print(doc)
+        return out
     print(f"lifecycle kill-restore: snapshot {out['snapshot']['duration_sec']:.2f} s, restore "
           f"{out['restore']['duration_sec']:.2f} s, arms max dev {out['arms_max_deviation']:.2e} -> "
           f"{'PASS' if out['pass'] else 'FAIL'}", file=sys.stderr)

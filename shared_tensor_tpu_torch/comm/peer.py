@@ -148,9 +148,11 @@ its passes, and the SNAP, SNAP_ACK, RESUME and CTL handlers; on the engine
 these kinds come through ``poll_ctrl``); the public calls queue a request
 and wait for its verdict.
 
-Not ported (a later slice): sharding. A joiner that asks for the sharded
-tensor in its SYNC is refused with a REJECT that names it; any other
-message kind the port does not speak is logged, counted and dropped.
+A joiner that asks for the cluster-sharded tensor (``SYNC_FLAG_SHARD`` and
+a claim in its SYNC tail) is attached as a plain writer child, as JAX's
+classic peer does: the claim is ignored, the WELCOME carries no shard flag,
+and the joiner falls back to this protocol (``shard/``). Any message kind
+the peer does not speak is logged, counted and dropped.
 """
 
 from __future__ import annotations
@@ -196,11 +198,6 @@ SEND_WINDOW = 32
 #: Messages re-sent per retransmission round (the head of the tail is what
 #: restores in-order progress at the receiver).
 RETX_PREFIX = 4
-#: SYNC flags the port refuses, with what each asks for (the sharding
-#: slice will serve them).
-_UNSERVED = {
-    compat.SYNC_FLAG_SHARD: "the cluster-sharded tensor",
-}
 #: Most frames a host-tier subscriber message carries: a subscriber's
 #: staleness floor is its queue depth times its apply time per message
 #: (the engine's kSubBurstCap).
@@ -2497,9 +2494,6 @@ class SharedTensorPeer:
                 f"table layout mismatch: yours ({n_leaves} leaves, {n} elems) is not byte-compatible"
                 f" with ours ({mine.num_leaves}, {mine.total_n})"
             )
-        elif flags & sum(_UNSERVED):
-            asked = ", ".join(v for f, v in _UNSERVED.items() if flags & f)
-            reason = f"this peer does not serve {asked}"
         elif flags & compat.SYNC_FLAG_READ_ONLY:
             # a subscriber's handshake, or its resync on a live link: a
             # RANGE may follow before the DONE

@@ -54,6 +54,14 @@ inside the transport's length-prefixed framing, little-endian throughout.
   cap: SNAP ``[12]`` (the barrier marker, down), SNAP_ACK ``[13]`` (the
   subtree's shard entries, up), RESUME ``[14]`` (the barrier's release,
   down) and CTL ``[15]`` (a routed operator command, down).
+- The cluster-sharded tensor: a sharded joiner's SYNC carries
+  ``SYNC_FLAG_SHARD`` and a u16 shard-index claim after the shm tail; a
+  sharded parent answers WELCOME with the same flag, then SHARD
+  ``[16][JSON]`` control messages (the map, claims, grants, route
+  announces, the handoff's state) and FWD ``[17][u32 link seq][u32 word
+  lo][u32 word count][u32 origin][u32 fwd seq][k frames]`` messages, a
+  writer's out-of-shard delta routed toward the shard's owner (see the
+  section below).
 - The reference (compat) wire format has no typed messages at all: one
   ``[f32 scale][ceil(n/8)-byte LSB-first bitmask]`` frame per transport
   message, of one flat tensor (:func:`encode_compat_frame`).
@@ -93,8 +101,8 @@ SNAP = 12  # parent -> child: lifecycle barrier marker (JSON)
 SNAP_ACK = 13  # child -> parent: barrier ack + the subtree's shard entries (JSON)
 RESUME = 14  # parent -> child: release the lifecycle barrier (JSON)
 CTL = 15  # parent -> child: a routed operator command (JSON)
-SHARD = 16  # cluster-sharded tensor (not ported)
-FWD = 17
+SHARD = 16  # the sharded tensor's control plane: claims, grants, routes, handoff (JSON)
+FWD = 17  # an owner-routed slice of a writer's out-of-shard delta
 CLOCK = 18  # clock-offset probe or reply (JSON)
 
 # DATA/BURST framing versions, advertised in SYNC (compat.WIRE_VERSION_*)
@@ -381,17 +389,21 @@ class FramePool:
 # -- handshake -----------------------------------------------------------------
 
 
-def encode_sync(spec: TableSpec, wire_version: int = WIRE_VERSION_V2, flags: int = 0, shm_host: bytes = b"") -> bytes:
+def encode_sync(
+    spec: TableSpec, wire_version: int = WIRE_VERSION_V2, flags: int = 0, shm_host: bytes = b"", shard: int = -1,
+) -> bytes:
     """Join request. With ``SYNC_FLAG_SHM`` the joiner's 16-byte host id
-    (``shm_host``) follows the flags. The port never sets
-    ``SYNC_FLAG_SHARD``, whose claim tail it does not speak."""
-    if flags & SYNC_FLAG_SHARD:
-        raise ValueError("the port does not speak the sharded tensor")
+    (``shm_host``) follows the flags; with ``SYNC_FLAG_SHARD`` a u16
+    shard-index claim follows that (0xFFFF: a member that owns no shard).
+    A parent that is not sharded ignores the claim and attaches the joiner
+    as a plain writer child; the joiner tells by the absent shard flag in
+    WELCOME and falls back to the full-replica protocol."""
     return (
         bytes([SYNC])
         + struct.pack(_SYNC_FMT, spec.num_leaves, spec.total_n, spec.layout_digest())
         + bytes([wire_version & 0xFF, flags & 0xFF])
         + (shm_host[:16] if flags & SHM_FLAG else b"")
+        + (struct.pack("<H", shard & 0xFFFF) if flags & SYNC_FLAG_SHARD else b"")
     )
 
 
@@ -419,9 +431,23 @@ def sync_shm_host(payload: bytes) -> Optional[bytes]:
     return bytes(payload[base : base + 16]) if len(payload) >= base + 16 else None
 
 
+def sync_shard(payload: bytes) -> Optional[int]:
+    """The joiner's shard-index claim, or None when its SYNC has no
+    ``SYNC_FLAG_SHARD`` (or the tail is cut); 0xFFFF reads as -1. The tail
+    sits after the optional 16-byte shm host id."""
+    flags = sync_flags(payload)
+    if not flags & SYNC_FLAG_SHARD:
+        return None
+    base = 3 + struct.calcsize(_SYNC_FMT) + (16 if flags & SHM_FLAG else 0)
+    if len(payload) < base + 2:
+        return None
+    (idx,) = struct.unpack_from("<H", payload, base)
+    return -1 if idx == 0xFFFF else idx
+
+
 def encode_welcome(flags: int = 0, shm_offer=None) -> bytes:
     """WELCOME with the parent's capability flags (``SYNC_FLAG_SIGN2``,
-    ``SYNC_FLAG_SHM``) and, with the SHM flag, the shared-memory segment
+    ``SYNC_FLAG_SHM``, ``SYNC_FLAG_SHARD`` from a sharded parent) and, with the SHM flag, the shared-memory segment
     offer ``shm_offer = (host id, token, /dev/shm name)`` in its tail."""
     out = bytes([WELCOME, flags & 0xFF])
     if flags & SHM_FLAG and shm_offer is not None:
@@ -594,6 +620,116 @@ def decode_rdata(payload: bytes, spec: TableSpec):
         _count_corrupt_scales(nbad)
         scales[bad] = np.float32(0.0)
     return scales, words, word_lo, word_cnt, trace
+
+
+# -- the cluster-sharded tensor -------------------------------------------------
+#
+# FWD ``[17][u32 link seq][u32 word lo][u32 word count][u32 origin][u32 fwd
+# seq][k x (scales L*f32 || words count*u32)]``: k codec frames of a
+# writer's out-of-shard delta, sliced to the target shard's word range and
+# routed hop by hop toward its owner (``shard/node.py`` routes by word lo
+# through the shard map). Each frame is the RDATA representation (the
+# whole per-leaf scale row and the word slice); successive frames are
+# successive halvings of the sender's outbox residual, and k comes from
+# the message length. One message is one ledger entry and one end-to-end
+# identity however many frames it carries:
+#
+# - the link seq is the per-link go-back-N seq (in-order accept,
+#   cumulative ACK, byte-identical re-sends, as DATA/BURST); a relay
+#   re-stamps it for its outgoing link and forwards the rest verbatim, so
+#   owner-routed forwarding never re-quantizes;
+# - (origin, fwd seq) never changes in flight. The owner deduplicates on
+#   it: when a link dies every unacknowledged FWD re-routes byte-identical,
+#   so a message delivered before the death is discarded instead of
+#   applied twice.
+#
+# The sender caps k with fwd_frames_cap, inside frame_wire_bytes(spec),
+# the receive bound every peer already passes to its transport.
+#
+# SHARD ``[16][JSON]``: the shard map's control plane (claims, grants,
+# route announces, map documents, the drain-handoff's state transfer),
+# under DIGEST_MAX_BYTES like every JSON control kind.
+
+_FWD_FMT = "<IIIII"  # link seq, word lo, word count, origin, fwd seq
+FWD_HDR = 21  # kind + the five u32 fields above
+#: Most halving frames one FWD may carry, shared with BURST; the cap for a
+#: shard's geometry is fwd_frames_cap.
+FWD_BURST_FRAMES = BURST_MAX_FRAMES
+
+
+def fwd_frames_cap(spec: TableSpec, word_cnt: int) -> int:
+    """Most halving frames one FWD may carry for a shard of ``word_cnt``
+    words (>= 1): FWD_HDR + k frames stays inside frame_wire_bytes(spec)."""
+    per = 4 * spec.num_leaves + 4 * word_cnt
+    return max(1, min(FWD_BURST_FRAMES, (frame_wire_bytes(spec) - FWD_HDR) // per))
+
+
+def encode_fwd(frames: list, word_lo: int, seq: int, origin: int, fwd_seq: int) -> bytes:
+    """``frames`` is 1..FWD_BURST_FRAMES (scales f32[L], words
+    u32[word count]) pairs: successive halvings of one outbox residual,
+    already sliced to the target shard's range."""
+    if not 1 <= len(frames) <= FWD_BURST_FRAMES:
+        raise ValueError(f"FWD burst of {len(frames)} frames (allowed 1..{FWD_BURST_FRAMES})")
+    word_cnt = len(frames[0][1])
+    parts = [bytes([FWD]) + struct.pack(
+        _FWD_FMT, seq & 0xFFFFFFFF, word_lo & 0xFFFFFFFF, word_cnt & 0xFFFFFFFF, origin & 0xFFFFFFFF,
+        fwd_seq & 0xFFFFFFFF,
+    )]
+    for scales, words in frames:
+        if len(words) != word_cnt:
+            raise ValueError("FWD burst frames must share one word range")
+        parts.append(np.asarray(scales, dtype="<f4").tobytes())
+        parts.append(np.asarray(words, dtype="<u4").tobytes())
+    return b"".join(parts)
+
+
+def fwd_restamp(payload: bytearray, seq: int) -> None:
+    """Re-stamp a FWD's per-link seq for the next hop in place; every byte
+    after byte 5 is forwarded verbatim."""
+    struct.pack_into("<I", payload, 1, seq & 0xFFFFFFFF)
+
+
+def decode_fwd(payload: bytes, spec: TableSpec) -> tuple[list, int, int, int, int]:
+    """([(scales f32[L], words u32[count]), ...], word lo, link seq, origin,
+    fwd seq), the frame count from the message length, with decode_frame's
+    guard per frame: a non-finite scale is zeroed and counted, so a
+    poisoned leaf is a no-op instead of NaN in the owner's shard."""
+    n_leaves = spec.num_leaves
+    seq, word_lo, word_cnt, origin, fwd_seq = struct.unpack_from(_FWD_FMT, payload, 1)
+    if word_cnt <= 0 or word_lo + word_cnt > spec.total // 32:
+        raise ValueError(f"FWD range [{word_lo}, {word_lo + word_cnt}) outside the {spec.total // 32}-word table")
+    per = 4 * n_leaves + 4 * word_cnt
+    nf, rem = divmod(len(payload) - FWD_HDR, per)
+    if rem or not 1 <= nf <= FWD_BURST_FRAMES:
+        raise ValueError(
+            f"FWD is {len(payload)} bytes: not 1..{FWD_BURST_FRAMES} whole {per}-byte frames past the "
+            f"{FWD_HDR}-byte header"
+        )
+    frames = []
+    for i in range(nf):
+        off = FWD_HDR + i * per
+        scales = np.frombuffer(payload, "<f4", count=n_leaves, offset=off).copy()
+        words = np.frombuffer(payload, "<u4", count=word_cnt, offset=off + 4 * n_leaves).copy()
+        bad = ~np.isfinite(scales)
+        if bad.any():
+            nbad = int(np.count_nonzero(bad))
+            log.warning("zeroing %d non-finite scale(s) in received FWD (corrupt link?)", nbad)
+            _count_corrupt_scales(nbad)
+            scales[bad] = np.float32(0.0)
+        frames.append((scales, words))
+    return frames, word_lo, seq, origin, fwd_seq
+
+
+def encode_shard(doc: dict) -> bytes:
+    """One shard control message (``{"t": "claim" | "grant" | "deny" |
+    "map" | "own" | "ho_meta" | "ho_state" | "ho_dedup" | "ho_done" |
+    "ho_ack", ...}``; ``shard/node.py`` owns the shapes). Past
+    DIGEST_MAX_BYTES it raises: the handoff chunks its state under it."""
+    return _encode_json(SHARD, doc, "shard control message")
+
+
+def decode_shard(payload: bytes) -> dict:
+    return _decode_json(payload, "shard control message")
 
 
 # -- the reference (compat) wire format --------------------------------------------

@@ -26,8 +26,10 @@ from here:
 - ``SYNC_FLAG_SHM``: the same-host shared-memory lane (a host id in the
   SYNC tail, a segment offer in WELCOME's); it also marks a peer that
   decodes the aligned v3 framing.
-- ``SYNC_FLAG_SHARD``: the cluster-sharded tensor, which the port does not
-  serve (a joiner asking for it is refused).
+- ``SYNC_FLAG_SHARD``: the cluster-sharded tensor (a shard-index claim in
+  the SYNC tail; a sharded parent's WELCOME carries the flag back). A
+  classic parent ignores the claim and attaches a plain writer child, and
+  the joiner falls back to the full-replica protocol (``shard/``).
 
 The bits and versions are ``comm.wire``'s, re-exported here.
 """

@@ -6,12 +6,14 @@ engine's cascade depth), the TCP transport (the reference wire format,
 link striping and the same-host shared-memory lane among its knobs), the
 peer's send loop and burst sizes, the native engine switch, fault
 injection (``FaultConfig``), the serving tier (``ServeConfig``), the
-observability plane (``ObsConfig``) and the cluster lifecycle
-(``LifecycleConfig``). Names, defaults and meaning are those of
-``shared_tensor_tpu.config``, so a port peer and a JAX peer built from the
-same settings produce the same frames and join the same tree. The knob of
-the one feature the port does not have yet (sharding) is absent, so asking
-for it is a ``TypeError``.
+observability plane (``ObsConfig``), the cluster lifecycle
+(``LifecycleConfig``) and the cluster-sharded tensor (``ShardConfig``).
+Names, defaults and meaning are those of ``shared_tensor_tpu.config``, so a
+port peer and a JAX peer built from the same settings produce the same
+frames and join the same tree. JAX's top-level ``rendezvous_host``,
+``rendezvous_port`` and ``mesh`` are absent: ``create_or_fetch`` takes the
+host and port as arguments, and the pod tier takes its mesh from
+``parallel.run_mesh``; asking for them is a ``TypeError``.
 """
 
 from __future__ import annotations
@@ -330,6 +332,74 @@ class LifecycleConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShardConfig:
+    """The cluster-sharded tensor (``shared_tensor_tpu_torch/shard``): the
+    table is partitioned into contiguous word ranges, each owned by exactly
+    one cluster node. Per-node memory is the owned slice plus transient
+    outboxes, O(total / n_shards) at steady state, instead of a full
+    replica; a writer's out-of-shard delta rides owner-routed ``wire.FWD``
+    frames toward the shard's owner (no per-hop re-quantization), and
+    readers assemble views by subscribing to owner shards
+    (``shard.gather``)."""
+
+    #: Number of contiguous shards the master partitions the word space
+    #: into at creation. 0 = sharding off (the classic full-replica
+    #: protocol; ``create_or_fetch_sharded`` then returns a classic peer).
+    n_shards: int = 0
+    #: The shard index this node claims at join (the master claims its own
+    #: index locally). -1 = a member that owns no shard: it still joins the
+    #: tree, routes FWD traffic and may write and read, but holds no slice.
+    #: Claims are arbitrated by the master; a taken index is DENIED and
+    #: creation fails.
+    shard_index: int = -1
+    #: The address other nodes (gather legs, takeover peers) dial to reach
+    #: this node's listener, recorded in its OwnerEntry at claim and
+    #: handoff. "" = the rendezvous host argument, which is right exactly
+    #: when every node shares one host; a multi-host cluster must set each
+    #: node's reachable address here.
+    advertise_host: str = ""
+    #: Restart path: a directory holding a sharded snapshot (MANIFEST.json
+    #: and ``shard_<node_name>.npz``). The node loads its slices, outboxes
+    #: and dedup windows BEFORE joining and claims with takeover semantics
+    #: (the master re-grants the index at a higher epoch). "" = fresh start.
+    restore_dir: str = ""
+    #: Tree fan-out for sharded nodes (separate from
+    #: ``TransportConfig.max_children``): owners also serve read-only
+    #: subscriber leaves on the same listener, and the transport redirects
+    #: joiners down the tree when slots fill, which breaks a gather leg
+    #: that must land on one specific owner. So the default sits near the
+    #: transport's cap (16).
+    max_children: int = 12
+    #: Budget for the join-time claim round trip (SYNC, map, claim, grant
+    #: flood). Past it, creation fails instead of waiting forever.
+    claim_timeout_sec: float = 20.0
+    #: Bound on FWD messages parked while a shard's route is unknown (owner
+    #: not yet granted, route purged by a LINK_DOWN, owner being restored).
+    #: Overflow drops the OLDEST parked message and counts it
+    #: (``st_shard_park_drops_total``): loud bounded loss, never unbounded
+    #: memory.
+    park_cap: int = 4096
+    #: Run the FWD hot loop (outbox pump, verbatim relay, owner dedup and
+    #: apply, go-back-N) in the native engine (``shard/engine_lane.py``).
+    #: False pins the Python plane, the semantic reference and
+    #: wire-identical; ``ST_SHARD_ENGINE=0`` pins it process-wide.
+    engine_lane: bool = True
+    #: Writer admission control: a bound on resident per-target-shard
+    #: outbox bytes. An add() whose out-of-shard deposits would exceed it
+    #: waits for the FWD plane to drain room (``outbox_overflow="block"``)
+    #: or raises ``ShardBackpressure`` (``"raise"``). 0 = unlimited. The
+    #: projection is conservative at slice granularity: each target shard
+    #: of the delta counts one full outbox slice.
+    outbox_limit_bytes: int = 0
+    #: "block" (wait up to ``outbox_block_timeout_sec``, then raise) or
+    #: "raise" (fail the add() at once).
+    outbox_overflow: str = "block"
+    #: How long a blocking add() waits for outbox room before raising
+    #: ``ShardBackpressure``: a stalled link fails the writer loudly.
+    outbox_block_timeout_sec: float = 30.0
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     """A peer's configuration."""
 
@@ -368,3 +438,7 @@ class Config:
     obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
     #: The cluster lifecycle: snapshot, restore, drain and the ctl channel.
     lifecycle: LifecycleConfig = dataclasses.field(default_factory=LifecycleConfig)
+    #: The cluster-sharded tensor: shard count, this node's claim,
+    #: restart-restore, routing bounds. n_shards=0 keeps the classic
+    #: full-replica protocol.
+    shard: ShardConfig = dataclasses.field(default_factory=ShardConfig)

@@ -31,6 +31,13 @@ the port and a port checkpoint into the JAX package.
   ``MANIFEST.json`` with each shard's sha256. These take numpy arrays: the
   caller brings tensors to the host. A shard or a manifest either package
   writes loads and verifies in the other.
+- The cluster-sharded tensor's node state: :func:`save_shard_state` /
+  :func:`load_shard_state`, one ``shard_<name>.npz`` per node (keys
+  ``owned_<k>``, ``outbox_<k>``, ``layout``, and ``meta`` with ``"kind":
+  "shard_state"``) holding the node's owned slices, its outbox residuals,
+  its end-to-end dedup windows and its fwd_seq, and
+  :func:`verify_shard_coverage`, the manifest audit that every shard was
+  owned by exactly one node at the capture.
 
 The pod functions are collective over the mesh: every rank calls them with
 the same arguments. Writes are atomic (a temporary file, then a rename).
@@ -464,4 +471,109 @@ def verify_manifest(dirpath: str) -> list[str]:
         digest = file_sha256(path)
         if digest != entry.get("sha256"):
             problems.append(f"{entry['node']}: shard digest mismatch ({digest[:12]} != {entry.get('sha256', '')[:12]})")
+    return problems
+
+
+# -- the cluster-sharded tensor: one node's shard state ------------------------
+#
+# The payload is the sharded memory model, not a full replica: the node's
+# OWNED slices (word ranges of the global table), its per-target-shard
+# OUTBOX residuals (out-of-shard mass not yet delivered, owed to other
+# owners: dropping it at a restart would lose cluster mass), its
+# per-origin END-TO-END dedup windows (without them a restart re-applies
+# any frame that was delivered but not acknowledged at the kill), and its
+# fwd_seq high-water mark. MANIFEST.json rows record, under ``shards``,
+# which word ranges each node owned at the capture, so the audit can check
+# that every shard was owned exactly once before a snapshot is trusted.
+
+
+def save_shard_state(
+    dirpath: str,
+    node_name: str,
+    layout_digest: bytes,
+    owned: dict,
+    outboxes: dict,
+    dedup: dict,
+    fwd_seq: int,
+) -> dict:
+    """Write one sharded node's checkpoint. ``owned`` maps shard index ->
+    (word_lo, word_cnt, values f32); ``outboxes`` maps shard index ->
+    (word_lo, residual f32); ``dedup`` maps origin (str) -> sorted seq
+    list. Returns the MANIFEST.json entry (``{"node", "file", "sha256",
+    "bytes", "shards"}``)."""
+    os.makedirs(dirpath, exist_ok=True)
+    fname = shard_filename(node_name)
+    path = os.path.join(dirpath, fname)
+    arrays = {"layout": _u8(layout_digest)}
+    shard_meta = []
+    for k, (wlo, wcnt, vals) in sorted(owned.items()):
+        arrays[f"owned_{int(k)}"] = np.ascontiguousarray(vals, np.float32)
+        shard_meta.append({"shard": int(k), "word_lo": int(wlo), "word_cnt": int(wcnt)})
+    outbox_meta = []
+    for k, (wlo, resid) in sorted(outboxes.items()):
+        arrays[f"outbox_{int(k)}"] = np.ascontiguousarray(resid, np.float32)
+        outbox_meta.append({"shard": int(k), "word_lo": int(wlo)})
+    arrays["meta"] = _u8(json.dumps({
+        "format": _FORMAT,
+        "kind": "shard_state",
+        "node": str(node_name),
+        "time": time.time(),
+        "shards": shard_meta,
+        "outboxes": outbox_meta,
+        "dedup": {str(o): list(map(int, seqs)) for o, seqs in dedup.items()},
+        "fwd_seq": int(fwd_seq),
+    }).encode())
+    _atomic_savez(path, **arrays)
+    return {
+        "node": str(node_name),
+        "file": fname,
+        "sha256": file_sha256(path),
+        "bytes": os.path.getsize(path),
+        "shards": shard_meta,
+    }
+
+
+def load_shard_state(path: str) -> dict:
+    """Read a :func:`save_shard_state` file back: ``{"layout", "owned":
+    {shard: (word_lo, word_cnt, values)}, "outboxes": {shard: (word_lo,
+    residual)}, "dedup": {origin: [seqs]}, "fwd_seq"}``."""
+    with np.load(path) as z:
+        meta = _meta(z)
+        if meta.get("kind") != "shard_state":
+            raise ValueError(f"{path} is not a shard-state checkpoint")
+        layout = z["layout"].tobytes()
+        owned = {
+            int(e["shard"]): (int(e["word_lo"]), int(e["word_cnt"]), np.asarray(z[f"owned_{int(e['shard'])}"], np.float32))
+            for e in meta.get("shards", [])
+        }
+        outboxes = {
+            int(e["shard"]): (int(e["word_lo"]), np.asarray(z[f"outbox_{int(e['shard'])}"], np.float32))
+            for e in meta.get("outboxes", [])
+        }
+    return {
+        "layout": layout,
+        "owned": owned,
+        "outboxes": outboxes,
+        "dedup": meta.get("dedup", {}),
+        "fwd_seq": int(meta.get("fwd_seq", 0)),
+    }
+
+
+def verify_shard_coverage(dirpath: str, n_shards: int) -> list[str]:
+    """The sharded manifest's audit on top of :func:`verify_manifest`:
+    every shard index in [0, n_shards) owned by EXACTLY one node at the
+    capture. Returns the problems ([] = clean)."""
+    problems = verify_manifest(dirpath)
+    try:
+        doc = load_manifest(dirpath)
+    except (OSError, ValueError):
+        return problems  # verify_manifest already reported it
+    owners: dict[int, list[str]] = {}
+    for entry in doc.get("nodes", []):
+        for s in entry.get("shards", []):
+            owners.setdefault(int(s["shard"]), []).append(entry["node"])
+    for k in range(n_shards):
+        who = owners.get(k, [])
+        if len(who) != 1:
+            problems.append(f"shard {k}: owned by {who or 'nobody'} at the capture (exactly-one-owner audit)")
     return problems

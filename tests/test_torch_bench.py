@@ -67,3 +67,15 @@ def test_obs_overhead_bench_runs_on_the_cpu(capsys):
     assert line["trace_arm"]["trace_wire"] and line["health_arm"]["health"] and not line["engine_arm"]["trace_wire"]
     py = line["python_arm_informational"]
     assert py["device"] == "cpu" and py["fps_obs_on"] > 0 and py["fps_obs_off"] > 0
+
+
+def test_shard_bench_runs_both_planes_on_the_cpu():
+    """The shard bench's two arms at a small table and one short repeat:
+    the Python plane and the lane each apply FWD frames on the one link,
+    and the document carries both arms and the ratio gate."""
+    from shared_tensor_tpu_torch.benchmarks import shard_bench
+
+    doc = shard_bench.run(n=1 << 14, repeats=1, warm_s=0.2, measure_s=0.5)
+    assert doc["bench"] == "shard_bench" and doc["slice_elements"] == 1 << 13
+    assert min(doc["python_frames"]) > 0 and min(doc["engine_frames"]) > 0, doc
+    assert doc["ratio"] == doc["engine_mean"] / doc["python_mean"] and doc["pass"] == (doc["ratio"] >= 5.0)

@@ -1,5 +1,6 @@
 """The port on a GPU: its CUDA kernels, the asynchronous frame fetch, a
-two-peer round trip over loopback TCP and a two-rank pod step over gloo
+two-peer round trip over loopback TCP, a two-rank pod step over gloo, and
+the sharded tensor's view on the card and its classic fallback there
 (marked ``cuda``; each test skips without a CUDA device). This file imports neither jax nor the JAX package,
 so it runs on a torch-only machine:
 
@@ -614,3 +615,93 @@ def test_inplace_restore_recaptures_the_burst_graph(cuda_device):
         assert _same_bits(after, resid)
         assert m.st._graphs[link] is not old_graph and m.st._graphs[link].resid is m.st._links[link]
         assert j.threads_alive() and m.threads_alive()
+
+
+@pytest.mark.cuda
+def test_shard_torch_view_lands_on_the_card(cuda_device):
+    """A sharded pair (host code on both planes' nodes) drains two adds;
+    ``torch_view()`` (device None: the GPU) is one flat f32 tensor on the
+    card, bit-equal to a gather of the owners."""
+    from shared_tensor_tpu_torch.config import Config, ShardConfig, TransportConfig
+    from shared_tensor_tpu_torch.shard import create_or_fetch_sharded
+
+    tmpl = {"w": np.zeros(4096, np.float32), "b": np.zeros(512, np.float32)}
+    port = _free_port()
+
+    def cfg(i, lane):
+        return Config(shard=ShardConfig(n_shards=2, shard_index=i, engine_lane=lane),
+                      transport=TransportConfig(peer_timeout_sec=10.0))
+
+    rng = np.random.default_rng(12)
+    with create_or_fetch_sharded("127.0.0.1", port, tmpl, cfg(0, True)) as h0, \
+            create_or_fetch_sharded("127.0.0.1", port, tmpl, cfg(1, False)) as h1:
+        assert h0.sharded and h1.sharded
+        for h in (h0, h1):
+            h.add({"w": rng.uniform(-1, 1, 4096).astype(np.float32), "b": rng.uniform(-1, 1, 512).astype(np.float32)})
+        assert h0.drain(timeout=30.0) and h1.drain(timeout=30.0)
+        view = h0.torch_view()
+        assert view.device.type == "cuda" and view.dtype == torch.float32
+        assert view.shape == (h0.node.spec.total,)
+        with h0.gather() as g:
+            flat, _worst = g.read(60.0)
+        assert _same_bits(view.cpu(), torch.from_numpy(flat))
+
+
+@pytest.mark.cuda
+def test_sharded_fallback_peer_runs_the_cuda_tier(cuda_device):
+    """A sharded joiner under a CUDA classic master falls back to a classic
+    peer on the GPU (device None), whose first burst after an add is
+    bit-equal to the plain codec's on the same residual; both converge."""
+    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch
+    from shared_tensor_tpu_torch.config import ShardConfig
+    from shared_tensor_tpu_torch.ops.table import quantize_table_burst
+    from shared_tensor_tpu_torch.shard import create_or_fetch_sharded
+
+    n = 1 << 16
+    port = _free_port()
+    cfg = Config(transport=TransportConfig(peer_timeout_sec=10.0))
+    scfg = Config(transport=cfg.transport, shard=ShardConfig(n_shards=4, shard_index=1))
+    x = np.random.default_rng(13).uniform(-1, 1, n).astype(np.float32)
+    CC.reset_launches()
+    with create_or_fetch("127.0.0.1", port, np.zeros(n, np.float32), cfg, device=cuda_device) as m:
+        with create_or_fetch_sharded("127.0.0.1", port, np.zeros(n, np.float32), scfg) as h:
+            assert not h.sharded
+            p = h.peer
+            assert p.st.device.type == "cuda" and p._engine is None
+            link = p.st.link_ids[0]
+            rec = []
+            begin = p.st.begin_frame_burst_device
+
+            def recording_begin(lid, k):
+                first = lid == link and not rec
+                before = p.st._links[lid].clone() if first else None
+                out = begin(lid, k)
+                if first:
+                    torch.cuda.synchronize()
+                    rec.append((before, out[1].scales.clone(), out[1].words.clone(), p.st._links[lid].clone(), k))
+                return out
+
+            # paused, the add waits whole in the link's residual: the first
+            # burst after the resume quantizes exactly it
+            p.pause()
+            p.st.begin_frame_burst_device = recording_begin
+            h.add(x)
+            m.add(x)
+            p.pause(False)
+            deadline = time.time() + 60
+            while time.time() < deadline:
+                got = [q.read().cpu().numpy() for q in (m, p)]
+                if rec and all(np.allclose(g, 2 * x, rtol=0, atol=1e-5) for g in got):
+                    break
+                time.sleep(0.05)
+            assert rec, "no burst after the add"
+            for g in got:
+                np.testing.assert_allclose(g, 2 * x, rtol=0, atol=1e-5)
+            before, scales, words, after, k = rec[0]
+            np.testing.assert_array_equal(before.cpu().numpy(), x)  # the add, whole
+            want, resid = quantize_table_burst(before.clone(), p.st.spec, k, p.st.codec.scale_policy,
+                                               p.st.codec.per_leaf_scale, "plain")
+            torch.cuda.synchronize()
+            assert _same_bits(scales, want.scales) and _same_bits(words, want.words)
+            assert _same_bits(after, resid)
+    assert CC.LAUNCHES["quantize_rows"] > 0 and CC.LAUNCHES["apply_rows_batch"] > 0, CC.LAUNCHES

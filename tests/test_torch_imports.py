@@ -46,7 +46,8 @@ def test_sources_name_no_jax(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path.name} imports {name}"
 
 
-@pytest.mark.parametrize("module", ["shared_tensor_tpu_torch.ctl", "shared_tensor_tpu_torch.benchmarks.lifecycle"])
+@pytest.mark.parametrize("module", ["shared_tensor_tpu_torch.ctl", "shared_tensor_tpu_torch.benchmarks.lifecycle",
+                                    "shared_tensor_tpu_torch.benchmarks.shard_bench"])
 def test_cli_modules_load_no_jax(module):
     """The operator CLI and the lifecycle bench, each imported alone (and
     the CLI's help run as ``python -m``), load no jax and nothing of the
@@ -64,6 +65,22 @@ def test_cli_modules_load_no_jax(module):
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "usage" in out.stdout
+
+
+@pytest.mark.parametrize("module", ["map", "state", "engine_lane", "gather", "node", "__init__"])
+def test_shard_modules_load_no_jax(module):
+    """Each module of the sharded tensor, imported alone in a fresh
+    interpreter, loads no jax and nothing of the JAX package (map.py is
+    standard library only, in JAX too: the port keeps its own copy)."""
+    name = "shared_tensor_tpu_torch.shard" + ("" if module == "__init__" else f".{module}")
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({name!r})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def test_transport_builds_its_own_library_without_make(tmp_path):

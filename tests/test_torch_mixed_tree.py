@@ -188,29 +188,56 @@ def test_port_parent_ignores_digest_and_clock_traffic():
 
 
 def test_port_joiner_refuses_what_it_lacks():
-    """A JAX joiner that asks for a feature the port does not serve (the
-    cluster-sharded tensor: a SYNC with SYNC_FLAG_SHARD and its shard
-    claim) gets a REJECT that names it; the port parent carries on."""
-    from shared_tensor_tpu.comm.transport import TransportNode as JaxNode
-    from shared_tensor_tpu.comm import wire as JW
-    from shared_tensor_tpu.ops.table import make_spec as jax_make_spec
+    """A JAX sharded joiner (``create_or_fetch_sharded``: a SYNC with
+    SYNC_FLAG_SHARD and its shard claim) under a port classic parent is
+    attached as a plain writer child, as JAX's classic peer attaches it:
+    the WELCOME carries no shard flag, so the joiner falls back to a
+    classic handle, and the two converge."""
+    from shared_tensor_tpu.config import ShardConfig as JShardConfig
+    from shared_tensor_tpu.shard import create_or_fetch_sharded as jax_sharded
 
     port = free_port()
     seed = _seed()
     with create_or_fetch("127.0.0.1", port, seed, TORCH_CFG, device="cpu") as parent:
-        with JaxNode("127.0.0.1", port, JTransportConfig(peer_timeout_sec=10.0)) as node:
-            deadline = time.time() + 30
-            while node.uplink is None and time.time() < deadline:
-                time.sleep(0.01)
-            sync = JW.encode_sync(jax_make_spec(seed), 2, flags=wire.SYNC_FLAG_SHARD, shard=0)
-            assert node.send(node.uplink, sync)
-            reply = None
-            while reply is None and time.time() < deadline:
-                try:
-                    reply = node.recv(node.uplink, timeout=0.1)
-                except BrokenPipeError:
-                    break
-            assert reply is not None and reply[0] == JW.REJECT
-            assert "the cluster-sharded tensor" in JW.decode_reject(reply)
+        cfg = JConfig(transport=JTransportConfig(peer_timeout_sec=10.0), shard=JShardConfig(n_shards=4, shard_index=1))
+        h = jax_sharded("127.0.0.1", port, _zeros(seed), cfg, timeout=30.0)
+        try:
+            assert not h.sharded
+            delta = {k: np.full(v.shape, 0.5, np.float32) for k, v in seed.items()}
+            h.add(delta)
+            parent.add(delta)
+            wait_converged([parent, h.peer], {k: seed[k] + 1.0 for k in seed})
+        finally:
+            h.close()
         assert parent.threads_alive() and parent._error is None
-        np.testing.assert_array_equal(_leaves(parent.read())[0], seed["b"])
+
+
+@pytest.mark.parametrize("tier", ("device", "engine"))
+def test_port_sharded_joiner_falls_back_under_jax_parent(tier):
+    """The mirror: a port ``create_or_fetch_sharded`` under a JAX classic
+    parent falls back to a port classic peer on the tier asked for (the
+    device tier by default, the engine with host_tier=True) and
+    converges."""
+    from shared_tensor_tpu_torch.config import ShardConfig
+    from shared_tensor_tpu_torch.shard import create_or_fetch_sharded
+
+    port = free_port()
+    seed = _seed()
+    parent = jax_create_or_fetch("127.0.0.1", port, seed, _jax_cfg("engine"))
+    try:
+        cfg = Config(transport=TORCH_CFG.transport, shard=ShardConfig(n_shards=4, shard_index=1))
+        kw = {"device": "cpu"} if tier == "device" else {"host_tier": True}
+        h = create_or_fetch_sharded("127.0.0.1", port, _zeros(seed), cfg, timeout=30.0, **kw)
+        try:
+            assert not h.sharded
+            _check_tier(h.peer, tier)
+            delta = {k: np.full(v.shape, 0.5, np.float32) for k, v in seed.items()}
+            h.add(delta)
+            parent.add(delta)
+            wait_converged([parent, h.peer], {k: seed[k] + 1.0 for k in seed})
+            view = h.torch_view(device="cpu")
+            np.testing.assert_allclose(view[:8].numpy(), seed["b"] + 1.0, rtol=1e-4, atol=1e-6)
+        finally:
+            h.close()
+    finally:
+        parent.close()

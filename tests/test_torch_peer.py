@@ -374,7 +374,19 @@ def test_device_none_needs_a_gpu():
 
 
 def test_unported_config_knobs_are_type_errors():
-    cases = ((Config, {"shard": None}),)
-    for cls, kw in cases:
+    """JAX's top-level rendezvous and mesh knobs stay absent (the port takes
+    the address as arguments and the mesh from run_mesh); every field of
+    JAX's ShardConfig is the port's, with the same default, and sharding
+    is off by default."""
+    import dataclasses
+
+    from shared_tensor_tpu import config as jax_config
+    from shared_tensor_tpu_torch.config import ShardConfig
+
+    for kw in ({"rendezvous_host": "h"}, {"rendezvous_port": 1}, {"mesh": None}):
         with pytest.raises(TypeError):
-            cls(**kw)
+            Config(**kw)
+    want = {f.name: f.default for f in dataclasses.fields(jax_config.ShardConfig)}
+    got = {f.name: f.default for f in dataclasses.fields(ShardConfig)}
+    assert got == want
+    assert Config().shard.n_shards == 0 and Config().shard == ShardConfig()

@@ -508,7 +508,10 @@ def test_port_subscriber_under_a_jax_writer(tier, ranged):
 
 
 def test_port_parent_still_refuses_a_sharded_joiner():
-    """SYNC_FLAG_SHARD stays unserved: REJECT names the sharded tensor."""
+    """A sharded joiner's SYNC (SYNC_FLAG_SHARD and its claim tail) is not
+    refused any more: the port parent attaches it as a plain writer child,
+    as JAX's classic peer does, with a WELCOME that carries no shard flag
+    (the joiner's cue to fall back), and never as a subscriber."""
     from shared_tensor_tpu_torch.comm.transport import TransportNode
 
     port = free_port()
@@ -518,16 +521,20 @@ def test_port_parent_still_refuses_a_sharded_joiner():
             while node.uplink is None and time.time() < deadline:
                 time.sleep(0.01)
             spec = make_spec(np.zeros(64, np.float32))
-            sync = wire.encode_sync(spec, wire.WIRE_VERSION_V2)[:-1] + bytes([wire.SYNC_FLAG_SHARD])
-            assert node.send(node.uplink, sync)
+            sync = wire.encode_sync(spec, wire.WIRE_VERSION_V2, wire.SYNC_FLAG_SHARD, shard=1)
+            for msg in (sync, bytes([wire.DONE])):
+                assert node.send(node.uplink, msg)
             reply = None
-            while reply is None and time.time() < deadline:
+            while (reply is None or reply[0] not in (wire.WELCOME, wire.REJECT)) and time.time() < deadline:
                 try:
                     reply = node.recv(node.uplink, timeout=0.1)
                 except BrokenPipeError:
                     break
-            assert reply is not None and reply[0] == wire.REJECT
-            assert "cluster-sharded tensor" in wire.decode_reject(reply)
+            assert reply is not None and reply[0] == wire.WELCOME
+            assert not wire.welcome_flags(reply) & wire.SYNC_FLAG_SHARD
+            while len(parent.st.link_ids) < 1 and time.time() < deadline:
+                time.sleep(0.01)
+            assert len(parent.st.link_ids) == 1
         assert parent.threads_alive() and parent._error is None and not parent._sub_links
 
 

@@ -110,14 +110,21 @@ def test_sync_bytes_identical_and_carry_the_layout_digest(version, flags):
     n, total, digest = TW.decode_sync(want)
     assert (n, total, digest) == JW.decode_sync(got) == (ts.num_leaves, ts.total_n, js.layout_digest())
     assert TW.sync_wire_version(want) == version and TW.sync_flags(want) == flags
-    # the shared-memory lane's host id rides the tail; the sharded claim
-    # (not spoken by the port) is refused
+    # the shared-memory lane's host id rides the tail, and the sharded
+    # claim's u16 after it (0xFFFF: a member that owns no shard)
     host = bytes(range(16))
     shm = TW.encode_sync(ts, version, flags=flags | TW.SYNC_FLAG_SHM, shm_host=host)
     assert shm == JW.encode_sync(js, version, flags=flags | TW.SYNC_FLAG_SHM, shm_host=host)
     assert TW.sync_shm_host(shm) == JW.sync_shm_host(shm) == host and TW.sync_shm_host(want) is None
-    with pytest.raises(ValueError):
-        TW.encode_sync(ts, version, flags=TW.SYNC_FLAG_SHARD)
+    assert TW.sync_shard(want) is None and TW.sync_shard(shm) is None
+    for extra in (0, TW.SYNC_FLAG_SHM):
+        for claim in (0, 3, -1):
+            f = flags | extra | TW.SYNC_FLAG_SHARD
+            got = TW.encode_sync(ts, version, flags=f, shm_host=host, shard=claim)
+            assert got == JW.encode_sync(js, version, flags=f, shm_host=host, shard=claim)
+            assert got[-2:] == (claim & 0xFFFF).to_bytes(2, "little")
+            assert TW.sync_shard(got) == JW.sync_shard(got) == claim
+            assert TW.sync_shard(got[:-1]) is None
 
 
 def test_capability_flags_equal_the_jax_package():
