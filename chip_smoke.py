@@ -253,6 +253,24 @@ Phases, in order; any failure exits non-zero:
    their plain versions on 17c's master's state (tree_kernel_check), 0
    mismatches. Each wait has SHARD_WAIT_S, the phase SHARD_PHASE_S; any
    miss fails. One {"shard": ...} line.
+18. The codec lab (plain torch: no kernel of its own, and none of A-D).
+   (18a) its device twins (ops/codec_lab_torch) on the card at config 2's
+   table width (3,870,976 live elements as one flat buffer padded to the
+   tile), a gaussian residual from --seed, against the numpy lab
+   (ops/codec_lab): Sign2's codes byte-equal, residual and apply bit-equal,
+   the scale equal (or one octave apart at an exact boundary); TopK with
+   k = n / 32: the index set equal up to ties at the k-th value, the
+   residual bit-equal and the apply conserving exactly; each twin's ms per
+   call (CUDA events) beside its bytes over the card's memory rate. (18b)
+   in the phases 9-11 spawn, on their first 4 ranks (4 peers x 1 shard,
+   config 2's table): the production pod step and the lab's 2-bit step
+   (parallel/ici_lab) in turns from the same states; uniform updates give
+   bit-equal scales, values and residuals step by step, both drain to
+   exact zero within LAB_UNIFORM_STEPS and every peer ends on the sum;
+   gaussian updates give sign2 an RMS decay per frame over LAB_FRAMES steps
+   at least LAB_DECAY_MARGIN under the production step's; ms per step of
+   each arm and its bytes received per peer and step. Any failed check
+   fails the phase. One {"codec_lab": ...} line.
 The transport, the host codec and the engine (native/sttransport.cpp,
 stcodec.c, stengine.cpp) and the C reference peer (stc_harness.c) are
 compiled with g++ and gcc in phase 1, beside the kernels. Every rank's full results of phases 9, 10 and 11 go to
@@ -1320,11 +1338,12 @@ def _loss_fell(losses) -> bool:
 
 
 def pod_ranks(world, seed: int, port: int) -> dict:
-    """Phases 9, 10 and 11 in one spawn of RESNET_PEERS ranks (a spawn and
-    a CUDA context per rank cost seconds): every rank builds every mesh;
-    phase 9 runs on the first CHAR_PEERS ranks while the others wait at a
-    barrier, then phase 10 on all, then phase 11 on the first
-    2 * PEERS of benchmarks/hierarchical.py."""
+    """Phases 9, 10, 11 and 18b in one spawn of RESNET_PEERS ranks (a spawn
+    and a CUDA context per rank cost seconds): every rank builds every
+    mesh; phase 9 runs on the first CHAR_PEERS ranks while the others wait
+    at a barrier, then phase 10 on all, then phase 11 on the first
+    2 * PEERS of benchmarks/hierarchical.py, then 18b on the first
+    CHAR_PEERS."""
     import torch.distributed as dist
 
     from shared_tensor_tpu_torch.benchmarks import hierarchical as H
@@ -1343,8 +1362,11 @@ def pod_ranks(world, seed: int, port: int) -> dict:
     t2 = time.perf_counter()
     bridge = None if pod is None else pod_bridge(pod, index, both, seed, port)
     dist.barrier()
-    return {"char": char, "resnet": resnet, "bridge": bridge, "phase9_s": t1 - t0, "phase10_s": t2 - t1,
-            "phase11_s": time.perf_counter() - t2}
+    t3 = time.perf_counter()
+    sign2 = None if mesh4 is None else pod_sign2(mesh4, seed)
+    dist.barrier()
+    return {"char": char, "resnet": resnet, "bridge": bridge, "sign2": sign2, "phase9_s": t1 - t0,
+            "phase10_s": t2 - t1, "phase11_s": t3 - t2, "phase18b_s": time.perf_counter() - t3}
 
 
 def _stopwatch():
@@ -1642,7 +1664,8 @@ def pod_phases(device, rate: float, seed: int) -> dict:
     # char-RNN table; B with K = 4 frames and N = 1 target)
     t = times(spec, device, rate, shapes=((CHAR_PEERS, 1),))
     return {"char_rnn": char, "bridge": res11, "summary": summary,
-            "times": {"quantize_rows": t["quantize_rows"], "apply_rows_batch": t["apply_rows_batch"][0]}}
+            "times": {"quantize_rows": t["quantize_rows"], "apply_rows_batch": t["apply_rows_batch"][0]},
+            "sign2": [r["sign2"] for r in ranks[:CHAR_PEERS]], "phase18b_s": ranks[0]["phase18b_s"]}
 
 
 # -- phase 12 -------------------------------------------------------------------
@@ -3179,6 +3202,221 @@ def shard_phase(device, seed: int, smi: str, cfg_m=None) -> tuple[dict, tuple]:
     return out, master
 
 
+# -- phase 18 -------------------------------------------------------------------
+
+LAB_TIMED = 20  # 18a: calls per CUDA-event timing of a twin
+LAB_UNIFORM_STEPS = 60  # 18b uniform: at most this many steps of each arm to exact zero
+LAB_FRAMES = 20  # 18b gaussian: steps of each arm over which the RMS decay is taken
+LAB_DECAY_MARGIN = 0.02  # 18b gaussian: sign2's decay per frame under the production step's by this (test_ici_lab.py)
+
+
+def _topk_sets_agree(idx_a: np.ndarray, idx_b: np.ndarray, absr: np.ndarray) -> bool:
+    """Two top-k index sets of ``absr`` agree: equal, or differing only in
+    coordinates tied at the k-th largest value (either choice is a top k)."""
+    a, b = np.unique(idx_a), np.unique(idx_b)
+    if a.size != idx_a.size or b.size != idx_b.size or a.size != b.size:
+        return False
+    thr = absr[a].min()
+    diff = np.setxor1d(a, b)
+    return bool(thr == absr[b].min() and np.all(absr[diff] == thr))
+
+
+def lab_twins(device, rate: float, seed: int) -> dict:
+    """18a: the codec lab's device twins (ops/codec_lab_torch) on the card at
+    config 2's table width (its live elements as one flat buffer, padded to
+    the tile), a gaussian residual and gaussian values from ``seed``,
+    against the numpy lab (ops/codec_lab): Sign2's codes byte-equal, its
+    residual and apply bit-equal, the scale equal (or one octave off at an
+    exact boundary, then the frame is not compared); TopK (k = n / 32) its
+    index set equal (up to ties at the k-th value), its residual bit-equal,
+    and its apply conserving exactly. Each twin's ms per call (CUDA events)
+    beside the bytes it must move over the card's memory rate."""
+    from shared_tensor_tpu_torch.ops import codec_lab_torch as lt
+    from shared_tensor_tpu_torch.ops.codec_lab import Sign2, TopK
+    from shared_tensor_tpu_torch.ops.packing import padded_len, words_to_host, words_to_wire
+    from shared_tensor_tpu_torch.ops.table import make_spec
+    from shared_tensor_tpu_torch.utils.timing import event_ms
+
+    n = make_spec(char_rnn_template()).total_n
+    n_pad, k = padded_len(n), n // 32
+    rng = np.random.default_rng(seed + 18)
+    r, v = np.zeros(n_pad, np.float32), np.zeros(n_pad, np.float32)
+    r[:n] = rng.standard_normal(n)
+    v[:n] = rng.standard_normal(n)
+    r_d, v_d = torch.from_numpy(r).to(device), torch.from_numpy(v).to(device)
+    u32 = lambda a: np.ascontiguousarray(a).view(np.uint32)
+    mism = {}
+
+    frame, new_np = Sign2().encode(r[:n].copy())
+    scale, words, new_d = lt.sign2_quantize(r_d, n)
+    s = float(scale)
+    octave = s != frame.scale
+    if octave:
+        mism["sign2_scale"] = int(max(s, frame.scale) != 2 * min(s, frame.scale))
+    else:
+        got = np.frombuffer(words_to_wire(words_to_host(words), 2 * n), np.uint8)
+        mism["sign2_codes"] = int((got != frame.data).sum()) + abs(got.size - frame.data.size)
+        new_h = new_d.cpu().numpy()
+        mism["sign2_residual"] = int((u32(new_h[:n]) != u32(new_np)).sum() + np.count_nonzero(new_h[n:]))
+        applied = lt.sign2_apply(v_d, scale, words, n).cpu().numpy()
+        want = v[:n] + Sign2().decode(frame, n)
+        mism["sign2_apply"] = int((u32(applied[:n]) != u32(want)).sum() + np.count_nonzero(applied[n:]))
+
+    tf, _ = TopK(k).encode(r[:n].copy())
+    idx, vals, rk = lt.topk_quantize(r_d, k)
+    idx_h = idx.cpu().numpy()
+    mism["topk_index_set"] = int(not _topk_sets_agree(idx_h, tf.data[:, 0].view(np.uint32).astype(np.int64), np.abs(r)))
+    want = r.copy()
+    want[idx_h] = 0.0  # the lab's rule at the card's indices: the lab's residual where the sets are equal
+    mism["topk_residual"] = int((u32(rk.cpu().numpy()) != u32(want)).sum())
+    back = lt.topk_apply(rk, idx, vals, n).cpu().numpy()
+    mism["topk_conservation"] = int((u32(back) != u32(r)).sum())
+
+    bytes_ = {
+        "sign2_quantize": 8 * n_pad + n_pad // 4, "sign2_apply": 8 * n_pad + n_pad // 4,
+        "topk_quantize": 8 * n_pad + 12 * k, "topk_apply": 8 * n_pad + 12 * k,
+    }
+    calls = {
+        "sign2_quantize": lambda: lt.sign2_quantize(r_d, n),
+        "sign2_apply": lambda: lt.sign2_apply(v_d, scale, words, n),
+        "topk_quantize": lambda: lt.topk_quantize(r_d, k),
+        "topk_apply": lambda: lt.topk_apply(rk, idx, vals, n),
+    }
+    times = {name: {"ms": event_ms(fn, LAB_TIMED), "bytes": bytes_[name], "bound_ms": bytes_[name] / rate * 1e3}
+             for name, fn in calls.items()}
+    return {"n": n, "n_pad": n_pad, "k": k, "scale": s, "lab_scale": frame.scale, "octave_boundary": octave,
+            "mismatches": mism, "times": times}
+
+
+def pod_sign2(mesh, seed: int) -> dict:
+    """18b, on each of the 4 ranks of ``mesh`` (4 peers x 1 shard, config 2's
+    table): the production step and the codec lab's 2-bit step
+    (parallel/ici_lab) from the same states, in turns. Uniform updates (one
+    per peer, from ``seed``): each step leaves the two arms' scales, values
+    and residuals bit-equal, both drain to exact zero within
+    LAB_UNIFORM_STEPS, and every peer ends on the sum of the updates.
+    Gaussian updates: the RMS of every peer's residual over LAB_FRAMES
+    steps, as a decay per frame for each arm. Each step's host ms (a
+    synchronize after it), and each arm's bytes received per peer and
+    step."""
+    import torch.distributed as dist
+
+    from shared_tensor_tpu_torch.ops import codec_np
+    from shared_tensor_tpu_torch.ops.table import make_spec
+    from shared_tensor_tpu_torch.parallel import add_updates, build_sync_step, frame_ici_bytes, init_state
+    from shared_tensor_tpu_torch.parallel.ici_lab import build_sign2_sync_step
+    from shared_tensor_tpu_torch.parallel.mesh import all_reduce_, all_true
+
+    dev = mesh.device
+    spec = make_spec(char_rnn_template())
+    live = codec_np._live_mask(spec)
+
+    def updates(kind: str) -> list[np.ndarray]:
+        ups = []
+        for p in range(mesh.n_peer):
+            rng = np.random.default_rng(seed + 1800 + p)
+            u = rng.uniform(-1.0, 1.0, spec.total) if kind == "uniform" else rng.standard_normal(spec.total)
+            ups.append(u.astype(np.float32) * live)
+        return ups
+
+    def arms(ups):
+        out = []
+        for _ in range(2):
+            st = init_state(mesh, spec)
+            add_updates(st, torch.from_numpy(ups[mesh.peer]).to(dev))
+            out.append(st)
+        return out
+
+    step1, step2 = build_sync_step(mesh, spec), build_sign2_sync_step(mesh, spec)
+    ms = {"production": [], "sign2": []}
+
+    def timed(name, step, st):
+        _sync(dev)
+        t = time.perf_counter()
+        st, sc = step(st)
+        _sync(dev)
+        ms[name].append((time.perf_counter() - t) * 1e3)
+        return st, sc
+
+    same = lambda a, b: torch.equal(a.view(torch.int32), b.view(torch.int32))
+    ups = updates("uniform")
+    s1, s2 = arms(ups)
+    equal, steps = True, 0
+    for steps in range(1, LAB_UNIFORM_STEPS + 1):
+        s1, sc1 = timed("production", step1, s1)
+        s2, sc2 = timed("sign2", step2, s2)
+        equal = all_true(mesh, same(sc1, sc2) and same(s1.values, s2.values) and same(s1.residual, s2.residual)) \
+            and equal
+        if all_true(mesh, not bool(s1.residual.any()) and not bool(s2.residual.any())):
+            break
+    drained = all_true(mesh, not bool(s1.residual.any()) and not bool(s2.residual.any()))
+    target = np.sum(np.stack(ups), axis=0)
+    got = s2.values.cpu().numpy()
+    sum_err = float(np.abs(got - target).max())
+    on_sum = all_true(mesh, bool(np.allclose(got, target, rtol=1e-4, atol=1e-5)))
+    del s1, s2
+
+    def rms(st) -> float:
+        t = torch.sum(st.residual.to(torch.float64) ** 2).reshape(1)
+        all_reduce_(mesh, t, dist.ReduceOp.SUM, mesh.peer_group)
+        return math.sqrt(float(t.item()) / (mesh.n_peer * spec.total))
+
+    g1, g2 = arms(updates("gaussian"))
+    rms0 = rms(g1)
+    for _ in range(LAB_FRAMES):
+        g1, _ = timed("production", step1, g1)
+        g2, _ = timed("sign2", step2, g2)
+    decay = {"production": (rms(g1) / rms0) ** (1.0 / LAB_FRAMES), "sign2": (rms(g2) / rms0) ** (1.0 / LAB_FRAMES)}
+    del g1, g2
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    per_frame2 = spec.total // 32 * 4 * 2 + spec.num_leaves * 4
+    return {
+        "peer": mesh.peer, "device": str(dev), "uniform_steps": steps, "uniform_bit_equal": equal,
+        "uniform_drained": drained, "uniform_on_sum": on_sum, "uniform_sum_max_err": sum_err,
+        "gaussian_decay_per_frame": decay, "ms_per_step_median": {k: float(np.median(v)) for k, v in ms.items()},
+        "ms_per_step_min": {k: float(np.min(v)) for k, v in ms.items()},
+        "frame_bytes_received": {"production": frame_ici_bytes(spec, mesh.n_peer),
+                                 "sign2": (mesh.n_peer - 1) * per_frame2},
+    }
+
+
+def lab_phase(device, rate: float, seed: int, sign2_ranks: list, secs_18b: float, smi: str) -> dict:
+    """Phase 18 (module docstring): 18a here, 18b's results from the
+    phases 9-11 spawn; raises on any failed check."""
+    t0 = time.perf_counter()
+    twins = lab_twins(device, rate, seed)
+    secs_18a = time.perf_counter() - t0
+    print(f"[18a] codec lab twins on {device} at n={twins['n']} (padded {twins['n_pad']}), k={twins['k']}: "
+          f"scale {twins['scale']!r} (numpy lab {twins['lab_scale']!r}), mismatches {twins['mismatches']}; "
+          + ", ".join(f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f} ms, {v['bytes']} bytes)"
+                      for k, v in twins["times"].items())
+          + f"; {secs_18a:.3f} s; on {smi}")
+    bad = [f"18a {k}: {v}" for k, v in twins["mismatches"].items() if v]
+    r0 = sign2_ranks[0]
+    d = r0["gaussian_decay_per_frame"]
+    print(f"[18b] sign2 pod step, {len(sign2_ranks)} peers on one card, config 2's table: uniform "
+          f"{'bit-equal to the production step' if all(r['uniform_bit_equal'] for r in sign2_ranks) else 'DIVERGED'}"
+          f" frame by frame over {r0['uniform_steps']} steps, drained "
+          f"{all(r['uniform_drained'] for r in sign2_ranks)}, on the sum "
+          f"{all(r['uniform_on_sum'] for r in sign2_ranks)} (max err {max(r['uniform_sum_max_err'] for r in sign2_ranks):.3e}); "
+          f"gaussian RMS decay per frame over {LAB_FRAMES} frames: sign2 {d['sign2']:.4f}, production "
+          f"{d['production']:.4f}; ms per step (median) sign2 {r0['ms_per_step_median']['sign2']:.3f}, production "
+          f"{r0['ms_per_step_median']['production']:.3f}; bytes received per peer and step sign2 "
+          f"{r0['frame_bytes_received']['sign2']}, production {r0['frame_bytes_received']['production']}; "
+          f"{secs_18b:.3f} s")
+    for rk, r in enumerate(sign2_ranks):
+        for key in ("uniform_bit_equal", "uniform_drained", "uniform_on_sum"):
+            if not r[key]:
+                bad.append(f"18b rank {rk} {key}")
+        dr = r["gaussian_decay_per_frame"]
+        if not dr["sign2"] < dr["production"] - LAB_DECAY_MARGIN:
+            bad.append(f"18b rank {rk} gaussian decay {dr}")
+    if bad:
+        raise AssertionError("phase 18: " + "; ".join(bad))
+    return {"twins": twins, "twins_s": secs_18a, "pod_sign2": sign2_ranks, "pod_sign2_s": secs_18b}
+
+
 SOURCES = {
     "quantize_rows":("shared_tensor_tpu_torch/csrc/quantize_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:286"),
     "apply_rows_batch": ("shared_tensor_tpu_torch/csrc/apply_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:337"),
@@ -3451,8 +3689,12 @@ def main() -> int:
     if bad:
         raise AssertionError(f"phase 17c: kernel vs plain mismatches on the master's state: {bad}")
     print(f"[17] launches {shard_launches}")
+
+    # 18. the codec lab: its device twins on the card (18a); the sign2 pod
+    # step ran as 18b in the phases 9-11 spawn
+    lab = lab_phase(dev, rate, args.seed, pod["sign2"], pod["phase18b_s"], smi)
     serve_out["script_s"] = time.perf_counter() - t_script
-    print(f"[17] script {serve_out['script_s']:.3f} s")
+    print(f"[18] script {serve_out['script_s']:.3f} s")
 
     print(smi)
     kernels = []
@@ -3476,6 +3718,7 @@ def main() -> int:
     print(json.dumps({"obs": obs_out}))
     print(json.dumps({"lifecycle": lc_out}))
     print(json.dumps({"shard": shard_out}))
+    print(json.dumps({"codec_lab": lab}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

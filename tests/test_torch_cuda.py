@@ -705,3 +705,71 @@ def test_sharded_fallback_peer_runs_the_cuda_tier(cuda_device):
             assert _same_bits(scales, want.scales) and _same_bits(words, want.words)
             assert _same_bits(after, resid)
     assert CC.LAUNCHES["quantize_rows"] > 0 and CC.LAUNCHES["apply_rows_batch"] > 0, CC.LAUNCHES
+
+
+@pytest.mark.cuda
+def test_codec_lab_twins_on_the_card_match_the_numpy_lab(cuda_device):
+    """The codec lab's device twins (ops/codec_lab_torch) on CUDA tensors
+    against the numpy lab (ops/codec_lab): Sign2's codes byte-equal and
+    residual bit-equal at the same scale (or the scales one octave apart at
+    an exact boundary), and its apply equal to the lab's decode added;
+    TopK's index set equal and its apply conserving exactly."""
+    from shared_tensor_tpu_torch.ops import codec_lab_torch as lt
+    from shared_tensor_tpu_torch.ops.codec_lab import Sign2, TopK
+    from shared_tensor_tpu_torch.ops.packing import words_to_host, words_to_wire
+
+    n = 1 << 16
+    r = np.random.default_rng(14).standard_normal(n).astype(np.float32)
+    frame, new_np = Sign2().encode(r.copy())
+    scale, words, new_d = lt.sign2_quantize(torch.from_numpy(r).to(cuda_device), n)
+    if float(scale) == frame.scale:
+        assert words_to_wire(words_to_host(words), 2 * n) == frame.data.tobytes()
+        assert _same_bits(new_d.cpu(), torch.from_numpy(new_np))
+        vals = torch.from_numpy(r).to(cuda_device)
+        out = lt.sign2_apply(vals, scale, words, n)
+        assert _same_bits(out.cpu(), torch.from_numpy(r + Sign2().decode(frame, n)))
+    else:
+        assert max(float(scale), frame.scale) == 2 * min(float(scale), frame.scale)
+    k = n // 32
+    tf, tnew = TopK(k).encode(r.copy())
+    idx, vals, rk = lt.topk_quantize(torch.from_numpy(r).to(cuda_device), k)
+    assert set(idx.cpu().tolist()) == set(tf.data[:, 0].view(np.uint32).tolist())
+    assert _same_bits(rk.cpu(), torch.from_numpy(tnew))
+    back = lt.topk_apply(rk, idx, vals, n)
+    assert _same_bits(back.cpu(), torch.from_numpy(r))
+
+
+def _sign2_step_on_one_rank(mesh, steps):
+    from shared_tensor_tpu_torch.ops import codec_np
+    from shared_tensor_tpu_torch.ops.table import flatten, make_spec
+    from shared_tensor_tpu_torch.parallel import add_updates, init_state
+    from shared_tensor_tpu_torch.parallel.ici_lab import build_sign2_sync_step
+
+    rng = np.random.default_rng(15)
+    shapes = {"w": (300, 70), "b": (9,)}
+    tpl = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    spec = make_spec(tpl)
+    state = init_state(mesh, spec, tpl)
+    add_updates(state, flatten({k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}, spec)
+                .to(mesh.device))
+    step = build_sign2_sync_step(mesh, spec)
+    v0 = state.values.cpu().numpy().copy()
+    bad = 0
+    for _ in range(steps):
+        r0 = state.residual.cpu().numpy().copy()
+        state, scales = step(state)
+        _, want = codec_np.quantize2_table_np(r0, spec, scales.cpu().numpy())
+        bad += int((state.residual.cpu().numpy().view(np.uint32) != want.view(np.uint32)).sum())
+    bad += int((state.values.cpu().numpy().view(np.uint32) != v0.view(np.uint32)).sum())
+    return bad, str(state.values.device)
+
+
+@pytest.mark.cuda
+def test_sign2_pod_step_on_one_cuda_rank(cuda_device):
+    """The codec lab's 2-bit pod step on a 1-rank mesh on the card: each
+    step's residual equals the engine's C sign2 quantize at the step's
+    scales, bit for bit, and with no other peer the replica is untouched."""
+    from shared_tensor_tpu_torch.parallel import run_mesh
+
+    ((bad, dev),) = run_mesh(_sign2_step_on_one_rank, 1, 1, 3, device="cuda", backend="gloo", timeout_s=300)
+    assert dev.startswith("cuda") and bad == 0

@@ -47,11 +47,15 @@ def test_sources_name_no_jax(path):
 
 
 @pytest.mark.parametrize("module", ["shared_tensor_tpu_torch.ctl", "shared_tensor_tpu_torch.benchmarks.lifecycle",
-                                    "shared_tensor_tpu_torch.benchmarks.shard_bench"])
+                                    "shared_tensor_tpu_torch.benchmarks.shard_bench",
+                                    "shared_tensor_tpu_torch.benchmarks.codec_lab",
+                                    "shared_tensor_tpu_torch.benchmarks.fleet_health",
+                                    "shared_tensor_tpu_torch.examples.example",
+                                    "shared_tensor_tpu_torch.examples.serve_char_rnn"])
 def test_cli_modules_load_no_jax(module):
-    """The operator CLI and the lifecycle bench, each imported alone (and
-    the CLI's help run as ``python -m``), load no jax and nothing of the
-    JAX package."""
+    """The operator CLI, the benches and the examples, each run alone as
+    ``python -m`` with ``--help``, load no jax and nothing of the JAX
+    package."""
     code = (
         "import runpy, sys\n"
         f"sys.argv = [{module!r}, '--help']\n"
@@ -73,6 +77,21 @@ def test_shard_modules_load_no_jax(module):
     interpreter, loads no jax and nothing of the JAX package (map.py is
     standard library only, in JAX too: the port keeps its own copy)."""
     name = "shared_tensor_tpu_torch.shard" + ("" if module == "__init__" else f".{module}")
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({name!r})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", ["ops.codec_lab", "ops.codec_lab_torch", "parallel.ici_lab"])
+def test_codec_lab_modules_load_no_jax(module):
+    """Each module of the codec lab, imported alone in a fresh interpreter,
+    loads no jax and nothing of the JAX package."""
+    name = f"shared_tensor_tpu_torch.{module}"
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({name!r})\n"

@@ -1,5 +1,6 @@
 """Rank-side jobs of the port's pod-tier tests (tests/test_torch_ici.py,
-test_torch_trainer.py, test_torch_resnet.py, test_torch_mesh.py). It holds
+test_torch_ici_lab.py, test_torch_trainer.py, test_torch_resnet.py,
+test_torch_mesh.py). It holds
 no tests itself.
 
 These run inside ``shared_tensor_tpu_torch.parallel.run_mesh`` ranks, so
@@ -31,20 +32,22 @@ from shared_tensor_tpu_torch.parallel import (
     read_peer,
 )
 from shared_tensor_tpu_torch.parallel.ici import block_range
+from shared_tensor_tpu_torch.parallel.ici_lab import build_sign2_sync_step
+from shared_tensor_tpu_torch.parallel.mesh import all_true
 
 CHAR_TEXT = b"the quick brown fox jumps over the lazy dog. " * 60
 
 
-def run_on_mesh(jobs):
-    """Run ``jobs`` (see :func:`run_jobs`) on one mesh of 8 CPU ranks and
-    return each rank's results. The test files' meshes take a lock file
+def run_on_mesh(jobs, world=8):
+    """Run ``jobs`` (see :func:`run_jobs`) on one mesh of ``world`` CPU
+    ranks and return each rank's results. The test files' meshes take a lock file
     in turn, so that under pytest-xdist they start one at a time and do
     not crowd the host's cores (and the timing-bound tests beside them)."""
     from shared_tensor_tpu_torch.parallel import run_mesh
 
     with open(os.path.join(tempfile.gettempdir(), "st_torch_pod_tests.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        return run_mesh(run_jobs, 8, 1, jobs, device="cpu", timeout_s=120)
+        return run_mesh(run_jobs, world, 1, jobs, device="cpu", timeout_s=120)
 
 
 def run_jobs(world, jobs):
@@ -80,15 +83,22 @@ def _spec_state(mesh, tpl, ups):
     return spec, state
 
 
-def sync(mesh, tpl, ups, policy="POW2_RMS", per_leaf=True, compressed=True, impl="auto", steps=1, phases=False):
+def sync(mesh, tpl, ups, policy="POW2_RMS", per_leaf=True, compressed=True, impl="auto", steps=1, phases=False,
+         sign2=False):
     """Seed ``tpl`` on every peer, add ``ups[p]`` on peer p, run ``steps``
-    sync steps (``phases``: composed from build_sync_phases). Returns the
-    pod's values and residual before and after, and each step's scales."""
+    sync steps (``phases``: composed from build_sync_phases; ``sign2``: the
+    codec lab's 2-bit step). Returns the pod's values and residual before
+    and after, and each step's scales."""
     spec, state = _spec_state(mesh, tpl, ups)
     before = pod_state_to_numpy(state, mesh)
     pol = ScalePolicy[policy]
     scales = []
-    if phases:
+    if sign2:
+        step = build_sign2_sync_step(mesh, spec, pol, per_leaf)
+        for _ in range(steps):
+            state, s = step(state)
+            scales.append(s.numpy().copy())
+    elif phases:
         send, apply_gathered = build_sync_phases(mesh, spec, pol, per_leaf, impl)
         for _ in range(steps):
             frames = send(state.residual)
@@ -101,6 +111,81 @@ def sync(mesh, tpl, ups, policy="POW2_RMS", per_leaf=True, compressed=True, impl
             scales.append(s.numpy().copy())
     values, residual = pod_state_to_numpy(state, mesh)
     return {"before": before, "values": values, "residual": residual, "scales": np.stack(scales)}
+
+
+def _same_bits(a, b):
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def sign2_ab(mesh, tpl, ups, steps):
+    """The production step and the 2-bit step from the same state, in
+    turns, for ``steps`` steps or until the production arm's residuals are
+    all exactly zero. Returns whether each step left the two arms' scales,
+    values and residuals bit-equal on every rank, the steps run, whether
+    both drained, and the pod's state before and after each arm."""
+    spec, s1 = _spec_state(mesh, tpl, ups)
+    _, s2 = _spec_state(mesh, tpl, ups)
+    before = pod_state_to_numpy(s1, mesh)
+    step1, step2 = build_sync_step(mesh, spec), build_sign2_sync_step(mesh, spec)
+    equal = []
+    for _ in range(steps):
+        s1, sc1 = step1(s1)
+        s2, sc2 = step2(s2)
+        same = _same_bits(sc1, sc2) and _same_bits(s1.values, s2.values) and _same_bits(s1.residual, s2.residual)
+        equal.append(all_true(mesh, same))
+        if all_true(mesh, not bool(s1.residual.any())):
+            break
+    return {"equal": equal, "before": before, "prod": pod_state_to_numpy(s1, mesh),
+            "sign2": pod_state_to_numpy(s2, mesh),
+            "drained": all_true(mesh, not bool(s1.residual.any()) and not bool(s2.residual.any()))}
+
+
+def sign2_planes(mesh, tpl, ups):
+    """One 2-bit step, as :func:`sync` with ``sign2``, plus the planes every
+    peer sent: the step's all-gather is watched, and each peer's sign and
+    magnitude words are joined over its shards, u32[n_peer, 2 * W] with
+    the sign plane first."""
+    from shared_tensor_tpu_torch.parallel import ici_lab
+    from shared_tensor_tpu_torch.parallel.mesh import all_gather
+
+    sent, real = [], ici_lab.all_gather
+    ici_lab.all_gather = lambda m, t, group, async_op=False: (sent.append(t.clone()), real(m, t, group, async_op))[1]
+    try:
+        out = sync(mesh, tpl, ups, sign2=True)
+    finally:
+        ici_lab.all_gather = real
+    k = out["scales"].shape[-1]
+    words = sent[0][k:].reshape(2, -1)  # this rank's [sign | magnitude] words
+    joined = all_gather(mesh, words, mesh.shard_group).wait()  # [n_shard, 2, W_local]
+    peer = joined.permute(1, 0, 2).reshape(-1)
+    out["words"] = all_gather(mesh, peer, mesh.peer_group).wait().numpy().view(np.uint32).copy()
+    return out
+
+
+def sign2_char_ab(mesh, cfg_kw, steps, lr=0.3, batch=4, seq=16):
+    """The char-RNN trained through the production step and through the
+    2-bit step on ONE list of batches (tests/test_ici_lab.py's training
+    A/B): each step takes the grads and adds the update locally, then runs
+    the arm's sync step. Returns each arm's mean loss per step."""
+    from shared_tensor_tpu_torch.train import PodTrainer
+
+    m, cfg, loss = _char_model(cfg_kw)
+    params = m.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    data = m.encode_corpus(bytes(range(32, 127)) * 40, device="cpu")
+    batches = [m.make_batches(data, batch, seq, torch.Generator().manual_seed(i), n_peer=mesh.n_peer, vocab=cfg.vocab)
+               for i in range(steps)]
+    out = {}
+    for name in ("sign1", "sign2"):
+        tr = PodTrainer(mesh, params, loss, sync=False)
+        step = build_sync_step(mesh, tr.spec) if name == "sign1" else build_sign2_sync_step(mesh, tr.spec)
+        losses = []
+        for b in batches:
+            l, _ = tr.step(tr.shard_batch(b), lr=lr)
+            tr.state, _ = step(tr.state)
+            losses.append(float(l.mean()))
+        out[name] = losses
+        out[f"{name}_finite"] = all_true(mesh, bool(torch.isfinite(tr.state.values).all()))
+    return out
 
 
 def read(mesh, tpl, peer):

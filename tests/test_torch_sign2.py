@@ -6,6 +6,8 @@ against the JAX package (tests/test_sign2.py's cases).
   against JAX's quantize2_table_np / apply2_table_np, bit for bit given
   the same scales; the rollback apply within 4e-6 (test_sign2.py's), and
   the cascade equal to K one-frame passes at the same schedule.
+- The codec lab's 2-bit pod step (parallel/ici_lab) against the C loops at
+  the step's own scales: planes, residuals and applied values.
 - A pinned-sign2 pair of port engines converges and counts frames2.
 - A port engine with ST_SIGN2=0 keeps the pair at 1 bit.
 - A port engine and a JAX engine negotiate sign2, both ways.
@@ -88,6 +90,34 @@ def test_cascade_is_k_passes_at_the_same_schedule():
     v = np.random.default_rng(6).normal(size=spec.total).astype(np.float32)
     np.testing.assert_array_equal(codec_np.apply2_table_np((v,), sched, words, spec)[0],
                                   codec_np.apply2_table_plain((v,), sched, words, spec)[0])
+
+
+def test_sign2_c_loops_match_the_port_pod_lab_step():
+    """The engine's sign2 loops against the codec lab's pod step
+    (parallel/ici_lab.build_sign2_sync_step): one step on a 2-peer x
+    2-shard mesh, then each peer's quantize and the cross-peer apply redone
+    with the C loops at the step's scales. Planes, residuals and applied
+    values byte-equal (the pod step's two planes and the C frame's
+    [sign | magnitude] words share the LSB-first u32 layout)."""
+    from tests import test_torch_pod_jobs as P
+
+    n_peer, n = 2, 4096
+    tpl = {"w": np.zeros(n, np.float32)}
+    spec = make_spec(tpl)
+    rng = np.random.default_rng(3)
+    ups = np.stack([rng.normal(0, 1, spec.total) for _ in range(n_peer)]).astype(np.float32)
+    got = P.result(P.run_on_mesh([("one", "sign2_planes", n_peer, 2, dict(tpl=tpl, ups=ups))], world=4), "one")
+    (v_before, r_before), scales = got["before"], got["scales"][0]  # scales f32[n_peer, L]
+    words = []
+    for p in range(n_peer):
+        w, r2 = codec_np.quantize2_table_np(r_before[p], spec, scales[p][None])
+        np.testing.assert_array_equal(w[0], got["words"][p], err_msg=f"peer {p} planes")
+        np.testing.assert_array_equal(r2.view(np.uint32), got["residual"][p].view(np.uint32), err_msg=f"peer {p}")
+        words.append(w)
+    for p in range(n_peer):
+        q = 1 - p  # the one other peer
+        (v,) = codec_np.apply2_table_np((v_before[p],), scales[q][None], words[q], spec)
+        np.testing.assert_array_equal(v.view(np.uint32), got["values"][p].view(np.uint32), err_msg=f"peer {p}")
 
 
 # -- engine peers --------------------------------------------------------------------
