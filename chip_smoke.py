@@ -271,6 +271,18 @@ Phases, in order; any failure exits non-zero:
    at least LAB_DECAY_MARGIN under the production step's; ms per step of
    each arm and its bytes received per peer and step. Any failed check
    fails the phase. One {"codec_lab": ...} line.
+19. In the phases 9-11 spawn, right after phase 9, on its 4 ranks: config 2
+   at full width, PROFILE_WARM compressed steps, then PROFILE_STEPS more
+   under the autograd profiler, the device's side alone (kernels, copies
+   and the calls that launched them; benchmarks/profile_trace.profile_window,
+   read in memory; no trace file):
+   each rank's device busy share (the union of its kernel intervals over
+   its window, opened after a barrier and closed after a device sync), the
+   card's (every rank's intervals merged on the host's wall clock), device
+   ms by kernel name, and the MFU of phase 9's tokens/s against the peak
+   of the precision its matmuls ran at (benchmarks/train_bench). Fails if a
+   trace holds no kernel event, A or B has no device time in it, or a
+   rank's launches of A and B in the window are not PROFILE_STEPS each.
 The transport, the host codec and the engine (native/sttransport.cpp,
 stcodec.c, stengine.cpp) and the C reference peer (stc_harness.c) are
 compiled with g++ and gcc in phase 1, beside the kernels. Every rank's full results of phases 9, 10 and 11 go to
@@ -1168,6 +1180,7 @@ RESNET_PEERS, RESNET_BATCH, RESNET_HW, RESNET_LR = 8, 32, 32, 0.05  # BASELINE c
 RESNET_STEPS = 12  # per arm
 BRIDGE_STEPS = 4  # timed steps per arm, after one warm-up step
 RESUME_STEPS = 2  # steps from the checkpoint, live and restored
+PROFILE_WARM, PROFILE_STEPS = 2, 3  # phase 19: untraced, then traced compressed steps
 
 
 def pod_kernel_check(state, spec, mesh) -> dict:
@@ -1283,6 +1296,84 @@ def pod_char_rnn(mesh, mesh22, seed: int) -> dict:
     }
 
 
+def pod_profile(mesh, seed: int) -> dict:
+    """Phase 19, on each of phase 9's 4 ranks: BASELINE config 2 at full width,
+    PROFILE_WARM compressed steps, then PROFILE_STEPS more under the
+    profiler (benchmarks/profile_trace.profile_window): this rank's device
+    busy share of the window, device ms by kernel name and the launches of
+    A and B in the window; on rank 0 the card's share, every rank's kernel
+    intervals merged on the host's clock. The profile holds the device's
+    side alone and is read in memory (no trace file: the export and its
+    reading cost a second a rank)."""
+    from shared_tensor_tpu_torch.benchmarks import profile_trace as PT
+    from shared_tensor_tpu_torch.benchmarks import train_bench as TB
+    from shared_tensor_tpu_torch.examples.train_char_rnn import PANGRAM
+    from shared_tensor_tpu_torch.models import char_rnn as m
+    from shared_tensor_tpu_torch.train import PodTrainer
+
+    t0 = time.perf_counter()
+    dev = mesh.device
+    cfg = m.CharRNNConfig()
+    params = m.init_params(torch.Generator().manual_seed(seed), cfg, device=dev)
+    tr = PodTrainer(mesh, params, lambda p, b: m.loss_fn(p, b, cfg))
+    batch = _char_batches(m.encode_corpus(PANGRAM, device=dev), seed + 19, mesh.n_peer)
+    batches = iter([tr.shard_batch(batch(i)) for i in range(PROFILE_WARM + PROFILE_STEPS)])
+    t1 = time.perf_counter()
+    for _ in range(PROFILE_WARM):
+        tr.step(next(batches), lr=CHAR_LR)
+    torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    out = PT.profile_window(mesh, lambda: tr.step(next(batches), lr=CHAR_LR), PROFILE_STEPS, None)
+    t3 = time.perf_counter()
+    del tr
+    torch.cuda.empty_cache()
+    out["seconds"] = {"setup": t1 - t0, "warm": t2 - t1} | out["seconds"] | {"free": time.perf_counter() - t3}
+    return out | {"matmul_peak": TB.matmul_peak(dev)}
+
+
+def profile_report(prof: list, tokens_per_s: float, secs: float) -> dict:
+    """Phase 19's lines and checks from every rank's :func:`pod_profile`
+    and phase 9's tokens/s; raises on a failed check."""
+    from shared_tensor_tpu_torch.benchmarks import profile_trace as PT
+    from shared_tensor_tpu_torch.benchmarks import train_bench as TB
+    from shared_tensor_tpu_torch.models.char_rnn import CharRNNConfig
+
+    peak, precision = prof[0]["matmul_peak"]
+    fpt = TB.flops_per_token(CharRNNConfig())
+    mfu = fpt * tokens_per_s / peak
+    card = prof[0]["card"]
+    bad = []
+    for rk, r in enumerate(prof):
+        ab = r["codec_ms"]
+        share = "no kernel events" if r["busy_share"] is None else f"{r['busy_share']:.4f}"
+        print(f"[19] rank {rk}: device busy share {share} of a {r['window_ms']:.3f} ms window "
+              f"({PROFILE_STEPS} compressed steps, {r['kernel_events']} kernels, {r['kernel_ms']:.3f} kernel ms, "
+              f"copies {r['copy_ms']:.3f} ms); A {ab['quantize_rows']:.4f} ms, B {ab['apply_rows_batch']:.4f} ms; "
+              f"launches {r['launches']}; seconds " + ", ".join(f"{k} {v:.3f}" for k, v in r["seconds"].items()))
+        if not r["kernel_events"]:
+            bad.append(f"rank {rk}: the trace holds no CUDA kernel events")
+        if any(n != PROFILE_STEPS for n in r["launches"].values()):
+            bad.append(f"rank {rk}: launches {r['launches']} (want {PROFILE_STEPS} each)")
+        if not all(v > 0 for v in ab.values()):
+            bad.append(f"rank {rk}: A or B has no device time in the trace ({ab})")
+    if card["busy_share"] is None:
+        bad.append("the card's merged trace holds no kernel events")
+    else:
+        print(f"[19] the card ({card['ranks']} ranks merged on the host's wall clock, window "
+              f"{card['window_ms']:.3f} ms, windows opened within {card['window_start_spread_ms']:.3f} ms): "
+              f"busy share {card['busy_share']:.4f}, idle share {card['idle_share']:.4f}")
+    for name, ms in PT.top(card["by_name"]):
+        print(f"[19]   {ms:10.3f} ms  {name[:100]}")
+    print(f"[19] mfu {mfu:.6f} for phase 9's {tokens_per_s:.1f} tokens/s x {fpt} FLOP a token against "
+          f"{peak:.3e} FLOP/s ({precision} matmuls); phase 19 {secs:.3f} s")
+    if bad:
+        raise AssertionError("phase 19: " + "; ".join(bad))
+    return {"mfu": mfu, "tokens_per_s": tokens_per_s, "flops_per_token": fpt, "peak_flops": peak,
+            "matmul_precision": precision, "seconds": secs,
+            "card": {k: v for k, v in card.items() if k != "by_name"} | {"top_kernels_ms": PT.top(card["by_name"])},
+            "ranks": [{k: v for k, v in r.items() if k not in ("by_name", "card")} for r in prof]}
+
+
 def resnet_batch(seed: int, step: int, n_peer: int, n: int = RESNET_BATCH, hw: int = RESNET_HW, classes: int = 10):
     """Synthetic 32x32 images (a class-dependent shift plus noise) and
     labels for every peer, [n_peer, n, hw, hw, 3] and [n_peer, n], from
@@ -1338,11 +1429,11 @@ def _loss_fell(losses) -> bool:
 
 
 def pod_ranks(world, seed: int, port: int) -> dict:
-    """Phases 9, 10, 11 and 18b in one spawn of RESNET_PEERS ranks (a spawn
-    and a CUDA context per rank cost seconds): every rank builds every
-    mesh; phase 9 runs on the first CHAR_PEERS ranks while the others wait
-    at a barrier, then phase 10 on all, then phase 11 on the first
-    2 * PEERS of benchmarks/hierarchical.py, then 18b on the first
+    """Phases 9, 19, 10, 11 and 18b in one spawn of RESNET_PEERS ranks (a
+    spawn and a CUDA context per rank cost seconds): every rank builds every
+    mesh; phases 9 and 19 run on the first CHAR_PEERS ranks while the
+    others wait at a barrier, then phase 10 on all, then phase 11 on the
+    first 2 * PEERS of benchmarks/hierarchical.py, then 18b on the first
     CHAR_PEERS."""
     import torch.distributed as dist
 
@@ -1357,6 +1448,9 @@ def pod_ranks(world, seed: int, port: int) -> dict:
     char = None if mesh4 is None else pod_char_rnn(mesh4, mesh22, seed)
     dist.barrier()
     t1 = time.perf_counter()
+    prof = None if mesh4 is None else pod_profile(mesh4, seed)
+    dist.barrier()
+    t19 = time.perf_counter()
     resnet = pod_resnet(world, seed)
     dist.barrier()
     t2 = time.perf_counter()
@@ -1365,8 +1459,8 @@ def pod_ranks(world, seed: int, port: int) -> dict:
     t3 = time.perf_counter()
     sign2 = None if mesh4 is None else pod_sign2(mesh4, seed)
     dist.barrier()
-    return {"char": char, "resnet": resnet, "bridge": bridge, "sign2": sign2, "phase9_s": t1 - t0,
-            "phase10_s": t2 - t1, "phase11_s": t3 - t2, "phase18b_s": time.perf_counter() - t3}
+    return {"char": char, "profile": prof, "resnet": resnet, "bridge": bridge, "sign2": sign2, "phase9_s": t1 - t0,
+            "phase19_s": t19 - t1, "phase10_s": t2 - t19, "phase11_s": t3 - t2, "phase18b_s": time.perf_counter() - t3}
 
 
 def _stopwatch():
@@ -1618,9 +1712,11 @@ def pod_phases(device, rate: float, seed: int) -> dict:
         for name, ls in (("4x1", res["losses"]), ("2x2", sh["losses"])):
             if not _loss_fell(np.mean(ls, axis=1)):
                 bad.append(f"rank {rk} {name}: loss did not fall ({np.mean(ls, axis=1).tolist()})")
-    print(f"[9] phase 9 {secs9:.3f} s (phases 9, 10 and 11 with the ranks' start {spawn_s:.3f} s)")
+    print(f"[9] phase 9 {secs9:.3f} s (phases 9, 19, 10 and 11 with the ranks' start {spawn_s:.3f} s)")
     if bad:
         raise AssertionError("phase 9: " + "; ".join(bad))
+    prof = [r["profile"] for r in ranks[:CHAR_PEERS]]
+    profile = profile_report(prof, float(np.mean([r["tokens_per_s"] for r in char])), ranks[0]["phase19_s"])
 
     for arm in ("compressed", "exact"):
         a = res10[0][arm]
@@ -1649,8 +1745,9 @@ def pod_phases(device, rate: float, seed: int) -> dict:
         json.dump({"char_rnn": char, "resnet": res10, "bridge": res11}, f)
     mean = lambda rows: float(np.mean(rows))
     summary = {
-        "seconds": {"phase9": secs9, "phase10": secs10, "phase11": ranks[0]["phase11_s"],
-                    "phases_9_10_11_with_start": spawn_s}, "backend": POD_BACKEND,
+        "seconds": {"phase9": secs9, "phase19": ranks[0]["phase19_s"], "phase10": secs10,
+                    "phase11": ranks[0]["phase11_s"], "phases_9_19_10_11_with_start": spawn_s}, "backend": POD_BACKEND,
+        "profile": profile,
         "bridge": bridge["summary"],
         "char_rnn": [{k: v for k, v in r.items() if k not in ("losses", "sharded")}
                      | {"loss_first": mean(r["losses"][0]), "loss_last": mean(r["losses"][-1]),
@@ -1663,7 +1760,7 @@ def pod_phases(device, rate: float, seed: int) -> dict:
     # A and B alone at the pod shapes of phase 9 (one rank's block of the
     # char-RNN table; B with K = 4 frames and N = 1 target)
     t = times(spec, device, rate, shapes=((CHAR_PEERS, 1),))
-    return {"char_rnn": char, "bridge": res11, "summary": summary,
+    return {"char_rnn": char, "profile": prof, "bridge": res11, "summary": summary,
             "times": {"quantize_rows": t["quantize_rows"], "apply_rows_batch": t["apply_rows_batch"][0]},
             "sign2": [r["sign2"] for r in ranks[:CHAR_PEERS]], "phase18b_s": ranks[0]["phase18b_s"]}
 
@@ -1682,23 +1779,6 @@ def char_rnn_template() -> dict:
     return tree_unflatten(treedef, [np.zeros(tuple(x.shape), np.float32) for x in leaves])
 
 
-def cpu_model() -> str:
-    """The host CPU's model name as lscpu gives it, or, where that reads
-    "unknown" (a virtual machine may hide it), its vendor, family and model
-    numbers."""
-    try:
-        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
-    except OSError:
-        out = ""
-    info = dict(line.split(":", 1) for line in out.splitlines() if ":" in line)
-    info = {k.strip(): v.strip() for k, v in info.items()}
-    name = info.get("Model name", "unknown")
-    if name in ("", "unknown"):
-        name = (f"{info.get('Vendor ID', 'unknown')} family {info.get('CPU family', '?')} model "
-                f"{info.get('Model', '?')}, {info.get('CPU(s)', '?')} CPUs")
-    return name
-
-
 def _host_ms(fn, reps: int = 5) -> float:
     fn()
     t0 = time.perf_counter()
@@ -1715,6 +1795,7 @@ def host_codec_check(template, seed: int, k: int = BATCH, n_targets: int = 2) ->
     K frames applied to N targets (apply_table_batch), and accumulate_table,
     each counted in mismatching words or elements; host ms of each C loop
     and of its plain version."""
+    from shared_tensor_tpu_torch.benchmarks import cpu_model
     from shared_tensor_tpu_torch.ops import codec_np as NP
     from shared_tensor_tpu_torch.ops.table import make_spec
 

@@ -2,7 +2,7 @@
 ``shared_tensor_tpu/utils/profiling.py``, which imports jax and so cannot
 be imported by the port.
 
-- :func:`trace`: context manager around ``torch.profiler`` that writes a
+- :func:`trace`: context manager around the PyTorch profiler that writes a
   Chrome trace (``trace.json``, for chrome://tracing or Perfetto) of
   whatever ran inside: the codec chain, a training loop.
 - :class:`RateMeter`: turns monotonically increasing counters (frames,
@@ -20,24 +20,32 @@ import math
 import os
 import time
 from collections import deque
-from typing import Iterable, Iterator
+from typing import Iterable, Iterator, Optional
 
 import torch
 
 
 @contextlib.contextmanager
-def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
+def trace(log_dir: Optional[str], host_ops: bool = True) -> Iterator[torch.autograd.profiler.profile]:
     """Profile what runs inside (host ops, and CUDA kernels when a GPU is
-    present) and write ``<log_dir>/trace.json`` on exit. Yields the
-    profiler, whose ``key_averages()`` sums the time by operator and
-    kernel."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    present) and write ``<log_dir>/trace.json`` on exit (nothing for
+    ``None``). Yields the profiler, whose ``key_averages()`` sums the time
+    by operator and kernel and whose ``kineto_results.events()`` are the
+    raw events. ``host_ops=False`` records the device's side alone
+    (kernels, copies and the CUDA calls that launched them): a trace some
+    times smaller, for a caller that reads only the device's time (without
+    a GPU the host's ops are all there is to record).
+
+    This is the autograd profiler that ``torch.profiler.profile`` wraps:
+    the wrapper's first start in a process imports ``torch._inductor``
+    (and with it Triton), seconds that this one does not spend."""
+    cuda = torch.cuda.is_available()
+    with torch.autograd.profiler.profile(use_cpu=host_ops or not cuda, use_device="cuda" if cuda else None,
+                                         use_kineto=True) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    if log_dir is not None:
+        os.makedirs(log_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 class RateMeter:

@@ -773,3 +773,60 @@ def test_sign2_pod_step_on_one_cuda_rank(cuda_device):
 
     ((bad, dev),) = run_mesh(_sign2_step_on_one_rank, 1, 1, 3, device="cuda", backend="gloo", timeout_s=300)
     assert dev.startswith("cuda") and bad == 0
+
+
+def _train_bench_arms_on_one_rank(mesh, steps):
+    """The train bench's compressed and exact arms on this rank for
+    ``steps`` steps each (benchmarks/train_bench's model, batch and rate at
+    the flagship width): the launches of A and B in each arm's steps, then
+    A and B against their plain versions on the compressed arm's trained
+    state (B applying the gathered frame, this peer's own, to the
+    replica)."""
+    from shared_tensor_tpu_torch.benchmarks import train_bench as TB
+    from shared_tensor_tpu_torch.config import ScalePolicy
+    from shared_tensor_tpu_torch.parallel import ici
+    from shared_tensor_tpu_torch.train import PodTrainer
+
+    setup = TB.Setup(batch=4, seq=64)
+    params, loss, batch = TB.model(mesh, setup)
+    launches, bad = {}, 0
+    for name in ("compressed", "exact"):
+        tr = PodTrainer(mesh, params, loss, **dict(TB.ARMS)[name])
+        b = tr.shard_batch(batch)
+        CC.reset_launches()
+        for _ in range(steps):
+            tr.step(b, setup.lr)
+        torch.cuda.synchronize()
+        launches[name] = {k: CC.LAUNCHES[k] for k in TB.KERNELS}
+        if name != "compressed":
+            continue
+        ctx = ici._make_ctx(mesh, tr.spec, True)
+        r0 = tr.state.residual.clone()
+        s_row = ici._leaf_scales(ctx, r0.view(-1, 128), ScalePolicy.POW2_RMS)[ctx.row_leaf].contiguous()
+        r_k, r_p = r0.clone(), r0.clone()
+        w_k = CC.quantize_rows_kernel(s_row, ctx.rowcount, r_k)
+        w_p = CC.quantize_rows_plain(s_row, ctx.rowcount, r_p)
+        words_all, scales_all = ici._codec_send(ctx, ScalePolicy.POW2_RMS, CC.quantize_rows_plain, r0.clone()).wait()
+        s_all = scales_all[:, ctx.row_leaf].contiguous()
+        v_k, v_p = tr.state.values.clone(), tr.state.values.clone()
+        CC.apply_rows_batch_kernel(s_all, ctx.rowcount, words_all, (v_k,))
+        CC.apply_rows_batch_plain(s_all, ctx.rowcount, words_all, (v_p,))
+        torch.cuda.synchronize()
+        bad = sum(int((x.view(torch.int32) != y.view(torch.int32)).sum())
+                  for x, y in ((w_k, w_p), (r_k, r_p), (v_k, v_p)))
+        bad += int(not bool((s_all != 0).any()))  # a frame of zero scales would check nothing
+    return launches, bad
+
+
+@pytest.mark.cuda
+def test_train_bench_compressed_arm_launches_the_kernels(cuda_device):
+    """The train bench's one-rank compressed arm on the card: A and B launch
+    once a step (3 each in 3 steps) and equal their plain versions bit for
+    bit on the trained state; the exact arm launches neither."""
+    from shared_tensor_tpu_torch.parallel import run_mesh
+
+    ((launches, bad),) = run_mesh(_train_bench_arms_on_one_rank, 1, 1, 3, device="cuda", backend="gloo",
+                                  timeout_s=300)
+    assert launches["compressed"] == {"quantize_rows": 3, "apply_rows_batch": 3}
+    assert launches["exact"] == {"quantize_rows": 0, "apply_rows_batch": 0}
+    assert bad == 0

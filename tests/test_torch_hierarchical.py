@@ -158,10 +158,13 @@ def test_exchange_matches_jax(port, n_peer, n_shard):
 def test_mixed_tree_jax_pod_and_port_pod():
     """A JAX pod (2 virtual CPU devices, the tree's master, training toward
     +2) and a port pod (2 gloo ranks, training toward -2) bridged at one
-    port: both settle near the mixture and agree once the updates stop."""
+    port: both settle near the mixture and agree once the updates stop.
+    The port pod's ranks wait their turn on the test meshes' lock: the
+    test is timed, and other files' meshes beside it slow its steps."""
     import tempfile
 
     from shared_tensor_tpu_torch.parallel import run_mesh
+    from tests.test_torch_pod_jobs import mesh_lock
 
     devs = jax.devices()
     mesh = j_mesh(2, 1, devices=devs[:2])
@@ -169,7 +172,7 @@ def test_mixed_tree_jax_pod_and_port_pod():
     steps, period = 100, 0.01
     a = JHierarchicalTrainer.create(mesh, "127.0.0.1", port_no, {"w": jnp.zeros((8,), jnp.float32)},
                                     lambda p, b: jnp.mean((p["w"] - b) ** 2))
-    with tempfile.TemporaryDirectory() as tmp:
+    with mesh_lock(), tempfile.TemporaryDirectory() as tmp:
         out = {}
 
         def run_port():

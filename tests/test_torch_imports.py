@@ -51,7 +51,11 @@ def test_sources_name_no_jax(path):
                                     "shared_tensor_tpu_torch.benchmarks.codec_lab",
                                     "shared_tensor_tpu_torch.benchmarks.fleet_health",
                                     "shared_tensor_tpu_torch.examples.example",
-                                    "shared_tensor_tpu_torch.examples.serve_char_rnn"])
+                                    "shared_tensor_tpu_torch.examples.serve_char_rnn",
+                                    "shared_tensor_tpu_torch.benchmarks.train_bench",
+                                    "shared_tensor_tpu_torch.benchmarks.mesh_timing",
+                                    "shared_tensor_tpu_torch.benchmarks.profile_trace",
+                                    "shared_tensor_tpu_torch.benchmarks.host_codec_bench"])
 def test_cli_modules_load_no_jax(module):
     """The operator CLI, the benches and the examples, each run alone as
     ``python -m`` with ``--help``, load no jax and nothing of the JAX

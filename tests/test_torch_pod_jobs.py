@@ -12,6 +12,7 @@ ranks, so many mesh shapes share one spawn. Inputs and results are numpy.
 
 from __future__ import annotations
 
+import contextlib
 import fcntl
 import os
 import tempfile
@@ -38,15 +39,22 @@ from shared_tensor_tpu_torch.parallel.mesh import all_true
 CHAR_TEXT = b"the quick brown fox jumps over the lazy dog. " * 60
 
 
-def run_on_mesh(jobs, world=8):
-    """Run ``jobs`` (see :func:`run_jobs`) on one mesh of ``world`` CPU
-    ranks and return each rank's results. The test files' meshes take a lock file
-    in turn, so that under pytest-xdist they start one at a time and do
-    not crowd the host's cores (and the timing-bound tests beside them)."""
-    from shared_tensor_tpu_torch.parallel import run_mesh
-
+@contextlib.contextmanager
+def mesh_lock():
+    """Held while a test file's mesh of ranks runs: the meshes take a lock
+    file in turn, so that under pytest-xdist they start one at a time and
+    do not crowd the host's cores (and the timing-bound tests beside them)."""
     with open(os.path.join(tempfile.gettempdir(), "st_torch_pod_tests.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
+        yield
+
+
+def run_on_mesh(jobs, world=8):
+    """Run ``jobs`` (see :func:`run_jobs`) on one mesh of ``world`` CPU
+    ranks and return each rank's results, under :func:`mesh_lock`."""
+    from shared_tensor_tpu_torch.parallel import run_mesh
+
+    with mesh_lock():
         return run_mesh(run_jobs, world, 1, jobs, device="cpu", timeout_s=120)
 
 
