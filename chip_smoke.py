@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (shared_tensor_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --phase20-cost    # phase 20a's cost alone (phase20_cost)
 
 Phases, in order; any failure exits non-zero:
 
@@ -283,6 +284,19 @@ Phases, in order; any failure exits non-zero:
    of the precision its matmuls ran at (benchmarks/train_bench). Fails if a
    trace holds no kernel event, A or B has no device time in it, or a
    rank's launches of A and B in the window are not PROFILE_STEPS each.
+20. End to end and conformance: (20a) benchmarks/e2e_sync for E2E_S s at
+   n = 1 Mi (the reference's comparison size): its parent a CUDA
+   device-tier peer (send_pipeline_depth 8, K-frame device bursts), its
+   child a host-tier port peer in a process of its own that sees no GPU,
+   started before phase 17 so that its imports overlap phases 17-18 (it
+   joins when the parent is up);
+   frames/s and equivalent GB/s each way beside the reference's row
+   (BASELINE.md, 242 frames/s), the launches of A and B in the exchange
+   (both > 0), then A and B against their plain versions on the parent's
+   state (0 mismatches). (20b) phase 16's kill-restore arm replays its
+   timeline through tools/protospec (benchmarks.conformance): its events,
+   routed events and violations are printed, and a violation or no routed
+   event fails the arm.
 The transport, the host codec and the engine (native/sttransport.cpp,
 stcodec.c, stengine.cpp) and the C reference peer (stc_harness.c) are
 compiled with g++ and gcc in phase 1, beside the kernels. Every rank's full results of phases 9, 10 and 11 go to
@@ -1937,33 +1951,16 @@ def mixed_tier_tree(template, device, seed: int, deadline_s: float = 30.0, poll_
 
 def tree_kernel_check(master, spec, tag: str = "12b") -> dict:
     """Kernels A and B against their plain versions on a tree's CUDA master
-    (12b's, 13's), at the shapes an engine child gives it: A as a burst of K = the most frames
-    one BURST carries for this table (the engine's cascade burst), on the
-    master's own update with its codec's scale policy; B with those K frames
-    into N = 2 targets, the master's replica and one link's residual (a
-    child's burst applies to the replica and the other child's link).
-    Returns {kernel: {"mismatches", "max_abs_err", "k", "n"}}."""
-    from shared_tensor_tpu_torch.comm import wire
-    from shared_tensor_tpu_torch.ops import table as TT
+    (12b's, 13's, ...; benchmarks.kernel_check): A as a burst of K = the
+    most frames one BURST carries for this table, B with those K frames
+    into N = 2 targets. Returns {kernel: {"mismatches", "max_abs_err", "k",
+    ...}}."""
+    from shared_tensor_tpu_torch.benchmarks import kernel_check
 
-    values, links, update, codec = master
-    k = wire.burst_frames_cap(spec)
-    f_k, r_k = TT.quantize_table_burst(update.clone(), spec, k, codec.scale_policy, codec.per_leaf_scale, "kernel")
-    f_p, r_p = TT.quantize_table_burst(update.clone(), spec, k, codec.scale_policy, codec.per_leaf_scale, "plain")
-    resid = next(iter(links.values()))
-    a_k = TT.apply_table_batch((values.clone(), resid.clone()), f_p, spec, "kernel")
-    a_p = TT.apply_table_batch((values.clone(), resid.clone()), f_p, spec, "plain")
-    _sync(values.device)
-    live = int((f_p.scales != 0).any(dim=1).sum())
-    out = {
-        "quantize_rows": {"mismatches": _bitdiff(f_k.words, f_p.words) + _bitdiff(f_k.scales, f_p.scales)
-                          + _bitdiff(r_k, r_p), "max_abs_err": _maxerr(r_k, r_p), "k": k, "live_frames": live},
-        "apply_rows_batch": {"mismatches": sum(_bitdiff(x, y) for x, y in zip(a_k, a_p)),
-                             "max_abs_err": max(_maxerr(x, y) for x, y in zip(a_k, a_p)), "k": k, "n": 2},
-    }
-    print(f"[{tag}] A quantize_rows, a burst of K={k} ({live} frames with a nonzero scale): mismatches "
-          f"{out['quantize_rows']['mismatches']}; B apply_rows_batch K={k} N=2: mismatches "
-          f"{out['apply_rows_batch']['mismatches']}")
+    out = kernel_check(master, spec)
+    a, b = out["quantize_rows"], out["apply_rows_batch"]
+    print(f"[{tag}] A quantize_rows, a burst of K={a['k']} ({a['live_frames']} frames with a nonzero scale): "
+          f"mismatches {a['mismatches']}; B apply_rows_batch K={b['k']} N=2: mismatches {b['mismatches']}")
     return out
 
 
@@ -3498,6 +3495,76 @@ def lab_phase(device, rate: float, seed: int, sign2_ranks: list, secs_18b: float
     return {"twins": twins, "twins_s": secs_18a, "pod_sign2": sign2_ranks, "pod_sign2_s": secs_18b}
 
 
+# -- phase 20 -------------------------------------------------------------------
+
+E2E_N = 1 << 20  # the reference's comparison size (BASELINE.md: 242 frames/s)
+E2E_WARMUP_S = 0.5
+E2E_S = 2.0
+
+
+def e2e_phase(device, smi: str, child) -> dict:
+    """20a: benchmarks/e2e_sync at E2E_N, its parent on the card's device
+    tier and ``child``, a host-tier child process started ahead (an
+    e2e_sync.Child: its imports overlap the phases before), E2E_S s after
+    E2E_WARMUP_S s: frames/s and
+    equivalent GB/s each way against the reference's row; the launches of
+    A and B in the exchange (both > 0), then both against their plain
+    versions on the parent's state (benchmarks.kernel_check), 0
+    mismatches."""
+    from shared_tensor_tpu_torch.benchmarks import e2e_sync
+    from shared_tensor_tpu_torch.ops import codec_cuda as CC
+
+    t0 = time.perf_counter()
+    CC.reset_launches()
+    out = e2e_sync.run(n=E2E_N, seconds=E2E_S, warmup=E2E_WARMUP_S, device=device, child=child)
+    out["phase_s"] = time.perf_counter() - t0
+    a, b = out["kernel_check"]["quantize_rows"], out["kernel_check"]["apply_rows_batch"]
+    print(f"[20a] e2e_sync at n={E2E_N}, CUDA parent and a host-tier child process, {out['seconds']} s: out "
+          f"{out['frames_out_per_s']} frames/s = {out['equiv_out_GBps']} GB/s equiv ({out['vs_baseline_out']}x the "
+          f"reference's row), in {out['frames_in_per_s']} frames/s = {out['equiv_in_GBps']} GB/s equiv "
+          f"({out['vs_baseline_in']}x); wire out {out['wire_out_GBps']} in {out['wire_in_GBps']} GB/s; the parent's "
+          f"frames by the exponent of their scale {out['frame_scales']['max_scale_log2']}; launches "
+          f"{out['launches']}; A a burst of K={a['k']}: mismatches {a['mismatches']}, B K={b['k']} N=2: mismatches "
+          f"{b['mismatches']}; phase {out['phase_s']:.3f} s on {smi}")
+    if not all(out["launches"].values()):
+        raise AssertionError(f"phase 20a: a kernel of the exchange never launched: {out['launches']}")
+    if a["mismatches"] or b["mismatches"]:
+        raise AssertionError(f"phase 20a: kernel vs plain mismatches on the parent's state: {out['kernel_check']}")
+    if not (out["frames_out_per_s"] > 0 and out["frames_in_per_s"] > 0):
+        raise AssertionError(f"phase 20a: frames did not flow both ways: {out}")
+    return out
+
+
+def phase20_cost(device, rate: float, seed: int, smi: str) -> list:
+    """``--phase20-cost``: what phase 20a adds to the script. Phases 17 and
+    18a, then 20a, four times, in the order early, late, late, early: an
+    early run starts 20a's child before phase 17, as the script does, a
+    late one at 20a. Prints each run and the net cost of 20a with the early
+    child (the early runs' whole less the late runs' phases 17-18a);
+    returns the runs."""
+    from shared_tensor_tpu_torch.benchmarks import e2e_sync
+
+    runs = []
+    for arm in ("early", "late", "late", "early"):
+        t0 = time.perf_counter()
+        child = e2e_sync.Child(E2E_N, warmup=E2E_WARMUP_S, seconds=E2E_S) if arm == "early" else None
+        shard_phase(device, seed, smi)
+        lab_twins(device, rate, seed)
+        t1 = time.perf_counter()
+        e2e_phase(device, smi, child or e2e_sync.Child(E2E_N, warmup=E2E_WARMUP_S, seconds=E2E_S))
+        t2 = time.perf_counter()
+        runs.append({"arm": arm, "p17_18a_s": t1 - t0, "p20a_s": t2 - t1, "whole_s": t2 - t0})
+        print(f"[20c] {arm} child: phases 17-18a {t1 - t0:.3f} s, 20a {t2 - t1:.3f} s, whole {t2 - t0:.3f} s")
+
+    def mean(arm: str, key: str) -> float:
+        return float(np.mean([r[key] for r in runs if r["arm"] == arm]))
+
+    print(f"[20c] phase 20a's net cost with the early child {mean('early', 'whole_s') - mean('late', 'p17_18a_s'):.3f}"
+          f" s, with the late child {mean('late', 'p20a_s'):.3f} s; phases 17-18a early "
+          f"{mean('early', 'p17_18a_s'):.3f} s, late {mean('late', 'p17_18a_s'):.3f} s; on {smi}")
+    return runs
+
+
 SOURCES = {
     "quantize_rows":("shared_tensor_tpu_torch/csrc/quantize_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:286"),
     "apply_rows_batch": ("shared_tensor_tpu_torch/csrc/apply_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:337"),
@@ -3509,6 +3576,8 @@ SOURCES = {
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phase20-cost", action="store_true",
+                    help="after the build, time phases 17-18a and 20a with and without the early child, and stop")
     args = ap.parse_args()
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3547,6 +3616,9 @@ def main() -> int:
         for line in v["log"].splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"[1] {k}: {line.strip()}")
+    if args.phase20_cost:
+        phase20_cost(dev, hbm_rate(name), args.seed, smi)
+        return 0
 
     template = resnet18_template()
     spec = make_spec(template)
@@ -3749,8 +3821,16 @@ def main() -> int:
     print(f"[16] kill-restore arm ({kr['nodes']} engine peers, n={kr['n']}, 25% drops): snapshot "
           f"{kr['snapshot']['duration_sec']:.3f} s, restart re-converged {kr['restore']['duration_sec']:.3f} s, "
           f"arms max dev {kr['arms_max_deviation']:.3e}, {kr['seconds']:.3f} s: {'PASS' if kr['pass'] else 'FAIL'}")
+    conf = kr["conformance"]
+    print(f"[20b] the kill-restore arm's timeline against tools/protospec: {conf['events']} events, "
+          f"{conf['routed_events']} routed to {conf['scopes']} scopes, violations {conf['violations']}")
     if not kr["pass"]:
         raise AssertionError(f"phase 16: the kill-restore arm failed: {kr}")
+
+    # phase 20's child process starts now: its imports overlap phases 17-18
+    from shared_tensor_tpu_torch.benchmarks import e2e_sync
+
+    e2e_child = e2e_sync.Child(E2E_N, warmup=E2E_WARMUP_S, seconds=E2E_S)
 
     # 17. the cluster-sharded tensor on config 2's table (the launch counts of
     # A and B are 17a-17e's: the fallback's CUDA peers in 17c)
@@ -3774,8 +3854,16 @@ def main() -> int:
     # 18. the codec lab: its device twins on the card (18a); the sign2 pod
     # step ran as 18b in the phases 9-11 spawn
     lab = lab_phase(dev, rate, args.seed, pod["sign2"], pod["phase18b_s"], smi)
+
+    # 20. an end-to-end exchange: the CUDA parent and a host-tier child
+    # process (the launch counts of A and B are 20a's)
+    e2e = e2e_phase(dev, smi, e2e_child)
+    for k, n in e2e["launches"].items():
+        t[k]["launches_phase20"] = n
+        t[k]["mismatches_phase20"] = e2e["kernel_check"][k]["mismatches"]
+        t[k]["max_abs_err_phase20"] = e2e["kernel_check"][k]["max_abs_err"]
     serve_out["script_s"] = time.perf_counter() - t_script
-    print(f"[18] script {serve_out['script_s']:.3f} s")
+    print(f"[20] script {serve_out['script_s']:.3f} s")
 
     print(smi)
     kernels = []
@@ -3800,6 +3888,7 @@ def main() -> int:
     print(json.dumps({"lifecycle": lc_out}))
     print(json.dumps({"shard": shard_out}))
     print(json.dumps({"codec_lab": lab}))
+    print(json.dumps({"e2e": e2e}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,15 +1,17 @@
 """The cluster lifecycle's kill-restore arm: a snapshot under chaos, the
 whole tree killed, restarted from its shards and held against an
-uninterrupted run; and its sharded arm.
+uninterrupted run; its ``--shm`` variant; and its sharded arm.
 
-    python -m shared_tensor_tpu_torch.benchmarks.lifecycle [--dir D] [--out FILE]
+    python -m shared_tensor_tpu_torch.benchmarks.lifecycle [--shm] [--dir D] [--out FILE]
     python -m shared_tensor_tpu_torch.benchmarks.lifecycle --sharded [--dir D] [--out FILE]
 
-The counterpart of the ``--kill-restore`` arm of the root
-``benchmarks/cluster_chaos.py``, with its constants: a tree of ``NODES``
-native-engine peers (``host_tier=True``) on one ``N``-element table, the
-last node's uplink under 25% drop chaos (``faults.to_env`` around its
-creation, so the engine injects it). The steps:
+The counterpart of the ``--kill-restore``, ``--shm`` and ``--sharded``
+arms of the root ``benchmarks/cluster_chaos.py``, with its constants
+(``cluster_chaos.py`` in this package dispatches its own flags of those
+names here): a tree of ``NODES`` native-engine peers (``host_tier=True``)
+on one ``N``-element table, the last node's uplink under 25% drop chaos
+(``faults.to_env`` around its creation, so the engine injects it). The
+steps:
 
 1. ``ADDS`` seeded adds, alternating between the root and the chaotic
    node, 15 ms apart; mid-soak, with updates still in flight under the
@@ -27,13 +29,18 @@ creation, so the engine injects it). The steps:
 
 Gates: the snapshot succeeded within its budget, the restored tree
 re-converged within its budget with two wire versions live, the chaos
-fired and was repaired (retransmits > 0), both arms converged, and the
-arms agree. The JAX arm's trace-conformance gate (``tools/protospec``)
-and its ``--shm`` and ``--sharded`` arms are left out. Prints one JSON
-document on its last line (and writes it to ``--out``); exits 1 when a
-gate fails. ``chip_smoke.py`` phase 16 calls :func:`run_kill_restore`.
+fired and was repaired (retransmits > 0), both arms converged, the arms
+agree, and the run's timeline replays through the protocol model
+(``tools/protospec``, :func:`~shared_tensor_tpu_torch.benchmarks.conformance`)
+with no violation and at least one routed event. ``--shm`` adds the
+lane's gates: every writer link's data plane on the shared-memory rings
+(``st_shm_active`` 2) at both ends before the kill and again after the
+restart's fresh negotiation, lane traffic in both, and the root's digest
+exact over ``STABLE_COUNTERS`` at the quiesce after the restore. The
+sharded arm ends on the same conformance gate. Prints one JSON document on
+its last line (and writes it to ``--out``); exits 1 when a gate fails.
+``chip_smoke.py`` phase 16 calls :func:`run_kill_restore`.
 """
-
 from __future__ import annotations
 
 import argparse
@@ -53,6 +60,8 @@ ADDS = 40
 SEED = 9
 RESTORE_BUDGET_S = 45.0
 SNAP_BUDGET_S = 30.0
+#: Seconds for a snapshot's RESUME to reach every node after the root returns.
+RELEASE_S = 5.0
 #: Both arms' final replicas agree within this (drop chaos and go-back-N
 #: converge exactly: the bound is float accumulation slack).
 ARMS_BOUND = 1e-3
@@ -60,6 +69,18 @@ ARMS_BOUND = 1e-3
 #: (the JAX arm's ``ST_SHARD_N`` and ``ST_SHARD_FACTOR`` defaults).
 SHARD_N = 16384
 SHARD_FACTOR = 2
+#: The events a chaos arm's recorder keeps: the whole run, so that the
+#: conformance gate replays every barrier and link event (the default
+#: postmortem window would roll early ones out and fake an imbalance).
+CAPTURE_EVENTS = 500_000
+#: The counters the root's in-band digest must equal the sum of the
+#: nodes' registries over, at a quiesced instant (the root bench's).
+STABLE_COUNTERS = (
+    "st_frames_out_total", "st_frames_in_total", "st_updates_total",
+    "st_msgs_out_total", "st_msgs_in_total",
+    "st_retransmit_msgs_total", "st_dedup_discards_total",
+    "st_traced_msgs_in_total",
+)
 
 
 def _free_port() -> int:
@@ -68,10 +89,66 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_kill_restore(snapdir: str, nodes: int = NODES, n: int = N, adds: int = ADDS, seed: int = SEED) -> dict:
-    """The arm (module docstring); the shards go to ``snapdir``. Returns
-    the report, its verdict under ``pass``."""
-    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch
+def released(peers, budget: float) -> bool:
+    """Every peer resumed from a barrier's pause within ``budget`` seconds."""
+    deadline = time.monotonic() + budget
+    while any(p._paused for p in peers):
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.01)
+    return True
+
+
+def capture(hub) -> None:
+    """Start a chaos arm's timeline: drain what the ring holds, clear the
+    recorder and widen it to ``CAPTURE_EVENTS``."""
+    hub.poll_native()
+    hub.recorder.clear()
+    hub.recorder.set_capacity(CAPTURE_EVENTS)
+
+
+def quiesced_digest(peers, n_writers: int, n_extra: int = 0) -> tuple[bool, dict]:
+    """Bottom-up digest beats (four rounds, so every level's totals reach
+    the root whatever the tree's shape), then the root's cluster counters
+    against the sum of the nodes' registries over ``STABLE_COUNTERS``.
+    Exact when every writer is in the root's view (subscribers, up to
+    ``n_extra``, may be) and every counter is equal. Returns (exact,
+    {"nodes_seen", "counters": {name: {"cluster", "sum_of_registries"}}})."""
+    for _ in range(4):
+        for p in peers:
+            if p._uplink is not None:
+                p.push_digest()
+        time.sleep(0.4)
+    cluster = peers[0].metrics(cluster=True)
+    snaps = [p.metrics() for p in peers]
+    digest = {"nodes_seen": len(cluster["nodes"]), "counters": {}}
+    exact = n_writers <= len(cluster["nodes"]) <= n_writers + n_extra
+    for name in STABLE_COUNTERS:
+        want = sum(s.get(name, 0) for s in snaps)
+        got = cluster["counters"].get(name, 0)
+        digest["counters"][name] = {"cluster": got, "sum_of_registries": want}
+        exact = exact and got == want
+    return bool(exact), digest
+
+
+def _shm_tally(peers) -> tuple[int, int]:
+    """(link ends on the rings, lane messages out) across the tree: a link
+    counts once for each end whose data plane is on the rings (state 2)."""
+    live = msgs = 0
+    for p in peers:
+        m = p.metrics()
+        live += sum(1 for k, v in m.items() if k.startswith("st_shm_active") and v == 2)
+        msgs += int(m.get("st_shm_msgs_out_total", 0))
+    return live, msgs
+
+
+def run_kill_restore(snapdir: str, nodes: int = NODES, n: int = N, adds: int = ADDS, seed: int = SEED,
+                     shm: bool = False) -> dict:
+    """The arm (module docstring); the shards go to ``snapdir``; ``shm``
+    adds the lane's gates. Returns the report, its verdict under
+    ``pass``."""
+    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch, obs
+    from shared_tensor_tpu_torch.benchmarks import conformance, gate_passes
     from shared_tensor_tpu_torch.comm import faults
     from shared_tensor_tpu_torch.config import FaultConfig, LifecycleConfig, ObsConfig
 
@@ -134,16 +211,25 @@ def run_kill_restore(snapdir: str, nodes: int = NODES, n: int = N, adds: int = A
         "chaos": {"drop_pct": 0.25, "node_index": chaos_idx}, "skew_node": skew_idx,
         "budgets": {"restore_sec": RESTORE_BUDGET_S, "snapshot_sec": SNAP_BUDGET_S},
     }
+    hub = obs.hub()
+    capture(hub)
     t_all = time.perf_counter()
     # the kill-restore arm: a snapshot mid-soak, then the whole tree killed
     peers = build(_free_port())
     try:
         out["engine_tier"] = all(p._engine is not None for p in peers)
         soak(peers, p1)
+        if shm:
+            live, msgs = _shm_tally(peers)
+            out["shm"] = {"pre_kill_lanes_live": live, "pre_kill_msgs": msgs}
         t0 = time.monotonic()
         res = peers[0].snapshot_cluster(snapdir, timeout=SNAP_BUDGET_S)
         out["snapshot"] = {"ok": res["ok"], "nodes": res["nodes"], "duration_sec": time.monotonic() - t0,
                            "barrier_sec": res["duration_sec"]}
+        # the root returns once it sent RESUME; the kill waits for the
+        # release to reach every node (a node killed while paused would end
+        # the run paused, which the lifecycle spec forbids)
+        out["snapshot"]["released"] = released(peers, RELEASE_S)
     finally:
         close(peers)
     t0 = time.monotonic()
@@ -164,6 +250,14 @@ def run_kill_restore(snapdir: str, nodes: int = NODES, n: int = N, adds: int = A
             "retransmits": sum(int(s.get("st_retransmit_msgs_total", 0)) for s in snaps),
             "restore_total": sum(int(s.get("st_restore_total", 0)) for s in snaps),
         }
+        if shm:
+            # the restarted tree negotiated its lanes afresh, and the root's
+            # digest must be exact at this quiesce: the lane lies below the
+            # wire's sequence numbers, so no counter may drift because of it
+            live, msgs = _shm_tally(peers)
+            exact, digest = quiesced_digest(peers, nodes)
+            out["shm"].update(restored_lanes_live=live, restored_msgs=msgs, digest_exact_at_quiesce=exact,
+                              digest_counters=digest["counters"])
     finally:
         close(peers)
     # the uninterrupted arm: the same schedule, no kill
@@ -177,13 +271,17 @@ def run_kill_restore(snapdir: str, nodes: int = NODES, n: int = N, adds: int = A
         un_final = peers[0].read().numpy().astype(np.float64)
     finally:
         close(peers)
+    conf = conformance(hub)
+    out["conformance"] = conf
     dev = float(np.max(np.abs(kr_final - un_final)))
     out["arms_max_deviation"] = dev
     out["bound"] = ARMS_BOUND
     out["seconds"] = time.perf_counter() - t_all
     out["pass"] = bool(
-        out["snapshot"]["ok"]
+        gate_passes(conf)
+        and out["snapshot"]["ok"]
         and out["snapshot"]["duration_sec"] <= SNAP_BUDGET_S
+        and out["snapshot"]["released"]
         and out["restore"]["reconverged_pre_kill_mass"]
         and out["restore"]["duration_sec"] <= RESTORE_BUDGET_S
         and len(out["restore"]["wire_versions"]) == 2  # the skew was real
@@ -193,6 +291,17 @@ def run_kill_restore(snapdir: str, nodes: int = NODES, n: int = N, adds: int = A
         and out["uninterrupted_arm"]["converged"]
         and dev <= ARMS_BOUND
     )
+    if shm:
+        # every writer link's data plane on the rings at both ends, before
+        # the kill and again after the restart; lane traffic in both
+        want = 2 * (nodes - 1)
+        s_ = out["shm"]
+        s_["want_lanes"] = want
+        out["pass"] = bool(
+            out["pass"] and s_["pre_kill_lanes_live"] >= want and s_["restored_lanes_live"] >= want
+            and s_["pre_kill_msgs"] >= 1 and s_["restored_msgs"] >= 1 and s_["digest_exact_at_quiesce"]
+        )
+        out["bench"] = "lifecycle_kill_restore_shm"
     return out
 
 
@@ -200,6 +309,7 @@ def run_sharded(snapdir: str, nodes: int = NODES, n: int = SHARD_N, adds: int = 
     """The sharded arm (module docstring); the shard-state files go to
     ``snapdir``. Returns the report, its verdict under ``pass``."""
     from shared_tensor_tpu_torch import obs
+    from shared_tensor_tpu_torch.benchmarks import conformance
     from shared_tensor_tpu_torch.comm import faults
     from shared_tensor_tpu_torch.config import Config, FaultConfig, LifecycleConfig, ShardConfig, TransportConfig
     from shared_tensor_tpu_torch.ops.table import make_spec
@@ -298,8 +408,7 @@ def run_sharded(snapdir: str, nodes: int = NODES, n: int = SHARD_N, adds: int = 
         "budgets": {"restore_sec": RESTORE_BUDGET_S},
     }
     hub = obs.hub()
-    hub.poll_native()
-    hub.recorder.clear()
+    capture(hub)
     t_all = time.perf_counter()
     handles = build(_free_port())
     try:
@@ -348,9 +457,12 @@ def run_sharded(snapdir: str, nodes: int = NODES, n: int = SHARD_N, adds: int = 
     finally:
         for h in handles:
             h.close()
+    conf = conformance(hub)
+    out["conformance"] = conf
     out["seconds"] = time.perf_counter() - t_all
     out["pass"] = bool(
-        out["sharded"]
+        conf["pass"]
+        and out["sharded"]
         and out["pre_kill"]["converged"]
         and out["snapshot"]["coverage_problems"] == []
         and out["snapshot"]["nodes"] == nodes
@@ -372,9 +484,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--dir", default="", help="the snapshot's directory (default: a new temporary one)")
     ap.add_argument("--out", default="", help="also write the JSON document here")
     ap.add_argument("--sharded", action="store_true", help="run the sharded arm instead")
+    ap.add_argument("--shm", action="store_true", help="add the shared-memory lane's gates to kill-restore")
     args = ap.parse_args(argv)
     snapdir = args.dir or tempfile.mkdtemp(prefix="lifecycle-")
-    out = run_sharded(snapdir) if args.sharded else run_kill_restore(snapdir)
+    out = run_sharded(snapdir) if args.sharded else run_kill_restore(snapdir, shm=args.shm)
     doc = json.dumps(out)
     if args.out:
         with open(args.out, "w") as f:
@@ -386,8 +499,10 @@ def main(argv=None) -> dict:
               f"{'PASS' if out['pass'] else 'FAIL'}", file=sys.stderr)
         print(doc)
         return out
+    conf = out["conformance"]
     print(f"lifecycle kill-restore: snapshot {out['snapshot']['duration_sec']:.2f} s, restore "
-          f"{out['restore']['duration_sec']:.2f} s, arms max dev {out['arms_max_deviation']:.2e} -> "
+          f"{out['restore']['duration_sec']:.2f} s, arms max dev {out['arms_max_deviation']:.2e}, conformance "
+          f"{conf['routed_events']} routed/{len(conf['violations'])} violations -> "
           f"{'PASS' if out['pass'] else 'FAIL'}", file=sys.stderr)
     print(doc)
     return out

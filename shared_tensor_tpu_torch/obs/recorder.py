@@ -210,6 +210,24 @@ class ObsHub:
         except Exception:
             return None
 
+    def export_timeline(self, path: str) -> str:
+        """Write the recorder's merged timeline as conformance-replayable
+        JSON: ``{"timeline": [...], "event_counts": {...},
+        "native_events_dropped": N}``, the shape
+        ``tools/protospec/conformance.py`` (and its ``run_conformance.py``
+        CLI) accepts directly. Unlike :meth:`dump` this is not a failure
+        path: it raises on I/O errors, so a truncated file cannot pass for
+        a captured one."""
+        doc = {
+            "timeline": [e.as_dict() for e in self.recorder.timeline()],
+            "event_counts": dict(self.recorder.counts),
+            "native_events_dropped": ev.native_dropped(),
+        }
+        with open(path, "w") as f:
+            json.dump(doc, f, indent=1)
+            f.write("\n")
+        return path
+
 
 _hub: Optional[ObsHub] = None
 _hub_mu = threading.Lock()

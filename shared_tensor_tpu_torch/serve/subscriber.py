@@ -384,6 +384,11 @@ class Subscriber:
         if ok and resync:
             self._m_resyncs.inc()
             self._event("sub_resync", uplink)
+        elif ok:
+            # this side's scope of the link: attached first, so that its
+            # resyncs follow an attach as the protocol model requires (the
+            # JAX subscriber emits its resyncs alone)
+            self._event("sub_attach", uplink, self._wcnt)
         if not ok:
             log.warning("subscriber handshake send failed (uplink down?)")
 

@@ -830,3 +830,35 @@ def test_train_bench_compressed_arm_launches_the_kernels(cuda_device):
     assert launches["compressed"] == {"quantize_rows": 3, "apply_rows_batch": 3}
     assert launches["exact"] == {"quantize_rows": 0, "apply_rows_batch": 0}
     assert bad == 0
+
+
+@pytest.mark.cuda
+def test_e2e_parent_on_the_card_launches_the_kernels(cuda_device):
+    """benchmarks/e2e_sync with its parent on the card's device tier and a
+    host-tier child process at N = 1 Mi for 2 s: frames flow both ways, A
+    and B launch, and both equal their plain versions bit for bit on the
+    parent's state."""
+    from shared_tensor_tpu_torch.benchmarks import e2e_sync
+
+    out = e2e_sync.run(n=1 << 20, seconds=2.0, warmup=1.0, device=cuda_device)
+    assert out["on_gpu"] and out["parent_tier"] == "device"
+    assert out["frames_out_per_s"] > 0 and out["frames_in_per_s"] > 0
+    assert all(out["launches"].values()), out["launches"]
+    assert {k: v["mismatches"] for k, v in out["kernel_check"].items()} == {"quantize_rows": 0,
+                                                                            "apply_rows_batch": 0}
+
+
+@pytest.mark.cuda
+def test_chaos_soak_python_arm_on_the_card(cuda_device):
+    """benchmarks/chaos_soak's python arm as four device-tier peers on the
+    card for 3 s of chaos: every gate of the arm holds, A and B launch
+    under the faults and equal their plain versions on the master's state."""
+    from shared_tensor_tpu_torch.benchmarks import chaos_soak
+
+    out = chaos_soak.run(n=512, seconds=3.0, seed=6, arms=("python",), device=cuda_device)
+    r = out["arms"]["python"]
+    assert r["tier"] == "device:cuda"
+    assert all(r["launches"].values()), r["launches"]
+    assert all(v["mismatches"] == 0 for v in r["kernel_check"].values())
+    assert r["wedged_threads"] == [] and r["obs"]["accounted"]
+    assert out["pass"], r

@@ -55,7 +55,15 @@ def test_sources_name_no_jax(path):
                                     "shared_tensor_tpu_torch.benchmarks.train_bench",
                                     "shared_tensor_tpu_torch.benchmarks.mesh_timing",
                                     "shared_tensor_tpu_torch.benchmarks.profile_trace",
-                                    "shared_tensor_tpu_torch.benchmarks.host_codec_bench"])
+                                    "shared_tensor_tpu_torch.benchmarks.host_codec_bench",
+                                    "shared_tensor_tpu_torch.benchmarks.cluster_chaos",
+                                    "shared_tensor_tpu_torch.benchmarks.chaos_soak",
+                                    "shared_tensor_tpu_torch.benchmarks.soak",
+                                    "shared_tensor_tpu_torch.benchmarks.adaptive_ab",
+                                    "shared_tensor_tpu_torch.benchmarks.e2e_sync",
+                                    "shared_tensor_tpu_torch.benchmarks.e2e_artifact",
+                                    "shared_tensor_tpu_torch.benchmarks.engine_sweep",
+                                    "shared_tensor_tpu_torch.benchmarks.drain_tail"])
 def test_cli_modules_load_no_jax(module):
     """The operator CLI, the benches and the examples, each run alone as
     ``python -m`` with ``--help``, load no jax and nothing of the JAX

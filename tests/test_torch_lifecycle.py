@@ -33,7 +33,9 @@ from shared_tensor_tpu.config import Config as JConfig
 from shared_tensor_tpu.config import LifecycleConfig as JLifecycleConfig
 from shared_tensor_tpu.config import TransportConfig as JTransportConfig
 from shared_tensor_tpu.utils import checkpoint as jckpt
-from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch
+from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch, obs
+from shared_tensor_tpu_torch.benchmarks import conformance
+from shared_tensor_tpu_torch.benchmarks import lifecycle as lc_bench
 from shared_tensor_tpu_torch.comm import wire
 from shared_tensor_tpu_torch.config import FaultConfig, LifecycleConfig, ObsConfig
 from shared_tensor_tpu_torch.utils import checkpoint as ckpt
@@ -144,7 +146,11 @@ def test_snapshot_barrier_manifest_and_telemetry(tier, tmp_path):
 def test_kill_restore_restart_converges_to_same_mass(tmp_path):
     """Snapshot, close every node, restart each from its shard
     (``restore_path``) on a new port: the restored tree converges to the
-    mass of the uninterrupted run, and keeps working."""
+    mass of the uninterrupted run, and keeps working; and the run's
+    timeline replays through the protocol model (the chaos benches'
+    conformance gate: no violation, at least one routed event)."""
+    hub = obs.hub()
+    lc_bench.capture(hub)
     peers = _tree(free_port(), ["n0", "n1", "n2"], "engine")
     total = np.zeros(N)
     rng = np.random.default_rng(2)
@@ -152,6 +158,7 @@ def test_kill_restore_restart_converges_to_same_mass(tmp_path):
         _add(peers, rng, total, rounds=9)
         time.sleep(0.3)
         assert peers[0].snapshot_cluster(str(tmp_path))["ok"]
+        assert lc_bench.released(peers, lc_bench.RELEASE_S)  # the kill comes after the release
     finally:
         _close(peers)
     cfgs = [_cfg(f"n{i}", "engine", restore=os.path.join(str(tmp_path), f"shard_n{i}.npz")) for i in range(3)]
@@ -165,6 +172,9 @@ def test_kill_restore_restart_converges_to_same_mass(tmp_path):
         assert _converged(peers, total)
     finally:
         _close(peers)
+    report = conformance(hub)
+    assert report["violations"] == [], report["violations"]
+    assert report["pass"] and report["routed_events"] >= 1
 
 
 @pytest.mark.parametrize("tier", TIERS)
