@@ -297,6 +297,21 @@ Phases, in order; any failure exits non-zero:
    timeline through tools/protospec (benchmarks.conformance): its events,
    routed events and violations are printed, and a violation or no routed
    event fails the arm.
+21. A severed uplink's applied prefix counted once, on BASELINE config 2's
+   table (benchmarks/serve.tables' power-of-two data, as phases 13-17): a
+   CUDA device-tier master seeded from --seed and a CUDA joiner under
+   FaultConfig(stall_after_frames=1, sever_after_frames=4, only_link=1)
+   with ack_timeout_sec 1.0 and bursts of SEVER_BURST frames that adds one
+   update: its uplink's first data
+   message goes through, the next ones vanish, the link is severed and the
+   joiner re-joins with every unacknowledged frame in its carry, less the
+   ones the master reports applied (SYNC_FLAG_PREV_LINK). Every replica
+   must reach seed + the update within AGREE_REL of each leaf's max
+   |value|, and the fault plan must count a sever and a stall. Prints the
+   seconds (against SEVER_BUDGET_S), the frames rolled into the carry and
+   those retracted as already applied, the launches of A and B (both > 0),
+   then A and B against their plain versions on the joiner's state (0
+   mismatches).
 The transport, the host codec and the engine (native/sttransport.cpp,
 stcodec.c, stengine.cpp) and the C reference peer (stc_harness.c) are
 compiled with g++ and gcc in phase 1, beside the kernels. Every rank's full results of phases 9, 10 and 11 go to
@@ -3535,6 +3550,74 @@ def e2e_phase(device, smi: str, child) -> dict:
     return out
 
 
+# -- phase 21 -------------------------------------------------------------------
+
+SEVER_BUDGET_S = 6.0  # phase 21's time budget (reported, not enforced)
+SEVER_AGREE_S = 30.0  # phase 21's deadlines: the join, the re-join and the agreement
+SEVER_BURST = 4  # phase 21: the joiner's frames per device burst (the default is 16)
+
+
+def sever_phase(device, seed: int, smi: str, cfg_m=None) -> tuple[dict, tuple]:
+    """Phase 21 (module docstring) on the table of the char-RNN ``cfg_m``
+    (None: config 2's). Returns the report and the joiner's state for
+    tree_kernel_check."""
+    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch
+    from shared_tensor_tpu_torch.benchmarks import serve as serve_bench
+    from shared_tensor_tpu_torch.config import FaultConfig
+    from shared_tensor_tpu_torch.models.char_rnn import CharRNNConfig
+    from shared_tensor_tpu_torch.ops.table import flatten, make_spec
+
+    template, seed_tree, (delta,) = serve_bench.tables(cfg_m or CharRNNConfig(), seed + 21, n=1)
+    spec = make_spec(template)
+    fault = FaultConfig(enabled=True, seed=11, stall_after_frames=1, sever_after_frames=4, only_link=1)
+    port, peers, out = _free_port(), [], {}
+    t0 = time.perf_counter()
+    try:
+        m = create_or_fetch("127.0.0.1", port, seed_tree, Config(transport=TransportConfig(peer_timeout_sec=30.0)),
+                            timeout=SEVER_AGREE_S, device=device)
+        peers.append(m)
+        # bursts of SEVER_BURST frames: the update spans more than four
+        # messages, so the plan's four data sends (and the sever) come at
+        # once, not after two rounds of retransmission
+        cfg = Config(transport=TransportConfig(peer_timeout_sec=30.0, ack_timeout_sec=1.0), faults=fault,
+                     device_frame_burst=SEVER_BURST)
+        j = create_or_fetch("127.0.0.1", port, template, cfg, timeout=SEVER_AGREE_S, device=device)
+        peers.append(j)
+        seed_flat, seed_mag, _ = _lc_target(seed_tree, [], spec, device)
+        out["join_s"], _ = _wait_agree([j], seed_flat, seed_mag, spec, AGREE_REL, SEVER_AGREE_S, 0.01)
+        first = j._uplink
+        t1 = time.perf_counter()
+        j.add(delta)
+        deadline = t1 + SEVER_AGREE_S
+        while j._uplink in (None, first) or j._kept is not None or not j.ready:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"phase 21: the joiner did not re-join (plan {dict(j._faults.counts)})")
+            time.sleep(0.005)
+        out["rejoin_s"] = time.perf_counter() - t1
+        target, mag, _ = _lc_target(seed_tree, [delta], spec, device)
+        out["agree_s"], out["err"] = _wait_agree(peers, target, mag, spec, AGREE_REL, SEVER_AGREE_S, 0.01)
+        out["add_to_agree_s"] = time.perf_counter() - t1
+        out["plan"] = dict(j._faults.counts)
+        got = j.metrics()
+        out["rolled_frames"] = got["st_carry_frames_rolled_total"]
+        out["retracted_frames"] = got["st_carry_frames_retracted_total"]
+        out["retransmits"] = got["st_retransmit_msgs_total"]
+        state = j.st.snapshot_all() + (flatten(delta, spec, device), j.st.codec)
+    finally:
+        for p in reversed(peers):
+            p.close()
+    out["seconds"] = time.perf_counter() - t0
+    out["budget_s"] = SEVER_BUDGET_S
+    print(f"[21] sever and re-join on the char-RNN table ({spec.num_leaves} leaves, {spec.total_n} elements), "
+          f"device {device}: join {out['join_s']:.3f} s; from the add, re-joined {out['rejoin_s']:.3f} s, agreed "
+          f"{out['add_to_agree_s']:.3f} s (worst leaf error {out['err']:.3e}); plan {out['plan']}; frames rolled into "
+          f"the carry {out['rolled_frames']}, retracted as applied {out['retracted_frames']}; retransmits "
+          f"{out['retransmits']}; phase {out['seconds']:.3f} s (budget {SEVER_BUDGET_S} s) on {smi}")
+    if out["plan"].get("severed", 0) < 1 or out["plan"].get("stalled", 0) < 1:
+        raise AssertionError(f"phase 21: the fault plan did not sever and stall the uplink: {out['plan']}")
+    return out, state
+
+
 def phase20_cost(device, rate: float, seed: int, smi: str) -> list:
     """``--phase20-cost``: what phase 20a adds to the script. Phases 17 and
     18a, then 20a, four times, in the order early, late, late, early: an
@@ -3862,8 +3945,26 @@ def main() -> int:
         t[k]["launches_phase20"] = n
         t[k]["mismatches_phase20"] = e2e["kernel_check"][k]["mismatches"]
         t[k]["max_abs_err_phase20"] = e2e["kernel_check"][k]["max_abs_err"]
+
+    # 21. a severed uplink's applied prefix counted once (the launch counts
+    # of A and B are this phase's)
+    CC.reset_launches()
+    sever, state = sever_phase(dev, args.seed, smi)
+    sever["launches"] = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
+    if not all(sever["launches"].values()):
+        raise AssertionError(f"phase 21: a kernel of the sever path never launched: {sever['launches']}")
+    check21 = tree_kernel_check(state, make_spec(char_template), "21")
+    del state
+    for k, n in sever["launches"].items():
+        t[k]["launches_phase21"] = n
+        t[k]["mismatches_phase21"] = check21[k]["mismatches"]
+        t[k]["max_abs_err_phase21"] = check21[k]["max_abs_err"]
+    bad = {k: v["mismatches"] for k, v in check21.items() if v["mismatches"]}
+    if bad:
+        raise AssertionError(f"phase 21: kernel vs plain mismatches on the joiner's state: {bad}")
+    print(f"[21] launches {sever['launches']}")
     serve_out["script_s"] = time.perf_counter() - t_script
-    print(f"[20] script {serve_out['script_s']:.3f} s")
+    print(f"[21] script {serve_out['script_s']:.3f} s")
 
     print(smi)
     kernels = []
@@ -3889,6 +3990,7 @@ def main() -> int:
     print(json.dumps({"shard": shard_out}))
     print(json.dumps({"codec_lab": lab}))
     print(json.dumps({"e2e": e2e}))
+    print(json.dumps({"sever": sever}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -29,6 +29,16 @@ each per process, so the engine shares the transport's globals (its
 queues and rings) with the node handle it is given. The JAX package's
 ``native/*.so`` carry other names and stay separate objects.
 
+Two sanitizer variants of the three libraries exist for
+``tests/test_torch_sanitizers.py``, with the flags of the Makefile's
+``sanitize`` and ``tsan`` rules appended to each rule's own: the
+environment variable ``ST_TORCH_SANITIZER`` (``address``: ASan and UBSan;
+``thread``: TSan), which nothing else reads, selects one for every build
+of the process. The flags are part of each hash, so the variants live
+beside the plain builds under names of their own; a variant loads only
+into a process that preloads the matching runtime, and an unknown value
+raises. The C reference peer is always the plain build.
+
 It runs no ``make``, writes nothing into ``native/`` and never loads a
 library that it did not build: a failed compile raises with the
 compiler's output, and a missing compiler raises with its name. Each
@@ -62,6 +72,29 @@ CC_FLAGS = ("-O3", "-fPIC", "-Wall", "-Wextra", "-pthread", "-shared")
 #: native/Makefile: CFLAGS of the stc_harness rule (its -lm -lpthread
 #: follow the source)
 HARNESS_FLAGS = ("-O2", "-Wall", "-Wextra")
+#: native/Makefile: SAN_FLAGS and TSAN_FLAGS, by ST_TORCH_SANITIZER value
+SANITIZER_FLAGS = {
+    "address": ("-g", "-O1", "-fsanitize=address,undefined", "-fno-sanitize-recover=undefined",
+                "-fno-omit-frame-pointer"),
+    "thread": ("-g", "-O1", "-fsanitize=thread", "-fno-omit-frame-pointer"),
+}
+
+
+def sanitizer() -> str:
+    """The sanitizer variant this process builds and loads: ``""`` (the
+    plain build), ``"address"`` or ``"thread"`` (``ST_TORCH_SANITIZER``)."""
+    name = os.environ.get("ST_TORCH_SANITIZER", "")
+    if name and name not in SANITIZER_FLAGS:
+        raise ValueError(f"ST_TORCH_SANITIZER={name!r}: expected one of {sorted(SANITIZER_FLAGS)} or unset")
+    return name
+
+
+def _cxx_flags() -> tuple:
+    return CXX_FLAGS + SANITIZER_FLAGS.get(sanitizer(), ())
+
+
+def _cc_flags() -> tuple:
+    return CC_FLAGS + SANITIZER_FLAGS.get(sanitizer(), ())
 
 
 @contextlib.contextmanager
@@ -88,18 +121,18 @@ def _hashed(stem: str, sources, flags, links=(), suffix: str = ".so") -> Path:
 
 def transport_path() -> Path:
     """Where the transport library for the current sources lives."""
-    return _hashed("libsttransport", TRANSPORT_SOURCES, CXX_FLAGS)
+    return _hashed("libsttransport", TRANSPORT_SOURCES, _cxx_flags())
 
 
 def codec_path() -> Path:
     """Where the codec library for the current sources lives."""
-    return _hashed("libstcodec", CODEC_SOURCES, CC_FLAGS)
+    return _hashed("libstcodec", CODEC_SOURCES, _cc_flags())
 
 
 def engine_path() -> Path:
     """Where the engine library for the current sources (and the current
     transport and codec builds) lives."""
-    return _hashed("libstengine", ENGINE_SOURCES, CXX_FLAGS, (transport_path(), codec_path()))
+    return _hashed("libstengine", ENGINE_SOURCES, _cxx_flags(), (transport_path(), codec_path()))
 
 
 def _compile(out: Path, what: str, env_var: str, default: str, args) -> Path:
@@ -126,7 +159,7 @@ def build_transport() -> Path:
     return the library's path. Raises ``RuntimeError`` if ``g++`` is
     missing or the compile fails."""
     src = str(NATIVE_DIR / "sttransport.cpp")
-    return _compile(transport_path(), "transport", "CXX", "g++", lambda o: [*CXX_FLAGS, "-o", str(o), src])
+    return _compile(transport_path(), "transport", "CXX", "g++", lambda o: [*_cxx_flags(), "-o", str(o), src])
 
 
 def build_codec() -> Path:
@@ -134,7 +167,7 @@ def build_codec() -> Path:
     return the library's path. Raises ``RuntimeError`` if ``gcc`` is
     missing or the compile fails."""
     src = str(NATIVE_DIR / "stcodec.c")
-    return _compile(codec_path(), "codec", "CC", "gcc", lambda o: [*CC_FLAGS, "-o", str(o), src])
+    return _compile(codec_path(), "codec", "CC", "gcc", lambda o: [*_cc_flags(), "-o", str(o), src])
 
 
 def harness_path() -> Path:
@@ -161,13 +194,14 @@ def build_engine() -> Path:
     if out.exists():
         return out
     src = str(NATIVE_DIR / "stengine.cpp")
-    obj_path = _hashed("stengine", ENGINE_SOURCES, CXX_FLAGS, suffix=".o")
+    flags = _cxx_flags()
+    obj_path = _hashed("stengine", ENGINE_SOURCES, flags, suffix=".o")
     with ThreadPoolExecutor(3) as pool:
         jobs = [pool.submit(build_transport), pool.submit(build_codec), pool.submit(
-            _compile, obj_path, "engine", "CXX", "g++", lambda o: [*CXX_FLAGS, "-c", "-o", str(o), src])]
+            _compile, obj_path, "engine", "CXX", "g++", lambda o: [*flags, "-c", "-o", str(o), src])]
         transport, codec, obj = (j.result() for j in jobs)
     return _compile(
         out, "engine", "CXX", "g++",
-        lambda o: [*CXX_FLAGS, "-o", str(o), str(obj), f"-L{BUILD_DIR}", f"-l:{transport.name}",
+        lambda o: [*flags, "-o", str(o), str(obj), f"-L{BUILD_DIR}", f"-l:{transport.name}",
                    f"-l:{codec.name}", "-Wl,-rpath,$ORIGIN"],
     )

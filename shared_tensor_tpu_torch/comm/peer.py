@@ -533,6 +533,24 @@ class SharedTensorPeer:
         self._shm_host = _shm_host_id() if self._shm_ok else b""
         self._shm_fallbacks = 0
         self._uplink: Optional[int] = None
+        # a severed uplink's applied prefix (wire.SYNC_FLAG_PREV_LINK),
+        # between the Python tiers of this package: the roll-back at
+        # LINK_DOWN puts every unacknowledged frame into the carry, yet
+        # the parent may have applied some (its ACK lost with the link, or
+        # never sent). The child keeps those frames by wire seq (_kept: the
+        # severed link's token and [(seq, frames)]) until the next WELCOME,
+        # which reports how many the parent applied, and retracts them. A
+        # parent records each child link's SYNC tokens (_link_token: its
+        # own and its previous link's) and, once the link is down, the
+        # messages it applied (_gone_applied). The engine keeps its ledger
+        # in C and takes neither role
+        self._prev_link_ok = self._engine is None and not self._compat
+        self._uplink_token = 0
+        self._kept: Optional[tuple[int, list]] = None
+        self._link_token: dict[int, tuple[int, int]] = {}
+        self._gone_applied: dict[int, int] = {}
+        self._carry_frames_rolled = 0
+        self._carry_frames_retracted = 0
         # the serving tier's writer side. _sub_links: attached read-only
         # links -> their word range (None: the whole table); unledgered
         # (no ACK ever comes), and set BEFORE the codec link opens so the
@@ -742,7 +760,9 @@ class SharedTensorPeer:
         non-idle frames sent per link, ever; the receive faults survived
         (``st_apply_dropped_total``, ``st_msg_errors_total``,
         ``st_recv_restarts_total``, ``st_unknown_msgs_total``; 0 on a healthy
-        peer); the shared-memory lane's ring bytes and failed attaches; and
+        peer); the shared-memory lane's ring bytes and failed attaches; the
+        frames of severed uplinks rolled into the carry and those retracted
+        as already applied (``st_carry_frames_*_total``); and
         the host seconds spent per stage of the data path
         (``st_*_seconds_total``)."""
         if cluster:
@@ -794,6 +814,8 @@ class SharedTensorPeer:
             "st_sub_msgs_out_total": self._sub_msgs_out,
             "st_sub_fresh_out_total": self._sub_fresh_out,
             "st_shm_fallback_total": self._shm_fallbacks,
+            "st_carry_frames_rolled_total": self._carry_frames_rolled,
+            "st_carry_frames_retracted_total": self._carry_frames_retracted,
             "st_wire_version": self._wire_version,
             "st_clock_probes_total": self._clock.probes,
         }
@@ -1630,8 +1652,7 @@ class SharedTensorPeer:
                     self._fault_point("mid-burst")
                     if self._send_blocking(link, payload, data=True):
                         sent_any = True
-                    else:
-                        self.st.nack_frame(link)
+                    # else the link died: its LINK_DOWN rolls the ledger back
                     continue
                 q = pipe.setdefault(link, deque())
                 # a cold link risks one speculative frame, a hot one keeps
@@ -1680,11 +1701,13 @@ class SharedTensorPeer:
                     sent_any = True
                 else:
                     # the link died with this frame (and its successors in
-                    # the pipeline) undelivered: roll their error feedback
-                    # back, so the drop or carry sees all that is owed
+                    # the pipeline) undelivered. Their error feedback is
+                    # rolled back once, by the link's LINK_DOWN on the
+                    # receive thread, which also reads the ACKs: a roll-back
+                    # here could take back a frame whose ACK that thread
+                    # has just read, and the carry would owe it twice
                     pipe.pop(link, None)
                     hot.discard(link)
-                    self.st.nack_frame(link)
             self._check_retransmit(links)
             self._secs["st_send_loop_busy_seconds_total"] += time.perf_counter() - t_pass
             if self._stop.is_set():
@@ -2231,6 +2254,9 @@ class SharedTensorPeer:
             for d in (self._peer_sign2, self._peer_shm, self._peer_r14, self._staleness, self._stale_origin,
                       self._child_digests):
                 d.pop(ev.link_id, None)
+            tokens = self._link_token.pop(ev.link_id, None)
+            if tokens is not None:
+                self._record_applied(tokens[0], self._rx_count.get(ev.link_id, 0))
             with self._ack_mu:
                 purged = self._unacked.pop(ev.link_id, ())
                 for d in (self._tx_seq, self._acked, self._rx_count, self._ack_sent, self._ack_progress,
@@ -2244,7 +2270,14 @@ class SharedTensorPeer:
                 if self._engine is not None:
                     stashed = self._engine.stash_carry(ev.link_id)
                 else:
+                    kept = self.st.inflight_frames(ev.link_id, [e[0] for e in purged])
                     stashed = self.st.stash_carry(ev.link_id, CARRY_LINK)
+                    if stashed and self._uplink_token:
+                        # the ledger in wire-seq order, each message's
+                        # frames now in the carry
+                        self._kept = (self._uplink_token, [(e[1], f) for e, f in zip(purged, kept) if f])
+                        self._carry_frames_rolled += sum(len(f) for _, f in self._kept[1])
+                self._uplink_token = 0
                 if not stashed and self._sent_snapshot is not None:
                     self._mid_handshake_base = self._sent_snapshot
                 self._sent_snapshot = None
@@ -2272,6 +2305,7 @@ class SharedTensorPeer:
             else:
                 self.st.take_link_and_snapshot(CARRY_LINK)
             self._mid_handshake_base = None
+            self._kept = None
             self._compat_reset_on_regraft = False
             self._uplink = None
             self.is_master = True
@@ -2300,7 +2334,14 @@ class SharedTensorPeer:
         # capabilities: sign2 decoding (engine), and the shared-memory lane
         # with our host id (which also says we decode v3)
         flags = (compat.SYNC_FLAG_SIGN2 if self._sign2 else 0) | (compat.SYNC_FLAG_SHM if self._shm_ok else 0)
-        self._send_blocking(uplink, wire.encode_sync(self.st.spec, self._wire_version, flags, self._shm_host))
+        prev = (0, 0)
+        if self._prev_link_ok:
+            # this uplink's token, and the severed one's whose frames we keep
+            self._uplink_token = int.from_bytes(os.urandom(8), "little") | 1
+            prev = (self._uplink_token, self._kept[0] if self._kept is not None else 0)
+            flags |= wire.SYNC_FLAG_PREV_LINK
+        self._send_blocking(uplink, wire.encode_sync(self.st.spec, self._wire_version, flags, self._shm_host,
+                                                     prev_link=prev))
         # SYNC sent, snapshot not: the parent holds a pending handshake
         self._fault_point("mid-join-walk")
         for chunk in wire.encode_snapshot_chunks(snap.cpu().numpy()):
@@ -2351,6 +2392,9 @@ class SharedTensorPeer:
                 # carries our capabilities and, for a child on our host, the
                 # lane's segment, created before the offer goes out
                 flags = (compat.SYNC_FLAG_SIGN2 if self._sign2 else 0) | (compat.SYNC_FLAG_SHM if self._shm_ok else 0)
+                applied = self._applied_on(self._link_token.get(link, (0, 0))[1], link)
+                if applied is not None:
+                    flags |= wire.SYNC_FLAG_PREV_LINK
                 offer = None
                 if self._peer_shm.pop(link, False):
                     served, code = self.node.shm_serve(link, self._shm_ring_bytes())
@@ -2359,7 +2403,7 @@ class SharedTensorPeer:
                     else:
                         # the library puts no event on the ring for this side
                         self._shm_fallback(link, SHM_SERVE_FAILURES.get(code, f"serve code {code}"), code)
-                self._send_blocking(link, wire.encode_welcome(flags, offer))
+                self._send_blocking(link, wire.encode_welcome(flags, offer, applied or 0))
                 self._attach_diff(link, snap)
                 self._wake.set()
         elif kind == wire.WELCOME:
@@ -2375,6 +2419,7 @@ class SharedTensorPeer:
                     self._shm_fallback(link, SHM_JOIN_FAILURES.get(code, f"join code {code}"))
             snap, self._sent_snapshot = self._sent_snapshot, None
             if snap is not None:
+                self._retract_applied(wire.welcome_applied(payload))
                 # owed upward: everything the snapshot did not claim (the
                 # carry plus adds and floods during the handshake)
                 self._attach_diff(link, snap)
@@ -2437,6 +2482,44 @@ class SharedTensorPeer:
         else:
             self._unknown_msgs += 1
             log.warning("link %d: ignoring message kind %d, which this peer does not speak", link, kind)
+
+    def _record_applied(self, token: int, applied: int) -> None:
+        """Parent side: a child link is gone, having had ``applied`` of its
+        data messages applied here. The last 256 are kept."""
+        self._gone_applied[token] = applied
+        while len(self._gone_applied) > 256:
+            self._gone_applied.pop(next(iter(self._gone_applied)))
+
+    def _applied_on(self, token: int, link: int) -> Optional[int]:
+        """Parent side, at a joiner's DONE: how many data messages of its
+        previous link (``token``) were applied here, or None if that link
+        was never ours. A previous link still up here (its end is dead at
+        the child, its death not yet seen here) is dropped first, so that
+        no message of it is applied after the count."""
+        if not token:
+            return None
+        for old, (tok, _) in list(self._link_token.items()):
+            if tok == token and old != link:
+                self.node.drop_link(old)
+                self._link_token.pop(old)
+                self._record_applied(token, self._rx_count.get(old, 0))
+        return self._gone_applied.get(token)
+
+    def _retract_applied(self, applied: Optional[int]) -> None:
+        """Child side, at WELCOME: the frames of the severed uplink's first
+        ``applied`` messages left through the parent, which rolled into our
+        carry all the same and which the diff handshake brings back from
+        it, so take them out of our state; None (no record, or a parent
+        that does not speak the flag) leaves the carry as it is."""
+        kept, self._kept = self._kept, None
+        if kept is None or applied is None:
+            return
+        frames = [f for seq, fs in kept[1] if seq <= applied for f in fs]
+        self.st.retract_frames(frames)
+        self._carry_frames_retracted += len(frames)
+        if frames:
+            log.info("re-join: %d frame(s) of the severed uplink were applied by the parent; retracted from the carry",
+                     len(frames))
 
     def _attach_diff(self, link: int, snap) -> None:
         """Open the codec link with residual = replica - ``snap``. On the
@@ -2507,6 +2590,9 @@ class SharedTensorPeer:
             self._peer_sign2[link] = bool(flags & compat.SYNC_FLAG_SIGN2)
             self._peer_r14[link] = bool(self._shm_ok and flags & compat.SYNC_FLAG_SHM)
             self._peer_shm[link] = bool(self._shm_ok and wire.sync_shm_host(payload) == self._shm_host)
+            prev = wire.sync_prev_link(payload)
+            if prev is not None and self._prev_link_ok:
+                self._link_token[link] = prev
             self._pending[link] = bytearray(mine.total * 4)
             return
         self._reject(link, reason)

@@ -18,6 +18,14 @@ the reference's raw frames of ``frame_bytes`` each; a link may run over
 data plane may move onto a same-host shared-memory lane that the peer
 negotiates (:meth:`TransportNode.shm_serve` on the parent,
 :meth:`TransportNode.shm_join` on the child, :meth:`TransportNode.shm_stats`).
+
+A node's methods may be called from several threads, and one of them may
+close it (a routed drain closes its peer on a thread of its own): every
+native call holds the handle (``_enter``/``_exit``), and :meth:`close`
+takes the handle away at once and frees it only after the calls in
+progress have returned, so no call runs on a freed node. On a closed node
+``send`` and ``recv`` raise ``BrokenPipeError`` and the queries return
+their empty answers.
 """
 
 from __future__ import annotations
@@ -189,6 +197,8 @@ class TransportNode:
             stripe_count=cfg.stripe_count,
         )
         is_master = _I32(0)
+        self._h_cv = threading.Condition()  # guards _h and _h_users
+        self._h_users = 0
         self._h = self._lib.st_node_create(host.encode(), port, ctypes.byref(c), ctypes.byref(is_master))
         if not self._h:
             raise ConnectionError(
@@ -200,6 +210,20 @@ class TransportNode:
         self.obs_id = int(self._lib.st_node_obs_id(self._h))
         self._recv_buf = ctypes.create_string_buffer(max(frame_bytes, 1 << 20))
 
+    def _enter(self):
+        """The native handle, held for one call (pair with :meth:`_exit`),
+        or None once the node is closed."""
+        with self._h_cv:
+            if self._h:
+                self._h_users += 1
+            return self._h
+
+    def _exit(self) -> None:
+        with self._h_cv:
+            self._h_users -= 1
+            if not self._h_users:
+                self._h_cv.notify_all()
+
     # -- wire ----------------------------------------------------------------
 
     def send(self, link_id: int, payload, timeout: float = 1.0) -> bool:
@@ -209,7 +233,13 @@ class TransportNode:
         this returns, so the caller may reuse the buffer at once."""
         n = len(payload)
         arg = payload if isinstance(payload, bytes) else (ctypes.c_char * n).from_buffer(payload)
-        r = self._lib.st_node_send(self._h, link_id, arg, n, timeout)
+        h = self._enter()
+        if not h:
+            raise BrokenPipeError("the node is closed")
+        try:
+            r = self._lib.st_node_send(h, link_id, arg, n, timeout)
+        finally:
+            self._exit()
         if r < 0:
             raise BrokenPipeError(f"link {link_id} is down")
         return r == 1
@@ -217,7 +247,13 @@ class TransportNode:
     def recv(self, link_id: int, timeout: float = 0.0) -> Optional[bytes]:
         """Dequeue one received message, or None. Raises ``BrokenPipeError``
         when the link is dead and drained."""
-        n = self._lib.st_node_recv(self._h, link_id, self._recv_buf, len(self._recv_buf), timeout)
+        h = self._enter()
+        if not h:
+            raise BrokenPipeError("the node is closed")
+        try:
+            n = self._lib.st_node_recv(h, link_id, self._recv_buf, len(self._recv_buf), timeout)
+        finally:
+            self._exit()
         if n < 0:
             raise BrokenPipeError(f"link {link_id} is down")
         if n == 0:
@@ -230,33 +266,58 @@ class TransportNode:
 
     def poll_events(self, timeout: float = 0.0, cap: int = 16) -> list[Event]:
         arr = (_StEventC * cap)()
-        n = self._lib.st_node_poll_events(self._h, arr, cap, timeout)
+        h = self._enter()
+        if not h:
+            return []
+        try:
+            n = self._lib.st_node_poll_events(h, arr, cap, timeout)
+        finally:
+            self._exit()
         return [Event(EventKind(arr[i].kind), arr[i].link_id, bool(arr[i].is_uplink)) for i in range(n)]
 
     @property
     def links(self) -> list[int]:
-        if not self._h:  # closed: no native call on a null handle
-            return []
         arr = (_I32 * 64)()
-        n = self._lib.st_node_links(self._h, arr, 64)
+        h = self._enter()
+        if not h:
+            return []
+        try:
+            n = self._lib.st_node_links(h, arr, 64)
+        finally:
+            self._exit()
         return [arr[i] for i in range(n)]
 
     @property
     def uplink(self) -> Optional[int]:
-        if not self._h:
+        h = self._enter()
+        if not h:
             return None
-        u = self._lib.st_node_uplink(self._h)
+        try:
+            u = self._lib.st_node_uplink(h)
+        finally:
+            self._exit()
         return None if u < 0 else u
 
     @property
     def listen_port(self) -> int:
-        return self._lib.st_node_listen_port(self._h)
+        h = self._enter()
+        if not h:
+            return -1
+        try:
+            return self._lib.st_node_listen_port(h)
+        finally:
+            self._exit()
 
     def stats(self, link_id: int) -> Optional[LinkStats]:
-        if not self._h:
-            return None
         s = _StStatsC()
-        if self._lib.st_node_stats(self._h, link_id, ctypes.byref(s)) < 0:
+        h = self._enter()
+        if not h:
+            return None
+        try:
+            r = self._lib.st_node_stats(h, link_id, ctypes.byref(s))
+        finally:
+            self._exit()
+        if r < 0:
             return None
         return LinkStats(s.bytes_out, s.bytes_in, s.frames_out, s.frames_in, s.send_queue, s.recv_queue)
 
@@ -265,8 +326,12 @@ class TransportNode:
         misses (fresh allocations), and zero-copy sends. In steady state
         the acquires grow and the misses stay flat."""
         out = (ctypes.c_uint64 * 5)()
-        if self._h:
-            self._lib.st_node_pool_stats(self._h, out)
+        h = self._enter()
+        if h:
+            try:
+                self._lib.st_node_pool_stats(h, out)
+            finally:
+                self._exit()
         return {"tx_acquires": out[0], "tx_misses": out[1], "rx_acquires": out[2], "rx_misses": out[3],
                 "zc_msgs": out[4]}
 
@@ -274,10 +339,15 @@ class TransportNode:
         """The link's sockets: negotiated (``stripes``) and alive
         (``live``), stripe deaths and messages re-routed off a dying
         stripe. None for an unknown link or a closed node."""
-        if not self._h:
-            return None
         out = (ctypes.c_uint64 * 4)()
-        if self._lib.st_node_stripe_stats(self._h, link_id, out) < 0:
+        h = self._enter()
+        if not h:
+            return None
+        try:
+            r = self._lib.st_node_stripe_stats(h, link_id, out)
+        finally:
+            self._exit()
+        if r < 0:
             return None
         return {"stripes": int(out[0]), "live": int(out[1]), "deaths": int(out[2]), "reroutes": int(out[3])}
 
@@ -287,11 +357,15 @@ class TransportNode:
         GiB by the library). Returns ((name, token), 0) to offer the child,
         or (None, the library's code) when no lane can be served (see
         ``SHM_SERVE_FAILURES``): the link then stays on TCP."""
-        if not self._h:
-            return None, -1
         name = ctypes.create_string_buffer(96)
         token = ctypes.c_uint64(0)
-        r = self._lib.st_node_shm_serve(self._h, link_id, int(ring_bytes), name, len(name), ctypes.byref(token))
+        h = self._enter()
+        if not h:
+            return None, -1
+        try:
+            r = self._lib.st_node_shm_serve(h, link_id, int(ring_bytes), name, len(name), ctypes.byref(token))
+        finally:
+            self._exit()
         if r != 0:
             return None, int(r)
         return (name.value.decode(), int(token.value)), 0
@@ -300,26 +374,39 @@ class TransportNode:
         """The child's half: map and validate the parent's segment. 0 on
         success, else the library's code (``SHM_JOIN_FAILURES``), and the
         link stays on TCP."""
-        if not self._h:
+        h = self._enter()
+        if not h:
             return -1
-        return int(self._lib.st_node_shm_join(self._h, link_id, name.encode(), token))
+        try:
+            return int(self._lib.st_node_shm_join(h, link_id, name.encode(), token))
+        finally:
+            self._exit()
 
     def shm_stats(self, link_id: int) -> Optional[dict]:
         """The link's lane: ``state`` 0 (TCP only), 1 (segment mapped) or 2
         (sending on the rings), messages and bytes each way over it, the
         ring's bytes and futex sleeps each way. None for an unknown link
         or a closed node."""
-        if not self._h:
-            return None
         out = (ctypes.c_uint64 * 8)()
-        if self._lib.st_node_shm_stats(self._h, link_id, out) < 0:
+        h = self._enter()
+        if not h:
+            return None
+        try:
+            r = self._lib.st_node_shm_stats(h, link_id, out)
+        finally:
+            self._exit()
+        if r < 0:
             return None
         keys = ("state", "msgs_out", "msgs_in", "bytes_out", "bytes_in", "ring_bytes", "tx_waits", "rx_waits")
         return {k: int(v) for k, v in zip(keys, out)}
 
     def drop_link(self, link_id: int) -> None:
-        if self._h:
-            self._lib.st_node_drop_link(self._h, link_id)
+        h = self._enter()
+        if h:
+            try:
+                self._lib.st_node_drop_link(h, link_id)
+            finally:
+                self._exit()
 
     def drop_link_flushed(self, link_id: int, timeout: float = 0.5) -> None:
         """Drop a link after its send queue has drained (bounded wait), so
@@ -335,9 +422,14 @@ class TransportNode:
         self.drop_link(link_id)
 
     def close(self) -> None:
-        if self._h:
-            self._lib.st_node_close(self._h)
-            self._h = None
+        """Close the node: other threads see it closed at once, and it is
+        freed once their calls in progress have returned."""
+        with self._h_cv:
+            h, self._h = self._h, None
+            while self._h_users:
+                self._h_cv.wait()
+        if h:
+            self._lib.st_node_close(h)
 
     def __enter__(self):
         return self

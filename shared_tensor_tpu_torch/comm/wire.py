@@ -45,6 +45,11 @@ inside the transport's length-prefixed framing, little-endian throughout.
   appends its 16-byte host id to SYNC; a parent on the same host answers
   with the flag and a segment offer ``[host id][u64 token][u8 len][name]``
   in WELCOME's tail. Peers that do not speak it ignore the tails.
+- A severed uplink's applied prefix (``SYNC_FLAG_PREV_LINK``, this
+  package's only): a joiner's SYNC ends with two u64 link tokens, its new
+  uplink's and the severed one's; a parent that recorded the severed link
+  ends WELCOME with a u64, the count of that link's DATA/BURST messages it
+  applied. The JAX package neither sends nor sets the bit.
 - The observability plane's control messages: DIGEST ``[8][JSON]``, a
   subtree's bounded cluster metrics digest (``obs/aggregate.py``), sent up
   the tree once per ``ObsConfig.digest_interval_sec``; CLOCK ``[18][JSON]``,
@@ -114,6 +119,11 @@ SYNC_FLAG_RANGE = 0x02
 SYNC_FLAG_SIGN2 = 0x04
 SYNC_FLAG_SHM = 0x08
 SYNC_FLAG_SHARD = 0x10
+#: This package's own capability, a bit the JAX package does not use: a
+#: joiner names its uplink and the uplink before it in SYNC, and a parent
+#: that recorded that earlier link answers in WELCOME with how many of its
+#: DATA/BURST messages it applied (the tails below).
+SYNC_FLAG_PREV_LINK = 0x20
 #: The bit that gates the SYNC and WELCOME shared-memory tails.
 SHM_FLAG = SYNC_FLAG_SHM
 #: The kind byte's bit that marks a sign2 (2-bit) DATA/BURST frame.
@@ -391,19 +401,24 @@ class FramePool:
 
 def encode_sync(
     spec: TableSpec, wire_version: int = WIRE_VERSION_V2, flags: int = 0, shm_host: bytes = b"", shard: int = -1,
+    prev_link: tuple[int, int] = (0, 0),
 ) -> bytes:
     """Join request. With ``SYNC_FLAG_SHM`` the joiner's 16-byte host id
     (``shm_host``) follows the flags; with ``SYNC_FLAG_SHARD`` a u16
     shard-index claim follows that (0xFFFF: a member that owns no shard).
     A parent that is not sharded ignores the claim and attaches the joiner
     as a plain writer child; the joiner tells by the absent shard flag in
-    WELCOME and falls back to the full-replica protocol."""
+    WELCOME and falls back to the full-replica protocol. With
+    ``SYNC_FLAG_PREV_LINK`` the last 16 bytes are ``prev_link``: two u64
+    tokens, this uplink's and the severed one's before it (0: none).
+    Parents that do not speak the flag read nothing past their own tails."""
     return (
         bytes([SYNC])
         + struct.pack(_SYNC_FMT, spec.num_leaves, spec.total_n, spec.layout_digest())
         + bytes([wire_version & 0xFF, flags & 0xFF])
         + (shm_host[:16] if flags & SHM_FLAG else b"")
         + (struct.pack("<H", shard & 0xFFFF) if flags & SYNC_FLAG_SHARD else b"")
+        + (struct.pack("<QQ", *prev_link) if flags & SYNC_FLAG_PREV_LINK else b"")
     )
 
 
@@ -445,20 +460,41 @@ def sync_shard(payload: bytes) -> Optional[int]:
     return -1 if idx == 0xFFFF else idx
 
 
-def encode_welcome(flags: int = 0, shm_offer=None) -> bytes:
+def encode_welcome(flags: int = 0, shm_offer=None, applied: int = 0) -> bytes:
     """WELCOME with the parent's capability flags (``SYNC_FLAG_SIGN2``,
     ``SYNC_FLAG_SHM``, ``SYNC_FLAG_SHARD`` from a sharded parent) and, with the SHM flag, the shared-memory segment
-    offer ``shm_offer = (host id, token, /dev/shm name)`` in its tail."""
+    offer ``shm_offer = (host id, token, /dev/shm name)`` in its tail. With
+    ``SYNC_FLAG_PREV_LINK`` the last 8 bytes are ``applied``, a u64: the
+    DATA/BURST messages of the joiner's previous link that the parent
+    applied."""
     out = bytes([WELCOME, flags & 0xFF])
     if flags & SHM_FLAG and shm_offer is not None:
         host, token, name = shm_offer
         nb = name.encode()
         out += host[:16].ljust(16, b"\0") + struct.pack("<Q", token & 0xFFFFFFFFFFFFFFFF) + bytes([len(nb) & 0xFF]) + nb
+    if flags & SYNC_FLAG_PREV_LINK:
+        out += struct.pack("<Q", applied)
     return out
 
 
 def welcome_flags(payload: bytes) -> int:
     return payload[1] if len(payload) > 1 else 0
+
+
+def sync_prev_link(payload: bytes) -> Optional[tuple[int, int]]:
+    """The joiner's (this uplink's token, its previous uplink's token), or
+    None when its SYNC has no ``SYNC_FLAG_PREV_LINK`` (or is too short)."""
+    if not sync_flags(payload) & SYNC_FLAG_PREV_LINK or len(payload) < 3 + struct.calcsize(_SYNC_FMT) + 16:
+        return None
+    return struct.unpack_from("<QQ", payload, len(payload) - 16)
+
+
+def welcome_applied(payload: bytes) -> Optional[int]:
+    """The messages of our previous uplink that the parent applied, or None
+    when its WELCOME has no ``SYNC_FLAG_PREV_LINK`` (it kept no record)."""
+    if not welcome_flags(payload) & SYNC_FLAG_PREV_LINK or len(payload) < 2 + 8:
+        return None
+    return struct.unpack_from("<Q", payload, len(payload) - 8)[0]
 
 
 def welcome_shm(payload: bytes) -> Optional[tuple[bytes, int, str]]:

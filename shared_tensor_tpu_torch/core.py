@@ -382,6 +382,32 @@ class SharedTensor:
                     apply_table_many((resid,), f, self.spec)
         return resid
 
+    def inflight_frames(self, link_id: int, seqs) -> list[tuple[TableFrame, ...]]:
+        """The non-idle frames of a link's ledger entries ``seqs`` (an entry
+        that is gone gives ``()``), read before a roll-back consumes them."""
+        with self._lock:
+            q = self._inflight.get(link_id, {})
+            return [tuple(f for f in q.get(s, ()) if _host(f.scales).any()) for s in seqs]
+
+    def retract_frames(self, frames: list[TableFrame]) -> None:
+        """Take frames back out of the replica and every link's residual:
+        the inverse of receiving them from a link that is not attached
+        here. A severed uplink's frames that its parent applied
+        were rolled into the carry with the rest; the re-join's diff
+        handshake then brings them back from the parent, so they must leave
+        this node's state first. Counted nowhere."""
+        if not frames:
+            return
+        with self._lock:
+            if self._np:
+                targets = [self.values.numpy(), *(r.numpy() for r in self._links.values())]
+                scales = -np.stack([_host(f.scales) for f in frames])
+                words = np.stack([codec_np._u32(f.words) for f in frames])
+                codec_np.apply_table_batch_np(targets, scales, words, self.spec, inplace=True)
+            else:
+                stacked = TableFrame(-torch.stack([f.scales for f in frames]), torch.stack([f.words for f in frames]))
+                apply_table_batch((self.values, *self._links.values()), stacked, self.spec)
+
     @property
     def link_ids(self) -> tuple[int, ...]:
         with self._lock:

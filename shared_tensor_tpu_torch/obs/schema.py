@@ -214,6 +214,8 @@ SCHEMA: dict[str, tuple[str, str]] = {
     "st_apply_seconds_total": ("counter", "host seconds applying received batches (sum of st_apply_seconds)"),
     "st_link_frames_out_total": ("counter", "non-idle codec frames sent on the link, ever (per-link)"),
     "st_shm_fallback_total": ("counter", "same-host links whose shared-memory lane did not attach and that kept TCP"),
+    "st_carry_frames_rolled_total": ("counter", "unacknowledged frames of severed uplinks rolled into the re-graft carry (device and Python host tiers)"),
+    "st_carry_frames_retracted_total": ("counter", "of those, frames the parent reported applied at the re-join, taken back out of this node's state"),
     "st_shm_ring_bytes": ("gauge", "bytes of one shared-memory ring of the link, each direction (per-link)"),
 }
 

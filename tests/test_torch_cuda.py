@@ -355,6 +355,35 @@ def test_burst_graph_equals_the_eager_burst(cuda_device):
 
 
 @pytest.mark.cuda
+def test_retract_frames_on_the_card_matches_plain(cuda_device):
+    """SharedTensor.retract_frames (a severed uplink's applied frames taken
+    back out: kernel B with negated scales into the replica and every
+    link's residual) on the card equals the plain version on the CPU bit
+    for bit, from the same burst, and launches B."""
+    rng = np.random.default_rng(21)
+    tpl = {"w": rng.uniform(-1, 1, (300, 70)).astype(np.float32), "b": rng.normal(size=(5,)).astype(np.float32)}
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        st = SharedTensor(tpl, seed_values=True, device=dev)
+        st.new_link(1)
+        st.new_link(2, seed=False)
+        before = st.values.clone()
+        seq, _ = st.begin_frame_burst_device(1, 4)
+        frames = st.inflight_frames(1, [seq])[0]
+        assert len(frames) == 4
+        CC.reset_launches()
+        st.retract_frames(list(frames))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert CC.LAUNCHES["apply_rows_batch"] >= 1
+        total = sum(f.scales.double().abs().max().item() for f in frames)
+        assert 0 < (before - st.values).abs().max().item() <= total * (1 + 1e-6)
+        outs.append([x.cpu() for x in (st.values, st._links[1], st._links[2])])
+    for got, want in zip(*outs):
+        assert _same_bits(got, want)
+
+
+@pytest.mark.cuda
 def test_forty_shared_tensors_each_own_a_stream(cuda_device):
     """Every live CUDA SharedTensor has a side stream no other holds (a
     capture records whatever is enqueued on its stream), with no cap from

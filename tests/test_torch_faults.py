@@ -237,6 +237,85 @@ def test_sever_rolls_unacked_into_carry(tier):
         m.close()
 
 
+def _until(cond, timeout=30.0, what="condition"):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline, f"timed out waiting for {what}"
+        time.sleep(0.005)
+
+
+def _gate_sends_after_first(peer, link, wait):
+    """Hold ``peer``'s second data send on ``link`` until ``wait()``
+    returns (the send thread blocks; nothing else does). Once: a send the
+    loop still makes on the link after its sever passes."""
+    sent = []
+    send = peer._send_blocking
+
+    def gated(l, payload, data=False):
+        if data and l == link and len(sent) < 2:
+            if sent:
+                wait()
+            sent.append(l)
+        return send(l, payload, data)
+
+    peer._send_blocking = gated
+
+
+@pytest.mark.parametrize("case", ["ack_unread", "ack_not_arrived"])
+@pytest.mark.parametrize("tier", PY_TIERS)
+def test_sever_counts_the_applied_prefix_once(tier, case):
+    """The two ways the sever case above double-counted, each made certain:
+    the parent applied the first message, and its ACK either arrived and
+    lay unread when the link and its receive queue went (ack_unread), or
+    never reached the child (ack_not_arrived: the parent sends no ACK on
+    that link). Either way the message's frames roll into the carry, the
+    re-join's WELCOME reports them applied, the child retracts them, and
+    every replica ends at seed + the delta."""
+    port = free_port()
+    seed = np.full((256,), 2.0, np.float32)
+    fault = FaultConfig(enabled=True, seed=11, stall_after_frames=1, sever_after_frames=4, only_link=1)
+    m = _peer(port, seed, tier)
+    j = _peer(port, np.zeros_like(seed), tier, fault, cls=SharedTensorPeer, ack_timeout_sec=1.0)
+    try:
+        j.wait_ready(60.0)
+        wait_converged([j], seed)
+        first = j._uplink
+        (child,) = m.node.links
+        applied = lambda: m._rx_count.get(child, 0) >= 1  # noqa: E731
+        if case == "ack_unread":
+            recv = j.node.recv
+
+            def held(link, timeout=0.0):
+                if link == first:  # the uplink's messages stay queued until the sever erases them
+                    if link not in j.node.links:
+                        raise BrokenPipeError(link)
+                    return None
+                return recv(link, timeout)
+
+            def acked_unread():
+                _until(lambda: m._ack_sent.get(child, 0) >= 1, what="the parent's ACK")
+                _until(lambda: (s := j.node.stats(first)) is None or s.recv_queue >= 1, what="the ACK queued")
+
+            j.node.recv = held
+            _gate_sends_after_first(j, first, acked_unread)
+        else:
+            flush = m._flush_acks
+            m._flush_acks = lambda link: None if link == child else flush(link)
+            _gate_sends_after_first(j, first, lambda: _until(applied, what="the first message applied"))
+        delta = np.random.default_rng(7).normal(size=(256,)).astype(np.float32)
+        j.add(delta)
+        # the re-join (one burst may carry the whole delta at this tolerance)
+        _until(lambda: j._uplink not in (None, first) and j._kept is None, timeout=90.0, what="the re-join")
+        wait_converged([m, j], seed + delta, tol=1e-5, timeout=90.0)
+        assert j._faults.counts["severed"] >= 1
+        got = j.metrics()
+        assert got["st_carry_frames_retracted_total"] >= 1
+        assert got["st_carry_frames_rolled_total"] > got["st_carry_frames_retracted_total"]
+    finally:
+        j.close()
+        m.close()
+
+
 @pytest.mark.parametrize("tier", PY_TIERS)
 def test_drop_faults_recovered_by_retransmission(tier):
     """Half the data messages dropped: go-back-N re-sends the tail byte for

@@ -241,3 +241,77 @@ def test_port_sharded_joiner_falls_back_under_jax_parent(tier):
             h.close()
     finally:
         parent.close()
+
+
+@pytest.mark.parametrize("jax_tier", ("engine", "host"))
+@pytest.mark.parametrize("port_tier", ("device", "host"))
+def test_port_child_under_a_jax_parent_keeps_its_whole_carry(port_tier, jax_tier, monkeypatch):
+    """A port child under the sever fault plan (test_torch_faults.py's)
+    below a JAX parent. Its SYNCs carry the port's SYNC_FLAG_PREV_LINK and
+    link tokens, which the JAX parent ignores; every WELCOME it gets back is
+    the JAX package's own bytes, with no applied count, so the child keeps
+    its whole carry at the re-join, as before the port had the flag, and
+    the tree converges. The child's sends after its first wait until it has
+    read the first one's ACK, so no applied frame is left in the carry and
+    that path is exact here."""
+    from shared_tensor_tpu.comm import wire as JW
+    from shared_tensor_tpu_torch.comm.peer import SharedTensorPeer
+    from shared_tensor_tpu_torch.config import FaultConfig
+
+    syncs, welcomes = [], []
+    encode_sync, on_message = wire.encode_sync, SharedTensorPeer._on_message
+    monkeypatch.setattr(wire, "encode_sync", lambda *a, **k: syncs.append(encode_sync(*a, **k)) or syncs[-1])
+
+    def on_msg(self, link, payload):
+        if payload[0] == wire.WELCOME:
+            welcomes.append(bytes(payload))
+        return on_message(self, link, payload)
+
+    monkeypatch.setattr(SharedTensorPeer, "_on_message", on_msg)
+    port = free_port()
+    seed = _seed()
+    m = jax_create_or_fetch("127.0.0.1", port, seed, _jax_cfg(jax_tier))
+    fault = FaultConfig(enabled=True, seed=11, stall_after_frames=1, sever_after_frames=4, only_link=1)
+    cfg = Config(transport=TransportConfig(peer_timeout_sec=10.0, ack_timeout_sec=1.0), faults=fault,
+                 native_engine=False)
+    j = SharedTensorPeer("127.0.0.1", port, _zeros(seed), cfg,
+                         **({"device": "cpu"} if port_tier == "device" else {"host_tier": True}))
+    try:
+        j.wait_ready(60.0)
+        _check_tier(m, jax_tier)
+        _check_tier(j, port_tier)
+        wait_converged([j], seed)
+        first = j._uplink
+        sent, send = [], j._send_blocking
+
+        def gated(link, payload, data=False):
+            if data and link == first and len(sent) < 2:  # the second send waits, once
+                deadline = time.time() + 30
+                while sent and j._acked.get(first, 0) < 1 and time.time() < deadline:
+                    time.sleep(0.005)
+                sent.append(link)
+            return send(link, payload, data)
+
+        j._send_blocking = gated
+        rng = np.random.default_rng(7)
+        delta = {k: rng.normal(size=v.shape).astype(np.float32) for k, v in seed.items()}
+        j.add(delta)
+        deadline = time.time() + 90
+        while len(welcomes) < 2 and time.time() < deadline:
+            time.sleep(0.02)  # the re-join (one burst may carry the whole delta at this tolerance)
+        wait_converged([m, j], {k: seed[k] + delta[k] for k in seed}, tol=1e-5, timeout=90.0)
+        assert j._faults.counts["severed"] >= 1 and j._faults.counts["stalled"] >= 1
+        # the child named each uplink, and the severed one in the re-join
+        tokens = [wire.sync_prev_link(s) for s in syncs]
+        assert len(tokens) >= 2 and all(t is not None for t in tokens)
+        assert tokens[1][1] == tokens[0][0] != 0
+        # the JAX parent's WELCOMEs: its own encoder's bytes, no count
+        assert len(welcomes) >= 2
+        for w in welcomes:
+            assert not wire.welcome_flags(w) & wire.SYNC_FLAG_PREV_LINK and wire.welcome_applied(w) is None
+            assert w == JW.encode_welcome(JW.welcome_flags(w), JW.welcome_shm(w))
+        got = j.metrics()
+        assert got["st_carry_frames_rolled_total"] >= 1 and got["st_carry_frames_retracted_total"] == 0
+    finally:
+        j.close()
+        m.close()

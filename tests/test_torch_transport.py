@@ -123,6 +123,45 @@ def test_closed_node_introspection_is_empty():
     node.drop_link(1)  # a no-op, never a native call on a null handle
 
 
+def test_close_waits_for_a_call_in_progress_on_another_thread():
+    """A close on one thread while another thread is inside a native call
+    on the node (the TSan arm's report: st_node_close freed the node under
+    st_node_links) frees the node only after that call has returned; the
+    calls that follow see a closed node."""
+    import threading
+
+    port = free_port()
+    node = TransportNode("127.0.0.1", port, CFG)
+    lib, order, inside = node._lib, [], threading.Event()
+
+    class SlowLinks:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def st_node_links(self, h, arr, cap):
+            inside.set()
+            time.sleep(0.3)
+            order.append("links returned")
+            return lib.st_node_links(h, arr, cap)
+
+        def st_node_close(self, h):
+            order.append("close")
+            return lib.st_node_close(h)
+
+    node._lib = SlowLinks()
+    t = threading.Thread(target=lambda: node.links)
+    t.start()
+    assert inside.wait(5.0)
+    node.close()
+    t.join()
+    assert order == ["links returned", "close"]
+    assert node.links == [] and node.poll_events() == []
+    with pytest.raises(BrokenPipeError):
+        node.recv(1)
+    with pytest.raises(BrokenPipeError):
+        node.send(1, b"x")
+
+
 def test_unported_transport_knobs_are_type_errors():
     with pytest.raises(ValueError):
         TransportConfig(stripe_count=9)

@@ -127,6 +127,38 @@ def test_sync_bytes_identical_and_carry_the_layout_digest(version, flags):
             assert TW.sync_shard(got[:-1]) is None
 
 
+@pytest.mark.parametrize("extra", [0, TW.SYNC_FLAG_SHM, TW.SYNC_FLAG_SHM | TW.SYNC_FLAG_SHARD])
+def test_prev_link_handshake_round_trip(extra):
+    """The port's own capability: a bit no JAX flag uses; its SYNC tail
+    (two link tokens) and WELCOME tail (the applied count) come last, so
+    JAX's decoders read the tails they know exactly as without it."""
+    from shared_tensor_tpu import compat
+
+    jax_bits = [getattr(compat, n) for n in dir(compat) if n.startswith("SYNC_FLAG_")]
+    assert jax_bits and all(TW.SYNC_FLAG_PREV_LINK & b == 0 for b in jax_bits)
+    js, ts = _specs(_tree())
+    host, tokens = bytes(range(16)), (0x1234_5678_9ABC_DEF1, 2**64 - 1)
+    plain = TW.encode_sync(ts, 2, flags=extra, shm_host=host, shard=3)
+    sync = TW.encode_sync(ts, 2, flags=extra | TW.SYNC_FLAG_PREV_LINK, shm_host=host, shard=3, prev_link=tokens)
+    head = bytearray(plain)
+    head[30] |= TW.SYNC_FLAG_PREV_LINK  # [kind][u32][u64][16-byte digest][version][flags]
+    assert sync == bytes(head) + tokens[0].to_bytes(8, "little") + tokens[1].to_bytes(8, "little")
+    assert TW.sync_prev_link(sync) == tokens and TW.sync_prev_link(plain) is None
+    assert TW.sync_prev_link(sync[:31]) is None  # the flag, and no room for the tail
+    assert JW.decode_sync(sync) == JW.decode_sync(plain)
+    assert JW.sync_shm_host(sync) == JW.sync_shm_host(plain)
+    assert JW.sync_shard(sync) == JW.sync_shard(plain)
+    offer = (host, 99, "/st-test") if extra & TW.SYNC_FLAG_SHM else None
+    for applied in (0, 7, 2**40):
+        welcome = TW.encode_welcome(extra | TW.SYNC_FLAG_PREV_LINK, offer, applied)
+        assert TW.welcome_applied(welcome) == applied
+        assert welcome[:-8] == TW.encode_welcome(extra | TW.SYNC_FLAG_PREV_LINK, offer)[:-8]
+        assert JW.welcome_shm(welcome) == JW.welcome_shm(JW.encode_welcome(extra, offer))
+    # without the bit: JAX's bytes, and no count
+    assert TW.encode_welcome(extra, offer) == JW.encode_welcome(extra, offer)
+    assert TW.welcome_applied(JW.encode_welcome(extra, offer)) is None
+
+
 def test_capability_flags_equal_the_jax_package():
     from shared_tensor_tpu import compat
 
