@@ -309,9 +309,29 @@ Phases, in order; any failure exits non-zero:
    must reach seed + the update within AGREE_REL of each leaf's max
    |value|, and the fault plan must count a sever and a stall. Prints the
    seconds (against SEVER_BUDGET_S), the frames rolled into the carry and
-   those retracted as already applied, the launches of A and B (both > 0),
-   then A and B against their plain versions on the joiner's state (0
-   mismatches).
+   those retracted as already applied, the launches of A-cascade and B
+   (both > 0), then A and B against their plain versions on the joiner's
+   state (0 mismatches).
+22. The engine's cascade on the device tier (kernel A-cascade,
+   csrc/quantize_rows_cascade.cu, the port of native/stcodec.c's
+   stc_quantize_ef_cascade). (22a) at config 2's table (9 leaves, 30,248
+   rows) and at 1 Mi, a gaussian residual with outliers from --seed and the
+   ladder top of its own measurement, at each depth of CASCADE_KCS: the
+   kernel against its plain twin on the card and against the port's
+   libstcodec pass on the host at the schedule the kernel wrote (words,
+   scales, residual bit for bit; the schedule the halving of the top);
+   then at CASCADE_TIMED_KC, the ms per launch from a CUDA graph over
+   buffer sets holding four times the L2, beside its bytes bound and
+   copy_ms, and the plain twin's ms. (22b) benchmarks/drain_tail's device
+   row at DRAIN_N under DRAIN_TIMEOUT_S: two CUDA peers, one gaussian add
+   drained to exact zero in under DRAIN_MAX_FRAMES frames, and the
+   launches of A-cascade and B in it (both > 0).
+A CUDA peer's K-frame bursts follow the native engine's cascade
+(CodecConfig.cascade_frames, 32 by default): they run kernel A-cascade,
+and kernel A runs on the pod tier, single frames (subscriber and
+reference-wire links) and the direct SharedTensor drives (phases 3, 8c).
+Each peer phase reports the launches of A, A-cascade and B and requires
+those of its path.
 The transport, the host codec and the engine (native/sttransport.cpp,
 stcodec.c, stengine.cpp) and the C reference peer (stc_harness.c) are
 compiled with g++ and gcc in phase 1, beside the kernels. Every rank's full results of phases 9, 10 and 11 go to
@@ -338,6 +358,12 @@ import time
 
 import numpy as np
 import torch
+
+#: The kernels a CUDA peer launches: A-cascade for its bursts (the engine's
+#: cascade), A for its single frames, B for every apply.
+PEER_KERNELS = ("quantize_rows", "quantize_rows_cascade", "apply_rows_batch")
+#: The kernels a phase of bursting CUDA peers must launch.
+BURST_KERNELS = ("quantize_rows_cascade", "apply_rows_batch")
 
 #: HBM bandwidth by card (NVIDIA data sheets), bytes/s; the SXM part's is
 #: the default.
@@ -424,6 +450,19 @@ def _sync(device) -> None:
 def _bitdiff(a: torch.Tensor, b: torch.Tensor) -> int:
     """Elements whose 32 bits differ."""
     return int((a.contiguous().view(torch.int32) != b.contiguous().view(torch.int32)).sum())
+
+
+def path_counts() -> dict:
+    """The launches of A, A-cascade and B since the last reset."""
+    from shared_tensor_tpu_torch.ops import codec_cuda as CC
+
+    counts = CC.launches()
+    return {k: counts[k] for k in PEER_KERNELS}
+
+
+def require_launched(counts: dict, names, what: str) -> None:
+    if not all(counts[k] for k in names):
+        raise AssertionError(f"{what}: a kernel of the path never launched: {counts}")
 
 
 def _maxerr(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1608,6 +1647,7 @@ def pod_bridge(pod, index: int, both, seed: int, port: int) -> dict:
         out["split_ms"] = H.step_split(tr, index, setup)
         out["frames"] = H.bridge_frames(tr)
         out["launches"] = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
+        out["cascade_launches"] = CC.ENGINE_LAUNCHES["quantize_rows_cascade"]  # the bridge peer's bursts
         lap("split")
     finally:
         tr.close()
@@ -2607,17 +2647,17 @@ def wire_phase(device, seed: int, agree_12b_s: float, smi: str) -> tuple[dict, d
     out = {"dev_shm_df": df}
     masters = {}
     out["14a"], masters["14a"] = compat_example(device)
-    launches = {"14a": {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}}
+    launches = {"14a": path_counts()}
     char_template = char_rnn_template()
     n = make_spec(char_template).total_n
     CC.reset_launches()
     out["14b"], masters["14b"] = compat_wide(device, seed, n)
-    launches["14b"] = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
+    launches["14b"] = path_counts()
     CC.reset_launches()
     out["14c"], masters["14c"] = lane_chain(char_template, device, seed, striped=False)
     out["14c_striped"], _ = lane_chain(char_template, device, seed, striped=True)
-    launches["14c"] = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
-    total = {k: sum(v[k] for v in launches.values()) for k in ("quantize_rows", "apply_rows_batch")}
+    launches["14c"] = path_counts()
+    total = {k: sum(v[k] for v in launches.values()) for k in PEER_KERNELS}
     specs = {"14a": make_spec(np.zeros((4, 5, 6, 2), np.float32)), "14b": make_spec(np.zeros(n, np.float32)),
              "14c": make_spec(char_template)}
     by_arm = {arm: tree_kernel_check(masters[arm], specs[arm], arm) for arm in masters}
@@ -2635,8 +2675,9 @@ def wire_phase(device, seed: int, agree_12b_s: float, smi: str) -> tuple[dict, d
           f" s (lane, sign2 on E1-E2), striped {out['14c_striped']['last_add_to_agree_s']:.3f} s, 12b in this run "
           f"{agree_12b_s:.3f} s")
     print(f"[14] launches {launches}; phase 14 {out['seconds']:.3f} s; on {smi}")
-    if not (launches["14b"]["quantize_rows"] and launches["14b"]["apply_rows_batch"]) or not all(total.values()):
-        raise AssertionError(f"phase 14: a kernel of the path never launched: {launches}")
+    # the reference wire's frames run A, the lane chain's bursts A-cascade
+    require_launched(launches["14b"], ("quantize_rows", "apply_rows_batch"), "phase 14b")
+    require_launched(launches["14c"], BURST_KERNELS, "phase 14c")
     bad = {k: v["by_arm"] for k, v in check.items() if v["mismatches"]}
     if bad:
         raise AssertionError(f"phase 14: kernel vs plain mismatches on the masters' states: {bad}")
@@ -3618,6 +3659,113 @@ def sever_phase(device, seed: int, smi: str, cfg_m=None) -> tuple[dict, tuple]:
     return out, state
 
 
+# -- phase 22 -------------------------------------------------------------------
+
+CASCADE_KCS = (1, 11, 16, 32, 64)  # phase 22a's depths
+CASCADE_TIMED_KC = 16  # phase 22a's timed depth: a 16-frame burst's longest round
+DRAIN_N = 1 << 20  # phase 22b: drain_tail's table
+DRAIN_TIMEOUT_S = 10.0
+DRAIN_MAX_FRAMES = 200
+
+
+def cascade_kernel_check(spec, device, rate: float, seed: int) -> dict:
+    """Phase 22a (module docstring) at one table. Returns its mismatches,
+    largest residual error, times and bound."""
+    from shared_tensor_tpu_torch.config import ScalePolicy
+    from shared_tensor_tpu_torch.ops import codec_cuda as CC
+    from shared_tensor_tpu_torch.ops import codec_np as N
+    from shared_tensor_tpu_torch.ops import table as TT
+    from shared_tensor_tpu_torch.utils.timing import copy_ms, event_ms, graph_ms, l2_sets
+
+    row_leaf, rowcount, live, *_ = TT._consts(spec, str(torch.device(device)))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    resid = torch.randn(spec.total, generator=gen, device=device) * 1e-2
+    resid[::997] *= 50.0  # outliers: a ladder deeper than the measured scale
+    resid = torch.where(live.view(-1), resid, torch.zeros_like(resid))
+    s, amax = TT._table_scales(resid, spec, ScalePolicy.POW2_RMS, True, with_amax=True)
+    host = resid.cpu().numpy()
+    n_leaves, rows = spec.num_leaves, spec.rows
+    out = {"shape": f"rows={rows} leaves={n_leaves}", "mismatches_plain": 0, "mismatches_c": 0,
+           "mismatches_schedule": 0, "max_abs_err": 0.0, "depths": list(CASCADE_KCS)}
+
+    def buffers(kc):
+        return (resid.clone(), torch.zeros((kc, rows * 4), dtype=torch.int32, device=device),
+                torch.zeros((kc, n_leaves), dtype=torch.float32, device=device))
+
+    for kc in CASCADE_KCS:
+        top = TT.cascade_ladder(s, amax, kc)[0] if kc > 1 else s
+        state = torch.tensor([0, kc], dtype=torch.int32, device=device)
+        got = []
+        for fn in (CC.quantize_rows_cascade_kernel, CC.quantize_rows_cascade_plain):
+            bufs = buffers(kc)
+            fn(top, row_leaf, rowcount, state, *bufs)
+            got.append(bufs)
+        _sync(device)
+        (r_k, w_k, s_k), (r_p, w_p, s_p) = got
+        out["mismatches_plain"] += _bitdiff(r_k, r_p) + _bitdiff(w_k, w_p) + _bitdiff(s_k, s_p)
+        out["max_abs_err"] = max(out["max_abs_err"], _maxerr(r_k, r_p))
+        sched = s_k.cpu().numpy()
+        rows_np = [top.cpu().numpy()]
+        for _ in range(1, kc):
+            rows_np.append(rows_np[-1] * np.float32(0.5))
+        out["mismatches_schedule"] += _bitdiff(torch.from_numpy(sched), torch.from_numpy(np.stack(rows_np)))
+        w_c, r_c = N.quantize_cascade_np(host, spec, sched)
+        out["mismatches_c"] += _bitdiff(w_k.cpu(), torch.from_numpy(w_c.view(np.int32))) \
+            + _bitdiff(r_k.cpu(), torch.from_numpy(r_c))
+        out["max_abs_err"] = max(out["max_abs_err"], _maxerr(r_k.cpu(), torch.from_numpy(r_c)))
+    out["mismatches"] = out["mismatches_plain"] + out["mismatches_c"] + out["mismatches_schedule"]
+
+    kc = CASCADE_TIMED_KC
+    top = TT.cascade_ladder(s, amax, kc)[0]
+    state = torch.tensor([0, kc], dtype=torch.int32, device=device)
+    # residual read and written, kc bit planes written, the row constants
+    # (row_leaf int64 and rowcount) and the ladder top read, kc scale rows written
+    nbytes = spec.total * 8 + kc * spec.total / 8 + rows * 12 + n_leaves * 4 * (1 + kc)
+    sets = [buffers(kc) for _ in range(l2_sets(nbytes, device))]
+    turn = itertools.cycle(sets)
+    launch = lambda: CC.quantize_rows_cascade_kernel(top, row_leaf, rowcount, state, *next(turn))  # noqa: E731
+    bufs = buffers(kc)
+    out.update(kc=kc, ms=graph_ms(launch, 50), sets=len(sets), bytes=nbytes, bound_ms=nbytes / rate * 1e3,
+               copy_ms=copy_ms(nbytes, device, lambda fn: graph_ms(fn, 50), sets=len(sets)),
+               plain_ms=event_ms(lambda: CC.quantize_rows_cascade_plain(top, row_leaf, rowcount, state, *bufs), 3, 1))
+    del sets, turn, bufs
+    return out
+
+
+def cascade_phase(device, rate: float, seed: int, smi: str) -> dict:
+    """Phase 22 (module docstring): 22a at config 2's table and at 1 Mi,
+    then 22b. Returns the report; any failed check raises."""
+    from shared_tensor_tpu_torch.benchmarks import drain_tail
+    from shared_tensor_tpu_torch.ops import codec_cuda as CC
+    from shared_tensor_tpu_torch.ops.table import make_spec
+
+    t0 = time.perf_counter()
+    out = {"22a": {}}
+    for name, tmpl in (("config2", char_rnn_template()), ("1Mi", {"t": np.zeros(1 << 20, np.float32)})):
+        r = out["22a"][name] = cascade_kernel_check(make_spec(tmpl), device, rate, seed + 22)
+        print(f"[22a] A-cascade at {name} ({r['shape']}), depths {r['depths']}: mismatches against the plain twin "
+              f"{r['mismatches_plain']}, against libstcodec's stc_quantize_ef_cascade {r['mismatches_c']}, schedule "
+              f"{r['mismatches_schedule']}; at kc={r['kc']} {r['ms']:.4f} ms/launch from a graph over {r['sets']} "
+              f"buffer sets, bound {r['bound_ms']:.4f} ms ({r['bytes'] / 1e6:.1f} MB, {100 * r['bound_ms'] / r['ms']:.1f}% "
+              f"of it), copy_ms {r['copy_ms']:.4f}, plain {r['plain_ms']:.4f} ms; on {smi}")
+    bad = {k: v["mismatches"] for k, v in out["22a"].items() if v["mismatches"]}
+    if bad:
+        raise AssertionError(f"phase 22a: A-cascade mismatches: {bad}")
+    t1 = time.perf_counter()
+    CC.reset_launches()
+    row = out["22b"] = drain_tail.run_tier("device", n=DRAIN_N, timeout=DRAIN_TIMEOUT_S, device=device)
+    row["launches"] = path_counts()
+    print(f"[22b] drain_tail's device row at n={DRAIN_N}: drained {row['drained']} in {row['seconds']:.3f} s, "
+          f"{row['frames_out']} frames (max {DRAIN_MAX_FRAMES}), residual norm {row['residual_norm']}, joiner's max "
+          f"error {row['joiner_max_err']:.3e}; launches {row['launches']}; {time.perf_counter() - t1:.3f} s on {smi}")
+    require_launched(row["launches"], BURST_KERNELS, "phase 22b")
+    if not (row["drained"] and row["residual_norm"] == 0.0 and row["frames_out"] < DRAIN_MAX_FRAMES):
+        raise AssertionError(f"phase 22b: one gaussian add did not drain within its bounds: {row}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[22] phase 22 {out['seconds']:.3f} s")
+    return out
+
+
 def phase20_cost(device, rate: float, seed: int, smi: str) -> list:
     """``--phase20-cost``: what phase 20a adds to the script. Phases 17 and
     18a, then 20a, four times, in the order early, late, late, early: an
@@ -3653,6 +3801,8 @@ SOURCES = {
     "apply_rows_batch": ("shared_tensor_tpu_torch/csrc/apply_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:337"),
     "quantize": ("shared_tensor_tpu_torch/csrc/quantize.cu", "shared_tensor_tpu/ops/codec_pallas.py:160"),
     "apply_frame_many": ("shared_tensor_tpu_torch/csrc/apply_frame.cu", "shared_tensor_tpu/ops/codec_pallas.py:216"),
+    # no TPU kernel: the native engine's C pass (stc_quantize_ef_cascade)
+    "quantize_rows_cascade": ("shared_tensor_tpu_torch/csrc/quantize_rows_cascade.cu", "native/stcodec.c:2088"),
 }
 
 
@@ -3717,10 +3867,9 @@ def main() -> int:
     # 3. tree drive (the launch counts of A and B are this phase's)
     CC.reset_launches()
     drive = tree_drive(template, dev, args.seed)
-    launches = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
+    launches = path_counts()
     print(f"[3] launches {launches}, frames out {drive['frames_out']}, in {drive['frames_in']}")
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    require_launched(launches, ("quantize_rows", "apply_rows_batch"), "phase 3")
 
     # 4. times at the drive's shapes; B's row in the kernels line is the
     # interior's flood (K = BATCH, N = 2), its other shapes beside it
@@ -3728,6 +3877,7 @@ def main() -> int:
     t = times(spec, dev, rate)
     b_rows = t["apply_rows_batch"]
     t["apply_rows_batch"] = dict(b_rows[B_SHAPES.index((BATCH, 2))], shapes=b_rows)
+    t["quantize_rows_cascade"] = {}  # phase 22 times it
 
     # 5. C and D against plain, then all four kernels past 2^31 bytes
     parity.update(scalar_kernel_vs_plain(dev, seed=args.seed))
@@ -3768,17 +3918,16 @@ def main() -> int:
     t8 = time.perf_counter()
     example = peer_example(dev)
     tree = peer_tree(template, dev, args.seed)
-    peer_launches = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
+    peer_launches = path_counts()
     tree["seconds"] = time.perf_counter() - t8
     tree["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     print(f"[8] launches {peer_launches}; peak device memory {tree['max_memory_allocated'] / 2**30:.3f} GiB; "
           f"phase 8a+8b {tree['seconds']:.3f} s; on {smi}")
-    if not all(peer_launches.values()):
-        raise AssertionError(f"a kernel of the peer path never launched: {peer_launches}")
+    require_launched(peer_launches, BURST_KERNELS, "phase 8")
     fetch = fetch_ab(template, dev, min(16, wire.burst_frames_cap(spec)))
     for k, n in peer_launches.items():
         t[k]["launches_phase3"] = launches[k]
-        launches[k] = n
+        t[k]["launches_phase8"] = launches[k] = n
 
     # 9, 10 and 11. the pod tier: BASELINE config 2 (4 ranks, and 2 x 2), config 4 (8 ranks, both arms)
     # and config 2 as two pods of 2 bridged over TCP
@@ -3797,6 +3946,9 @@ def main() -> int:
             "launches_phase11_per_rank": [r["launches"][k] for r in pod["bridge"]],
             "mismatches_phase11": sum(r["check"][k]["mismatches"] for r in pod["bridge"]),
         })
+    # kernel A's main path is the pod step: a CUDA peer's bursts run A-cascade
+    launches["quantize_rows"] = t["quantize_rows"]["launches_pod"]
+    t["quantize_rows_cascade"]["launches_phase11"] = sum(r["cascade_launches"] for r in pod["bridge"])
 
     # 12. the host tier: the C loops on this machine's CPU, then a CUDA
     # master with two engine peers (the launch counts of A and B are 12b's)
@@ -3809,15 +3961,15 @@ def main() -> int:
         raise AssertionError(f"phase 12a: the C loops disagree with their plain versions: {host['mismatches']}")
     CC.reset_launches()
     mixed, master = mixed_tier_tree(char_template, dev, args.seed)
-    mixed_launches = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
-    if not all(mixed_launches.values()):
-        raise AssertionError(f"a kernel of the mixed-tier tree never launched: {mixed_launches}")
+    mixed_launches = path_counts()
+    require_launched(mixed_launches, BURST_KERNELS, "phase 12b")
     check12 = tree_kernel_check(master, make_spec(char_template))
     del master
     secs12 = time.perf_counter() - t12
     print(f"[12] launches {mixed_launches}; phase 12 {secs12:.3f} s")
     for k, n in mixed_launches.items():
         t[k]["launches_phase12"] = n
+    for k in check12:
         t[k]["mismatches_phase12"] = check12[k]["mismatches"]
         t[k]["max_abs_err_phase12"] = check12[k]["max_abs_err"]
     bad = {k: v["mismatches"] for k, v in check12.items() if v["mismatches"]}
@@ -3831,9 +3983,9 @@ def main() -> int:
     from shared_tensor_tpu_torch.models.char_rnn import CharRNNConfig
 
     serve_out, master = serve_tree(CharRNNConfig(), dev, args.seed)
-    serve_launches = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
-    if not all(serve_launches.values()):
-        raise AssertionError(f"a kernel of the serving path never launched: {serve_launches}")
+    serve_launches = path_counts()
+    # the subscribers' single frames run A, the engine writer's link bursts
+    require_launched(serve_launches, PEER_KERNELS, "phase 13")
     check13 = tree_kernel_check(master, make_spec(char_template), "13")
     del master
     serve_out["seconds"] = time.perf_counter() - t13
@@ -3841,6 +3993,7 @@ def main() -> int:
     print(f"[13] launches {serve_launches}; phase 13 {serve_out['seconds']:.3f} s; on {smi}")
     for k, n in serve_launches.items():
         t[k]["launches_phase13"] = n
+    for k in check13:
         t[k]["mismatches_phase13"] = check13[k]["mismatches"]
         t[k]["max_abs_err_phase13"] = check13[k]["max_abs_err"]
     bad = {k: v["mismatches"] for k, v in check13.items() if v["mismatches"]}
@@ -3854,6 +4007,7 @@ def main() -> int:
     for k, n in wire_launches.items():
         t[k]["launches_phase14"] = n
         t[k]["launches_phase14_by_arm"] = {arm: v[k] for arm, v in wire_out["launches"].items()}
+    for k in check14:
         t[k]["mismatches_phase14"] = check14[k]["mismatches"]
         t[k]["mismatches_phase14_by_arm"] = check14[k]["by_arm"]
         t[k]["max_abs_err_phase14"] = check14[k]["max_abs_err"]
@@ -3862,14 +4016,14 @@ def main() -> int:
     # and B are this phase's)
     CC.reset_launches()
     obs_out, master = obs_phase(dev, args.seed, smi)
-    obs_launches = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
-    if not all(obs_launches.values()):
-        raise AssertionError(f"a kernel of the observability phase never launched: {obs_launches}")
+    obs_launches = path_counts()
+    require_launched(obs_launches, BURST_KERNELS, "phase 15")
     check15 = tree_kernel_check(master, make_spec(char_template), "15")
     del master
     obs_out["launches"] = obs_launches
     for k, n in obs_launches.items():
         t[k]["launches_phase15"] = n
+    for k in check15:
         t[k]["mismatches_phase15"] = check15[k]["mismatches"]
         t[k]["max_abs_err_phase15"] = check15[k]["max_abs_err"]
     bad = {k: v["mismatches"] for k, v in check15.items() if v["mismatches"]}
@@ -3881,14 +4035,14 @@ def main() -> int:
     # and B are 16a-16d's), then the kill-restore arm
     CC.reset_launches()
     lc_out, master = lifecycle_phase(dev, args.seed, smi)
-    lc_launches = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
-    if not all(lc_launches.values()):
-        raise AssertionError(f"a kernel of the lifecycle phase never launched: {lc_launches}")
+    lc_launches = path_counts()
+    require_launched(lc_launches, BURST_KERNELS, "phase 16")
     check16 = tree_kernel_check(master, make_spec(char_template), "16")
     del master
     lc_out["launches"] = lc_launches
     for k, n in lc_launches.items():
         t[k]["launches_phase16"] = n
+    for k in check16:
         t[k]["mismatches_phase16"] = check16[k]["mismatches"]
         t[k]["max_abs_err_phase16"] = check16[k]["max_abs_err"]
     bad = {k: v["mismatches"] for k, v in check16.items() if v["mismatches"]}
@@ -3919,14 +4073,14 @@ def main() -> int:
     # A and B are 17a-17e's: the fallback's CUDA peers in 17c)
     CC.reset_launches()
     shard_out, master = shard_phase(dev, args.seed, smi)
-    shard_launches = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
-    if not all(shard_launches.values()):
-        raise AssertionError(f"a kernel of the sharded phase never launched: {shard_launches}")
+    shard_launches = path_counts()
+    require_launched(shard_launches, BURST_KERNELS, "phase 17")
     check17 = tree_kernel_check(master, make_spec(char_template), "17c")
     del master
     shard_out["launches"] = shard_launches
     for k, n in shard_launches.items():
         t[k]["launches_phase17"] = n
+    for k in check17:
         t[k]["mismatches_phase17"] = check17[k]["mismatches"]
         t[k]["max_abs_err_phase17"] = check17[k]["max_abs_err"]
     bad = {k: v["mismatches"] for k, v in check17.items() if v["mismatches"]}
@@ -3943,6 +4097,7 @@ def main() -> int:
     e2e = e2e_phase(dev, smi, e2e_child)
     for k, n in e2e["launches"].items():
         t[k]["launches_phase20"] = n
+    for k in e2e["kernel_check"]:
         t[k]["mismatches_phase20"] = e2e["kernel_check"][k]["mismatches"]
         t[k]["max_abs_err_phase20"] = e2e["kernel_check"][k]["max_abs_err"]
 
@@ -3950,21 +4105,35 @@ def main() -> int:
     # of A and B are this phase's)
     CC.reset_launches()
     sever, state = sever_phase(dev, args.seed, smi)
-    sever["launches"] = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
-    if not all(sever["launches"].values()):
-        raise AssertionError(f"phase 21: a kernel of the sever path never launched: {sever['launches']}")
+    sever["launches"] = path_counts()
+    require_launched(sever["launches"], BURST_KERNELS, "phase 21")
     check21 = tree_kernel_check(state, make_spec(char_template), "21")
     del state
     for k, n in sever["launches"].items():
         t[k]["launches_phase21"] = n
+    for k in check21:
         t[k]["mismatches_phase21"] = check21[k]["mismatches"]
         t[k]["max_abs_err_phase21"] = check21[k]["max_abs_err"]
     bad = {k: v["mismatches"] for k, v in check21.items() if v["mismatches"]}
     if bad:
         raise AssertionError(f"phase 21: kernel vs plain mismatches on the joiner's state: {bad}")
     print(f"[21] launches {sever['launches']}")
+
+    # 22. the engine's cascade on the device tier: A-cascade against its plain
+    # twin and the C pass, timed; then drain_tail's device row (the launch
+    # counts of A-cascade and B are 22b's)
+    cascade = cascade_phase(dev, rate, args.seed, smi)
+    c2 = cascade["22a"]["config2"]
+    parity["quantize_rows_cascade"] = {
+        "mismatches": sum(r["mismatches"] for r in cascade["22a"].values()),
+        "max_abs_err": max(r["max_abs_err"] for r in cascade["22a"].values())}
+    t["quantize_rows_cascade"].update(
+        {x: c2[x] for x in ("ms", "plain_ms", "bound_ms", "copy_ms", "kc")}, shape=f"{c2['shape']} kc={c2['kc']}",
+        **{f"{x}_1Mi": cascade["22a"]["1Mi"][x] for x in ("ms", "plain_ms", "bound_ms", "copy_ms")},
+        launches_phase22=cascade["22b"]["launches"]["quantize_rows_cascade"])
+    t["apply_rows_batch"]["launches_phase22"] = cascade["22b"]["launches"]["apply_rows_batch"]
     serve_out["script_s"] = time.perf_counter() - t_script
-    print(f"[21] script {serve_out['script_s']:.3f} s")
+    print(f"[22] script {serve_out['script_s']:.3f} s")
 
     print(smi)
     kernels = []
@@ -3991,6 +4160,7 @@ def main() -> int:
     print(json.dumps({"codec_lab": lab}))
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"sever": sever}))
+    print(json.dumps({"cascade": cascade}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

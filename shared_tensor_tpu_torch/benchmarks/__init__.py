@@ -87,6 +87,14 @@ def gate_passes(report: dict) -> bool:
     return bool(report["pass"] and report["routed_events"] >= 1)
 
 
+def path_kernels(peer) -> tuple[str, str]:
+    """The kernels a device-tier peer's data plane launches: its sender's
+    (A-cascade for bursts by the engine's cascade, ``CodecConfig.
+    cascade_frames`` > 1; A for single frames and per-frame bursts) and B."""
+    cascades = peer._burst_device > 1 and peer.st.cascade > 1
+    return ("quantize_rows_cascade" if cascades else "quantize_rows", "apply_rows_batch")
+
+
 def master_state(peer, update_tree) -> tuple:
     """What :func:`kernel_check` holds the kernels on: a device-tier peer's
     replica and link residuals (``snapshot_all``), ``update_tree`` flattened

@@ -8,10 +8,10 @@ defaults, knobs and JSON fields, in one continuous run on both data
 planes:
 
 - **python arm**: a master and three joiners on the Python plane: on the
-  GPU (``--device``, the default) the device tier, so kernels A and B run
-  under the faults; on the CPU the Python host tier, the root bench's CPU
-  run (the device tier on a CPU drains this arm's tail slowly: about a
-  minute at ``N`` = 512). Each joiner has a seeded
+  GPU (``--device``, the default) the device tier, so kernels A-cascade
+  (its bursts) and B run under the faults; on the CPU the Python host
+  tier, the root bench's CPU run (the device tier on a CPU drains this
+  arm's tail slowly: about a minute at ``N`` = 512). Each joiner has a seeded
   :class:`~shared_tensor_tpu_torch.config.FaultConfig` from
   :func:`python_schedules`: one link drops, duplicates and delays frames,
   one flips bits in them and truncates them, one stalls and then severs
@@ -36,8 +36,9 @@ the timeline. Each peer's final drain is reported under ``drains`` (its
 seconds, the frames it sent and applied while draining, and on a miss its
 largest link residual's RMS and its frames in flight). On a CUDA device
 the python arm also reports the launches of
-A and B in the arm and holds both against their plain versions on the
-master's state (0 mismatches required).
+its sender's kernel (A-cascade, or A without a cascade) and B in the arm
+and holds A and B against their plain versions on the master's state (0
+mismatches required).
 
 Knobs: ``ST_CHAOS_N`` (512), ``ST_CHAOS_SECONDS`` (40 a arm),
 ``ST_CHAOS_SEED`` (6), ``ST_CHAOS_ARMS`` ("python,native"). Prints one
@@ -55,6 +56,7 @@ import time
 
 import numpy as np
 
+from . import path_kernels
 from .lifecycle import _free_port
 
 #: FaultPlan.counts key -> the timeline event it emits: the accounting
@@ -168,7 +170,7 @@ def run_arm(arm: str, rng: np.random.Generator, n: int, seconds: float, seed: in
 
     port = _free_port()
     zeros = np.zeros((n,), np.float32)
-    launches0 = dict(CC.LAUNCHES)
+    launches0 = CC.launches()
     master = create_or_fetch("127.0.0.1", port, zeros, cfg(), **kw)
     peers = [master]
     plans = []
@@ -267,7 +269,7 @@ def run_arm(arm: str, rng: np.random.Generator, n: int, seconds: float, seed: in
         except (OSError, ValueError, KeyError):
             dump_ok = False
 
-    launches = {k: CC.LAUNCHES[k] - launches0[k] for k in ("quantize_rows", "apply_rows_batch")}
+    launches = {k: CC.launches()[k] - launches0[k] for k in path_kernels(master)}
     state = None
     if on_cuda:
         from . import kernel_check, master_state

@@ -23,9 +23,10 @@ Arms: ``ST_E2E_PARENT_PLATFORM=cpu`` puts the parent on the host tier too
 wire; ``ST_E2E_CHILD=c`` makes the child the reference C peer
 (``native/stc_harness.c``, built by the port's ``_build.build_harness()``
 into its own build directory), on the reference's wire. On a CUDA parent
-the line also carries the launches of kernels A and B over the whole
-exchange and both held against their plain versions on the parent's state
-after it (``kernel_check``: 0 mismatches, or the exit status is 1).
+the line also carries the launches of its sender's kernel (A-cascade, or
+A without a cascade) and B over the whole exchange, and A and B held
+against their plain versions on the parent's state after it
+(``kernel_check``: 0 mismatches, or the exit status is 1).
 
 Knobs: ``ST_E2E_N`` (1 Mi), ``ST_E2E_SECONDS`` (10), ``ST_E2E_WARMUP`` (3),
 ``ST_E2E_ADD_PERIOD`` (``max(0.2, N / 1 Mi * 0.05)``). Prints one JSON line.
@@ -42,7 +43,7 @@ import time
 
 import numpy as np
 
-from . import REPO
+from . import REPO, path_kernels
 from .lifecycle import _free_port
 
 #: BASELINE.md's E2E rows: (n, equiv-fp32 bytes/s per link per direction)
@@ -207,7 +208,7 @@ def run(n: int = 1 << 20, seconds: float = 10.0, warmup: float = 3.0, period=Non
 
     child = child or Child(n, child_kind, compat, period, warmup, seconds)
     period, wire_compat = child.period, child.wire_compat
-    launches0 = dict(CC.LAUNCHES)
+    launches0 = CC.launches()
     counts = obs.hub().recorder.counts
     events0 = {k: counts.get(k, 0) for k in LINK_EVENTS}
     try:
@@ -245,7 +246,7 @@ def run(n: int = 1 << 20, seconds: float = 10.0, warmup: float = 3.0, period=Non
         s1 = peer.node.stats(link)
         frames_out = (peer.st.frames_out - f_out0) / dt
         frames_in = (peer.st.frames_in - f_in0) / dt
-        launches = {k: CC.LAUNCHES[k] - launches0[k] for k in ("quantize_rows", "apply_rows_batch")}
+        launches = {k: CC.launches()[k] - launches0[k] for k in path_kernels(peer)}
         child_rc = proc.poll()
         metrics = peer.metrics()
         master = None

@@ -24,7 +24,10 @@ to ``Config.send_pipeline_depth`` quantized frames per link in flight,
 each a burst of ``device_frame_burst`` halvings whose device-to-host copy
 started at dispatch; it encodes the oldest into a pooled slot, ledgers it
 and sends it. On the Python host tier it quantizes a burst of
-``frame_burst`` halvings synchronously per message. The receive thread is
+``frame_burst`` halvings synchronously per message. On both, a burst
+follows the native engine's cascade schedule when
+``CodecConfig.cascade_frames`` > 1 (the default; ``core.SharedTensor``),
+except on reference-wire links. The receive thread is
 the only consumer of transport events and the only writer of handshake
 state: it batches consecutive DATA/BURST messages of a link into one flood
 apply, acknowledges them cumulatively, and handles the join handshake.
@@ -315,10 +318,18 @@ class _PeerObs:
         self.hub.unregister_registry(self.label)
 
 
+#: Frames a device-tier burst takes by default (``device_frame_burst=0``),
+#: and a cascading Python host tier's (``frame_burst=0``), each capped by
+#: ``wire.burst_frames_cap``.
+AUTO_BURST = 16
+
+
 def _python_tier_auto_burst(spec) -> int:
-    """The Python host tier's auto burst: each burst frame is a full
-    synchronous rescan under the state lock, so only small tables, where
-    the per-message cost dominates, burst."""
+    """The Python host tier's auto burst without a cascade: each burst
+    frame is a full synchronous rescan under the state lock, so only small
+    tables, where the per-message cost dominates, burst. A cascading peer
+    bursts :data:`AUTO_BURST` frames at any size: a round of up to
+    ``cascade_frames`` frames is one pass."""
     if spec.total <= (1 << 15):
         return max(24, min(128, (1 << 19) // max(1, spec.total)))
     return 1
@@ -357,6 +368,9 @@ class SharedTensorPeer:
         self._trace_wire = self._wire_version >= compat.WIRE_VERSION_V2
         cap = wire.burst_frames_cap(spec)
         use_engine = engine_eligible(self.config, host_tier)
+        # frames a burst quantizes per pass (the engine's cascade); a
+        # reference frame is re-measured every frame
+        cascade = 1 if self._compat else codec.cascade_frames
         # bursts have no idle frames to send: without suppression, stream
         burstable = codec.suppress_zero_frames
         if not burstable:
@@ -368,10 +382,12 @@ class SharedTensorPeer:
             ccap = wire.compat_burst_frames_cap(spec.total_n)
             self._burst = (ccap if self.config.frame_burst == 0 else min(max(1, self.config.frame_burst), ccap)) \
                 if use_engine else 1
+        elif self.config.frame_burst == 0 and use_engine:
+            self._burst = cap  # the engine fills the wire message budget
         elif self.config.frame_burst == 0:
-            # the engine fills the wire message budget; the Python host
-            # tier bursts small tables only
-            self._burst = cap if use_engine else _python_tier_auto_burst(spec)
+            # a cascading Python host tier bursts as the device tier does;
+            # without a cascade it bursts small tables only
+            self._burst = min(AUTO_BURST, cap) if cascade > 1 else _python_tier_auto_burst(spec)
         else:
             self._burst = max(1, self.config.frame_burst)
         if not self._compat:
@@ -379,7 +395,7 @@ class SharedTensorPeer:
         if host_tier or not burstable or self._compat:
             self._burst_device = 1
         elif self.config.device_frame_burst == 0:
-            self._burst_device = min(16, cap)
+            self._burst_device = min(AUTO_BURST, cap)
         else:
             self._burst_device = max(1, min(cap, self.config.device_frame_burst))
         # one receive batch (one flood apply) takes at most one full burst
@@ -423,8 +439,7 @@ class SharedTensorPeer:
                     burst=self._burst, recv_cap=frame_bytes,
                     quarantine_send_failures=tcfg.quarantine_send_failures,
                     ack_timeout_sec=tcfg.ack_timeout_sec, ack_retry_limit=tcfg.ack_retry_limit,
-                    # a reference frame is re-measured every frame
-                    cascade_frames=1 if self._compat else codec.cascade_frames,
+                    cascade_frames=cascade,
                     compat_frame_bytes=frame_bytes if self._compat else 0,
                     trace_wire=self._trace_wire, precision_mode=self._sign2_mode,
                     precision_up_ratio=codec.precision_up_ratio, precision_down_ratio=codec.precision_down_ratio,
@@ -432,7 +447,8 @@ class SharedTensorPeer:
                 )
             else:
                 self.st = SharedTensor(
-                    template, self.config.codec, seed_values=self.is_master, device=dev, host_tier=host_tier
+                    template, self.config.codec, seed_values=self.is_master, device=dev, host_tier=host_tier,
+                    cascade=cascade,
                 )
         except BaseException:
             self.node.close()

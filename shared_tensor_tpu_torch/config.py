@@ -63,7 +63,10 @@ class CodecConfig:
     #: Frames the native engine quantizes per memory pass over a residual:
     #: frame 0's scales are measured, frames 1..k-1 take the halving
     #: schedule the measured sequence converges to (the scales ride the
-    #: wire, so receivers are oblivious). 1 = re-measure every frame.
+    #: wire, so receivers are oblivious). 1 = re-measure every frame. The
+    #: port's peers run the same schedule on both Python tiers' bursts
+    #: (``core.SharedTensor``; kernel A-cascade on the device tier);
+    #: single frames (``device_frame_burst=1``) re-measure every frame.
     cascade_frames: int = 32
 
 
@@ -419,7 +422,9 @@ class Config:
     #: Frames per wire message on the host tier: K successive halvings of a
     #: link's residual quantized back to back and sent as ONE message, one
     #: ledger entry and one ACK. 0 = auto (the engine fills the wire
-    #: message budget; the Python host tier bursts small tables only);
+    #: message budget; the Python host tier bursts 16 frames when it
+    #: cascades (``CodecConfig.cascade_frames`` > 1), else small tables
+    #: only);
     #: 1 = single frames; K > 1 = K, capped by what every peer sized its
     #: receive buffer for.
     frame_burst: int = 0

@@ -15,6 +15,16 @@ Two tiers, as in the JAX package:
   them. Frames are numpy arrays from the start, with no fetch, and a
   burst is up to K halvings quantized in one call (``begin_frame_burst``).
 
+A burst on either tier follows one of two schedules. ``cascade=1`` (the
+default, and the JAX package's only one) re-measures the scales every
+frame. ``cascade > 1`` is the native engine's: rounds of one measurement
+and an amax-anchored halving ladder of up to ``cascade`` frames quantized
+in one pass (``ops/table.quantize_table_cascade`` through kernel
+A-cascade on the device tier, ``ops/codec_np.quantize_table_cascade_np``
+through ``stc_quantize_ef_cascade`` on the host tier), so an outlier's
+bound halves every frame instead of moving by one shrinking step. The
+peer sets it from ``CodecConfig.cascade_frames``.
+
 Where the JAX core swaps immutable arrays, this one updates its buffers in
 place (as the TPU kernels' ``input_output_aliases`` do). So every buffer
 it holds is its own: a link seeded from the replica, a residual handed in,
@@ -68,6 +78,7 @@ from .ops.table import (
     make_spec,
     quantize_table,
     quantize_table_burst,
+    quantize_table_cascade,
     unflatten,
 )
 
@@ -159,20 +170,22 @@ class _HostFetch:
 
 
 class _BurstGraph:
-    """``quantize_table_burst`` of K frames on one residual tensor, captured
-    as a CUDA graph: :meth:`run` replays it (updating the residual in place)
-    and returns the stacked frame as fresh tensors, since the next replay
-    overwrites the graph's own outputs. The capture runs on ``stream`` in
+    """``quantize_table_cascade`` of K frames on one residual tensor (with
+    ``cascade=1``, ``quantize_table_burst``), captured as a CUDA graph:
+    :meth:`run` replays it (updating the residual in place) and returns the
+    stacked frame as fresh tensors, since the next replay overwrites the
+    graph's own outputs. The capture runs on ``stream`` in
     thread-local mode, so other threads (other nodes of the process) may
     keep using the device meanwhile; it is preceded by one eager burst on a
     copy of the residual, which loads the kernel and the layout constants
     (a capture may not). ``tally`` holds the kernel launches the capture
-    recorded, which every replay adds to ``codec_cuda.LAUNCHES``."""
+    recorded, which every replay adds to ``codec_cuda``'s launch counts."""
 
-    def __init__(self, resid: torch.Tensor, spec: TableSpec, k: int, codec: CodecConfig, stream):
+    def __init__(self, resid: torch.Tensor, spec: TableSpec, k: int, cascade: int, codec: CodecConfig, stream):
         self.resid = resid
         self.k = k
-        burst = lambda r: quantize_table_burst(r, spec, k, codec.scale_policy, codec.per_leaf_scale)[0]
+        self.cascade = cascade
+        burst = lambda r: quantize_table_cascade(r, spec, k, cascade, codec.scale_policy, codec.per_leaf_scale)[0]
         burst(resid.clone())
         self.graph = torch.cuda.CUDAGraph()
         stream.wait_stream(torch.cuda.current_stream(resid.device))
@@ -211,11 +224,15 @@ class SharedTensor:
         seed_values: bool = False,
         device=None,
         host_tier: bool = False,
+        cascade: int = 1,
     ):
         self.device = resolve_device(device, host_tier)
         self._np = host_tier
         self.spec: TableSpec = make_spec(template)
         self.codec = codec or CodecConfig()
+        # the schedule of every begin_frame_burst* call: 1 re-measures
+        # every frame, K > 1 is the engine's cascade (module docstring)
+        self.cascade = max(1, int(cascade))
         self._lock = threading.Lock()
         if host_tier:
             codec_np.native()  # build (or fail) now, not at the first frame
@@ -528,9 +545,10 @@ class SharedTensor:
     def begin_frame_burst(self, link_id: int, k: int) -> Optional[tuple[int, list[TableFrame]]]:
         """Host tier: up to ``k`` successive halvings of a link's residual in
         one call, stopping at the first all-zero-scale frame; ONE ledger
-        entry (one wire message, one ACK). Returns (seq, frames), numpy
-        frames ready for the wire (0 frames: the link is idle), or None if
-        the link is gone."""
+        entry (one wire message, one ACK). ``self.cascade`` > 1 quantizes
+        them by the engine's cascade (module docstring). Returns (seq,
+        frames), numpy frames ready for the wire (0 frames: the link is
+        idle), or None if the link is gone."""
         if not self._np:
             raise RuntimeError("begin_frame_burst is the host tier's; the device tier bursts with "
                                "begin_frame_burst_device")
@@ -540,13 +558,19 @@ class SharedTensor:
                 return None
             r = resid.numpy()
             frames: list[TableFrame] = []
-            for _ in range(k):
-                scales, words, _ = codec_np.quantize_table_np(
-                    r, self.spec, self.codec.scale_policy, self.codec.per_leaf_scale, out=r
+            if self.cascade > 1:
+                scales, words, _ = codec_np.quantize_table_cascade_np(
+                    r, self.spec, k, self.cascade, self.codec.scale_policy, self.codec.per_leaf_scale, out=r
                 )
-                if not scales.any():
-                    break  # idle: nothing left the codec can express
-                frames.append(TableFrame(scales, words))
+                frames = [TableFrame(s, w) for s, w in zip(scales, words)]
+            else:
+                for _ in range(k):
+                    scales, words, _ = codec_np.quantize_table_np(
+                        r, self.spec, self.codec.scale_policy, self.codec.per_leaf_scale, out=r
+                    )
+                    if not scales.any():
+                        break  # idle: nothing left the codec can express
+                    frames.append(TableFrame(scales, words))
             self._frame_seq += 1
             seq = self._frame_seq
             if frames:
@@ -556,8 +580,9 @@ class SharedTensor:
 
     def begin_frame_burst_device(self, link_id: int, k: int) -> Optional[tuple[int, DeviceFrame]]:
         """K successive halvings of a link's residual in one call; one
-        ledger entry. Returns (seq, stacked frame with a leading K axis),
-        device tensors, their host copy started."""
+        ledger entry. ``self.cascade`` > 1 quantizes them by the engine's
+        cascade (module docstring). Returns (seq, stacked frame with a
+        leading K axis), device tensors, their host copy started."""
         with self._lock:
             resid = self._links.get(link_id)
             if resid is None:
@@ -565,12 +590,13 @@ class SharedTensor:
             if self.device.type == "cuda":
                 frames = self._burst_graph(link_id, resid, k).run()
             else:
-                frames, _ = quantize_table_burst(
-                    resid, self.spec, k, self.codec.scale_policy, self.codec.per_leaf_scale
+                frames, _ = quantize_table_cascade(
+                    resid, self.spec, k, self.cascade, self.codec.scale_policy, self.codec.per_leaf_scale
                 )
             self._frame_seq += 1
             seq = self._frame_seq
-            # zero-scale tail frames are exact no-ops, so storing all K is right
+            # zero-scale tail frames are exact no-ops, so storing all K is
+            # right (a cascade writes no non-zero frame after a zero one)
             self._inflight.setdefault(link_id, {})[seq] = tuple(
                 TableFrame(frames.scales[i], frames.words[i]) for i in range(k)
             )
@@ -578,10 +604,11 @@ class SharedTensor:
 
     def _burst_graph(self, link_id: int, resid: torch.Tensor, k: int) -> _BurstGraph:
         """The link's burst graph, captured anew if the residual is another
-        tensor than the one captured. The caller holds the lock."""
+        tensor than the one captured (or the burst another shape). The
+        caller holds the lock."""
         g = self._graphs.get(link_id)
-        if g is None or g.resid is not resid or g.k != k:
-            g = self._graphs[link_id] = _BurstGraph(resid, self.spec, k, self.codec, self._fetch_stream)
+        if g is None or g.resid is not resid or g.k != k or g.cascade != self.cascade:
+            g = self._graphs[link_id] = _BurstGraph(resid, self.spec, k, self.cascade, self.codec, self._fetch_stream)
         return g
 
     def finish_frame_burst(self, frames: TableFrame) -> Optional[list[TableFrame]]:

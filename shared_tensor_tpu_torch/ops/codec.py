@@ -28,6 +28,12 @@ from .packing import pack_bits, padded_len, unpack_bits
 #: NaN that floods the tree.
 SAT = 3.0e38
 
+#: The native engine's cascade (``stc_quantize_ef_cascade``): most levels
+#: one pass quantizes, and the refinement levels a round adds below the
+#: policy scale when its ladder is deeper than one level (``maxd += 8``).
+CASCADE_MAX_LEVELS = 64
+CASCADE_EXTRA_LEVELS = 8
+
 
 def pow2_floor(x: torch.Tensor) -> torch.Tensor:
     """2^floor(log2(x)) computed exactly by clearing the f32 mantissa (never

@@ -19,6 +19,12 @@ The counterpart of every TPU kernel in ``shared_tensor_tpu/ops/codec_pallas.py``
   ``apply_frame`` / ``_apply_kernel``: one scalar-scale frame into K arrays,
   clamped, in place.
 
+Beside them, one kernel that ports no TPU kernel but the native engine's C
+pass ``stc_quantize_ef_cascade`` (``native/stcodec.c``): kernel A-cascade,
+:func:`quantize_rows_cascade` (``csrc/quantize_rows_cascade.cu``), kc
+frames of an amax-anchored halving ladder quantized in one pass, for the
+device tier's K-frame burst (``ops/table.quantize_table_cascade``).
+
 C and D follow the Pallas kernels, not the golden ``ops/codec.py``, on the
 padding: they set padding lanes to 0 even at scale 0, where the golden
 leaves them as they were.
@@ -31,8 +37,8 @@ Pallas kernel wanted them row-major for its block specs.
 
 Dispatch: each wrapper runs the kernel for CUDA tensors and the plain
 version for CPU tensors, and nothing else: there is no fallback from a CUDA
-tensor to the plain path. ``LAUNCHES`` counts kernel launches (not plain
-calls). A launch that a wrapper makes while its thread captures a CUDA
+tensor to the plain path. ``LAUNCHES`` counts the launches of A-D and
+``ENGINE_LAUNCHES`` those of A-cascade (not plain calls). A launch that a wrapper makes while its thread captures a CUDA
 graph (:func:`capture_tally`) does not run then: it goes to the capture's
 tally, and every replay of the graph adds that tally (:func:`count_replay`).
 
@@ -82,7 +88,7 @@ from typing import Sequence
 import torch
 
 from ..config import ScalePolicy
-from .codec import SAT, Frame, compute_scale
+from .codec import CASCADE_MAX_LEVELS, SAT, Frame, compute_scale
 from .packing import BITS_PER_WORD, LANES, pack_bits, unpack_bits
 
 WORDS_PER_ROW = 4
@@ -98,7 +104,10 @@ SOURCES = {
     "apply_rows_batch": "apply_rows.cu",
     "quantize": "quantize.cu",
     "apply_frame_many": "apply_frame.cu",
+    "quantize_rows_cascade": "quantize_rows_cascade.cu",
 }
+#: The kernels that port a TPU kernel (A-D); the others port the engine's C passes.
+TPU_KERNELS = ("quantize_rows", "apply_rows_batch", "quantize", "apply_frame_many")
 #: Host helpers built like the kernels; they launch nothing.
 HELPERS = {"stream": "stream.cu"}
 NVCC_FLAGS = (
@@ -107,16 +116,28 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-#: Kernel launches per wrapper since the last :func:`reset_launches`.
-LAUNCHES = {name: 0 for name in SOURCES}
+#: Kernel launches per wrapper since the last :func:`reset_launches`: A-D
+#: here, A-cascade in ``ENGINE_LAUNCHES``.
+LAUNCHES = {name: 0 for name in TPU_KERNELS}
+ENGINE_LAUNCHES = {name: 0 for name in SOURCES if name not in TPU_KERNELS}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _BUILD_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ENGINE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def launches() -> dict[str, int]:
+    """Every kernel's launches since the last :func:`reset_launches`."""
+    return {**LAUNCHES, **ENGINE_LAUNCHES}
+
+
+def _counts(name: str) -> dict[str, int]:
+    return LAUNCHES if name in LAUNCHES else ENGINE_LAUNCHES
 
 
 _TALLY = threading.local()
@@ -127,7 +148,7 @@ def _count(name: str) -> None:
     graph under :func:`capture_tally`, the capture's tally takes it."""
     tally = getattr(_TALLY, "tally", None)
     if tally is None:
-        LAUNCHES[name] += 1
+        _counts(name)[name] += 1
     else:
         tally[name] = tally.get(name, 0) + 1
 
@@ -149,7 +170,7 @@ def capture_tally():
 def count_replay(tally: dict[str, int]) -> None:
     """One replay of a graph ran the launches its capture tallied."""
     for name, n in tally.items():
-        LAUNCHES[name] += n
+        _counts(name)[name] += n
 
 
 # -- build -------------------------------------------------------------------
@@ -216,6 +237,10 @@ _ARGTYPES = {
     "quantize": ("st_quantize", [_VP, _VP, _VP, _I64, _I64, _VP]),
     # scale, words, targets (host array), n_targets <= 8, n_live, n_pad, stream
     "apply_frame_many": ("st_apply_frame_many", [_VP, _VP, _PP, _I32, _I64, _I64, _VP]),
+    # top, row_leaf (int64), rowcount, state (j0, kc on the device), resid, words, scales,
+    # rows, n_leaves, k_frames, stream
+    "quantize_rows_cascade": ("st_quantize_rows_cascade",
+                              [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _I32, _VP]),
     # device, out: the new stream's handle
     "stream": ("st_stream_create", [_I32, ctypes.POINTER(_VP)]),
 }
@@ -407,6 +432,109 @@ def quantize_rows(
     if residual.device.type == "cpu":
         return quantize_rows_plain(s_row, rowcount, residual)
     raise ValueError(f"unsupported device {residual.device}")
+
+
+# -- kernel A-cascade: quantize_rows_cascade --------------------------------------
+
+
+def _check_cascade(top, row_leaf, rowcount, state, residual, words, scales) -> tuple[int, int, int]:
+    if not isinstance(residual, torch.Tensor) or residual.dim() != 1 or residual.shape[0] % LANES:
+        raise ValueError(f"residual must be a flat tensor with a multiple of {LANES} elements")
+    rows = residual.shape[0] // LANES
+    dev = residual.device
+    _check(residual, "residual", (torch.float32,), (rows * LANES,), dev)
+    if not isinstance(scales, torch.Tensor) or scales.dim() != 2:
+        raise ValueError("scales must be [K, n_leaves]")
+    k, n_leaves = scales.shape
+    if k < 1 or n_leaves < 1:
+        raise ValueError("need at least one frame and one leaf")
+    _check(scales, "scales", (torch.float32,), (k, n_leaves), dev)
+    _check(words, "words", _WORD_DTYPES, (k, rows * WORDS_PER_ROW), dev)
+    _check(top, "top", (torch.float32,), (n_leaves,), dev)
+    _check(row_leaf, "row_leaf", (torch.int64,), (rows,), dev)
+    _check(rowcount, "rowcount", (torch.int32,), (rows,), dev)
+    _check(state, "state", (torch.int32,), (2,), dev)
+    check_distinct([residual, words, scales])
+    _check_disjoint([top, row_leaf, rowcount, state], [residual, words, scales])
+    return rows, n_leaves, k
+
+
+def quantize_rows_cascade_plain(
+    top: torch.Tensor,
+    row_leaf: torch.Tensor,
+    rowcount: torch.Tensor,
+    state: torch.Tensor,
+    residual: torch.Tensor,
+    words: torch.Tensor,
+    scales: torch.Tensor,
+) -> None:
+    """Plain PyTorch version of kernel A-cascade: frames ``[j0, j0 + kc)``
+    (``state``, int32 [j0, kc]) of the halving ladder from ``top`` (f32 per
+    leaf), each level kernel A's step at its leaf's scale, written into
+    rows j0.. of ``words`` [K, rows*4] and ``scales`` [K, L]; ``residual``
+    updated in place, padding zeroed. kc is clipped to the K - j0 frames
+    left and to 64; kc <= 0 does nothing."""
+    _, _, k = _check_cascade(top, row_leaf, rowcount, state, residual, words, scales)
+    j0, kc = (int(x) for x in state.tolist())
+    kc = min(kc, k - j0, CASCADE_MAX_LEVELS)
+    if kc <= 0 or j0 < 0:
+        return
+    r = residual.view(-1, LANES)
+    lane = torch.arange(LANES, dtype=torch.int32, device=r.device)
+    live = lane[None, :] < rowcount[:, None]
+    w32 = words.view(torch.int32)
+    s_leaf = top.clone()
+    v = r.clone()
+    for j in range(kc):
+        s = s_leaf[row_leaf][:, None]
+        neg = v <= 0.0  # zero counts as negative
+        w32[j0 + j] = pack_bits((live & neg).reshape(-1))
+        scales[j0 + j] = s_leaf
+        v = torch.where(live & (s > 0.0), v - torch.where(neg, -s, s), v)
+        s_leaf = s_leaf * 0.5
+    r.copy_(torch.where(live, v, torch.zeros_like(v)))
+
+
+def quantize_rows_cascade_kernel(
+    top: torch.Tensor,
+    row_leaf: torch.Tensor,
+    rowcount: torch.Tensor,
+    state: torch.Tensor,
+    residual: torch.Tensor,
+    words: torch.Tensor,
+    scales: torch.Tensor,
+) -> None:
+    """Kernel A-cascade on the GPU, one launch; j0 and kc are read on the
+    device, so the call never waits for it (a CUDA graph may replay it).
+    Raises for tensors that are not on a GPU."""
+    if not isinstance(residual, torch.Tensor) or residual.device.type != "cuda":
+        raise ValueError("quantize_rows_cascade kernel needs CUDA tensors")
+    rows, n_leaves, k = _check_cascade(top, row_leaf, rowcount, state, residual, words, scales)
+    fn = _fn("quantize_rows_cascade")
+    with torch.cuda.device(residual.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(top.data_ptr(), row_leaf.data_ptr(), rowcount.data_ptr(), state.data_ptr(),
+                 residual.data_ptr(), words.data_ptr(), scales.data_ptr(), rows, n_leaves, k, stream)
+    _check_launch("quantize_rows_cascade", err)
+    _count("quantize_rows_cascade")
+
+
+def quantize_rows_cascade(
+    top: torch.Tensor,
+    row_leaf: torch.Tensor,
+    rowcount: torch.Tensor,
+    state: torch.Tensor,
+    residual: torch.Tensor,
+    words: torch.Tensor,
+    scales: torch.Tensor,
+) -> None:
+    """Kernel A-cascade for a CUDA residual, its plain version for a CPU one."""
+    dev = residual.device if isinstance(residual, torch.Tensor) else None
+    if dev is not None and dev.type == "cuda":
+        return quantize_rows_cascade_kernel(top, row_leaf, rowcount, state, residual, words, scales)
+    if dev is not None and dev.type == "cpu":
+        return quantize_rows_cascade_plain(top, row_leaf, rowcount, state, residual, words, scales)
+    raise ValueError(f"unsupported device {dev}")
 
 
 # -- kernel B: apply_rows_batch ------------------------------------------------

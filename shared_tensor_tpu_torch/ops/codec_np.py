@@ -42,7 +42,7 @@ import torch
 
 from .. import _build
 from ..config import ScalePolicy
-from .codec import SAT
+from .codec import CASCADE_EXTRA_LEVELS, CASCADE_MAX_LEVELS, SAT
 from .table import TableSpec, tree_flatten, tree_unflatten
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -65,6 +65,10 @@ _SIGNATURES = {
     "stc_apply_frames": [_f32p, _f32p, _i64p, _i64p, _i64p, _I64, _I64, _I32, _f32p, _u32p,
                          _f64p_opt, _f64p_opt, _f64p_opt],
     "stc_accumulate_update_to": [_f32p, _f32p, _f32p, _i64p, _i64p, _i64p, _I64],
+    # K 1-bit frames of a given schedule in one pass (row stride in words),
+    # with the final residual's scale partials
+    "stc_quantize_ef_cascade": [_f32p, _f32p, _i64p, _i64p, _i64p, _I64, _I32, _f32p, _u32p, _I64,
+                                _f64p, _f64p, _f64p],
     # sign2: K frames of [sign words][magnitude words] per pass (row stride
     # in words), with the next frame's scale partials; and the K-frame apply
     "stc_quantize2_ef_cascade": [_f32p, _f32p, _i64p, _i64p, _i64p, _I64, _I32, _f32p, _u32p, _I64, _I64,
@@ -183,16 +187,20 @@ def _pow2_floor(x: np.ndarray) -> np.ndarray:
 
 
 def compute_scales_np(
-    residual, spec: TableSpec, policy: ScalePolicy = ScalePolicy.POW2_RMS, per_leaf: bool = True
-) -> np.ndarray:
+    residual, spec: TableSpec, policy: ScalePolicy = ScalePolicy.POW2_RMS, per_leaf: bool = True,
+    with_amax: bool = False,
+):
     """Per-leaf scales from one fused C pass of per-leaf max |r|, sum of
     squares and sum of |r| in double (overflow-safe without normalising);
-    a leaf whose max is 0 or whose scale is not finite gets 0."""
+    a leaf whose max is 0 or whose scale is not finite gets 0. With
+    ``with_amax``, (scales, each leaf's own max |r| as f32), whatever
+    ``per_leaf``."""
     r = _f32(residual)
     offs, ns_arr, _ = _layout(spec)
     L = spec.num_leaves
     amax, ss, sabs = np.zeros(L), np.zeros(L), np.zeros(L)
     native().stc_scale_partials(r, offs, ns_arr, L, amax, ss, sabs)
+    leaf_amax = amax.astype(np.float32)
     ns = np.asarray(spec.ns, np.float64)
     if not per_leaf:
         amax = np.full(L, amax.max())
@@ -204,7 +212,102 @@ def compute_scales_np(
     else:
         rms = np.sqrt(ss / ns).astype(np.float32)
         s = _pow2_floor(rms) if policy == ScalePolicy.POW2_RMS else rms
-    return np.where((amax > 0) & np.isfinite(s), s, 0.0).astype(np.float32)
+    s = np.where((amax > 0) & np.isfinite(s), s, 0.0).astype(np.float32)
+    return (s, leaf_amax) if with_amax else s
+
+
+# -- the cascade: the native engine's schedule, through stc_quantize_ef_cascade ----
+
+
+def cascade_schedule_np(scales, amax, k_max: int) -> tuple[np.ndarray, int]:
+    """One round of the native engine's cascade schedule (1-bit; the numpy
+    body of ``table.cascade_schedule``): the rows (f32[kreal, L]) that one
+    ``stc_quantize_ef_cascade`` pass quantizes, and the round's depth kc.
+
+    A live leaf's ladder top is pow2_floor(max |r|) where that exceeds its
+    measured scale s; kc is min(k_max, depth), the depth being the largest
+    ilogb(top) - ilogb(s) + 1 over the live leaves, plus 8 when above 1.
+    With kc = 1 the one row is exactly the measured scales; every later row
+    halves the one before, and the rows stop before the first all-zero one
+    (kreal < kc: the subnormal floor, where the engine ends its message)."""
+    s = np.asarray(scales, np.float32)
+    live = s > 0
+    if not live.any() or k_max < 1:
+        return np.zeros((0, s.shape[0]), np.float32), 0
+    st = _pow2_floor(np.asarray(amax, np.float32))
+    up = live & (st > s)
+    d = np.frexp(st[up])[1].astype(np.int64) - np.frexp(s[up])[1].astype(np.int64) + 1
+    maxd = max(1, int(d.max()) if d.size else 1)
+    if maxd > 1:
+        maxd += CASCADE_EXTRA_LEVELS
+    kc = min(maxd, int(k_max))
+    row = np.where(live, np.maximum(st, s), s).astype(np.float32) if kc > 1 else s.copy()
+    rows = [row]
+    for _ in range(1, kc):
+        row = row * np.float32(0.5)
+        if not row.any():
+            break
+        rows.append(row)
+    return np.stack(rows), kc
+
+
+def quantize_cascade_np(residual, spec: TableSpec, sched, out: Optional[np.ndarray] = None):
+    """``stc_quantize_ef_cascade``: K frames at the given schedule (f32[K, L])
+    in one pass. Returns (words u32[K, total // 32], the new residual);
+    ``out`` (may be ``residual`` itself) receives the residual."""
+    r = _f32(residual)
+    sched = np.ascontiguousarray(np.asarray(sched, np.float32).reshape(-1, spec.num_leaves))
+    k, w, L = sched.shape[0], spec.total // 32, spec.num_leaves
+    if not 1 <= k <= CASCADE_MAX_LEVELS:
+        raise ValueError(f"a cascade pass quantizes 1..{CASCADE_MAX_LEVELS} frames, got {k}")
+    offs, ns, padded = _layout(spec)
+    new_r = np.empty(spec.total, np.float32) if out is None else _target(out)
+    words = np.empty((k, w), np.uint32)  # the C loop writes every word of every plane
+    amax, ss, sabs = np.zeros(L), np.zeros(L), np.zeros(L)
+    native().stc_quantize_ef_cascade(r, new_r, offs, ns, padded, L, k, sched, words.reshape(-1), w,
+                                     amax, ss, sabs)
+    return words, new_r
+
+
+def quantize_table_cascade_np(
+    residual,
+    spec: TableSpec,
+    k: int,
+    cascade: int,
+    policy: ScalePolicy = ScalePolicy.POW2_RMS,
+    per_leaf: bool = True,
+    out: Optional[np.ndarray] = None,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Up to ``k`` frames by the native engine's cascade (the host body of
+    ``table.quantize_table_cascade``): rounds of one measurement
+    (:func:`compute_scales_np`), one :func:`cascade_schedule_np` of depth at
+    most min(``cascade``, 64, frames left) and one
+    ``stc_quantize_ef_cascade`` pass, ending at an idle measurement or a
+    round cut short by the subnormal floor. Returns (scales f32[n, L],
+    words u32[n, total // 32], the new residual), n <= k frames, every one
+    with a non-zero scale; ``out`` (may be ``residual``) receives the
+    residual."""
+    src = _f32(residual)
+    r = np.array(src) if out is None else _target(out)
+    if out is not None and not np.may_share_memory(r, src):
+        np.copyto(r, src)
+    kcmax = max(1, min(int(cascade), CASCADE_MAX_LEVELS))
+    scales, words = [], []
+    n = 0
+    while n < k:
+        s, amax = compute_scales_np(r, spec, policy, per_leaf, with_amax=True)
+        sched, kc = cascade_schedule_np(s, amax, min(kcmax, k - n))
+        if kc == 0:
+            break  # idle: nothing left the codec can express
+        w, _ = quantize_cascade_np(r, spec, sched, out=r)
+        scales.append(sched)
+        words.append(w)
+        n += sched.shape[0]
+        if sched.shape[0] < kc:
+            break
+    if not scales:
+        return np.zeros((0, spec.num_leaves), np.float32), np.zeros((0, spec.total // 32), np.uint32), r
+    return np.concatenate(scales), np.concatenate(words), r
 
 
 def quantize_table_np(

@@ -13,6 +13,13 @@ The counterpart of ``shared_tensor_tpu/ops/table.py``, with the same layout:
   scale (kernel A, ``codec_cuda.quantize_rows``).
 - The receive side unpacks K frames, sums their deltas and applies the sum
   to N arrays in one pass (kernel B, ``codec_cuda.apply_rows_batch``).
+- A K-frame burst either re-measures the scales every frame
+  (:func:`quantize_table_burst`, the JAX package's schedule) or runs the
+  native engine's cascade (:func:`quantize_table_cascade`): rounds of one
+  measurement and a pow2 ladder from each leaf's max |r| down to the policy
+  scale, quantized in one pass (kernel A-cascade,
+  ``codec_cuda.quantize_rows_cascade``). The cascade is the port's own: the
+  JAX package's Python plane has only the per-frame schedule.
 
 Unlike the JAX functions, which return new arrays, the quantize, apply and
 accumulate functions here update their target tensors IN PLACE (as the TPU
@@ -36,7 +43,7 @@ import torch
 
 from ..config import ScalePolicy
 from . import codec_cuda
-from .codec import pow2_floor
+from .codec import CASCADE_EXTRA_LEVELS, CASCADE_MAX_LEVELS, pow2_floor
 from .codec_cuda import WORDS_PER_ROW
 from .packing import LANES, TILE, padded_len
 
@@ -245,13 +252,23 @@ def _consts(spec: TableSpec, device: str):
 # -- scales ------------------------------------------------------------------
 
 
+def leaf_amax(residual: torch.Tensor, spec: TableSpec) -> torch.Tensor:
+    """f32[L]: each leaf's max |r| (padding lanes are 0 by invariant)."""
+    row_leaf = _consts(spec, str(residual.device))[0]
+    amax_row = torch.amax(torch.abs(residual.view(-1, LANES)), dim=1)
+    amax = torch.zeros(spec.num_leaves, dtype=torch.float32, device=residual.device)
+    return amax.scatter_reduce(0, row_leaf, amax_row, reduce="amax", include_self=True)
+
+
 def compute_scales(
     residual: torch.Tensor,
     spec: TableSpec,
     policy: ScalePolicy = ScalePolicy.POW2_RMS,
-) -> torch.Tensor:
+    with_amax: bool = False,
+):
     """Per-leaf step sizes (overflow-safe segment RMS: each leaf is
-    normalised by its own max|r| before squaring).
+    normalised by its own max|r| before squaring); with ``with_amax``,
+    (scales, each leaf's max |r|), the normaliser it computed.
 
     Leaf sums are taken as differences of a float64 running sum over the
     f32 row sums, which is deterministic on the GPU (an atomic segment sum
@@ -260,9 +277,7 @@ def compute_scales(
     ABS_MEAN agree to a relative 1e-6."""
     row_leaf, _, _, ns, last_row = _consts(spec, str(residual.device))
     rows = residual.view(-1, LANES)
-    amax_row = torch.amax(torch.abs(rows), dim=1)
-    amax = torch.zeros(spec.num_leaves, dtype=torch.float32, device=residual.device)
-    amax = amax.scatter_reduce(0, row_leaf, amax_row, reduce="amax", include_self=True)
+    amax = leaf_amax(residual, spec)
     denom = torch.where(amax > 0, amax, torch.ones_like(amax))
     norm = rows / denom[row_leaf][:, None]
     if policy == ScalePolicy.ABS_MEAN:
@@ -277,23 +292,77 @@ def compute_scales(
         rms = amax * torch.sqrt(seg / ns)
         scales = pow2_floor(rms) if policy == ScalePolicy.POW2_RMS else rms
     ok = (amax > 0) & torch.isfinite(scales)
-    return torch.where(ok, scales, torch.zeros_like(scales))
+    scales = torch.where(ok, scales, torch.zeros_like(scales))
+    return (scales, amax) if with_amax else scales
 
 
 def _table_scales(
-    residual: torch.Tensor, spec: TableSpec, policy: ScalePolicy, per_leaf: bool
-) -> torch.Tensor:
+    residual: torch.Tensor, spec: TableSpec, policy: ScalePolicy, per_leaf: bool, with_amax: bool = False
+):
     """Per-leaf scales; ``per_leaf=False`` computes ONE scale over the whole
     table (the reference's behaviour, needed for wire-compat with C peers),
-    replicated to every leaf so the apply path is uniform."""
+    replicated to every leaf so the apply path is uniform. ``with_amax``
+    adds each leaf's own max |r|, whatever ``per_leaf``."""
     if per_leaf:
-        return compute_scales(residual, spec, policy)
+        return compute_scales(residual, spec, policy, with_amax)
     one_spec = dataclasses.replace(
         spec, shapes=((spec.total_n,),), ns=(spec.total_n,), padded=(spec.total,)
     )
     # valid because padding lanes are 0 by invariant
-    s = compute_scales(residual, one_spec, policy)
-    return s.expand(spec.num_leaves).contiguous()
+    s = compute_scales(residual, one_spec, policy).expand(spec.num_leaves).contiguous()
+    return (s, leaf_amax(residual, spec)) if with_amax else s
+
+
+# -- the cascade schedule ---------------------------------------------------------
+
+
+def _ilogb(x: torch.Tensor) -> torch.Tensor:
+    """floor(log2 x) of finite x > 0, subnormals included (C's ilogbf)."""
+    return torch.frexp(x).exponent.to(torch.int64) - 1
+
+
+def cascade_ladder(scales: torch.Tensor, amax: torch.Tensor, k_max) -> tuple[torch.Tensor, torch.Tensor]:
+    """One round of the native engine's cascade schedule
+    (``native/stengine.cpp``'s send loop, 1-bit), on the device with no
+    host sync: from the measured policy scales and each leaf's max |r|,
+    the round's first row ``top`` (f32[L]) and its depth ``kc`` (an int64
+    tensor; ``k_max`` caps it and may be one too).
+
+    A live leaf's ladder top is pow2_floor(max |r|) where that exceeds its
+    scale; the depth is the largest ilogb(top) - ilogb(scale) + 1 over the
+    live leaves, plus 8 refinement levels when it exceeds 1. At depth 1 the
+    row is exactly the measured scales. Every later row of the round halves
+    the one before (:func:`cascade_schedule`, kernel A-cascade), and the
+    round ends at its first all-zero row. kc is 0 when every scale is 0."""
+    live = scales > 0
+    st = pow2_floor(amax)  # subnormal max |r| -> 0
+    up = live & (st > scales)
+    d = torch.where(up, _ilogb(st) - _ilogb(scales) + 1, torch.ones_like(scales, dtype=torch.int64))
+    maxd = d.max()
+    maxd = torch.where(maxd > 1, maxd + CASCADE_EXTRA_LEVELS, maxd)
+    kc = torch.minimum(maxd, k_max) if isinstance(k_max, torch.Tensor) else torch.clamp(maxd, max=int(k_max))
+    kc = torch.where(live.any(), kc, torch.zeros_like(kc))
+    top = torch.where((kc > 1) & live, torch.maximum(st, scales), scales)
+    return top, kc
+
+
+def cascade_schedule(scales: torch.Tensor, amax: torch.Tensor, k_max: int) -> tuple[torch.Tensor, int]:
+    """The rows of one cascade round (f32[kreal, L], stopping before the
+    first all-zero row) and its depth kc, on the host: the torch body of the
+    schedule that ``codec_np.cascade_schedule_np`` also writes (tests hold
+    both against the engine's rule). A round with fewer rows than kc hit
+    the subnormal floor, which ends the engine's message."""
+    top, kc = cascade_ladder(scales, amax, int(k_max))
+    kc = int(kc)
+    rows, row = [], top
+    for j in range(kc):
+        if j:
+            row = row * 0.5
+            if not bool(row.any()):
+                break
+        rows.append(row)
+    out = torch.stack(rows) if rows else top.new_zeros((0, top.shape[0]))
+    return out, kc
 
 
 # -- sender ------------------------------------------------------------------
@@ -306,6 +375,16 @@ def _quantize_fn(impl: str):
         return codec_cuda.quantize_rows_kernel
     if impl == "plain":
         return codec_cuda.quantize_rows_plain
+    raise ValueError(f"impl must be 'auto', 'kernel' or 'plain', got {impl!r}")
+
+
+def _cascade_fn(impl: str):
+    if impl == "auto":
+        return codec_cuda.quantize_rows_cascade
+    if impl == "kernel":
+        return codec_cuda.quantize_rows_cascade_kernel
+    if impl == "plain":
+        return codec_cuda.quantize_rows_cascade_plain
     raise ValueError(f"impl must be 'auto', 'kernel' or 'plain', got {impl!r}")
 
 
@@ -356,6 +435,54 @@ def quantize_table_burst(
         scales.append(frame.scales)
         words.append(frame.words)
     return TableFrame(torch.stack(scales), torch.stack(words)), residual
+
+
+def quantize_table_cascade(
+    residual: torch.Tensor,
+    spec: TableSpec,
+    k: int,
+    cascade: int,
+    policy: ScalePolicy = ScalePolicy.POW2_RMS,
+    per_leaf: bool = True,
+    impl: str = "auto",
+) -> tuple[TableFrame, torch.Tensor]:
+    """K frames of one residual by the native engine's cascade: rounds of
+    one measurement (the scales :func:`quantize_table` would use, and each
+    leaf's max |r|), one :func:`cascade_ladder` of depth at most
+    min(``cascade``, 64, frames left), and one pass of kernel A-cascade
+    that quantizes the whole round. Returns the stacked frame (scales
+    f32[K, L], words [K, W]) and the residual, updated in place.
+    ``cascade <= 1`` is :func:`quantize_table_burst`, bit for bit.
+
+    The K rounds are launched whatever the data needs (a round past the
+    last frame returns at once): the round's start and depth stay on the
+    device, so the burst never waits for it and one CUDA graph replays it.
+    Once a round yields no frame (every scale 0) or stops short of its depth
+    at the subnormal floor (as the engine ends its message there), every
+    later round does nothing. So the frames are a prefix of non-zero-scale
+    frames followed by all-zero-scale ones, the invariant
+    ``SharedTensor.finish_frame_burst``'s trim relies on: no frame the
+    ledger holds is cut from the wire."""
+    cascade = min(int(cascade), CASCADE_MAX_LEVELS)
+    if cascade <= 1:
+        return quantize_table_burst(residual, spec, k, policy, per_leaf, impl)
+    fn = _cascade_fn(impl)
+    dev = residual.device
+    row_leaf, rowcount, *_ = _consts(spec, str(dev))
+    scales = torch.zeros((int(k), spec.num_leaves), dtype=torch.float32, device=dev)
+    words = torch.zeros((int(k), spec.rows * WORDS_PER_ROW), dtype=torch.int32, device=dev)
+    j0 = torch.zeros((), dtype=torch.int64, device=dev)
+    stop = torch.zeros((), dtype=torch.bool, device=dev)
+    for _ in range(int(k)):
+        s, amax = _table_scales(residual, spec, policy, per_leaf, with_amax=True)
+        top, kc = cascade_ladder(s, amax, torch.clamp(k - j0, max=cascade))
+        kc = torch.where(stop, torch.zeros_like(kc), kc)
+        fn(top, row_leaf, rowcount, torch.stack((j0, kc)).to(torch.int32), residual, words, scales)
+        # the round's last row all zero: it stopped at the subnormal floor
+        floored = ~scales.index_select(0, (j0 + kc - 1).clamp(min=0).reshape(1)).ne(0).any()
+        stop = stop | (kc == 0) | floored
+        j0 = j0 + kc
+    return TableFrame(scales, words), residual
 
 
 # -- receiver ----------------------------------------------------------------

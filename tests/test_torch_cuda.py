@@ -355,6 +355,66 @@ def test_burst_graph_equals_the_eager_burst(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kc", [1, 2, 11, 16, 32, 64])
+def test_quantize_rows_cascade_kernel_matches_plain(cuda_device, kc):
+    """Kernel A-cascade against its plain twin at frames [j0, j0 + kc) of a
+    larger burst: words, scales and residual bit-equal (ragged live rows,
+    zero, scaled and subnormal ladder tops, subnormal residuals); one
+    launch counted, in ENGINE_LAUNCHES."""
+    rng = np.random.default_rng(kc)
+    rows, n_leaves = 96, 5
+    _, rowcount, resid = _rows_case(kc, rows)
+    row_leaf = np.sort(rng.integers(0, n_leaves, rows)).astype(np.int64)
+    row_leaf[:n_leaves] = np.arange(n_leaves)  # every leaf owns a row
+    row_leaf.sort()
+    top = (2.0 ** rng.integers(-8, 3, n_leaves)).astype(np.float32)
+    top[0], top[1], top[2] = 0.0, np.float32(3 * 2.0 ** -147), top[2] * np.float32(1.37)
+    j0, k = 2, kc + 4
+    outs = []
+    CC.reset_launches()
+    for dev, fn in ((cuda_device, CC.quantize_rows_cascade_kernel), ("cpu", CC.quantize_rows_cascade_plain)):
+        r = torch.from_numpy(resid.copy()).to(dev)
+        words = torch.zeros((k, rows * 4), dtype=torch.int32, device=dev)
+        scales = torch.zeros((k, n_leaves), dtype=torch.float32, device=dev)
+        fn(torch.from_numpy(top).to(dev), torch.from_numpy(row_leaf).to(dev), torch.from_numpy(rowcount).to(dev),
+           torch.tensor([j0, kc], dtype=torch.int32, device=dev), r, words, scales)
+        outs.append([x.cpu() for x in (r, words, scales)])
+    torch.cuda.synchronize()
+    assert all(_same_bits(a, b) for a, b in zip(*outs))
+    assert CC.ENGINE_LAUNCHES["quantize_rows_cascade"] == 1 and CC.LAUNCHES["quantize_rows"] == 0
+
+
+@pytest.mark.cuda
+def test_cascade_burst_graph_equals_the_eager_cascade(cuda_device):
+    """A SharedTensor with cascade=32 replays a CUDA graph of the cascade
+    burst: its frames and residual bit-equal to the eager plain
+    quantize_table_cascade on a copy, over replays with adds between;
+    each replay counts its K rounds of A-cascade launches (a round past
+    the last frame returns at once) and no launch of A."""
+    from shared_tensor_tpu_torch.ops.table import quantize_table_cascade
+
+    rng = np.random.default_rng(17)
+    tpl = {"w": rng.normal(size=(300, 70)).astype(np.float32), "b": rng.normal(size=(5,)).astype(np.float32)}
+    st = SharedTensor(tpl, seed_values=True, device=cuda_device, cascade=32)
+    st.new_link(1)
+    k = 16
+    for i in range(3):
+        ref = st._links[1].clone()
+        want, _ = quantize_table_cascade(ref, st.spec, k, 32, impl="plain")
+        CC.reset_launches()
+        seq, dev = st.begin_frame_burst_device(1, k)
+        torch.cuda.synchronize()
+        assert CC.ENGINE_LAUNCHES["quantize_rows_cascade"] == (2 * k if i == 0 else k)
+        assert CC.LAUNCHES["quantize_rows"] == 0
+        assert st._graphs[1].tally == {"quantize_rows_cascade": k}
+        assert _same_bits(dev.scales, want.scales) and _same_bits(dev.words, want.words)
+        assert _same_bits(st._links[1], ref)
+        assert st.finish_frame_burst(dev) is not None
+        st.ack_frame(1, seq)
+        st.add({"w": (rng.normal(size=(300, 70)) * 1e-2).astype(np.float32), "b": np.zeros(5, np.float32)})
+
+
+@pytest.mark.cuda
 def test_retract_frames_on_the_card_matches_plain(cuda_device):
     """SharedTensor.retract_frames (a severed uplink's applied frames taken
     back out: kernel B with negated scales into the replica and every
@@ -418,6 +478,42 @@ def test_two_peer_round_trip_runs_the_kernels(cuda_device):
     """Two peers on the GPU over loopback TCP (BASELINE config 1's shape):
     the joiner fetches the seed, both add, both read seed + both deltas,
     and kernels A and B ran on the way."""
+    from shared_tensor_tpu_torch import CodecConfig, Config, TransportConfig, create_or_fetch
+
+    # cascade_frames=1: the per-frame burst, kernel A
+    cfg = Config(transport=TransportConfig(peer_timeout_sec=10.0), codec=CodecConfig(cascade_frames=1))
+    seed = np.arange(1.0, 241.0, dtype=np.float32).reshape(4, 5, 6, 2)
+    want = seed + 1.5
+    port = _free_port()
+    CC.reset_launches()
+    with create_or_fetch("127.0.0.1", port, seed, cfg, device=cuda_device) as m, create_or_fetch(
+        "127.0.0.1", port, np.zeros_like(seed), cfg, device=cuda_device
+    ) as j:
+        m.add(np.full_like(seed, 1.0))
+        j.add(torch.full(seed.shape, 0.5, device=cuda_device))
+        deadline = time.time() + 60
+        while time.time() < deadline:
+            got = [p.read() for p in (m, j)]
+            if all(np.allclose(g.cpu().numpy(), want, rtol=0, atol=1e-6) for g in got):
+                break
+            time.sleep(0.05)
+        for g in got:
+            assert g.device.type == "cuda"
+            np.testing.assert_allclose(g.cpu().numpy(), want, rtol=0, atol=1e-6)
+        assert m.threads_alive() and j.threads_alive() and m._error is None and j._error is None
+        for p in (m, j):
+            faults = {k: v for k, v in p.metrics().items() if k in FAULTS and v}
+            assert faults == {}, faults
+    assert CC.LAUNCHES["quantize_rows"] > 0 and CC.LAUNCHES["apply_rows_batch"] > 0, CC.LAUNCHES
+
+
+@pytest.mark.cuda
+def test_two_peer_round_trip_runs_the_cascade_kernel(cuda_device):
+    """Two peers on the GPU over loopback TCP (BASELINE config 1's shape):
+    the joiner fetches the seed, both add, both read seed + both deltas,
+    and the kernels of the path ran on the way: A-cascade (the peers'
+    bursts follow the engine's cascade, ``CodecConfig.cascade_frames``)
+    and B."""
     from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch
 
     cfg = Config(transport=TransportConfig(peer_timeout_sec=10.0))
@@ -443,7 +539,7 @@ def test_two_peer_round_trip_runs_the_kernels(cuda_device):
         for p in (m, j):
             faults = {k: v for k, v in p.metrics().items() if k in FAULTS and v}
             assert faults == {}, faults
-    assert CC.LAUNCHES["quantize_rows"] > 0 and CC.LAUNCHES["apply_rows_batch"] > 0, CC.LAUNCHES
+    assert CC.ENGINE_LAUNCHES["quantize_rows_cascade"] > 0 and CC.LAUNCHES["apply_rows_batch"] > 0, CC.launches()
 
 
 @pytest.mark.cuda
@@ -589,12 +685,14 @@ def test_inplace_restore_recaptures_the_burst_graph(cuda_device):
     import tempfile
     import threading
 
-    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch
+    from shared_tensor_tpu_torch import CodecConfig, Config, TransportConfig, create_or_fetch
     from shared_tensor_tpu_torch.config import LifecycleConfig
     from shared_tensor_tpu_torch.ops.table import quantize_table_burst
 
     def cfg(name):
-        return Config(transport=TransportConfig(peer_timeout_sec=10.0), lifecycle=LifecycleConfig(node_name=name))
+        # cascade_frames=1: the per-frame burst, kernel A
+        return Config(transport=TransportConfig(peer_timeout_sec=10.0), lifecycle=LifecycleConfig(node_name=name),
+                      codec=CodecConfig(cascade_frames=1))
 
     rng = np.random.default_rng(11)
     n = 1 << 16
@@ -647,6 +745,73 @@ def test_inplace_restore_recaptures_the_burst_graph(cuda_device):
 
 
 @pytest.mark.cuda
+def test_inplace_restore_recaptures_the_cascade_burst_graph(cuda_device):
+    """A CUDA peer restores in place (restore_cluster) a link residual that
+    its burst graph did not capture: the first burst after the restore
+    quantizes the RESTORED residual, its frames and the residual it leaves
+    bit-equal to the plain codec's on that residual (the peer's cascade
+    burst), through a graph captured anew on the restored tensor."""
+    import tempfile
+    import threading
+
+    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch
+    from shared_tensor_tpu_torch.config import LifecycleConfig
+    from shared_tensor_tpu_torch.ops.table import quantize_table_cascade
+
+    def cfg(name):
+        return Config(transport=TransportConfig(peer_timeout_sec=10.0), lifecycle=LifecycleConfig(node_name=name))
+
+    rng = np.random.default_rng(11)
+    n = 1 << 16
+    port = _free_port()
+    with create_or_fetch("127.0.0.1", port, np.zeros(n, np.float32), cfg("m"), device=cuda_device) as m, \
+            create_or_fetch("127.0.0.1", port, np.zeros(n, np.float32), cfg("j"), device=cuda_device) as j, \
+            tempfile.TemporaryDirectory() as snap:
+        link = m.st.link_ids[0]
+        # paused, the add stays in m's link residual: the cut holds it whole
+        m.pause()
+        x = rng.uniform(-1, 1, n).astype(np.float32)
+        m.add(x)
+        assert m.snapshot_cluster(snap)["ok"]
+        m.add(rng.uniform(-1, 1, n).astype(np.float32))
+        deadline = time.time() + 30
+        while time.time() < deadline and not m.drain(timeout=0.5):
+            pass
+        old_graph = m.st._graphs[link]
+        rec, armed = [], threading.Event()
+        begin, restore = m.st.begin_frame_burst_device, m.st.restore_state
+
+        def recording_begin(lid, k):
+            if lid != link or not armed.is_set() or rec:
+                return begin(lid, k)
+            before = m.st._links[lid].clone()
+            out = begin(lid, k)
+            torch.cuda.synchronize()
+            rec.append((before, out[1].scales.clone(), out[1].words.clone(), m.st._links[lid].clone(), k))
+            return out
+
+        def arming_restore(values, links):
+            restore(values, links)
+            armed.set()
+
+        m.st.begin_frame_burst_device, m.st.restore_state = recording_begin, arming_restore
+        assert m.restore_cluster(snap)["ok"]
+        deadline = time.time() + 30
+        while not rec and time.time() < deadline:
+            time.sleep(0.01)
+        assert rec, "no burst after the restore"
+        before, scales, words, after, k = rec[0]
+        np.testing.assert_array_equal(before.cpu().numpy(), x)  # the restored residual, whole
+        want, resid = quantize_table_cascade(before.clone(), m.st.spec, k, m.st.cascade, m.st.codec.scale_policy,
+                                             m.st.codec.per_leaf_scale, "plain")
+        torch.cuda.synchronize()
+        assert _same_bits(scales, want.scales) and _same_bits(words, want.words)
+        assert _same_bits(after, resid)
+        assert m.st._graphs[link] is not old_graph and m.st._graphs[link].resid is m.st._links[link]
+        assert j.threads_alive() and m.threads_alive()
+
+
+@pytest.mark.cuda
 def test_shard_torch_view_lands_on_the_card(cuda_device):
     """A sharded pair (host code on both planes' nodes) drains two adds;
     ``torch_view()`` (device None: the GPU) is one flat f32 tensor on the
@@ -681,15 +846,16 @@ def test_sharded_fallback_peer_runs_the_cuda_tier(cuda_device):
     """A sharded joiner under a CUDA classic master falls back to a classic
     peer on the GPU (device None), whose first burst after an add is
     bit-equal to the plain codec's on the same residual; both converge."""
-    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch
+    from shared_tensor_tpu_torch import CodecConfig, Config, TransportConfig, create_or_fetch
     from shared_tensor_tpu_torch.config import ShardConfig
     from shared_tensor_tpu_torch.ops.table import quantize_table_burst
     from shared_tensor_tpu_torch.shard import create_or_fetch_sharded
 
     n = 1 << 16
     port = _free_port()
-    cfg = Config(transport=TransportConfig(peer_timeout_sec=10.0))
-    scfg = Config(transport=cfg.transport, shard=ShardConfig(n_shards=4, shard_index=1))
+    # cascade_frames=1: the per-frame burst, kernel A
+    cfg = Config(transport=TransportConfig(peer_timeout_sec=10.0), codec=CodecConfig(cascade_frames=1))
+    scfg = Config(transport=cfg.transport, shard=ShardConfig(n_shards=4, shard_index=1), codec=cfg.codec)
     x = np.random.default_rng(13).uniform(-1, 1, n).astype(np.float32)
     CC.reset_launches()
     with create_or_fetch("127.0.0.1", port, np.zeros(n, np.float32), cfg, device=cuda_device) as m:
@@ -734,6 +900,67 @@ def test_sharded_fallback_peer_runs_the_cuda_tier(cuda_device):
             assert _same_bits(scales, want.scales) and _same_bits(words, want.words)
             assert _same_bits(after, resid)
     assert CC.LAUNCHES["quantize_rows"] > 0 and CC.LAUNCHES["apply_rows_batch"] > 0, CC.LAUNCHES
+
+
+@pytest.mark.cuda
+def test_sharded_fallback_peer_runs_the_cuda_cascade(cuda_device):
+    """A sharded joiner under a CUDA classic master falls back to a classic
+    peer on the GPU (device None), whose first burst after an add is
+    bit-equal to the plain codec's on the same residual (the peer's
+    cascade burst); both converge."""
+    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch
+    from shared_tensor_tpu_torch.config import ShardConfig
+    from shared_tensor_tpu_torch.ops.table import quantize_table_cascade
+    from shared_tensor_tpu_torch.shard import create_or_fetch_sharded
+
+    n = 1 << 16
+    port = _free_port()
+    cfg = Config(transport=TransportConfig(peer_timeout_sec=10.0))
+    scfg = Config(transport=cfg.transport, shard=ShardConfig(n_shards=4, shard_index=1))
+    x = np.random.default_rng(13).uniform(-1, 1, n).astype(np.float32)
+    CC.reset_launches()
+    with create_or_fetch("127.0.0.1", port, np.zeros(n, np.float32), cfg, device=cuda_device) as m:
+        with create_or_fetch_sharded("127.0.0.1", port, np.zeros(n, np.float32), scfg) as h:
+            assert not h.sharded
+            p = h.peer
+            assert p.st.device.type == "cuda" and p._engine is None
+            link = p.st.link_ids[0]
+            rec = []
+            begin = p.st.begin_frame_burst_device
+
+            def recording_begin(lid, k):
+                first = lid == link and not rec
+                before = p.st._links[lid].clone() if first else None
+                out = begin(lid, k)
+                if first:
+                    torch.cuda.synchronize()
+                    rec.append((before, out[1].scales.clone(), out[1].words.clone(), p.st._links[lid].clone(), k))
+                return out
+
+            # paused, the add waits whole in the link's residual: the first
+            # burst after the resume quantizes exactly it
+            p.pause()
+            p.st.begin_frame_burst_device = recording_begin
+            h.add(x)
+            m.add(x)
+            p.pause(False)
+            deadline = time.time() + 60
+            while time.time() < deadline:
+                got = [q.read().cpu().numpy() for q in (m, p)]
+                if rec and all(np.allclose(g, 2 * x, rtol=0, atol=1e-5) for g in got):
+                    break
+                time.sleep(0.05)
+            assert rec, "no burst after the add"
+            for g in got:
+                np.testing.assert_allclose(g, 2 * x, rtol=0, atol=1e-5)
+            before, scales, words, after, k = rec[0]
+            np.testing.assert_array_equal(before.cpu().numpy(), x)  # the add, whole
+            want, resid = quantize_table_cascade(before.clone(), p.st.spec, k, p.st.cascade,
+                                                 p.st.codec.scale_policy, p.st.codec.per_leaf_scale, "plain")
+            torch.cuda.synchronize()
+            assert _same_bits(scales, want.scales) and _same_bits(words, want.words)
+            assert _same_bits(after, resid)
+    assert CC.ENGINE_LAUNCHES["quantize_rows_cascade"] > 0 and CC.LAUNCHES["apply_rows_batch"] > 0, CC.launches()
 
 
 @pytest.mark.cuda
