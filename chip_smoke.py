@@ -314,24 +314,35 @@ Phases, in order; any failure exits non-zero:
    state (0 mismatches).
 22. The engine's cascade on the device tier (kernel A-cascade,
    csrc/quantize_rows_cascade.cu, the port of native/stcodec.c's
-   stc_quantize_ef_cascade). (22a) at config 2's table (9 leaves, 30,248
-   rows) and at 1 Mi, a gaussian residual with outliers from --seed and the
-   ladder top of its own measurement, at each depth of CASCADE_KCS: the
-   kernel against its plain twin on the card and against the port's
-   libstcodec pass on the host at the schedule the kernel wrote (words,
-   scales, residual bit for bit; the schedule the halving of the top);
-   then at CASCADE_TIMED_KC, the ms per launch from a CUDA graph over
-   buffer sets holding four times the L2, beside its bytes bound and
-   copy_ms, and the plain twin's ms. (22b) benchmarks/drain_tail's device
+   stc_quantize_ef_cascade with its partials, and the finish kernel,
+   csrc/cascade_round.cu, the round's scales, ladder and stop rule from
+   those partials). (22a) at config 2's table (9 leaves, 30,248 rows) and
+   at 1 Mi, a gaussian residual with outliers from --seed
+   (benchmarks/burst_graph.residual), at each depth of CASCADE_KCS, launch
+   by launch (burst_graph.round_trip: the measuring launch, the finish, a
+   pass of kc levels, the next finish): both kernels against their plain
+   twins on the card (every buffer bit for bit), the pass against the
+   port's libstcodec stc_quantize_ef_cascade on the host at the schedule
+   the kernel wrote (words and residual bit for bit, max |r| bit for bit
+   and the sums within CASCADE_SUM_RTOL), the schedule the halving of the
+   finish's top, and the measured scales against the host tier's
+   compute_scales_np (reported); then A-cascade's ms per launch at each
+   depth of CASCADE_TIMED_KCS from a CUDA graph over buffer sets holding
+   four times the L2, beside its bytes bound and copy_ms, the plain twin's
+   ms at CASCADE_TIMED_KC; the finish kernel's ms, its bound, its plain
+   twin's and the torch chain's it replaces (table._table_scales and
+   cascade_ladder); and a CASCADE_BURST_K-frame core._BurstGraph: ms of a
+   replay alone and the node types of its capture, at most 2K + 2 kernel
+   nodes. (22b) benchmarks/drain_tail's device
    row at DRAIN_N under DRAIN_TIMEOUT_S: two CUDA peers, one gaussian add
    drained to exact zero in under DRAIN_MAX_FRAMES frames, and the
-   launches of A-cascade and B in it (both > 0).
+   launches of A-cascade, the finish and B in it (all > 0).
 A CUDA peer's K-frame bursts follow the native engine's cascade
-(CodecConfig.cascade_frames, 32 by default): they run kernel A-cascade,
-and kernel A runs on the pod tier, single frames (subscriber and
-reference-wire links) and the direct SharedTensor drives (phases 3, 8c).
-Each peer phase reports the launches of A, A-cascade and B and requires
-those of its path.
+(CodecConfig.cascade_frames, 32 by default): they run kernel A-cascade
+and the finish kernel, and kernel A runs on the pod tier, single frames
+(subscriber and reference-wire links) and the direct SharedTensor drives
+(phases 3, 8c). Each peer phase reports the launches of A, A-cascade, the
+finish and B and requires those of its path.
 The transport, the host codec and the engine (native/sttransport.cpp,
 stcodec.c, stengine.cpp) and the C reference peer (stc_harness.c) are
 compiled with g++ and gcc in phase 1, beside the kernels. Every rank's full results of phases 9, 10 and 11 go to
@@ -359,11 +370,11 @@ import time
 import numpy as np
 import torch
 
-#: The kernels a CUDA peer launches: A-cascade for its bursts (the engine's
-#: cascade), A for its single frames, B for every apply.
-PEER_KERNELS = ("quantize_rows", "quantize_rows_cascade", "apply_rows_batch")
+#: The kernels a CUDA peer launches: A-cascade and its finish kernel for its
+#: bursts (the engine's cascade), A for its single frames, B for every apply.
+PEER_KERNELS = ("quantize_rows", "quantize_rows_cascade", "cascade_round", "apply_rows_batch")
 #: The kernels a phase of bursting CUDA peers must launch.
-BURST_KERNELS = ("quantize_rows_cascade", "apply_rows_batch")
+BURST_KERNELS = ("quantize_rows_cascade", "cascade_round", "apply_rows_batch")
 
 #: HBM bandwidth by card (NVIDIA data sheets), bytes/s; the SXM part's is
 #: the default.
@@ -453,7 +464,8 @@ def _bitdiff(a: torch.Tensor, b: torch.Tensor) -> int:
 
 
 def path_counts() -> dict:
-    """The launches of A, A-cascade and B since the last reset."""
+    """The launches of A, A-cascade, the finish kernel and B since the last
+    reset."""
     from shared_tensor_tpu_torch.ops import codec_cuda as CC
 
     counts = CC.launches()
@@ -1648,6 +1660,7 @@ def pod_bridge(pod, index: int, both, seed: int, port: int) -> dict:
         out["frames"] = H.bridge_frames(tr)
         out["launches"] = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
         out["cascade_launches"] = CC.ENGINE_LAUNCHES["quantize_rows_cascade"]  # the bridge peer's bursts
+        out["round_launches"] = CC.ENGINE_LAUNCHES["cascade_round"]
         lap("split")
     finally:
         tr.close()
@@ -3662,7 +3675,10 @@ def sever_phase(device, seed: int, smi: str, cfg_m=None) -> tuple[dict, tuple]:
 # -- phase 22 -------------------------------------------------------------------
 
 CASCADE_KCS = (1, 11, 16, 32, 64)  # phase 22a's depths
-CASCADE_TIMED_KC = 16  # phase 22a's timed depth: a 16-frame burst's longest round
+CASCADE_TIMED_KCS = (1, 11, 16, 32)  # phase 22a's timed depths
+CASCADE_TIMED_KC = 16  # the kernels line's depth: a 16-frame burst's longest round
+CASCADE_BURST_K = 16  # phase 22a's burst graph: AUTO_BURST frames at the peer's cascade of 32
+CASCADE_SUM_RTOL = 1e-12  # A-cascade's partial sums against the C pass's (another order)
 DRAIN_N = 1 << 20  # phase 22b: drain_tail's table
 DRAIN_TIMEOUT_S = 10.0
 DRAIN_MAX_FRAMES = 200
@@ -3670,65 +3686,80 @@ DRAIN_MAX_FRAMES = 200
 
 def cascade_kernel_check(spec, device, rate: float, seed: int) -> dict:
     """Phase 22a (module docstring) at one table. Returns its mismatches,
-    largest residual error, times and bound."""
+    largest residual error, times, bounds, and the burst graph's replay
+    and nodes."""
+    from shared_tensor_tpu_torch.benchmarks import burst_graph as BG
     from shared_tensor_tpu_torch.config import ScalePolicy
     from shared_tensor_tpu_torch.ops import codec_cuda as CC
     from shared_tensor_tpu_torch.ops import codec_np as N
     from shared_tensor_tpu_torch.ops import table as TT
-    from shared_tensor_tpu_torch.utils.timing import copy_ms, event_ms, graph_ms, l2_sets
+    from shared_tensor_tpu_torch.utils.timing import event_ms
 
-    row_leaf, rowcount, live, *_ = TT._consts(spec, str(torch.device(device)))
-    gen = torch.Generator(device=device).manual_seed(seed)
-    resid = torch.randn(spec.total, generator=gen, device=device) * 1e-2
-    resid[::997] *= 50.0  # outliers: a ladder deeper than the measured scale
-    resid = torch.where(live.view(-1), resid, torch.zeros_like(resid))
-    s, amax = TT._table_scales(resid, spec, ScalePolicy.POW2_RMS, True, with_amax=True)
+    pol = ScalePolicy.POW2_RMS
+    resid = BG.residual(spec, device, seed)
     host = resid.cpu().numpy()
-    n_leaves, rows = spec.num_leaves, spec.rows
-    out = {"shape": f"rows={rows} leaves={n_leaves}", "mismatches_plain": 0, "mismatches_c": 0,
-           "mismatches_schedule": 0, "max_abs_err": 0.0, "depths": list(CASCADE_KCS)}
-
-    def buffers(kc):
-        return (resid.clone(), torch.zeros((kc, rows * 4), dtype=torch.int32, device=device),
-                torch.zeros((kc, n_leaves), dtype=torch.float32, device=device))
-
+    n_leaves, slots = spec.num_leaves, CC.partial_slots(spec.rows)
+    bounds = TT._cascade_consts(spec, "cpu").leaf_slots.tolist()
+    offs, ns, padded = N._layout(spec)
+    out = {"shape": f"rows={spec.rows} leaves={n_leaves}", "mismatches_plain": 0, "mismatches_c": 0,
+           "mismatches_schedule": 0, "scales_off_host_rule": 0, "max_abs_err": 0.0, "depths": list(CASCADE_KCS)}
     for kc in CASCADE_KCS:
-        top = TT.cascade_ladder(s, amax, kc)[0] if kc > 1 else s
-        state = torch.tensor([0, kc], dtype=torch.int32, device=device)
-        got = []
-        for fn in (CC.quantize_rows_cascade_kernel, CC.quantize_rows_cascade_plain):
-            bufs = buffers(kc)
-            fn(top, row_leaf, rowcount, state, *bufs)
-            got.append(bufs)
+        # the measuring launch, the first finish, a pass of kc levels, the next finish
+        got = BG.round_trip(spec, resid, kc, CC.quantize_rows_cascade_kernel, CC.cascade_round_kernel, pol, cap=kc)
+        want = BG.round_trip(spec, resid, kc, CC.quantize_rows_cascade_plain, CC.cascade_round_plain, pol, cap=kc)
         _sync(device)
-        (r_k, w_k, s_k), (r_p, w_p, s_p) = got
-        out["mismatches_plain"] += _bitdiff(r_k, r_p) + _bitdiff(w_k, w_p) + _bitdiff(s_k, s_p)
-        out["max_abs_err"] = max(out["max_abs_err"], _maxerr(r_k, r_p))
-        sched = s_k.cpu().numpy()
-        rows_np = [top.cpu().numpy()]
+        out["mismatches_plain"] += sum(_bitdiff(x, y) for g, w in zip(got, want) for x, y in zip(g, w))
+        r_k, s_k, w_k, _, lad, part = got[2][:6]
+        out["max_abs_err"] = max(out["max_abs_err"], _maxerr(r_k, want[2][0]))
+        # the schedule is the halving of the finish's ladder top; the
+        # measured scales are the host tier's (the sums' order aside)
+        rows_np = [got[1][4][2].numpy()]
         for _ in range(1, kc):
             rows_np.append(rows_np[-1] * np.float32(0.5))
-        out["mismatches_schedule"] += _bitdiff(torch.from_numpy(sched), torch.from_numpy(np.stack(rows_np)))
-        w_c, r_c = N.quantize_cascade_np(host, spec, sched)
-        out["mismatches_c"] += _bitdiff(w_k.cpu(), torch.from_numpy(w_c.view(np.int32))) \
-            + _bitdiff(r_k.cpu(), torch.from_numpy(r_c))
-        out["max_abs_err"] = max(out["max_abs_err"], _maxerr(r_k.cpu(), torch.from_numpy(r_c)))
+        out["mismatches_schedule"] += _bitdiff(s_k, torch.from_numpy(np.stack(rows_np)))
+        out["scales_off_host_rule"] += _bitdiff(got[1][4][0], torch.from_numpy(N.compute_scales_np(host, spec, pol)))
+        # the C pass at the schedule the kernel wrote: words, residual, partials
+        sched = s_k.numpy()
+        r_c = np.empty_like(host)
+        w_c = np.empty((kc, spec.total // 32), np.uint32)
+        amax, ss, sabs = np.zeros(n_leaves), np.zeros(n_leaves), np.zeros(n_leaves)
+        N.native().stc_quantize_ef_cascade(host, r_c, offs, ns, padded, n_leaves, kc, sched, w_c.reshape(-1),
+                                           spec.total // 32, amax, ss, sabs)
+        out["mismatches_c"] += _bitdiff(w_k, torch.from_numpy(w_c.view(np.int32))) \
+            + _bitdiff(r_k, torch.from_numpy(r_c))
+        p = part.numpy()
+        leaf = np.array([[p[0, a:b].max(), p[1, a:b].sum(), p[2, a:b].sum()] for a, b in zip(bounds, bounds[1:])]).T
+        out["mismatches_c"] += int(np.sum(leaf[0] != amax)) + int(np.sum(
+            np.abs(leaf[1:] - np.stack([ss, sabs])) > CASCADE_SUM_RTOL * np.abs(np.stack([ss, sabs]))))
+        out["max_abs_err"] = max(out["max_abs_err"], _maxerr(r_k, torch.from_numpy(r_c)))
     out["mismatches"] = out["mismatches_plain"] + out["mismatches_c"] + out["mismatches_schedule"]
 
+    times = BG.cascade_times(spec, device, CASCADE_TIMED_KCS, seed, rate)
+    t = times[CASCADE_TIMED_KC]
     kc = CASCADE_TIMED_KC
-    top = TT.cascade_ladder(s, amax, kc)[0]
+    row_leaf, rowcount, *_ = TT._consts(spec, str(torch.device(device)))
+    c = TT._cascade_consts(spec, str(torch.device(device)))
+    b = TT.cascade_buffers(spec, kc, device)
+    CC.quantize_rows_cascade_kernel(b.ladder[2], row_leaf, rowcount, b.state, resid.clone(), b.words, b.scales,
+                                    b.partials, begin=True)
+    CC.cascade_round_kernel(b.partials, c.leaf_slots, c.ns, b.scales, b.state, b.ladder, b.leaf_sums, kc, 32, pol,
+                            True, True)
     state = torch.tensor([0, kc], dtype=torch.int32, device=device)
-    # residual read and written, kc bit planes written, the row constants
-    # (row_leaf int64 and rowcount) and the ladder top read, kc scale rows written
-    nbytes = spec.total * 8 + kc * spec.total / 8 + rows * 12 + n_leaves * 4 * (1 + kc)
-    sets = [buffers(kc) for _ in range(l2_sets(nbytes, device))]
-    turn = itertools.cycle(sets)
-    launch = lambda: CC.quantize_rows_cascade_kernel(top, row_leaf, rowcount, state, *next(turn))  # noqa: E731
-    bufs = buffers(kc)
-    out.update(kc=kc, ms=graph_ms(launch, 50), sets=len(sets), bytes=nbytes, bound_ms=nbytes / rate * 1e3,
-               copy_ms=copy_ms(nbytes, device, lambda fn: graph_ms(fn, 50), sets=len(sets)),
-               plain_ms=event_ms(lambda: CC.quantize_rows_cascade_plain(top, row_leaf, rowcount, state, *bufs), 3, 1))
-    del sets, turn, bufs
+    r = resid.clone()
+    plain_ms = event_ms(lambda: CC.quantize_rows_cascade_plain(b.ladder[2], row_leaf, rowcount, state, r, b.words,
+                                                               b.scales, b.partials), 3, 1)
+    meas = BG.measure_times(spec, device, seed, CASCADE_BURST_K, 32)
+    finish_plain_ms = event_ms(lambda: CC.cascade_round_plain(b.partials, c.leaf_slots, c.ns, b.scales, b.state,
+                                                              b.ladder, b.leaf_sums, kc, 32, pol, True, True), 3, 1)
+    # the finish reads the partials, the leaf bounds and counts, the last
+    # scale row and the state; writes the ladder, the leaf sums and the state
+    finish_bytes = 24 * slots + 8 * (n_leaves + 1) + 8 * n_leaves + 4 * n_leaves + 12 + 36 * n_leaves + 12
+    burst = BG.burst_replay(spec, device, seed, CASCADE_BURST_K, 32)
+    out.update(kc=kc, ms=t["ms"], sets=t["sets"], bytes=t["bytes"], bound_ms=t["bound_ms"], copy_ms=t["copy_ms"],
+               plain_ms=plain_ms, times={str(k): v for k, v in times.items()},
+               finish={"ms": meas["finish_ms"], "plain_ms": finish_plain_ms, "bytes": finish_bytes,
+                       "bound_ms": finish_bytes / rate * 1e3, "library_ms": meas["torch_chain_ms"]},
+               burst=burst)
     return out
 
 
@@ -3743,14 +3774,25 @@ def cascade_phase(device, rate: float, seed: int, smi: str) -> dict:
     out = {"22a": {}}
     for name, tmpl in (("config2", char_rnn_template()), ("1Mi", {"t": np.zeros(1 << 20, np.float32)})):
         r = out["22a"][name] = cascade_kernel_check(make_spec(tmpl), device, rate, seed + 22)
-        print(f"[22a] A-cascade at {name} ({r['shape']}), depths {r['depths']}: mismatches against the plain twin "
-              f"{r['mismatches_plain']}, against libstcodec's stc_quantize_ef_cascade {r['mismatches_c']}, schedule "
-              f"{r['mismatches_schedule']}; at kc={r['kc']} {r['ms']:.4f} ms/launch from a graph over {r['sets']} "
-              f"buffer sets, bound {r['bound_ms']:.4f} ms ({r['bytes'] / 1e6:.1f} MB, {100 * r['bound_ms'] / r['ms']:.1f}% "
-              f"of it), copy_ms {r['copy_ms']:.4f}, plain {r['plain_ms']:.4f} ms; on {smi}")
+        f, g = r["finish"], r["burst"]
+        print(f"[22a] A-cascade and the finish at {name} ({r['shape']}), depths {r['depths']}: mismatches against "
+              f"the plain twins {r['mismatches_plain']}, against libstcodec's stc_quantize_ef_cascade "
+              f"{r['mismatches_c']}, schedule {r['mismatches_schedule']}; measured scales off the host rule "
+              f"{r['scales_off_host_rule']}; on {smi}")
+        print(f"[22a] A-cascade at {name}: " + ", ".join(
+            f"kc={k} {v['ms']:.6f} ms ({100 * v['bound_ms'] / v['ms']:.1f}% of {v['bound_ms']:.6f}, copy_ms "
+            f"{v['copy_ms']:.6f})" for k, v in r["times"].items()) + f"; plain at kc={r['kc']} {r['plain_ms']:.4f} ms")
+        print(f"[22a] finish at {name}: {f['ms']:.6f} ms (bound {f['bound_ms']:.6f}, plain {f['plain_ms']:.4f}, "
+              f"the torch chain it replaces {f['library_ms']:.6f}); the {CASCADE_BURST_K}-frame burst graph "
+              f"{g['replay_ms']:.6f} ms a replay ({g['replay_ms_min']:.6f}-{g['replay_ms_max']:.6f}), {g['frames']} "
+              f"frames, nodes {g['nodes']}")
     bad = {k: v["mismatches"] for k, v in out["22a"].items() if v["mismatches"]}
     if bad:
-        raise AssertionError(f"phase 22a: A-cascade mismatches: {bad}")
+        raise AssertionError(f"phase 22a: A-cascade or finish mismatches: {bad}")
+    over = {k: v["burst"]["nodes"] for k, v in out["22a"].items()
+            if v["burst"]["nodes"].get("kernel", 0) > 2 * CASCADE_BURST_K + 2}
+    if over:
+        raise AssertionError(f"phase 22a: a burst graph holds more than 2K + 2 kernels: {over}")
     t1 = time.perf_counter()
     CC.reset_launches()
     row = out["22b"] = drain_tail.run_tier("device", n=DRAIN_N, timeout=DRAIN_TIMEOUT_S, device=device)
@@ -3803,6 +3845,8 @@ SOURCES = {
     "apply_frame_many": ("shared_tensor_tpu_torch/csrc/apply_frame.cu", "shared_tensor_tpu/ops/codec_pallas.py:216"),
     # no TPU kernel: the native engine's C pass (stc_quantize_ef_cascade)
     "quantize_rows_cascade": ("shared_tensor_tpu_torch/csrc/quantize_rows_cascade.cu", "native/stcodec.c:2088"),
+    # no TPU kernel: the engine's scales_from_partials and its cascade round (stengine.cpp:1200-1309)
+    "cascade_round": ("shared_tensor_tpu_torch/csrc/cascade_round.cu", "native/stengine.cpp:697"),
 }
 
 
@@ -3878,6 +3922,7 @@ def main() -> int:
     b_rows = t["apply_rows_batch"]
     t["apply_rows_batch"] = dict(b_rows[B_SHAPES.index((BATCH, 2))], shapes=b_rows)
     t["quantize_rows_cascade"] = {}  # phase 22 times it
+    t["cascade_round"] = {}
 
     # 5. C and D against plain, then all four kernels past 2^31 bytes
     parity.update(scalar_kernel_vs_plain(dev, seed=args.seed))
@@ -3949,6 +3994,7 @@ def main() -> int:
     # kernel A's main path is the pod step: a CUDA peer's bursts run A-cascade
     launches["quantize_rows"] = t["quantize_rows"]["launches_pod"]
     t["quantize_rows_cascade"]["launches_phase11"] = sum(r["cascade_launches"] for r in pod["bridge"])
+    t["cascade_round"]["launches_phase11"] = sum(r["round_launches"] for r in pod["bridge"])
 
     # 12. the host tier: the C loops on this machine's CPU, then a CUDA
     # master with two engine peers (the launch counts of A and B are 12b's)
@@ -4119,18 +4165,25 @@ def main() -> int:
         raise AssertionError(f"phase 21: kernel vs plain mismatches on the joiner's state: {bad}")
     print(f"[21] launches {sever['launches']}")
 
-    # 22. the engine's cascade on the device tier: A-cascade against its plain
-    # twin and the C pass, timed; then drain_tail's device row (the launch
-    # counts of A-cascade and B are 22b's)
+    # 22. the engine's cascade on the device tier: A-cascade and the finish
+    # against their plain twins and the C pass, timed, and the burst graph;
+    # then drain_tail's device row (the launch counts of A-cascade, the
+    # finish and B are 22b's)
     cascade = cascade_phase(dev, rate, args.seed, smi)
-    c2 = cascade["22a"]["config2"]
-    parity["quantize_rows_cascade"] = {
-        "mismatches": sum(r["mismatches"] for r in cascade["22a"].values()),
-        "max_abs_err": max(r["max_abs_err"] for r in cascade["22a"].values())}
+    c2, c1 = cascade["22a"]["config2"], cascade["22a"]["1Mi"]
+    for k in ("quantize_rows_cascade", "cascade_round"):
+        parity[k] = {"mismatches": sum(r["mismatches"] for r in cascade["22a"].values()),
+                     "max_abs_err": max(r["max_abs_err"] for r in cascade["22a"].values())}
     t["quantize_rows_cascade"].update(
         {x: c2[x] for x in ("ms", "plain_ms", "bound_ms", "copy_ms", "kc")}, shape=f"{c2['shape']} kc={c2['kc']}",
-        **{f"{x}_1Mi": cascade["22a"]["1Mi"][x] for x in ("ms", "plain_ms", "bound_ms", "copy_ms")},
+        **{f"{x}_1Mi": c1[x] for x in ("ms", "plain_ms", "bound_ms", "copy_ms")},
+        times=c2["times"], times_1Mi=c1["times"],
         launches_phase22=cascade["22b"]["launches"]["quantize_rows_cascade"])
+    t["cascade_round"].update(
+        c2["finish"], shape=c2["shape"],
+        **{f"{x}_1Mi": c1["finish"][x] for x in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        burst={"config2": c2["burst"], "1Mi": c1["burst"]},
+        launches_phase22=cascade["22b"]["launches"]["cascade_round"])
     t["apply_rows_batch"]["launches_phase22"] = cascade["22b"]["launches"]["apply_rows_batch"]
     serve_out["script_s"] = time.perf_counter() - t_script
     print(f"[22] script {serve_out['script_s']:.3f} s")
@@ -4143,7 +4196,7 @@ def main() -> int:
             "launches": launches[k], "mismatches": parity[k]["mismatches"],
             "max_abs_err": parity[k]["max_abs_err"], "ms": t[k]["ms"],
             "plain_ms": t[k]["plain_ms"], "bound_ms": t[k]["bound_ms"], "bound_by": "bytes",
-            "library_ms": None, "shape": t[k]["shape"],
+            "library_ms": t[k].get("library_ms"), "shape": t[k]["shape"],
         }
         row.update({x: v for x, v in t[k].items() if x not in row})
         kernels.append(row)

@@ -87,12 +87,14 @@ def gate_passes(report: dict) -> bool:
     return bool(report["pass"] and report["routed_events"] >= 1)
 
 
-def path_kernels(peer) -> tuple[str, str]:
+def path_kernels(peer) -> tuple[str, ...]:
     """The kernels a device-tier peer's data plane launches: its sender's
-    (A-cascade for bursts by the engine's cascade, ``CodecConfig.
-    cascade_frames`` > 1; A for single frames and per-frame bursts) and B."""
-    cascades = peer._burst_device > 1 and peer.st.cascade > 1
-    return ("quantize_rows_cascade" if cascades else "quantize_rows", "apply_rows_batch")
+    (A-cascade and its finish kernel for bursts by the engine's cascade,
+    ``CodecConfig.cascade_frames`` > 1; A for single frames and per-frame
+    bursts) and B."""
+    if peer._burst_device > 1 and peer.st.cascade > 1:
+        return ("quantize_rows_cascade", "cascade_round", "apply_rows_batch")
+    return ("quantize_rows", "apply_rows_batch")
 
 
 def master_state(peer, update_tree) -> tuple:

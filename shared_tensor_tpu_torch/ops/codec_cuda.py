@@ -19,11 +19,21 @@ The counterpart of every TPU kernel in ``shared_tensor_tpu/ops/codec_pallas.py``
   ``apply_frame`` / ``_apply_kernel``: one scalar-scale frame into K arrays,
   clamped, in place.
 
-Beside them, one kernel that ports no TPU kernel but the native engine's C
-pass ``stc_quantize_ef_cascade`` (``native/stcodec.c``): kernel A-cascade,
-:func:`quantize_rows_cascade` (``csrc/quantize_rows_cascade.cu``), kc
-frames of an amax-anchored halving ladder quantized in one pass, for the
-device tier's K-frame burst (``ops/table.quantize_table_cascade``).
+Beside them, two kernels that port no TPU kernel but the native engine's
+cascade round, for the device tier's K-frame burst
+(``ops/table.quantize_table_cascade``):
+
+- kernel A-cascade, :func:`quantize_rows_cascade`
+  (``csrc/quantize_rows_cascade.cu``), the C pass ``stc_quantize_ef_cascade``
+  (``native/stcodec.c``): kc frames of an amax-anchored halving ladder
+  quantized in one pass, which also writes the per-tile partials (max
+  |r|, sum r^2, sum |r| in double) of the residual it leaves, or, with
+  ``begin``, only those of the residual as it finds it;
+- the finish kernel, :func:`cascade_round` (``csrc/cascade_round.cu``):
+  those partials reduced per leaf in a fixed order, then the next round's
+  scales (the host tier's rule, ``codec_np.compute_scales_np``), ladder top
+  and depth (``table.cascade_ladder``), the stop rule and j0's advance, all
+  on the device.
 
 C and D follow the Pallas kernels, not the golden ``ops/codec.py``, on the
 padding: they set padding lanes to 0 even at scale 0, where the golden
@@ -38,7 +48,8 @@ Pallas kernel wanted them row-major for its block specs.
 Dispatch: each wrapper runs the kernel for CUDA tensors and the plain
 version for CPU tensors, and nothing else: there is no fallback from a CUDA
 tensor to the plain path. ``LAUNCHES`` counts the launches of A-D and
-``ENGINE_LAUNCHES`` those of A-cascade (not plain calls). A launch that a wrapper makes while its thread captures a CUDA
+``ENGINE_LAUNCHES`` those of A-cascade and the finish kernel (not plain
+calls). A launch that a wrapper makes while its thread captures a CUDA
 graph (:func:`capture_tally`) does not run then: it goes to the capture's
 tally, and every replay of the graph adds that tally (:func:`count_replay`).
 
@@ -105,6 +116,7 @@ SOURCES = {
     "quantize": "quantize.cu",
     "apply_frame_many": "apply_frame.cu",
     "quantize_rows_cascade": "quantize_rows_cascade.cu",
+    "cascade_round": "cascade_round.cu",
 }
 #: The kernels that port a TPU kernel (A-D); the others port the engine's C passes.
 TPU_KERNELS = ("quantize_rows", "apply_rows_batch", "quantize", "apply_frame_many")
@@ -117,7 +129,7 @@ NVCC_FLAGS = (
 )
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`: A-D
-#: here, A-cascade in ``ENGINE_LAUNCHES``.
+#: here, A-cascade and the finish kernel in ``ENGINE_LAUNCHES``.
 LAUNCHES = {name: 0 for name in TPU_KERNELS}
 ENGINE_LAUNCHES = {name: 0 for name in SOURCES if name not in TPU_KERNELS}
 
@@ -238,9 +250,13 @@ _ARGTYPES = {
     # scale, words, targets (host array), n_targets <= 8, n_live, n_pad, stream
     "apply_frame_many": ("st_apply_frame_many", [_VP, _VP, _PP, _I32, _I64, _I64, _VP]),
     # top, row_leaf (int64), rowcount, state (j0, kc on the device), resid, words, scales,
-    # rows, n_leaves, k_frames, stream
+    # partials (f64), rows, n_leaves, k_frames, begin, stream
     "quantize_rows_cascade": ("st_quantize_rows_cascade",
-                              [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _I32, _VP]),
+                              [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _I32, _I32, _VP]),
+    # partials, leaf_slots (int64), ns (f64), scales, state (j0, kc, stop), ladder, leaf_sums,
+    # slots, n_leaves, k_frames, cap, policy, per_leaf, first, stream
+    "cascade_round": ("st_cascade_round",
+                      [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _I32, _I32, _I32, _I32, _I32, _VP]),
     # device, out: the new stream's handle
     "stream": ("st_stream_create", [_I32, ctypes.POINTER(_VP)]),
 }
@@ -436,11 +452,23 @@ def quantize_rows(
 
 # -- kernel A-cascade: quantize_rows_cascade --------------------------------------
 
+#: Rows of one tile (1024 elements): the unit of a table's leaf padding,
+#: and of kernel A-cascade's warps and partials.
+TILE_ROWS = 8
 
-def _check_cascade(top, row_leaf, rowcount, state, residual, words, scales) -> tuple[int, int, int]:
+
+def partial_slots(rows: int) -> int:
+    """Kernel A-cascade's partial slots for a residual of ``rows`` rows: one
+    a tile."""
+    return rows // TILE_ROWS
+
+
+def _check_cascade(top, row_leaf, rowcount, state, residual, words, scales, partials) -> tuple[int, int, int]:
     if not isinstance(residual, torch.Tensor) or residual.dim() != 1 or residual.shape[0] % LANES:
         raise ValueError(f"residual must be a flat tensor with a multiple of {LANES} elements")
     rows = residual.shape[0] // LANES
+    if rows % TILE_ROWS:
+        raise ValueError(f"residual must hold whole tiles of {TILE_ROWS} rows (a table's padding)")
     dev = residual.device
     _check(residual, "residual", (torch.float32,), (rows * LANES,), dev)
     if not isinstance(scales, torch.Tensor) or scales.dim() != 2:
@@ -453,10 +481,44 @@ def _check_cascade(top, row_leaf, rowcount, state, residual, words, scales) -> t
     _check(top, "top", (torch.float32,), (n_leaves,), dev)
     _check(row_leaf, "row_leaf", (torch.int64,), (rows,), dev)
     _check(rowcount, "rowcount", (torch.int32,), (rows,), dev)
-    _check(state, "state", (torch.int32,), (2,), dev)
-    check_distinct([residual, words, scales])
-    _check_disjoint([top, row_leaf, rowcount, state], [residual, words, scales])
+    if not isinstance(state, torch.Tensor) or state.dim() != 1 or state.shape[0] not in (2, 3):
+        raise ValueError("state must be int32 [j0, kc] or [j0, kc, stop]")
+    _check(state, "state", (torch.int32,), (state.shape[0],), dev)
+    _check(partials, "partials", (torch.float64,), (3, partial_slots(rows)), dev)
+    check_distinct([residual, words, scales, partials])
+    _check_disjoint([top, row_leaf, rowcount, state], [residual, words, scales, partials])
     return rows, n_leaves, k
+
+
+def _partials_for(residual: torch.Tensor, partials: torch.Tensor | None) -> torch.Tensor:
+    if partials is not None or not isinstance(residual, torch.Tensor) or residual.dim() != 1:
+        return partials
+    return torch.empty((3, partial_slots(residual.shape[0] // LANES)), dtype=torch.float64, device=residual.device)
+
+
+def slot_partials_plain(v: torch.Tensor, partials: torch.Tensor) -> torch.Tensor:
+    """A-cascade's partials of a residual ``v`` (flat f32, padding lanes 0)
+    into ``partials`` f64[3, tiles]: each tile's max |r|, sum r^2 and sum
+    |r|, in the kernel's order (each word's 32 values in turn, then a
+    halving tree over the tile's 32 words), so the bits are the kernel's."""
+    x = v.reshape(-1, BITS_PER_WORD)  # a row a word, a word a thread
+    a = x.abs()
+    amax = torch.where(a.isnan(), torch.zeros_like(a), a).amax(dim=1)  # a NaN never wins a max
+    d = x.to(torch.float64)
+    ss = torch.zeros(x.shape[0], dtype=torch.float64, device=v.device)
+    sabs = torch.zeros_like(ss)
+    for b in range(x.shape[1]):
+        ss = ss + d[:, b] * d[:, b]
+        sabs = sabs + d[:, b].abs()
+    ss, sabs = ss.view(-1, 32), sabs.view(-1, 32)
+    h = 16
+    while h:
+        ss, sabs = ss[:, :h] + ss[:, h : 2 * h], sabs[:, :h] + sabs[:, h : 2 * h]
+        h //= 2
+    partials[0] = amax.view(-1, 32).amax(dim=1).to(torch.float64)
+    partials[1] = ss[:, 0]
+    partials[2] = sabs[:, 0]
+    return partials
 
 
 def quantize_rows_cascade_plain(
@@ -467,21 +529,32 @@ def quantize_rows_cascade_plain(
     residual: torch.Tensor,
     words: torch.Tensor,
     scales: torch.Tensor,
+    partials: torch.Tensor | None = None,
+    begin: bool = False,
 ) -> None:
     """Plain PyTorch version of kernel A-cascade: frames ``[j0, j0 + kc)``
-    (``state``, int32 [j0, kc]) of the halving ladder from ``top`` (f32 per
-    leaf), each level kernel A's step at its leaf's scale, written into
+    (``state``, int32 [j0, kc, ...]) of the halving ladder from ``top`` (f32
+    per leaf), each level kernel A's step at its leaf's scale, written into
     rows j0.. of ``words`` [K, rows*4] and ``scales`` [K, L]; ``residual``
-    updated in place, padding zeroed. kc is clipped to the K - j0 frames
-    left and to 64; kc <= 0 does nothing."""
-    _, _, k = _check_cascade(top, row_leaf, rowcount, state, residual, words, scales)
-    j0, kc = (int(x) for x in state.tolist())
-    kc = min(kc, k - j0, CASCADE_MAX_LEVELS)
-    if kc <= 0 or j0 < 0:
-        return
+    updated in place, padding zeroed; then the partials of the residual left
+    into ``partials`` f64[3, slots] (:func:`slot_partials_plain`). kc is
+    clipped to the K - j0 frames left and to 64; kc <= 0 does nothing. With
+    ``begin``: every frame's words and scales zeroed and the partials of
+    ``residual`` as it is, the state ignored."""
+    partials = _partials_for(residual, partials)
+    _, _, k = _check_cascade(top, row_leaf, rowcount, state, residual, words, scales, partials)
     r = residual.view(-1, LANES)
     lane = torch.arange(LANES, dtype=torch.int32, device=r.device)
     live = lane[None, :] < rowcount[:, None]
+    if begin:
+        words.zero_()
+        scales.zero_()
+        slot_partials_plain(torch.where(live, r, torch.zeros_like(r)), partials)
+        return
+    j0, kc = (int(x) for x in state[:2].tolist())
+    kc = min(kc, k - j0, CASCADE_MAX_LEVELS)
+    if kc <= 0 or j0 < 0:
+        return
     w32 = words.view(torch.int32)
     s_leaf = top.clone()
     v = r.clone()
@@ -493,6 +566,7 @@ def quantize_rows_cascade_plain(
         v = torch.where(live & (s > 0.0), v - torch.where(neg, -s, s), v)
         s_leaf = s_leaf * 0.5
     r.copy_(torch.where(live, v, torch.zeros_like(v)))
+    slot_partials_plain(r, partials)
 
 
 def quantize_rows_cascade_kernel(
@@ -503,18 +577,24 @@ def quantize_rows_cascade_kernel(
     residual: torch.Tensor,
     words: torch.Tensor,
     scales: torch.Tensor,
+    partials: torch.Tensor | None = None,
+    begin: bool = False,
 ) -> None:
     """Kernel A-cascade on the GPU, one launch; j0 and kc are read on the
     device, so the call never waits for it (a CUDA graph may replay it).
-    Raises for tensors that are not on a GPU."""
+    Raises for tensors that are not on a GPU or a residual off a 16-byte
+    boundary."""
     if not isinstance(residual, torch.Tensor) or residual.device.type != "cuda":
         raise ValueError("quantize_rows_cascade kernel needs CUDA tensors")
-    rows, n_leaves, k = _check_cascade(top, row_leaf, rowcount, state, residual, words, scales)
+    partials = _partials_for(residual, partials)
+    rows, n_leaves, k = _check_cascade(top, row_leaf, rowcount, state, residual, words, scales, partials)
+    check_aligned([residual], "residual")
     fn = _fn("quantize_rows_cascade")
     with torch.cuda.device(residual.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(top.data_ptr(), row_leaf.data_ptr(), rowcount.data_ptr(), state.data_ptr(),
-                 residual.data_ptr(), words.data_ptr(), scales.data_ptr(), rows, n_leaves, k, stream)
+                 residual.data_ptr(), words.data_ptr(), scales.data_ptr(), partials.data_ptr(), rows, n_leaves,
+                 k, int(bool(begin)), stream)
     _check_launch("quantize_rows_cascade", err)
     _count("quantize_rows_cascade")
 
@@ -527,13 +607,175 @@ def quantize_rows_cascade(
     residual: torch.Tensor,
     words: torch.Tensor,
     scales: torch.Tensor,
+    partials: torch.Tensor | None = None,
+    begin: bool = False,
 ) -> None:
     """Kernel A-cascade for a CUDA residual, its plain version for a CPU one."""
     dev = residual.device if isinstance(residual, torch.Tensor) else None
+    args = (top, row_leaf, rowcount, state, residual, words, scales, partials, begin)
     if dev is not None and dev.type == "cuda":
-        return quantize_rows_cascade_kernel(top, row_leaf, rowcount, state, residual, words, scales)
+        return quantize_rows_cascade_kernel(*args)
     if dev is not None and dev.type == "cpu":
-        return quantize_rows_cascade_plain(top, row_leaf, rowcount, state, residual, words, scales)
+        return quantize_rows_cascade_plain(*args)
+    raise ValueError(f"unsupported device {dev}")
+
+
+# -- the cascade's finish kernel: cascade_round -------------------------------------
+
+#: ``ScalePolicy`` as the finish kernel's ``policy`` argument
+POLICY_CODES = {ScalePolicy.POW2_RMS: 0, ScalePolicy.RMS: 1, ScalePolicy.ABS_MEAN: 2}
+
+
+def _check_round(partials, leaf_slots, ns, scales, state, ladder, leaf_sums, k, cap, policy) -> tuple[int, int]:
+    if not isinstance(partials, torch.Tensor) or partials.dim() != 2 or partials.shape[0] != 3:
+        raise ValueError("partials must be f64 [3, slots]")
+    slots = partials.shape[1]
+    dev = partials.device
+    _check(partials, "partials", (torch.float64,), (3, slots), dev)
+    if not isinstance(ns, torch.Tensor) or ns.dim() != 1 or ns.shape[0] < 1:
+        raise ValueError("ns must be f64 [n_leaves]")
+    n_leaves = ns.shape[0]
+    _check(ns, "ns", (torch.float64,), (n_leaves,), dev)
+    _check(leaf_slots, "leaf_slots", (torch.int64,), (n_leaves + 1,), dev)
+    _check(scales, "scales", (torch.float32,), (int(k), n_leaves), dev)
+    _check(state, "state", (torch.int32,), (3,), dev)
+    _check(ladder, "ladder", (torch.float32,), (3, n_leaves), dev)
+    _check(leaf_sums, "leaf_sums", (torch.float64,), (3, n_leaves), dev)
+    if int(k) < 1 or not 1 <= int(cap) <= CASCADE_MAX_LEVELS:
+        raise ValueError(f"need k >= 1 and a cap in [1, {CASCADE_MAX_LEVELS}], got {k}, {cap}")
+    if policy not in POLICY_CODES:
+        raise ValueError(f"unknown scale policy {policy!r}")
+    check_distinct([state, ladder, leaf_sums])
+    _check_disjoint([partials, leaf_slots, ns, scales], [state, ladder, leaf_sums])
+    return slots, n_leaves
+
+
+def cascade_round_plain(
+    partials: torch.Tensor,
+    leaf_slots: torch.Tensor,
+    ns: torch.Tensor,
+    scales: torch.Tensor,
+    state: torch.Tensor,
+    ladder: torch.Tensor,
+    leaf_sums: torch.Tensor,
+    k: int,
+    cap: int,
+    policy: ScalePolicy = ScalePolicy.POW2_RMS,
+    per_leaf: bool = True,
+    first: bool = False,
+) -> None:
+    """Plain PyTorch version of the finish kernel: one cascade round's
+    bookkeeping from A-cascade's per-tile ``partials`` (f64[3, tiles]) of
+    the residual, in the kernel's order and arithmetic.
+
+    ``state`` (int32 [j0, kc, stop]) holds the round just quantized (none
+    when ``first``); once stopped nothing changes. j0 advances by kc; a
+    round whose last row of ``scales`` (f32[K, L]) is all zero (the
+    subnormal floor) stops, and so does a burst with no frame left, before
+    anything is measured. Then each leaf's partials summed (its slots
+    ``leaf_slots[l]`` to ``leaf_slots[l + 1]``) into ``leaf_sums``
+    f64[3, L]; the scales by the host tier's rule (``ns``: f64 live counts)
+    and each leaf's max |r| into ``ladder`` rows 0 and 1; the ladder top
+    (row 2) and depth by :func:`..table.cascade_ladder` with the cap
+    min(``cap``, K - j0); kc 0 stops."""
+    from .table import cascade_ladder
+
+    slots, n_leaves = _check_round(partials, leaf_slots, ns, scales, state, ladder, leaf_sums, k, cap, policy)
+    j0, kc_prev, stop = (0, 0, 0) if first else (int(x) for x in state.tolist())
+    if stop:
+        return
+    floored = kc_prev > 0 and not bool(scales[j0 + kc_prev - 1].ne(0).any())
+    j0 += kc_prev
+    if floored or j0 >= int(k):
+        state.copy_(torch.tensor([j0, 0, 1], dtype=torch.int32))
+        return
+    bounds = leaf_slots.tolist()
+    for l in range(n_leaves):  # a warp a leaf: lanes strided over its slots, then a halving tree
+        seg = partials[:, bounds[l] : bounds[l + 1]]
+        pad = -seg.shape[1] % BITS_PER_WORD
+        seg = torch.cat([seg, seg.new_zeros((3, pad))], dim=1).view(3, -1, BITS_PER_WORD)
+        acc = seg.new_zeros((2, BITS_PER_WORD))
+        for m in range(seg.shape[1]):
+            acc = acc + seg[1:, m]
+        h = BITS_PER_WORD // 2
+        while h:
+            acc = acc[:, :h] + acc[:, h : 2 * h]
+            h //= 2
+        leaf_sums[0, l] = seg[0].max()
+        leaf_sums[1:, l] = acc[:, 0]
+    amax, ss, sabs = leaf_sums[0], leaf_sums[1], leaf_sums[2]
+    n = ns
+    if not per_leaf:  # one sum over the leaves, in leaf order
+        tot = leaf_sums.new_zeros(4)
+        for l in range(n_leaves):
+            tot = torch.stack((torch.maximum(tot[0], amax[l]), tot[1] + ss[l], tot[2] + sabs[l], tot[3] + ns[l]))
+        amax, ss, sabs, n = (x.expand(n_leaves) for x in tot)
+    if policy == ScalePolicy.ABS_MEAN:
+        s = (sabs / n).to(torch.float32)
+    else:
+        s = torch.sqrt(ss / n).to(torch.float32)
+        if policy == ScalePolicy.POW2_RMS:
+            s = (s.view(torch.int32) & 0x7F800000).view(torch.float32)
+    s = torch.where((amax > 0) & torch.isfinite(s), s, torch.zeros_like(s))
+    leaf_amax = leaf_sums[0].to(torch.float32)
+    left = torch.tensor(min(int(cap), int(k) - j0), dtype=torch.int64, device=s.device)
+    top, kc = cascade_ladder(s, leaf_amax, left)
+    kc = max(int(kc), 0)
+    ladder[0], ladder[1], ladder[2] = s, leaf_amax, top
+    state.copy_(torch.tensor([j0, kc, int(kc == 0)], dtype=torch.int32))
+
+
+def cascade_round_kernel(
+    partials: torch.Tensor,
+    leaf_slots: torch.Tensor,
+    ns: torch.Tensor,
+    scales: torch.Tensor,
+    state: torch.Tensor,
+    ladder: torch.Tensor,
+    leaf_sums: torch.Tensor,
+    k: int,
+    cap: int,
+    policy: ScalePolicy = ScalePolicy.POW2_RMS,
+    per_leaf: bool = True,
+    first: bool = False,
+) -> None:
+    """The finish kernel on the GPU, one launch of one block; everything it
+    reads and writes stays on the device (a CUDA graph may replay it).
+    Raises for tensors that are not on a GPU."""
+    if not isinstance(partials, torch.Tensor) or partials.device.type != "cuda":
+        raise ValueError("cascade_round kernel needs CUDA tensors")
+    slots, n_leaves = _check_round(partials, leaf_slots, ns, scales, state, ladder, leaf_sums, k, cap, policy)
+    fn = _fn("cascade_round")
+    with torch.cuda.device(partials.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(partials.data_ptr(), leaf_slots.data_ptr(), ns.data_ptr(), scales.data_ptr(), state.data_ptr(),
+                 ladder.data_ptr(), leaf_sums.data_ptr(), slots, n_leaves, int(k), int(cap), POLICY_CODES[policy],
+                 int(bool(per_leaf)), int(bool(first)), stream)
+    _check_launch("cascade_round", err)
+    _count("cascade_round")
+
+
+def cascade_round(
+    partials: torch.Tensor,
+    leaf_slots: torch.Tensor,
+    ns: torch.Tensor,
+    scales: torch.Tensor,
+    state: torch.Tensor,
+    ladder: torch.Tensor,
+    leaf_sums: torch.Tensor,
+    k: int,
+    cap: int,
+    policy: ScalePolicy = ScalePolicy.POW2_RMS,
+    per_leaf: bool = True,
+    first: bool = False,
+) -> None:
+    """The finish kernel for CUDA partials, its plain version for CPU ones."""
+    dev = partials.device if isinstance(partials, torch.Tensor) else None
+    args = (partials, leaf_slots, ns, scales, state, ladder, leaf_sums, k, cap, policy, per_leaf, first)
+    if dev is not None and dev.type == "cuda":
+        return cascade_round_kernel(*args)
+    if dev is not None and dev.type == "cpu":
+        return cascade_round_plain(*args)
     raise ValueError(f"unsupported device {dev}")
 
 

@@ -18,8 +18,10 @@ The counterpart of ``shared_tensor_tpu/ops/table.py``, with the same layout:
   native engine's cascade (:func:`quantize_table_cascade`): rounds of one
   measurement and a pow2 ladder from each leaf's max |r| down to the policy
   scale, quantized in one pass (kernel A-cascade,
-  ``codec_cuda.quantize_rows_cascade``). The cascade is the port's own: the
-  JAX package's Python plane has only the per-frame schedule.
+  ``codec_cuda.quantize_rows_cascade``), the measurement made on the device
+  from that pass's partials (the finish kernel, ``codec_cuda.cascade_round``).
+  The cascade is the port's own: the JAX package's Python plane has only the
+  per-frame schedule.
 
 Unlike the JAX functions, which return new arrays, the quantize, apply and
 accumulate functions here update their target tensors IN PLACE (as the TPU
@@ -249,6 +251,49 @@ def _consts(spec: TableSpec, device: str):
     return row_leaf, rowcount, live, ns, last_row
 
 
+class CascadeConsts(NamedTuple):
+    """Per-(layout, device) constants of the cascade's finish kernel."""
+
+    leaf_slots: torch.Tensor  # int64[L + 1]: leaf i owns partial slots [leaf_slots[i], leaf_slots[i + 1])
+    ns: torch.Tensor  # f64[L]: live elements per leaf
+
+
+@functools.lru_cache(maxsize=32)
+def _cascade_consts(spec: TableSpec, device: str) -> CascadeConsts:
+    slots = np.concatenate([[0], np.cumsum([codec_cuda.partial_slots(p // LANES) for p in spec.padded])])
+    dev = torch.device(device)
+    return CascadeConsts(torch.tensor(slots, dtype=torch.int64, device=dev),
+                         torch.tensor(spec.ns, dtype=torch.float64, device=dev))
+
+
+class CascadeBuffers(NamedTuple):
+    """What one cascade burst writes: its frames and the rounds' state."""
+
+    scales: torch.Tensor  # f32[K, L]
+    words: torch.Tensor  # int32[K, W]
+    state: torch.Tensor  # int32[3]: j0, kc, stop
+    ladder: torch.Tensor  # f32[3, L]: measured scales, each leaf's max |r|, ladder top
+    partials: torch.Tensor  # f64[3, tiles]: A-cascade's per-tile max |r|, sum r^2, sum |r|
+    leaf_sums: torch.Tensor  # f64[3, L]: the same per leaf
+
+
+def cascade_buffers(spec: TableSpec, k: int, device) -> CascadeBuffers:
+    """Uninitialised buffers of a K-frame cascade burst: its first launch
+    (A-cascade with ``begin``) zeroes the frames, and every later write
+    precedes its read."""
+    dev = torch.device(device)
+    f32, f64 = torch.float32, torch.float64
+    L = spec.num_leaves
+    return CascadeBuffers(
+        torch.empty((int(k), L), dtype=f32, device=dev),
+        torch.empty((int(k), spec.rows * WORDS_PER_ROW), dtype=torch.int32, device=dev),
+        torch.empty(3, dtype=torch.int32, device=dev),
+        torch.empty((3, L), dtype=f32, device=dev),
+        torch.empty((3, codec_cuda.partial_slots(spec.rows)), dtype=f64, device=dev),
+        torch.empty((3, L), dtype=f64, device=dev),
+    )
+
+
 # -- scales ------------------------------------------------------------------
 
 
@@ -388,6 +433,16 @@ def _cascade_fn(impl: str):
     raise ValueError(f"impl must be 'auto', 'kernel' or 'plain', got {impl!r}")
 
 
+def _round_fn(impl: str):
+    if impl == "auto":
+        return codec_cuda.cascade_round
+    if impl == "kernel":
+        return codec_cuda.cascade_round_kernel
+    if impl == "plain":
+        return codec_cuda.cascade_round_plain
+    raise ValueError(f"impl must be 'auto', 'kernel' or 'plain', got {impl!r}")
+
+
 def _apply_fn(impl: str):
     if impl == "auto":
         return codec_cuda.apply_rows_batch
@@ -447,42 +502,45 @@ def quantize_table_cascade(
     impl: str = "auto",
 ) -> tuple[TableFrame, torch.Tensor]:
     """K frames of one residual by the native engine's cascade: rounds of
-    one measurement (the scales :func:`quantize_table` would use, and each
-    leaf's max |r|), one :func:`cascade_ladder` of depth at most
-    min(``cascade``, 64, frames left), and one pass of kernel A-cascade
-    that quantizes the whole round. Returns the stacked frame (scales
-    f32[K, L], words [K, W]) and the residual, updated in place.
-    ``cascade <= 1`` is :func:`quantize_table_burst`, bit for bit.
+    one measurement (each leaf's scale by the host tier's rule and its max
+    |r|), one :func:`cascade_ladder` of depth at most min(``cascade``, 64,
+    frames left), and one pass of kernel A-cascade that quantizes the whole
+    round. Returns the stacked frame (scales f32[K, L], words [K, W]) and
+    the residual, updated in place. ``cascade <= 1`` is
+    :func:`quantize_table_burst`, bit for bit.
 
-    The K rounds are launched whatever the data needs (a round past the
-    last frame returns at once): the round's start and depth stay on the
-    device, so the burst never waits for it and one CUDA graph replays it.
-    Once a round yields no frame (every scale 0) or stops short of its depth
-    at the subnormal floor (as the engine ends its message there), every
-    later round does nothing. So the frames are a prefix of non-zero-scale
-    frames followed by all-zero-scale ones, the invariant
-    ``SharedTensor.finish_frame_burst``'s trim relies on: no frame the
-    ledger holds is cut from the wire."""
+    As in the engine, each pass writes the partials of the residual it
+    leaves (per-tile max |r|, sum r^2 and sum |r| in double), and the
+    next round's measurement is made from them by the finish kernel
+    (``codec_cuda.cascade_round``), with the stop rule and the round's
+    start: the burst is one A-cascade launch that zeroes the frames and
+    measures the residual as it finds it, then K rounds of (finish,
+    A-cascade), 2K + 1 launches, none of which waits for the device, so one
+    CUDA graph replays it. The scales are those of
+    ``codec_np.compute_scales_np`` on the same residual (the sums' order
+    aside), not :func:`compute_scales`' f32 ones.
+
+    A round past the last frame returns at once. Once a round yields no
+    frame (every scale 0) or stops short of its depth at the subnormal floor
+    (as the engine ends its message there), every later round does nothing.
+    So the frames are a prefix of non-zero-scale frames followed by
+    all-zero-scale ones, the invariant ``SharedTensor.finish_frame_burst``'s
+    trim relies on: no frame the ledger holds is cut from the wire."""
     cascade = min(int(cascade), CASCADE_MAX_LEVELS)
     if cascade <= 1:
         return quantize_table_burst(residual, spec, k, policy, per_leaf, impl)
-    fn = _cascade_fn(impl)
+    quantize, finish = _cascade_fn(impl), _round_fn(impl)
     dev = residual.device
     row_leaf, rowcount, *_ = _consts(spec, str(dev))
-    scales = torch.zeros((int(k), spec.num_leaves), dtype=torch.float32, device=dev)
-    words = torch.zeros((int(k), spec.rows * WORDS_PER_ROW), dtype=torch.int32, device=dev)
-    j0 = torch.zeros((), dtype=torch.int64, device=dev)
-    stop = torch.zeros((), dtype=torch.bool, device=dev)
-    for _ in range(int(k)):
-        s, amax = _table_scales(residual, spec, policy, per_leaf, with_amax=True)
-        top, kc = cascade_ladder(s, amax, torch.clamp(k - j0, max=cascade))
-        kc = torch.where(stop, torch.zeros_like(kc), kc)
-        fn(top, row_leaf, rowcount, torch.stack((j0, kc)).to(torch.int32), residual, words, scales)
-        # the round's last row all zero: it stopped at the subnormal floor
-        floored = ~scales.index_select(0, (j0 + kc - 1).clamp(min=0).reshape(1)).ne(0).any()
-        stop = stop | (kc == 0) | floored
-        j0 = j0 + kc
-    return TableFrame(scales, words), residual
+    c = _cascade_consts(spec, str(dev))
+    b = cascade_buffers(spec, k, dev)
+    top = b.ladder[2]
+    quantize(top, row_leaf, rowcount, b.state, residual, b.words, b.scales, b.partials, begin=True)
+    for i in range(int(k)):
+        finish(b.partials, c.leaf_slots, c.ns, b.scales, b.state, b.ladder, b.leaf_sums, k, cascade, policy,
+               per_leaf, first=i == 0)
+        quantize(top, row_leaf, rowcount, b.state, residual, b.words, b.scales, b.partials)
+    return TableFrame(b.scales, b.words), residual
 
 
 # -- receiver ----------------------------------------------------------------

@@ -233,7 +233,7 @@ def test_cascade_wrapper_checks_and_counts():
     # kc 9 at j0 2 of 4 frames: frames 2 and 3, the idle leaf's scale 0
     assert scales[2:, top != 0].ne(0).all() and not scales[2:, top == 0].any() and not scales[:2].any()
     assert words[2:].any() and not words[:2].any()
-    assert CC.ENGINE_LAUNCHES == {"quantize_rows_cascade": 0}
+    assert CC.ENGINE_LAUNCHES == {"quantize_rows_cascade": 0, "cascade_round": 0}
     assert CC.launches()["quantize_rows_cascade"] == 0
     state = torch.tensor([0, 1], dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
@@ -418,6 +418,239 @@ def test_a_failed_codec_build_raises_and_never_falls_back(monkeypatch):
     spec = _spec()
     with pytest.raises(RuntimeError, match="gcc failed"):
         N.quantize_table_cascade_np(_residual(spec, 0), spec, 16, 32)
+
+
+# -- A-cascade's partials and the finish kernel ------------------------------------------------
+
+
+def _leaf_partials(partials, spec):
+    """Per-leaf (max |r|, sum r^2, sum |r|) from per-tile partials, in double."""
+    bounds = T._cascade_consts(spec, "cpu").leaf_slots.tolist()
+    p = partials.numpy()
+    return np.array([[p[0, a:b].max(), p[1, a:b].sum(), p[2, a:b].sum()] for a, b in zip(bounds, bounds[1:])]).T
+
+
+@pytest.mark.parametrize("kc", [0, 1, 11, 32, 64])
+def test_cascade_twin_partials_match_the_c_pass(kc):
+    """The partials A-cascade's twin writes (of the residual it leaves; kc 0
+    is the burst's first launch, which measures the residual as it finds
+    it) against those stc_quantize_ef_cascade returns, on the same residual
+    and schedule: max |r| bit-equal, the sums within a relative 1e-12 (the
+    two sum in other orders)."""
+    spec = _spec()
+    r0 = _residual(spec, 40 + kc)
+    top = _tops(spec, 40 + kc)
+    L = spec.num_leaves
+    row_leaf, rowcount, *_ = T._consts(spec, "cpu")
+    resid = torch.from_numpy(r0.copy())
+    words = torch.zeros((max(kc, 1), spec.rows * 4), dtype=torch.int32)
+    scales = torch.zeros((max(kc, 1), L), dtype=torch.float32)
+    partials = torch.empty((3, CC.partial_slots(spec.rows)), dtype=torch.float64)
+    state = torch.tensor([0, kc], dtype=torch.int32)
+    CC.quantize_rows_cascade(torch.from_numpy(top), row_leaf, rowcount, state, resid, words, scales, partials,
+                             begin=kc == 0)
+    amax, ss, sabs = np.zeros(L), np.zeros(L), np.zeros(L)
+    offs, ns, padded = N._layout(spec)
+    if kc:
+        rows = [top]
+        for _ in range(1, kc):
+            rows.append(rows[-1] * np.float32(0.5))
+        sched = np.stack(rows)
+        r_c = np.empty_like(r0)
+        N.native().stc_quantize_ef_cascade(r0, r_c, offs, ns, padded, L, kc, sched,
+                                           np.empty(kc * spec.total // 32, np.uint32), spec.total // 32,
+                                           amax, ss, sabs)
+        np.testing.assert_array_equal(_f32bits(resid.numpy()), _f32bits(r_c))
+    else:
+        N.native().stc_scale_partials(r0, offs, ns, L, amax, ss, sabs)
+        np.testing.assert_array_equal(_f32bits(resid.numpy()), _f32bits(r0))  # measured, not moved
+        assert not words.any() and not scales.any()
+    got = _leaf_partials(partials, spec)
+    np.testing.assert_array_equal(got[0], amax)
+    np.testing.assert_allclose(got[1], ss, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(got[2], sabs, rtol=1e-12, atol=0)
+    assert ss[1] > 0 and ss[1] < 1e-80  # the subnormal leaf's squares survive in double
+
+
+def _c_partials(r, spec):
+    L = spec.num_leaves
+    amax, ss, sabs = np.zeros(L), np.zeros(L), np.zeros(L)
+    offs, ns, _ = N._layout(spec)
+    N.native().stc_scale_partials(np.ascontiguousarray(r, np.float32), offs, ns, L, amax, ss, sabs)
+    return amax, ss, sabs
+
+
+def _finish(partials, spec, k, cap, policy, per_leaf, first=True, scales=None, state=None):
+    c = T._cascade_consts(spec, "cpu")
+    b = T.cascade_buffers(spec, k, "cpu")
+    scales = b.scales.zero_() if scales is None else scales
+    state = b.state.zero_() if state is None else state
+    CC.cascade_round(partials, c.leaf_slots, c.ns, scales, state, b.ladder, b.leaf_sums, k, cap, policy, per_leaf,
+                     first)
+    return b.ladder, state, b.leaf_sums
+
+
+@pytest.mark.parametrize("per_leaf", [True, False], ids=["per-leaf", "aggregate"])
+@pytest.mark.parametrize("policy", list(ScalePolicy), ids=lambda p: p.name)
+def test_finish_twin_follows_the_host_tiers_rule(policy, per_leaf):
+    """The finish twin's scales, each leaf's max |r|, ladder top and depth
+    against compute_scales_np and cascade_ladder, bit for bit: from the C
+    pass's own per-leaf partials (one slot of each leaf holding them), and
+    from the partials A-cascade's first launch measures (the sums in its own
+    order; the tables' scales sit off octave boundaries)."""
+    spec = _spec()
+    k, cap = 16, 32
+    for seed in (3, 4):
+        r = _residual(spec, seed)
+        s_np, amax_np = N.compute_scales_np(r, spec, policy, per_leaf, with_amax=True)
+        top, kc = T.cascade_ladder(torch.from_numpy(s_np), torch.from_numpy(amax_np), torch.tensor(min(k, cap)))
+        c_amax, c_ss, c_sabs = _c_partials(r, spec)
+        seeded = torch.zeros((3, CC.partial_slots(spec.rows)), dtype=torch.float64)
+        first_slots = T._cascade_consts(spec, "cpu").leaf_slots[:-1]
+        seeded[:, first_slots] = torch.from_numpy(np.stack([c_amax, c_ss, c_sabs]))
+        row_leaf, rowcount, *_ = T._consts(spec, "cpu")
+        measured = torch.empty_like(seeded)
+        b = T.cascade_buffers(spec, k, "cpu")
+        CC.quantize_rows_cascade(b.ladder[2], row_leaf, rowcount, b.state, torch.from_numpy(r.copy()), b.words,
+                                 b.scales, measured, begin=True)
+        for partials in (seeded, measured):
+            ladder, state, _ = _finish(partials, spec, k, cap, policy, per_leaf)
+            np.testing.assert_array_equal(_f32bits(ladder[0].numpy()), _f32bits(s_np))
+            np.testing.assert_array_equal(_f32bits(ladder[1].numpy()), _f32bits(amax_np))
+            np.testing.assert_array_equal(_f32bits(ladder[2].numpy()), _f32bits(top.numpy()))
+            assert state.tolist() == [0, int(kc), int(kc) == 0] and int(kc) > 1
+
+
+def _run_rounds(r0, spec, k, cascade, rounds, policy=ScalePolicy.POW2_RMS):
+    """A cascade burst driven round by round with the plain twins: a
+    snapshot of everything it wrote after each round (the residual, then
+    ``table.CascadeBuffers``' fields)."""
+    row_leaf, rowcount, *_ = T._consts(spec, "cpu")
+    c = T._cascade_consts(spec, "cpu")
+    b = T.cascade_buffers(spec, k, "cpu")
+    resid = torch.from_numpy(r0.copy())
+    CC.quantize_rows_cascade(b.ladder[2], row_leaf, rowcount, b.state, resid, b.words, b.scales, b.partials,
+                             begin=True)
+    snaps = []
+    for i in range(rounds):
+        CC.cascade_round(b.partials, c.leaf_slots, c.ns, b.scales, b.state, b.ladder, b.leaf_sums, k, cascade,
+                         policy, first=i == 0)
+        CC.quantize_rows_cascade(b.ladder[2], row_leaf, rowcount, b.state, resid, b.words, b.scales, b.partials)
+        snaps.append([x.clone() for x in (resid, *b)])
+    return snaps
+
+
+def _same(a, b):
+    return all(torch.equal(x.view(torch.uint8), y.view(torch.uint8)) for x, y in zip(a, b))
+
+
+def test_a_burst_whose_first_round_covers_every_frame_writes_nothing_after_it():
+    """K = 16 on a gaussian residual (1e-2) of 64 Ki elements with one
+    outlier at 4.0: the first round is 16 deep and fills the burst; the
+    second round's finish records the stop (j0 16, kc 0) and measures
+    nothing, and the 15 spent rounds leave the residual, the frames, the
+    ladder and the partials exactly as the first left them; the burst is
+    the host tier's."""
+    spec = T.make_spec({"b": np.zeros(100, np.float32), "w": np.zeros(1 << 16, np.float32)})
+    live = N._live_mask(spec)
+    r0 = np.where(live, np.random.default_rng(31).normal(size=spec.total) * 1e-2, 0).astype(np.float32)
+    r0[1024 + 7] = 4.0
+    k = 16
+    snaps = _run_rounds(r0, spec, k, 32, k)
+    assert snaps[0][3].tolist() == [0, k, 0] and snaps[1][3].tolist() == [k, 0, 1]
+    assert all(_same(snaps[0][:3] + snaps[0][4:], s[:3] + s[4:]) for s in snaps[1:])
+    assert all(_same(snaps[1], s) for s in snaps[2:])
+    frame, resid = T.quantize_table_cascade(torch.from_numpy(r0.copy()), spec, k, 32)
+    assert _same([resid, frame.scales, frame.words], [snaps[0][0], snaps[0][1], snaps[0][2]])
+    s_host, w_host, r_host = N.quantize_table_cascade_np(r0, spec, k, 32)
+    assert s_host.shape[0] == k
+    np.testing.assert_array_equal(_f32bits(frame.scales.numpy()), _f32bits(s_host))
+    np.testing.assert_array_equal(_u32(frame.words), w_host)
+
+
+def test_the_subnormal_floor_stops_the_burst():
+    """An ABS_MEAN scale in the subnormals (one element at 2^-126 in 2^17
+    zeros: scale 2^-143, depth 18 + 8): the first round's ladder from
+    2^-126 reaches 0 at its 25th row, before its depth, so its last scale
+    row is all zero; the next finish stops the burst there (j0 past the
+    round, kc 0, stop set), no later round writes anything, and the host
+    tier ends at the same frame."""
+    spec = T.make_spec({"t": np.zeros(1 << 17, np.float32)})
+    r0 = np.zeros(spec.total, np.float32)
+    r0[12345] = np.float32(2.0 ** -126)
+    k = 64
+    snaps = _run_rounds(r0, spec, k, 32, 4, ScalePolicy.ABS_MEAN)
+    s1 = snaps[0][1]
+    j0, kc, stop = snaps[0][3].tolist()
+    assert j0 == 0 and 1 < kc and not stop and not s1[kc - 1].any()
+    assert snaps[1][3].tolist() == [kc, 0, 1]
+    assert all(_same(snaps[1], s) for s in snaps[2:])
+    s_host, _, r_host = N.quantize_table_cascade_np(r0, spec, k, 32, ScalePolicy.ABS_MEAN)
+    n = s_host.shape[0]
+    assert 0 < n < kc
+    np.testing.assert_array_equal(_f32bits(s1[:n].numpy()), _f32bits(s_host))
+    assert not s1[n:].any()
+    np.testing.assert_array_equal(_f32bits(snaps[-1][0].numpy()), _f32bits(r_host))
+
+
+def test_finish_wrapper_checks_and_counts():
+    """The finish wrapper runs its plain twin on CPU tensors (no launch
+    counted), refuses the kernel off the GPU, and checks its arguments; a
+    stopped burst's state stays as it is."""
+    spec = _spec()
+    c = T._cascade_consts(spec, "cpu")
+    b = T.cascade_buffers(spec, 4, "cpu")
+    b.partials.zero_()
+    b.scales.zero_()
+    CC.reset_launches()
+    args = (b.partials, c.leaf_slots, c.ns, b.scales, b.state, b.ladder, b.leaf_sums, 4, 8)
+    CC.cascade_round(*args, first=True)
+    assert b.state.tolist() == [0, 0, 1]  # nothing live: the burst stops at once
+    b.state.copy_(torch.tensor([2, 3, 1], dtype=torch.int32))
+    CC.cascade_round(*args)
+    assert b.state.tolist() == [2, 3, 1]
+    assert CC.launches()["cascade_round"] == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        CC.cascade_round_kernel(*args)
+    with pytest.raises(TypeError):
+        CC.cascade_round(b.partials.float(), *args[1:])
+    with pytest.raises(ValueError):
+        CC.cascade_round(b.partials, c.leaf_slots[:-1], *args[2:])
+    with pytest.raises(ValueError):  # leaf_sums written over the partials read
+        CC.cascade_round(*args[:6], b.partials.view(-1)[: 3 * spec.num_leaves].view(3, -1), *args[7:])
+    with pytest.raises(ValueError):
+        CC.cascade_round(*args[:7], 4, 65)
+    with pytest.raises(ValueError):  # A-cascade needs whole tiles
+        CC.quantize_rows_cascade(b.ladder[2], *T._consts(spec, "cpu")[:2], b.state, torch.zeros(128), b.words,
+                                 b.scales)
+
+
+def test_a_failed_finish_kernel_build_raises_and_never_falls_back(monkeypatch, tmp_path):
+    """The finish kernel's library, like A-cascade's, comes from nvcc at its
+    first use: a build that fails raises from the wrapper's library lookup,
+    and the kernel path refuses CPU tensors instead of running the twin (on
+    the card, tests/test_torch_cuda.py holds the burst itself to this)."""
+
+    def broken(names=None):
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(CC, "_LIBS", {})
+    monkeypatch.setattr(CC, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(CC, "build", broken)
+    for name in ("cascade_round", "quantize_rows_cascade"):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            CC._fn(name)
+    spec = _spec()
+    resid = torch.from_numpy(_residual(spec, 0))
+    before = resid.clone()
+    CC.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        T.quantize_table_cascade(resid, spec, 4, 8, impl="kernel")
+    c = T._cascade_consts(spec, "cpu")
+    b = T.cascade_buffers(spec, 4, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        CC.cascade_round_kernel(b.partials, c.leaf_slots, c.ns, b.scales, b.state, b.ladder, b.leaf_sums, 4, 8)
+    assert torch.equal(resid, before) and not any(CC.launches().values())
 
 
 # -- the peer -------------------------------------------------------------------------------

@@ -358,14 +358,15 @@ def test_burst_graph_equals_the_eager_burst(cuda_device):
 @pytest.mark.parametrize("kc", [1, 2, 11, 16, 32, 64])
 def test_quantize_rows_cascade_kernel_matches_plain(cuda_device, kc):
     """Kernel A-cascade against its plain twin at frames [j0, j0 + kc) of a
-    larger burst: words, scales and residual bit-equal (ragged live rows,
-    zero, scaled and subnormal ladder tops, subnormal residuals); one
-    launch counted, in ENGINE_LAUNCHES."""
+    larger burst: words, scales, residual and partials bit-equal (ragged
+    live rows, leaves of whole 8-row tiles, zero, scaled and subnormal
+    ladder tops, subnormal residuals); one launch counted, in
+    ENGINE_LAUNCHES."""
     rng = np.random.default_rng(kc)
     rows, n_leaves = 96, 5
     _, rowcount, resid = _rows_case(kc, rows)
-    row_leaf = np.sort(rng.integers(0, n_leaves, rows)).astype(np.int64)
-    row_leaf[:n_leaves] = np.arange(n_leaves)  # every leaf owns a row
+    row_leaf = np.repeat(np.sort(rng.integers(0, n_leaves, rows // 8)), 8).astype(np.int64)
+    row_leaf[: 8 * n_leaves] = np.repeat(np.arange(n_leaves), 8)  # every leaf owns a tile
     row_leaf.sort()
     top = (2.0 ** rng.integers(-8, 3, n_leaves)).astype(np.float32)
     top[0], top[1], top[2] = 0.0, np.float32(3 * 2.0 ** -147), top[2] * np.float32(1.37)
@@ -376,9 +377,10 @@ def test_quantize_rows_cascade_kernel_matches_plain(cuda_device, kc):
         r = torch.from_numpy(resid.copy()).to(dev)
         words = torch.zeros((k, rows * 4), dtype=torch.int32, device=dev)
         scales = torch.zeros((k, n_leaves), dtype=torch.float32, device=dev)
+        partials = torch.zeros((3, CC.partial_slots(rows)), dtype=torch.float64, device=dev)
         fn(torch.from_numpy(top).to(dev), torch.from_numpy(row_leaf).to(dev), torch.from_numpy(rowcount).to(dev),
-           torch.tensor([j0, kc], dtype=torch.int32, device=dev), r, words, scales)
-        outs.append([x.cpu() for x in (r, words, scales)])
+           torch.tensor([j0, kc], dtype=torch.int32, device=dev), r, words, scales, partials)
+        outs.append([x.cpu() for x in (r, words, scales, partials)])
     torch.cuda.synchronize()
     assert all(_same_bits(a, b) for a, b in zip(*outs))
     assert CC.ENGINE_LAUNCHES["quantize_rows_cascade"] == 1 and CC.LAUNCHES["quantize_rows"] == 0
@@ -389,8 +391,8 @@ def test_cascade_burst_graph_equals_the_eager_cascade(cuda_device):
     """A SharedTensor with cascade=32 replays a CUDA graph of the cascade
     burst: its frames and residual bit-equal to the eager plain
     quantize_table_cascade on a copy, over replays with adds between;
-    each replay counts its K rounds of A-cascade launches (a round past
-    the last frame returns at once) and no launch of A."""
+    each replay counts its K + 1 A-cascade launches and K finish launches
+    (a round past the last frame returns at once) and no launch of A."""
     from shared_tensor_tpu_torch.ops.table import quantize_table_cascade
 
     rng = np.random.default_rng(17)
@@ -404,14 +406,108 @@ def test_cascade_burst_graph_equals_the_eager_cascade(cuda_device):
         CC.reset_launches()
         seq, dev = st.begin_frame_burst_device(1, k)
         torch.cuda.synchronize()
-        assert CC.ENGINE_LAUNCHES["quantize_rows_cascade"] == (2 * k if i == 0 else k)
+        assert CC.ENGINE_LAUNCHES["quantize_rows_cascade"] == (k + 1) * (2 if i == 0 else 1)
+        assert CC.ENGINE_LAUNCHES["cascade_round"] == k * (2 if i == 0 else 1)
         assert CC.LAUNCHES["quantize_rows"] == 0
-        assert st._graphs[1].tally == {"quantize_rows_cascade": k}
+        assert st._graphs[1].tally == {"quantize_rows_cascade": k + 1, "cascade_round": k}
         assert _same_bits(dev.scales, want.scales) and _same_bits(dev.words, want.words)
         assert _same_bits(st._links[1], ref)
         assert st.finish_frame_burst(dev) is not None
         st.ack_frame(1, seq)
         st.add({"w": (rng.normal(size=(300, 70)) * 1e-2).astype(np.float32), "b": np.zeros(5, np.float32)})
+
+
+def _burst_table(name):
+    from shared_tensor_tpu_torch.benchmarks.burst_graph import config2_template
+    from shared_tensor_tpu_torch.ops.table import make_spec
+
+    return make_spec(config2_template() if name == "config2" else {"t": np.zeros(1 << 20, np.float32)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["config2", "1Mi"])
+@pytest.mark.parametrize("kc", [1, 2, 11, 16, 32, 64])
+def test_cascade_kernels_match_plain_on_the_burst_tables(cuda_device, table, kc):
+    """A-cascade and the finish kernel against their plain twins at the
+    main path's shapes (BASELINE config 2's table and 1 Mi, chip_smoke's
+    phase 22a residual), launch by launch (``burst_graph.round_trip``, the
+    pass at frames [2, 2 + kc) of kc + 4): frames,
+    residual, partials, ladder, per-leaf sums and the next round's state
+    bit-equal; the finish's depth is the round's."""
+    from shared_tensor_tpu_torch.benchmarks.burst_graph import residual, round_trip
+    from shared_tensor_tpu_torch.config import ScalePolicy
+
+    spec = _burst_table(table)
+    r0 = residual(spec, cuda_device, 22)
+    pol = ScalePolicy.POW2_RMS
+    got = round_trip(spec, r0, kc, CC.quantize_rows_cascade_kernel, CC.cascade_round_kernel, pol, j0=2, k=kc + 4)
+    want = round_trip(spec, r0, kc, CC.quantize_rows_cascade_plain, CC.cascade_round_plain, pol, j0=2, k=kc + 4)
+    for step, (g, w) in enumerate(zip(got, want)):
+        bad = [i for i, (x, y) in enumerate(zip(g, w)) if not _same_bits(x, y)]
+        assert not bad, (step, bad)
+    assert got[1][3].tolist()[1] > 1 and got[2][2][2 : 2 + kc].any(dim=1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_leaf", [True, False], ids=["per-leaf", "aggregate"])
+@pytest.mark.parametrize("policy", ["POW2_RMS", "RMS", "ABS_MEAN"])
+def test_finish_kernel_matches_plain_for_every_policy(cuda_device, policy, per_leaf):
+    """The finish kernel against its twin at config 2's table for every
+    scale policy, per leaf and aggregated: ladder, per-leaf sums and state
+    bit-equal after the measuring launch and after a 16-level pass."""
+    from shared_tensor_tpu_torch.benchmarks.burst_graph import residual, round_trip
+    from shared_tensor_tpu_torch.config import ScalePolicy
+
+    spec = _burst_table("config2")
+    r0 = residual(spec, cuda_device, 7)
+    pol = ScalePolicy[policy]
+    got = round_trip(spec, r0, 16, CC.quantize_rows_cascade_kernel, CC.cascade_round_kernel, pol, per_leaf, 2, 20)
+    want = round_trip(spec, r0, 16, CC.quantize_rows_cascade_plain, CC.cascade_round_plain, pol, per_leaf, 2, 20)
+    for g, w in zip(got, want):
+        assert all(_same_bits(x, y) for x, y in zip(g, w))
+
+
+@pytest.mark.cuda
+def test_a_cascade_burst_graph_holds_at_most_2k_plus_2_kernels(cuda_device):
+    """A 16-frame cascade burst captured as a CUDA graph holds 2K + 1 kernel
+    nodes, the codec's own (K + 1 A-cascade, K finish), and no other node
+    that runs on the card: nothing of the torch measurement is left."""
+    from shared_tensor_tpu_torch.benchmarks.burst_graph import graph_node_types, residual
+    from shared_tensor_tpu_torch.ops.table import quantize_table_cascade
+
+    spec = _burst_table("config2")
+    r = residual(spec, cuda_device, 22)
+    k = 16
+    CC.reset_launches()
+    with CC.capture_tally() as tally:
+        nodes = graph_node_types(lambda: quantize_table_cascade(r, spec, k, 32))
+    # the eager call before the capture, then the capture
+    assert tally == {"quantize_rows_cascade": 2 * (k + 1), "cascade_round": 2 * k}
+    assert nodes.get("kernel", 0) == 2 * k + 1 <= 2 * k + 2, nodes
+    assert not {t for t in nodes if t not in ("kernel", "empty")}, nodes
+
+
+@pytest.mark.cuda
+def test_a_failed_cascade_kernel_build_raises_on_the_card(cuda_device, monkeypatch, tmp_path):
+    """A burst on a CUDA residual whose kernels cannot be built raises and
+    leaves the residual as it was: no fall back to the plain twins or the
+    torch measurement."""
+    from shared_tensor_tpu_torch.ops.table import make_spec, quantize_table_cascade
+
+    def broken(names=None):
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(CC, "_LIBS", {})
+    monkeypatch.setattr(CC, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(CC, "build", broken)
+    spec = make_spec({"t": np.zeros(4096, np.float32)})
+    r = torch.randn(spec.total, device=cuda_device)
+    before = r.clone()
+    CC.reset_launches()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        quantize_table_cascade(r, spec, 8, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(r, before) and not any(CC.launches().values())
 
 
 @pytest.mark.cuda
@@ -719,7 +815,9 @@ def test_inplace_restore_recaptures_the_burst_graph(cuda_device):
                 return begin(lid, k)
             before = m.st._links[lid].clone()
             out = begin(lid, k)
-            torch.cuda.synchronize()
+            # this stream only: a device-wide sync here, in the send thread,
+            # fails while another peer's thread captures its burst graph
+            torch.cuda.current_stream().synchronize()
             rec.append((before, out[1].scales.clone(), out[1].words.clone(), m.st._links[lid].clone(), k))
             return out
 
@@ -786,7 +884,9 @@ def test_inplace_restore_recaptures_the_cascade_burst_graph(cuda_device):
                 return begin(lid, k)
             before = m.st._links[lid].clone()
             out = begin(lid, k)
-            torch.cuda.synchronize()
+            # this stream only: a device-wide sync here, in the send thread,
+            # fails while another peer's thread captures its burst graph
+            torch.cuda.current_stream().synchronize()
             rec.append((before, out[1].scales.clone(), out[1].words.clone(), m.st._links[lid].clone(), k))
             return out
 
@@ -872,7 +972,9 @@ def test_sharded_fallback_peer_runs_the_cuda_tier(cuda_device):
                 before = p.st._links[lid].clone() if first else None
                 out = begin(lid, k)
                 if first:
-                    torch.cuda.synchronize()
+                    # this stream only: a device-wide sync here, in the send
+                    # thread, fails while another thread captures a burst graph
+                    torch.cuda.current_stream().synchronize()
                     rec.append((before, out[1].scales.clone(), out[1].words.clone(), p.st._links[lid].clone(), k))
                 return out
 
@@ -933,7 +1035,9 @@ def test_sharded_fallback_peer_runs_the_cuda_cascade(cuda_device):
                 before = p.st._links[lid].clone() if first else None
                 out = begin(lid, k)
                 if first:
-                    torch.cuda.synchronize()
+                    # this stream only: a device-wide sync here, in the send
+                    # thread, fails while another thread captures a burst graph
+                    torch.cuda.current_stream().synchronize()
                     rec.append((before, out[1].scales.clone(), out[1].words.clone(), p.st._links[lid].clone(), k))
                 return out
 

@@ -408,6 +408,13 @@ ABI_SEEDS = {
     "kernel_wrapper_retyped": (
         "ops/codec_cuda.py", '"quantize_rows": ("st_quantize_rows", [_VP, _VP, _VP, _VP, _I64, _VP]),',
         '"quantize_rows": ("st_quantize_rows", [_VP, _VP, _VP, _VP, _I32, _VP]),', ("st_quantize_rows", "param 4")),
+    "finish_kernel_arity": (
+        "ops/codec_cuda.py", "[_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _I32, _I32, _I32, _I32, _I32, _VP]),",
+        "[_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _I32, _I32, _I32, _I32, _VP]),", ("st_cascade_round", "count")),
+    "cascade_partials_retyped": (
+        "ops/codec_cuda.py", "[_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _I32, _I32, _VP]),",
+        "[_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I32, _I64, _I32, _I32, _I32, _VP]),",
+        ("st_quantize_rows_cascade", "param 7")),
 }
 
 
