@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --phase20-cost    # phase 20a's cost alone (phase20_cost)
+    python3 chip_smoke.py --kill-storm      # phase 23 alone, after the build
 
 Phases, in order; any failure exits non-zero:
 
@@ -337,6 +338,25 @@ Phases, in order; any failure exits non-zero:
    row at DRAIN_N under DRAIN_TIMEOUT_S: two CUDA peers, one gaussian add
    drained to exact zero in under DRAIN_MAX_FRAMES frames, and the
    launches of A-cascade, the finish and B in it (all > 0).
+23. Hard link kills on the shared-memory lane (ROADMAP queue 3 items 8
+   and 7): a CUDA device-tier master with one child slot, an engine child
+   (host tier) and an engine leaf on one KILL_STORM_N table, joined over
+   the lane, with a liveness timeout of KILL_STORM_PEER_TIMEOUT_S (below
+   the phase's length; a peer keeps alive every quarter of it) and a
+   metrics digest up every uplink each KILL_STORM_DIGEST_S. Every
+   peer streams uniform deltas of +-KILL_STORM_SCALE from --seed for
+   KILL_STORM_STREAM_S between kills; KILL_STORM_KILLS hard kills
+   (node.drop_link), each when the victim's uplink owes nothing, take the
+   child's uplink and the leaf's in turn. The leaf joins after the child's
+   first re-graft and re-joins after each of its kills, redirected by the
+   full master to the child's newest endpoint, and must land below it.
+   Every replica must end within KILL_STORM_TOL of the exact sum of the
+   adds, every lane must have gone live, no link may die unkilled (a lane
+   link timing out mid-stream), and A-cascade, the finish and B must have
+   launched (counts reset at the phase's start). Prints the lane messages,
+   the kills, the redirected joins, the signed deviation and the seconds
+   (against KILL_STORM_BUDGET_S, 3 s).
+   --kill-storm runs it alone after the build.
 A CUDA peer's K-frame bursts follow the native engine's cascade
 (CodecConfig.cascade_frames, 32 by default): they run kernel A-cascade
 and the finish kernel, and kernel A runs on the pod tier, single frames
@@ -3850,11 +3870,159 @@ SOURCES = {
 }
 
 
+# -- phase 23 -------------------------------------------------------------------
+
+KILL_STORM_N = 1 << 16  # phase 23's table
+KILL_STORM_KILLS = 4  # alternately the interior child's uplink and the leaf's
+KILL_STORM_SCALE = 1.0 / 32  # each add's bound: far from float32's noise at the 1e-4 check
+KILL_STORM_TOL = 1e-4
+KILL_STORM_BUDGET_S = 3.0  # reported, not enforced
+KILL_STORM_WAIT_S = 10.0  # each wait's deadline: the lane, a quiet uplink, a re-graft, the agreement
+# The lane links' liveness timeout, below the phase's length: a lane link
+# whose socket carries no keepalive while its ring is busy times out here
+# mid-stream (each round's stream outlasts it), and the phase fails.
+KILL_STORM_PEER_TIMEOUT_S = 0.25
+KILL_STORM_STREAM_S = 0.3  # each round's stream: an add from every peer each KILL_STORM_STEP_S
+KILL_STORM_STEP_S = 0.005
+# Each peer's metrics digest up its uplink: with the adds, it keeps a child's
+# send queue from idling for a keepalive interval (a quarter of the liveness
+# timeout), as the soak's 0.5 s digests do under its 1 s keepalive.
+KILL_STORM_DIGEST_S = 0.02
+
+
+def _lane_live(peer) -> bool:
+    return any(k.startswith("st_shm_active") and v == 2 for k, v in peer.metrics().items())
+
+
+def kill_storm_phase(device, seed: int, smi: str) -> dict:
+    """Phase 23 (module docstring). Returns its report."""
+    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch
+    from shared_tensor_tpu_torch.config import ObsConfig
+    from shared_tensor_tpu_torch.obs import schema
+
+    def wait(pred, what: str) -> None:
+        deadline = time.perf_counter() + KILL_STORM_WAIT_S
+        while not pred():
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"phase 23: {what} within {KILL_STORM_WAIT_S} s")
+            time.sleep(0.002)
+
+    def uplink_live(p) -> bool:
+        up = p.node.uplink
+        return up is not None and p.ready and p.metrics().get(schema.link_key("st_shm_active", up)) == 2
+
+    rng = np.random.default_rng(seed + 23)
+    total = np.zeros(KILL_STORM_N, np.float64)
+    port, peers = _free_port(), []
+    out = {"kills": 0, "lanes": 0, "redirected_joins": 0}
+    lane_msgs = {"master_out": 0, "master_in": 0, "child_out": 0, "child_in": 0}
+    uplinks = {}  # each child's uplink as the phase last saw it join: any other is an unkilled death
+
+    def count_lane() -> None:  # the lanes' messages until now (a link's counts die with it)
+        for who, peer in (("master", m), ("child", c)):
+            met = peer.metrics()
+            lane_msgs[f"{who}_out"] += met.get("st_shm_msgs_out_total", 0)
+            lane_msgs[f"{who}_in"] += met.get("st_shm_msgs_in_total", 0)
+
+    def stream() -> None:
+        t_end = time.perf_counter() + KILL_STORM_STREAM_S
+        while time.perf_counter() < t_end:
+            for p in peers:
+                u = rng.uniform(-KILL_STORM_SCALE, KILL_STORM_SCALE, KILL_STORM_N).astype(np.float32)
+                p.add({"w": u})
+                total[:] += u
+            time.sleep(KILL_STORM_STEP_S)
+        planned()
+
+    def planned() -> bool:
+        for p in peers[1:]:
+            if p.node.uplink != uplinks[p]:
+                raise AssertionError(f"phase 23: a lane link died unkilled (its liveness timeout, "
+                                     f"{KILL_STORM_PEER_TIMEOUT_S} s, mid-stream)")
+        return True
+
+    def joined(p) -> None:
+        wait(lambda: uplink_live(p), "an uplink never went live on the lane")
+        uplinks[p] = p.node.uplink
+        out["lanes"] += 1
+
+    def tcfg(**kw):
+        return Config(transport=TransportConfig(
+            peer_timeout_sec=KILL_STORM_PEER_TIMEOUT_S, join_timeout_sec=KILL_STORM_WAIT_S, **kw),
+            obs=ObsConfig(digest_interval_sec=KILL_STORM_DIGEST_S))
+
+    t0 = time.perf_counter()
+    try:
+        # the master takes one child, so the leaf is redirected to the
+        # interior child, at the endpoint of that child's newest uplink
+        m = create_or_fetch("127.0.0.1", port, {"w": np.zeros(KILL_STORM_N, np.float32)}, tcfg(max_children=1),
+                            timeout=KILL_STORM_WAIT_S, device=device)
+        peers.append(m)
+        c = create_or_fetch("127.0.0.1", port, {"w": np.zeros(KILL_STORM_N, np.float32)}, tcfg(),
+                            timeout=KILL_STORM_WAIT_S, host_tier=True)
+        peers.append(c)
+        if c._engine is None:
+            raise AssertionError("phase 23: the child is not on the native engine")
+        joined(c)
+        leaf = None
+        for k in range(KILL_STORM_KILLS):
+            stream()
+            victim = c if leaf is None or k % 2 == 0 else leaf
+            up = victim.node.uplink
+            wait(lambda: planned() and victim._engine.inflight_total() == 0
+                 and victim._engine.residual_rms(up) == 0.0,
+                 "the victim's uplink never drained")
+            count_lane()
+            victim.node.drop_link(up)
+            out["kills"] += 1
+            wait(lambda: victim.node.uplink not in (None, up), "a killed child never re-grafted")
+            joined(victim)
+            if leaf is None:
+                leaf = create_or_fetch("127.0.0.1", port, {"w": np.zeros(KILL_STORM_N, np.float32)}, tcfg(),
+                                       timeout=KILL_STORM_WAIT_S, host_tier=True)
+                peers.append(leaf)
+                joined(leaf)
+            if k == 0 or victim is leaf:
+                # the leaf joined after a re-graft of the child: the full
+                # master redirected it to the child's newest endpoint
+                if len(c.node.links) != 2:
+                    raise AssertionError("phase 23: the leaf did not join below the re-grafted child")
+                out["redirected_joins"] += 1
+        stream()
+        deadline = time.perf_counter() + KILL_STORM_WAIT_S
+        while True:
+            devs = [np.asarray(p.read()["w"].cpu(), np.float64) - total for p in peers]
+            if max(float(np.abs(d).max()) for d in devs) < KILL_STORM_TOL or time.perf_counter() > deadline:
+                break
+            time.sleep(0.005)
+        out["dev_neg"] = max(0.0, -min(float(d.min()) for d in devs))
+        out["dev_pos"] = max(0.0, max(float(d.max()) for d in devs))
+        count_lane()
+        out["lane_msgs"] = lane_msgs
+    finally:
+        for p in reversed(peers):
+            p.close()
+    out["seconds"] = time.perf_counter() - t0
+    out["budget_s"] = KILL_STORM_BUDGET_S
+    print(f"[23] hard link kills on the lane: a {device} device-tier master, an engine child and an engine leaf "
+          f"on {KILL_STORM_N} elements, liveness timeout {KILL_STORM_PEER_TIMEOUT_S} s; {out['kills']} kills, "
+          f"none died unkilled, {out['redirected_joins']} joins redirected to the re-grafted "
+          f"child, {out['lanes']} lanes live; lane messages {out['lane_msgs']}; signed deviation from the exact "
+          f"sum -{out['dev_neg']:.3e} / +{out['dev_pos']:.3e} (tolerance {KILL_STORM_TOL}); phase "
+          f"{out['seconds']:.3f} s (budget {KILL_STORM_BUDGET_S} s) on {smi}")
+    if min(out["lane_msgs"].values()) < 1:
+        raise AssertionError(f"phase 23: no traffic on the lane: {out['lane_msgs']}")
+    if max(out["dev_neg"], out["dev_pos"]) > KILL_STORM_TOL:
+        raise AssertionError(f"phase 23: the replicas are off the exact sum after {out['kills']} kills: {out}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phase20-cost", action="store_true",
                     help="after the build, time phases 17-18a and 20a with and without the early child, and stop")
+    ap.add_argument("--kill-storm", action="store_true", help="after the build, run phase 23 alone, and stop")
     args = ap.parse_args()
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3895,6 +4063,11 @@ def main() -> int:
                 print(f"[1] {k}: {line.strip()}")
     if args.phase20_cost:
         phase20_cost(dev, hbm_rate(name), args.seed, smi)
+        return 0
+    if args.kill_storm:
+        CC.reset_launches()
+        kill_storm_phase(dev, args.seed, smi)
+        require_launched(path_counts(), BURST_KERNELS, "phase 23")
         return 0
 
     template = resnet18_template()
@@ -4185,8 +4358,16 @@ def main() -> int:
         burst={"config2": c2["burst"], "1Mi": c1["burst"]},
         launches_phase22=cascade["22b"]["launches"]["cascade_round"])
     t["apply_rows_batch"]["launches_phase22"] = cascade["22b"]["launches"]["apply_rows_batch"]
+
+    # 23. hard link kills on the lane (the launch counts of A-cascade, the
+    # finish and B are this phase's)
+    CC.reset_launches()
+    storm = kill_storm_phase(dev, args.seed, smi)
+    storm["launches"] = path_counts()
+    require_launched(storm["launches"], BURST_KERNELS, "phase 23")
+    print(f"[23] launches {storm['launches']}")
     serve_out["script_s"] = time.perf_counter() - t_script
-    print(f"[22] script {serve_out['script_s']:.3f} s")
+    print(f"[23] script {serve_out['script_s']:.3f} s")
 
     print(smi)
     kernels = []
@@ -4214,6 +4395,7 @@ def main() -> int:
     print(json.dumps({"e2e": e2e}))
     print(json.dumps({"sever": sever}))
     print(json.dumps({"cascade": cascade}))
+    print(json.dumps({"kill_storm": storm}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

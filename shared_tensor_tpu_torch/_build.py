@@ -6,9 +6,13 @@ The counterpart of ``shared_tensor_tpu/_build.py``, which runs ``make`` in
 ``native/`` and builds every native library in place. The port compiles
 the sources of ``native/`` as they stand, with the flags of
 ``native/Makefile``'s rules, into ``csrc/build/`` (beside the CUDA
-kernels):
+kernels); the transport alone it compiles from its own copy,
+``csrc/native/`` (``PORT_NATIVE_DIR``: ``sttransport.cpp`` and the two
+headers it includes), which repairs the shared-memory lane's liveness and
+a re-grafted node's redirect address (a second listener there, beside the
+first) and otherwise equals ``native/``'s, comments aside:
 
-- ``native/sttransport.cpp`` with ``g++`` (``$CXX``), the
+- ``csrc/native/sttransport.cpp`` with ``g++`` (``$CXX``), the
   ``libsttransport.so`` rule;
 - ``native/stcodec.c`` with ``gcc`` (``$CC``), the ``libstcodec.so`` rule;
 - ``native/stengine.cpp`` with ``g++``, the ``libstengine.so`` rule, linked
@@ -60,6 +64,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
+#: the port's own copies of the native sources it repairs (the transport)
+PORT_NATIVE_DIR = Path(__file__).resolve().parent / "csrc" / "native"
 BUILD_DIR = Path(__file__).resolve().parent / "csrc" / "build"
 HEADERS = ("st_annotations.h", "st_cv.h")
 TRANSPORT_SOURCES = ("sttransport.cpp", *HEADERS)
@@ -109,10 +115,10 @@ def build_lock(name: str):
             fcntl.flock(f, fcntl.LOCK_UN)
 
 
-def _hashed(stem: str, sources, flags, links=(), suffix: str = ".so") -> Path:
+def _hashed(stem: str, sources, flags, links=(), suffix: str = ".so", src_dir: Path | None = None) -> Path:
     h = hashlib.sha256()
     for name in sources:
-        h.update((NATIVE_DIR / name).read_bytes())
+        h.update(((src_dir or NATIVE_DIR) / name).read_bytes())
     h.update(" ".join(flags).encode())
     for path in links:
         h.update(path.name.encode())
@@ -121,7 +127,7 @@ def _hashed(stem: str, sources, flags, links=(), suffix: str = ".so") -> Path:
 
 def transport_path() -> Path:
     """Where the transport library for the current sources lives."""
-    return _hashed("libsttransport", TRANSPORT_SOURCES, _cxx_flags())
+    return _hashed("libsttransport", TRANSPORT_SOURCES, _cxx_flags(), src_dir=PORT_NATIVE_DIR)
 
 
 def codec_path() -> Path:
@@ -155,10 +161,11 @@ def _compile(out: Path, what: str, env_var: str, default: str, args) -> Path:
 
 
 def build_transport() -> Path:
-    """Compile the transport if the current sources are not built yet, and
+    """Compile the transport (the port's ``csrc/native/sttransport.cpp``)
+    if the current sources are not built yet, and
     return the library's path. Raises ``RuntimeError`` if ``g++`` is
     missing or the compile fails."""
-    src = str(NATIVE_DIR / "sttransport.cpp")
+    src = str(PORT_NATIVE_DIR / "sttransport.cpp")
     return _compile(transport_path(), "transport", "CXX", "g++", lambda o: [*_cxx_flags(), "-o", str(o), src])
 
 

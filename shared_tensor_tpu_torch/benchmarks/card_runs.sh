@@ -40,6 +40,7 @@ cmd() {  # the time limit and command of a run
     soak_compat) echo 400 env ST_SOAK_SECONDS=120 ST_SOAK_COMPAT=1 python -m $M.soak ;;
     # the soak with the shared-memory lane off: every link on TCP
     soak_noshm) echo 600 env ST_SHM=0 python -m $M.soak ;;
+    soak_crash_noshm) echo 400 env ST_SHM=0 ST_SOAK_SECONDS=120 ST_SOAK_CRASH=1 python -m $M.soak ;;
     engine_sweep) echo 900 python -m $M.engine_sweep "$O/ENGINE_SWEEP.json" ;;
     drain_tail) echo 300 python -m $M.drain_tail ;;
     # phase 20a of chip_smoke.py with its child started early and late
@@ -49,7 +50,8 @@ cmd() {  # the time limit and command of a run
 }
 
 ALL="cc_base cc_subs cc_stripes cc_shm cc_sharded cc_base_full chaos_soak chaos_soak_full chaos_soak_full_host
-     e2e_sync e2e_artifact adaptive_ab soak soak_crash soak_compat soak_noshm engine_sweep drain_tail phase20_cost"
+     e2e_sync e2e_artifact adaptive_ab soak soak_crash soak_compat soak_noshm soak_crash_noshm engine_sweep drain_tail
+     phase20_cost"
 for name in ${@:-$ALL}; do
   c=$(cmd "$name") || { echo "$name: no such run"; exit 2; }
   t0=$(date +%s)

@@ -6,8 +6,9 @@ delivery contract under link kills, leaves and rejoins, and crashes.
 The counterpart of the root ``benchmarks/soak.py``, with its defaults,
 knobs and JSON fields. A tree of five processes (a master in this process
 and four joiners, each a port peer on the host tier's native engine, on
-one ``{"w": N}`` table) streams for ``ST_SOAK_SECONDS``: every peer adds
-linspace deltas on its own cadence, and two chaos workers, every
+one ``{"w": N}`` table) streams for ``ST_SOAK_SECONDS``, counted from
+when every joiner has joined: every peer adds linspace deltas on its own
+cadence, and two chaos workers, every
 ``chaos_period`` seconds, alternately hard-drop their live uplink
 (``node.drop_link``: a re-graft with the carried residual) and leave
 gracefully (``leave``: seal, drain, close) to rejoin as a fresh peer. With
@@ -60,12 +61,14 @@ def _mk(port: int, n: int, compat: bool):
 
 
 def _worker(rank: int, port: int, n: int, compat: bool, chaos_period: float, stop_ev, exit_ev, out_q,
-            ledger_dir: str, chaos: bool) -> None:
+            ledger_dir: str, chaos: bool, ready) -> None:
     """One joiner: adds until ``stop_ev``, logging each add (and each chaos
     event) to its own append-only file, flushed a line at a time, so a
     SIGKILL loses at most the line being written; then drains, reports, and
-    stays up until ``exit_ev`` so that its siblings finish through it."""
+    stays up until ``exit_ev`` so that its siblings finish through it.
+    Releases ``ready`` once it has joined."""
     peer = _mk(port, n, compat)
+    ready.release()
     rng = np.random.default_rng(rank)
     ledger = open(os.path.join(ledger_dir, f"ledger_{rank}.txt"), "a")
     kills = leaves = 0
@@ -107,7 +110,7 @@ def run(seconds: float = SECONDS, n: int = N, crash: bool = False, compat: bool 
     ctx = mp.get_context("spawn")
     port = _free_port()
     master = _mk(port, n, compat)
-    stop_ev, exit_ev, out_q = ctx.Event(), ctx.Event(), ctx.Queue()
+    stop_ev, exit_ev, out_q, ready = ctx.Event(), ctx.Event(), ctx.Queue(), ctx.Semaphore(0)
     ledger_dir = tempfile.mkdtemp(prefix="soak-ledgers-")
     procs = []
     verifier = None
@@ -115,7 +118,7 @@ def run(seconds: float = SECONDS, n: int = N, crash: bool = False, compat: bool 
 
     def spawn(rank: int, chaos: bool):
         p = ctx.Process(target=_worker, args=(rank, port, n, compat, chaos_period, stop_ev, exit_ev, out_q,
-                                              ledger_dir, chaos), daemon=True)
+                                              ledger_dir, chaos, ready), daemon=True)
         p.start()
         return p
 
@@ -123,6 +126,12 @@ def run(seconds: float = SECONDS, n: int = N, crash: bool = False, compat: bool 
         for r in range(1, PEERS + 1):
             procs.append(spawn(r, r in (1, 3)))
             time.sleep(0.4)  # stagger the joins
+        # the run's seconds start once every worker has joined: a worker's
+        # start-up (a spawned interpreter, its imports, its join) takes
+        # seconds on a loaded host, which would eat the chaos schedule
+        for _ in range(PEERS):
+            if not ready.acquire(timeout=120.0):
+                raise RuntimeError("a soak worker did not join within 120 s")
         chaos_idx = [0, 2]  # procs of the chaos workers
         crashes = 0
         next_rank = PEERS + 1

@@ -839,7 +839,9 @@ class SharedTensorPeer:
         # version above from the digest's per-node breakdown)
         op = self._lc_op
         out["st_lifecycle_paused"] = 1 if self._paused else 0
-        out["st_snapshot_in_progress"] = 1 if op is not None and op.get("op") == "save" else 0
+        out["st_snapshot_in_progress"] = (
+            1 if op is not None and op.get("op") == "save" and op.get("release") is None else 0
+        )
         out["st_snapshot_shards_acked"] = self._snap_acks
         out["st_snapshot_total"] = self._snap_total
         out["st_snapshot_last_duration_seconds"] = self._snap_last_dur
@@ -936,6 +938,17 @@ class SharedTensorPeer:
     # and nothing is in flight, so a restore needs no seq surgery and no
     # re-send. Control messages are outside the fault plan's classes, so a
     # barrier completes under data-plane chaos too.
+    #
+    # The release. RESUME floods down the same links; the root returns only
+    # once every port node below it has left its pause. A port parent asks
+    # for it in its SNAP marker (``confirm_release``, a field JAX's decoder
+    # ignores), a port child that was asked says so in its SNAP_ACK
+    # (``confirms_release``) and, once resumed and once each of its own
+    # confirming children has confirmed, sends one more SNAP_ACK up with
+    # ``released`` set. A JAX child never confirms and is never waited for,
+    # nor is a subtree under one; a child that dies mid-release, or is
+    # still unconfirmed at the barrier's deadline, is named in the result's
+    # ``unreleased``. JAX's root returns once its RESUME is sent.
 
     @property
     def node_name(self) -> str:
@@ -1074,6 +1087,8 @@ class SharedTensorPeer:
     def _lc_begin(self, doc: dict, from_link: Optional[int]) -> None:
         """Enter a barrier (the receive thread). ``from_link`` is the uplink
         the SNAP marker came on; None at the root."""
+        if self._lc_op is not None and self._lc_op.get("release") is not None:
+            self._lc_release_done()  # a new barrier ends the last one's release wait
         if self._lc_op is not None:
             if doc.get("id") == self._lc_op["id"]:
                 return  # a duplicate marker: already in it
@@ -1110,6 +1125,13 @@ class SharedTensorPeer:
             "marked": False,  # markers flood from _lc_tick once every pre-cut frame is delivered
             "captured": False,
             "acked": False,  # SNAP_ACK delivered (re-tried until it is)
+            # the release (the comment above snapshot_cluster): whether our
+            # parent asked us to confirm it, the children that will confirm
+            # theirs, and each child's nodes (named if it never does)
+            "confirm": bool(doc.get("confirm_release")) and from_link is not None,
+            "confirming": set(),
+            "subtree": {},
+            "release": None,
         }
         self._lc_op = op
         self._set_paused(True)
@@ -1145,6 +1167,7 @@ class SharedTensorPeer:
                 # the root's remaining budget rides the marker, so every
                 # node's pause deadline covers the whole barrier
                 "budget_sec": max(5.0, remaining),
+                "confirm_release": True,
             },
         )
         for link in list(op["waiting"]):
@@ -1170,6 +1193,9 @@ class SharedTensorPeer:
             self._lc_begin(self._lc_requests.popleft(), None)
         op = self._lc_op
         now = time.monotonic()
+        if op is not None and op.get("release") is not None:
+            self._lc_release_tick(op, now)
+            return
         if op is None:
             if self._paused and self._pause_deadline and now > self._pause_deadline:
                 log.warning("lifecycle pause expired with no barrier; resuming")
@@ -1222,7 +1248,9 @@ class SharedTensorPeer:
             self._lc_finish(ok=not op["errors"])
 
     def _lc_send_ack(self, op: dict) -> None:
-        doc = {"id": op["id"], "nodes": op["entries"], "errors": op["errors"]}
+        # a parent that asked learns that this node will confirm its release
+        extra = {"confirms_release": True} if op["confirm"] else {}
+        doc = {"id": op["id"], "nodes": op["entries"], "errors": op["errors"], **extra}
         try:
             payload = wire.encode_lifecycle(wire.SNAP_ACK, doc)
         except ValueError:
@@ -1235,14 +1263,54 @@ class SharedTensorPeer:
                     f"{self.node_name}: subtree manifest exceeded the wire cap ({len(op['entries'])} shard entries "
                     "dropped)"
                 ],
+                **extra,
             }
             payload = wire.encode_lifecycle(wire.SNAP_ACK, doc)
         if self._send_blocking(op["from"], payload):
             op["acked"] = True
 
+    def _lc_release(self, op: dict, result: Optional[dict] = None) -> None:
+        """Resumed: wait for the confirming children's releases (the root
+        then hands ``result`` over), up to the barrier's deadline."""
+        deadline = op["deadline"] if op["from"] is None and op.get("deadline") else op["t0"] + op["budget"]
+        op["release"] = {"waiting": set(op["confirming"]), "deadline": deadline, "unreleased": [], "result": result}
+        self._lc_release_tick(op, time.monotonic())
+
+    def _lc_release_tick(self, op: dict, now: float) -> None:
+        rel = op["release"]
+        alive = set(self.node.links)
+        dead = sorted(link for link in rel["waiting"] if link not in alive)
+        rel["waiting"].difference_update(dead)
+        for link in dead:  # died mid-release: named, not waited for
+            rel["unreleased"].extend(op["subtree"].get(link) or [f"link {link}"])
+        if not rel["waiting"] or now > rel["deadline"]:
+            self._lc_release_done()
+
+    def _lc_release_done(self) -> None:
+        """The release is over, or cut short by the deadline or a new
+        barrier: name the children that did not confirm, then confirm it up
+        if our parent asked, or hand the root's verdict over."""
+        op, self._lc_op = self._lc_op, None
+        rel = op["release"]
+        for link in sorted(rel["waiting"]):
+            rel["unreleased"].extend(op["subtree"].get(link) or [f"link {link}"])
+        if op["from"] is None:
+            result = rel["result"]
+            if rel["unreleased"]:
+                result["unreleased"] = rel["unreleased"]
+            self._lc_result = result
+            self._lc_done.set()
+        elif op["confirm"]:
+            doc = {"id": op["id"], "released": True, "nodes": [], "errors": [], "unreleased": rel["unreleased"]}
+            try:
+                self._send_blocking(op["from"], wire.encode_lifecycle(wire.SNAP_ACK, doc))
+            except Exception:
+                log.exception("release confirmation failed on link %d", op["from"])
+
     def _lc_finish(self, ok: bool) -> None:
         """The root's end of a barrier on every path: write the manifest (a
-        save), release the tree, resume, and hand the verdict over."""
+        save), release the tree, resume, and hand the verdict over once the
+        port subtree has confirmed its release."""
         op = self._lc_op
         dur = time.monotonic() - op["t0"]
         result: dict = {
@@ -1265,12 +1333,10 @@ class SharedTensorPeer:
         resume = wire.encode_lifecycle(wire.RESUME, {"id": op["id"]})
         for link in self._lc_children():
             self._send_blocking(link, resume)
-        self._lc_op = None
         self._set_paused(False)
         if self._obs is not None:
             self._obs.event("snap_done", self.node.obs_id, arg=result["nodes"], detail=op["op"])
-        self._lc_result = result
-        self._lc_done.set()
+        self._lc_release(op, result)  # the verdict goes out once the port subtree is released
 
     def _write_shard(self, dirpath: str, snap_id: str) -> dict:
         """This node's shard at the quiesced cut. The engine's capture is one
@@ -2477,6 +2543,16 @@ class SharedTensorPeer:
             if op is None or str(doc.get("id")) != op["id"]:
                 log.warning("stray SNAP_ACK on link %d (id %s)", link, doc.get("id"))
                 return
+            if doc.get("released"):
+                # a confirming child's subtree left its pause
+                if op.get("release") is not None and link in op["release"]["waiting"]:
+                    op["release"]["waiting"].discard(link)
+                    op["release"]["unreleased"].extend(doc.get("unreleased", []))
+                    self._lc_release_tick(op, time.monotonic())
+                return
+            if doc.get("confirms_release"):
+                op["confirming"].add(link)
+            op["subtree"][link] = [e.get("node") for e in doc.get("nodes", []) if isinstance(e, dict)]
             op["waiting"].discard(link)
             op["entries"].extend(doc.get("nodes", []))
             op["errors"].extend(doc.get("errors", []))
@@ -2491,8 +2567,10 @@ class SharedTensorPeer:
                 return
             for child in self._lc_children(exclude=link):  # the subtree first
                 self._send_blocking(child, payload)
-            self._lc_op = None
             self._set_paused(False)
+            if op is None or op.get("release") is not None:
+                return
+            self._lc_release(op)  # confirmed up once our confirming children are
         elif kind == wire.CTL:
             self._handle_ctl_msg(wire.decode_lifecycle(payload), link)
         else:

@@ -115,9 +115,10 @@ def test_codec_lab_modules_load_no_jax(module):
 
 
 def test_transport_builds_its_own_library_without_make(tmp_path):
-    """The port's transport compiles native/sttransport.cpp with g++ into its
-    own build directory: no ``make``, nothing written into native/, and no
-    library loaded from native/. (The JAX package's own tests may run
+    """The port's transport compiles its own copy of native/sttransport.cpp
+    (csrc/native/) with g++ into its own build directory: no ``make``, no
+    source read from and nothing written into native/, and no library
+    loaded from native/. (The JAX package's own tests may run
     ``make`` in native/ at the same time, so the check is on the one
     compile command this process runs, not on native/'s contents.)"""
     from tests._ports import free_port
@@ -133,7 +134,8 @@ def test_transport_builds_its_own_library_without_make(tmp_path):
         "assert len(calls) == 1 and pathlib.Path(calls[0][0]).name != 'make', calls\n"
         "out = pathlib.Path(calls[0][calls[0].index('-o') + 1])\n"
         "assert out.parent == B.BUILD_DIR, out\n"
-        "assert [a for a in calls[0] if a.startswith(str(B.NATIVE_DIR))] == [str(B.NATIVE_DIR / 'sttransport.cpp')]\n"
+        "assert [a for a in calls[0] if a.endswith('.cpp')] == [str(B.PORT_NATIVE_DIR / 'sttransport.cpp')]\n"
+        "assert not [a for a in calls[0] if a.startswith(str(B.NATIVE_DIR))], calls[0]\n"
         "libs = {l.split()[-1] for l in open('/proc/self/maps') if '.so' in l}\n"
         "assert not [p for p in libs if p.startswith(str(B.NATIVE_DIR))], libs\n"
         "assert [p for p in libs if p.startswith(str(B.BUILD_DIR))], libs\n"

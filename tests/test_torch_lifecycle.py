@@ -675,6 +675,67 @@ def test_mixed_tree_snapshot_and_inplace_restore(root, tmp_path):
         _close(peers)
 
 
+def test_snapshot_returns_after_release_under_a_jax_child(tmp_path):
+    """A port root whose port child has a JAX child and a port child, and
+    a port node below the JAX child: snapshot_cluster and restore_cluster
+    return within their budget, with every port node outside the JAX
+    subtree already resumed (its release confirmed up the tree); the JAX
+    child and the port node below it are not waited for, and resume as
+    JAX's release reaches them."""
+    port = free_port()
+    tp = lambda k: TransportConfig(peer_timeout_sec=20.0, max_children=k)  # noqa: E731
+    peers = []
+    try:
+        peers.append(_peer(port, _cfg("r", "engine", transport=tp(1)), "engine"))
+        peers.append(_peer(port, _cfg("p1", "engine", transport=tp(2)), "engine"))
+        peers.append(_jax_peer(port, _jax_cfg("a", max_children=1)))
+        peers.append(_peer(port, _cfg("p2", "device", transport=tp(2)), "device"))
+        peers.append(_peer(port, _cfg("p3", "engine", transport=tp(2)), "engine"))  # below a, p1's first slot
+        r, p1, a, p2, p3 = peers
+        assert len(p1.node.links) == 3 and len(a.node.links) == 2, (p1.node.links, a.node.links)
+        total = np.zeros(N)
+        _add(peers, np.random.default_rng(24), total, rounds=5)
+        assert _converged(peers, total)
+        budget = 20.0
+        for call in (lambda: r.snapshot_cluster(str(tmp_path), timeout=budget),
+                     lambda: r.restore_cluster(str(tmp_path), timeout=budget)):
+            t0 = time.monotonic()
+            res = call()
+            took = time.monotonic() - t0
+            paused = {p.node_name: p.metrics()["st_lifecycle_paused"] for p in (r, p1, p2)}
+            in_progress = {p.node_name: p.metrics()["st_snapshot_in_progress"] for p in (r, p1, p2)}
+            assert res["ok"] and res["nodes"] == 5, res
+            assert took < budget, took
+            assert paused == {"r": 0, "p1": 0, "p2": 0}, paused
+            assert in_progress == {"r": 0, "p1": 0, "p2": 0}, in_progress
+            assert "unreleased" not in res, res
+            assert lc_bench.released([a, p3], lc_bench.RELEASE_S)
+        _add(peers, np.random.default_rng(25), total, rounds=3)
+        assert _converged(peers, total)
+    finally:
+        _close(peers)
+
+
+def test_a_child_dead_mid_release_is_named_not_waited_for(tmp_path):
+    """A port child whose link dies between its RESUME and its release
+    confirmation: the root's snapshot_cluster returns well inside its
+    budget, ok, with that child named in ``unreleased``."""
+    peers = _tree(free_port(), ["n0", "n1"], "engine")
+    try:
+        root, child = peers
+        _add(peers, np.random.default_rng(26), np.zeros(N), rounds=2)
+        # dies instead of confirming: its uplink goes down once resumed
+        child._lc_release = lambda op, result=None: child.node.drop_link(child.node.uplink)
+        budget = 20.0
+        t0 = time.monotonic()
+        res = root.snapshot_cluster(str(tmp_path), timeout=budget)
+        assert time.monotonic() - t0 < budget / 2
+        assert res["ok"] and res["nodes"] == 2, res
+        assert res["unreleased"] == ["n1"], res
+    finally:
+        _close(peers)
+
+
 def test_mixed_restart_from_the_other_packages_shards(tmp_path):
     """A JAX root with port children snapshots; the tree is closed and
     restarted with the packages swapped: the root as a port peer from the

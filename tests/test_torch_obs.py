@@ -35,7 +35,7 @@ from shared_tensor_tpu.config import Config as JConfig
 from shared_tensor_tpu.config import TransportConfig as JTransportConfig
 from shared_tensor_tpu.obs import events as jax_events
 from shared_tensor_tpu.obs import schema as jax_schema
-from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch, obs
+from shared_tensor_tpu_torch import Config, TransportConfig, _build, create_or_fetch, obs
 from shared_tensor_tpu_torch.comm import faults, transport, wire
 from shared_tensor_tpu_torch.comm.peer import SharedTensorPeer
 from shared_tensor_tpu_torch.config import FaultConfig, ObsConfig
@@ -152,9 +152,10 @@ def test_schema_keeps_jax_entries():
 
 
 def _native_symbols() -> set[str]:
-    """The functions the native sources (native/, csrc/) export."""
+    """The functions the native sources (native/, csrc/ and its native copies) export."""
     out = set()
-    for path in [*(ROOT / "native").glob("*.c*"), *(ROOT / "shared_tensor_tpu_torch" / "csrc").glob("*.cu")]:
+    csrc = ROOT / "shared_tensor_tpu_torch" / "csrc"
+    for path in [*(ROOT / "native").glob("*.c*"), *csrc.glob("*.cu"), *_build.PORT_NATIVE_DIR.glob("*.c*")]:
         out.update(re.findall(r"\b(st_[a-z0-9_]+)\s*\(", path.read_text(errors="replace")))
     return out
 
@@ -230,8 +231,9 @@ def test_native_ring_codes_match_jax_and_the_native_sources():
     for names in ("LIFECYCLE_EVENT_NAMES", "HEALTH_EVENT_NAMES", "RESHARD_EVENT_NAMES", "FAULT_EVENT_NAMES"):
         assert getattr(obs_events, names) == getattr(jax_events, names)
     # every code the native sources emit has its name here
-    for src in ("sttransport.cpp", "stengine.cpp"):
-        consts = re.findall(r"constexpr uint32_t kEv(?!RingCap)\w+ = (\d+);", (ROOT / "native" / src).read_text())
+    # (the transport's are those of the port's own copy, which it builds)
+    for src in (_build.PORT_NATIVE_DIR / "sttransport.cpp", ROOT / "native" / "stengine.cpp"):
+        consts = re.findall(r"constexpr uint32_t kEv(?!RingCap)\w+ = (\d+);", src.read_text())
         assert consts
         for code in consts:
             assert int(code) in obs_events.CODE_NAMES, (src, code)

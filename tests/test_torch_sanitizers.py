@@ -1,6 +1,7 @@
 """ASan + UBSan and TSan over the port's own builds of the native trio.
 
-The port binds native/sttransport.cpp, native/stcodec.c and
+The port binds its own copy of native/sttransport.cpp
+(shared_tensor_tpu_torch/csrc/native/), native/stcodec.c and
 native/stengine.cpp with ctypes through its own ``_SIGNATURES`` tables and
 its own buffer lifetimes (numpy and torch memory handed to C, pooled send
 slots, the engine's restore and snapshot arrays). tests/test_sanitizers.py
@@ -15,8 +16,8 @@ that preloads the matching gcc runtime.
   red suite.
 - TSan (``thread``): ``native/tsan.supp`` as it is; a report fails the arm
   when one of its stack frames lies in the port's builds (their hashed
-  library names, or the native sources' lines, which only these -g builds
-  carry). Accesses made in uninstrumented code (CPython, numpy, libtorch,
+  library names, or the native sources' lines, the transport's copy's
+  among them, which only these -g builds carry). Accesses made in uninstrumented code (CPython, numpy, libtorch,
   libgomp, jaxlib and the JAX package's plain builds) are not tracked
   (``ignore_noninstrumented_modules``), and reports wholly inside such
   code are out of scope, as in the JAX package's arms. Torch's and

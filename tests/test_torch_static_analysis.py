@@ -7,7 +7,9 @@ run unchanged on a temp tree that holds the port's package where they
 read the JAX one. Nothing under tools/ is edited.
 
 - ABI: every ctypes declaration of the port against its native definition
-  (``lint_abi.native_functions``): the ``_SIGNATURES`` tables of
+  (``lint_abi.native_functions``; the transport's are those of the port's
+  own copy, csrc/native/sttransport.cpp, which it builds): the
+  ``_SIGNATURES`` tables of
   comm/transport.py, comm/engine.py and ops/codec_np.py (the last against
   native/stcodec.c, which JAX's lint never reads), the attribute-style
   declarations of shard/engine_lane.py (``lint_abi.py_declarations``) and
@@ -45,7 +47,12 @@ import lint_locks  # noqa: E402
 import lint_metrics  # noqa: E402
 import lint_wire  # noqa: E402
 
+from shared_tensor_tpu_torch import _build  # noqa: E402
+
 PKG = "shared_tensor_tpu_torch"
+#: the port's own copies of native sources, and the transport it builds from there
+PORT_NATIVE = _build.PORT_NATIVE_DIR.relative_to(REPO).as_posix()
+TRANSPORT_SRC = f"{PORT_NATIVE}/sttransport.cpp"
 #: the module-level ctypes tables, by file: (table name, its value's shape)
 TABLES = {
     "comm/transport.py": ("_SIGNATURES", "restype+args"),
@@ -69,13 +76,15 @@ _CTYPES_ALIAS = {"ctypes.c_longlong": "ctypes.c_int64", "ctypes.c_int": "ctypes.
 
 def _tree(tmp_path: pathlib.Path) -> pathlib.Path:
     """A copy of what the gates read: native/ and the port (csrc/ sources
-    included), and the port again as ``shared_tensor_tpu/``, the package
-    path lint_events, lint_locks and lint_metrics read."""
+    included, its native copies too), and the port again as
+    ``shared_tensor_tpu/``, the package path lint_events, lint_locks and
+    lint_metrics read."""
     root = tmp_path / "repo"
-    for ext in ("*.c", "*.cpp", "*.h"):
-        for src in (REPO / "native").glob(ext):
-            (root / "native").mkdir(parents=True, exist_ok=True)
-            shutil.copy(src, root / "native" / src.name)
+    for sub in ("native", PORT_NATIVE):
+        for ext in ("*.c", "*.cpp", "*.h"):
+            for src in (REPO / sub).glob(ext):
+                (root / sub).mkdir(parents=True, exist_ok=True)
+                shutil.copy(src, root / sub / src.name)
     for dst in (PKG, "shared_tensor_tpu"):
         for src in [*(REPO / PKG).rglob("*.py"), *(REPO / PKG / "csrc").glob("*.cu")]:
             out = root / dst / src.relative_to(REPO / PKG)
@@ -100,7 +109,7 @@ def _native(root: pathlib.Path) -> dict[str, dict]:
     read as ``st_stc_*`` and given back their own; the CUDA sources' long
     long and pointer-to-pointer parameters are spelled as the parser knows
     them."""
-    text = "".join(L.strip_c_comments(L.read(root, f"native/{f}")) for f in ("stengine.cpp", "sttransport.cpp"))
+    text = "".join(L.strip_c_comments(L.read(root, f)) for f in ("native/stengine.cpp", TRANSPORT_SRC))
     nat = lint_abi.native_functions(text)
     codec = re.sub(r"\bstc_", "st_stc_", L.strip_c_comments(L.read(root, "native/stcodec.c")))
     nat.update({k[3:]: v for k, v in lint_abi.native_functions(codec).items() if k.startswith("st_stc_")})
@@ -241,7 +250,7 @@ def abi_findings(root: pathlib.Path) -> list[str]:
     if not any(n.startswith("st_node_shm_") for n in nat):
         findings.append("parse floor: no native st_node_shm_* definitions found")
     # the transport queue depth, declared three times
-    t_nat = L.strip_c_comments(L.read(root, "native/sttransport.cpp"))
+    t_nat = L.strip_c_comments(L.read(root, TRANSPORT_SRC))
     depths = {}
     m = re.search(r"int32_t\s+queue_depth\s*=\s*(\d+)\s*;", t_nat)
     if m:
@@ -275,7 +284,7 @@ def _int_literals(text: str) -> set[int]:
 def wire_findings(root: pathlib.Path) -> list[str]:
     findings = []
     engine = L.strip_c_comments(L.read(root, "native/stengine.cpp"))
-    transport = L.strip_c_comments(L.read(root, "native/sttransport.cpp"))
+    transport = L.strip_c_comments(L.read(root, TRANSPORT_SRC))
     nat, tnat = lint_wire._native_constants(engine), lint_wire._native_constants(transport)
     py = lint_wire._py_constants(L.strip_py_comments(L.read(root, f"{PKG}/comm/wire.py")))
     jax_compat = lint_wire._py_constants(L.strip_py_comments(L.read(REPO, "shared_tensor_tpu/compat.py")))
@@ -425,6 +434,15 @@ def test_abi_gate_flags_seeded_violation(tmp_path, seed):
     _edit(root, f"{PKG}/{rel}", old, new)
     findings = abi_findings(root)
     assert any(all(n in f for n in names) for f in findings), findings
+
+
+def test_transport_copy_keeps_the_native_wire_constants():
+    """The port's transport speaks the wire of native/sttransport.cpp, which
+    JAX peers on a mixed tree build: the copy's wire constants are the
+    same, name for name and value for value."""
+    copy, orig = (lint_wire._native_constants(L.strip_c_comments(L.read(REPO, f)))
+                  for f in (TRANSPORT_SRC, "native/sttransport.cpp"))
+    assert copy and copy == orig
 
 
 def test_wire_gate_flags_renumbered_kind(tmp_path):
