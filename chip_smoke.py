@@ -156,12 +156,14 @@ Phases, in order; any failure exits non-zero:
    (reads/s, p50/p99 staleness, refused fraction). Last, sgd_arm: the
    master adds one SGD step of the char-RNN (bounds no powers of two) and
    S1 is read at the 1 s bound for SERVE_SGD_ARM_S s with no more writes
-   (refused fraction, staleness, time to a FRESH past the step or None,
-   frames applied, S1's distance from the master; S1 must have taken in
-   most of the step). The launches of A and B
-   in the phase (both > 0), then A and B against their plain versions on
-   the master's state (tree_kernel_check), 0 mismatches required; the
-   subscriber's host ms per applied frame. One {"serve": ...} line.
+   (refused fraction, staleness, time to a FRESH past the step, frames
+   applied, S1's distance from the master; a FRESH past the step must come
+   within the arm, since the subscriber links burst by the cascade, and S1
+   must have taken in most of the step). The launches of A-cascade, the
+   finish kernel and B in the phase (each > 0), then A and B against their
+   plain versions on the master's state (tree_kernel_check), 0 mismatches
+   required; the subscriber's host ms per applied frame. One {"serve": ...}
+   line.
 14. The peer's wire capabilities (`/dev/shm`'s size printed first): (14a)
    BASELINE config 1 on the reference wire: compat.createOrFetch on the card
    (wire_compat) seeds arange(1, 241) as 4x5x6x2, the C reference peer
@@ -353,14 +355,20 @@ Phases, in order; any failure exits non-zero:
    Every replica must end within KILL_STORM_TOL of the exact sum of the
    adds, every lane must have gone live, no link may die unkilled (a lane
    link timing out mid-stream), and A-cascade, the finish and B must have
-   launched (counts reset at the phase's start). Prints the lane messages,
-   the kills, the redirected joins, the signed deviation and the seconds
-   (against KILL_STORM_BUDGET_S, 3 s).
+   launched (counts reset at the phase's start). Then KILL_STORM_LEAVES
+   rounds of graceful leaves (ROADMAP queue 3 item 11): the child leaves,
+   the leaf it orphans takes one more add and leaves once orphaned, and
+   both re-join (the leaf below the child again); every leave() must
+   return True, and the deviation check above comes after them. Prints the
+   lane messages, the kills, the redirected joins, the leaves' verdicts
+   and seconds, the signed deviation and the seconds (against
+   KILL_STORM_BUDGET_S, 3 s).
    --kill-storm runs it alone after the build.
 A CUDA peer's K-frame bursts follow the native engine's cascade
 (CodecConfig.cascade_frames, 32 by default): they run kernel A-cascade
-and the finish kernel, and kernel A runs on the pod tier, single frames
-(subscriber and reference-wire links) and the direct SharedTensor drives
+and the finish kernel, on ledgered and subscriber links alike, and kernel
+A runs on the pod tier, single frames (reference-wire links and
+cascade_frames=1) and the direct SharedTensor drives
 (phases 3, 8c). Each peer phase reports the launches of A, A-cascade, the
 finish and B and requires those of its path.
 The transport, the host codec and the engine (native/sttransport.cpp,
@@ -2140,10 +2148,8 @@ def serve_tree(cfg_m, device, seed: int, deadline_s: float = 30.0) -> tuple[dict
             spec, AGREE_REL, deadline_s)
         # The engine writer adds first and drains (its frames all acknowledged
         # by the master), the subscribers catch up, then the master adds. A
-        # FRESH mark needs a drained residual, and a subscriber link drains
-        # a sum of two updates of unrelated power-of-two bounds only after
-        # thousands of frames (sparse outliers, PERF.md §4); each update
-        # alone, relayed or not, drains in about 28.
+        # FRESH mark needs a drained residual; the master's subscriber links
+        # burst by the cascade, which drains each update in tens of frames.
         writer.add(deltas[1])
         if not writer.drain(timeout=deadline_s):
             raise AssertionError("phase 13: the engine writer did not drain its update")
@@ -2250,14 +2256,15 @@ def serve_tree(cfg_m, device, seed: int, deadline_s: float = 30.0) -> tuple[dict
 def sgd_arm(master, s1, loss_fn, batch, cfg_m, spec, offs) -> dict:
     """Phase 13's last arm, on an update whose bounds are no powers of two:
     the master adds one SGD step of the char-RNN at its own weights (as a
-    trainer adds it), then nobody writes. Such a residual drains its sparse
-    outliers over thousands of frames, so no FRESH mark need come within
-    the arm, and S1's newest verified instant is the step's own stamp: its
-    reads at the 1 s bound are served until the step is 1 s old, then
-    refused. Reports the refused fraction and staleness over
-    SERVE_SGD_ARM_S s of reads, the time to a FRESH past the step (None:
-    none came in the arm), S1's frames applied and its distance from the
-    master at the arm's end; fails unless S1 is finite and has taken in
+    trainer adds it), then nobody writes. The master's subscriber links
+    burst by the engine's cascade (kernel A-cascade and the finish kernel),
+    which drains such a residual to the exact zero a FRESH mark needs in
+    tens of frames; the per-frame schedule of single frames left sparse
+    outliers for thousands, and refused 84-100% of the reads here. Reports
+    the refused fraction and staleness over SERVE_SGD_ARM_S s of reads at
+    the 1 s bound, the time to a FRESH past the step, S1's frames applied
+    and its distance from the master at the arm's end; fails unless a FRESH
+    past the step comes within the arm and S1 is finite and has taken in
     most of the step (its RMS distance from the master under half the
     step's RMS)."""
     from shared_tensor_tpu_torch import serve
@@ -2297,10 +2304,13 @@ def sgd_arm(master, s1, loss_fn, batch, cfg_m, spec, offs) -> dict:
         step_worst_leaf_rel=max(_rel_err(d[o:o + n], want[o:o + n]) for o, n in zip(offs, spec.ns)),
     )
     print(f"[13] SGD-step arm (bound 1 s, no writes after the step): {arm['read_per_s']:.1f} reads/s, refused "
-          f"{arm['refused_fraction']}, staleness p50 {arm['staleness_p50_s']} p99 {arm['staleness_p99_s']} s; "
+          f"{arm['refused_fraction']} (single frames: 0.84-1.0), staleness p50 {arm['staleness_p50_s']} "
+          f"p99 {arm['staleness_p99_s']} s; "
           f"FRESH past the step after {arm['time_to_fresh_s']} s; S1 applied {arm['frames_applied']} frames, "
           f"RMS distance from the master {rms_err:.3e} (the step's RMS {rms_step:.3e}), worst leaf "
           f"{arm['worst_leaf_rel_err']:.3e} (the step's {arm['step_worst_leaf_rel']:.3e})")
+    if arm["time_to_fresh_s"] is None:
+        raise AssertionError(f"phase 13: no FRESH mark past the SGD step within {SERVE_SGD_ARM_S} s: {arm}")
     if not (np.isfinite(got).all() and rms_err < 0.5 * rms_step):
         raise AssertionError(f"phase 13: S1 did not take in the SGD step: {arm}")
     return arm
@@ -3791,7 +3801,10 @@ def cascade_phase(device, rate: float, seed: int, smi: str) -> dict:
     from shared_tensor_tpu_torch.ops.table import make_spec
 
     t0 = time.perf_counter()
-    out = {"22a": {}}
+    # the timings' captures are thread-local; a thread left running by an
+    # earlier phase would still share the card, so it is named here
+    out = {"22a": {}, "threads": sorted(t.name for t in threading.enumerate() if t is not threading.main_thread())}
+    print(f"[22] threads besides the main one: {out['threads']}")
     for name, tmpl in (("config2", char_rnn_template()), ("1Mi", {"t": np.zeros(1 << 20, np.float32)})):
         r = out["22a"][name] = cascade_kernel_check(make_spec(tmpl), device, rate, seed + 22)
         f, g = r["finish"], r["burst"]
@@ -3888,6 +3901,9 @@ KILL_STORM_STEP_S = 0.005
 # send queue from idling for a keepalive interval (a quarter of the liveness
 # timeout), as the soak's 0.5 s digests do under its 1 s keepalive.
 KILL_STORM_DIGEST_S = 0.02
+# After the kills, rounds of graceful leaves: the child leaves, the leaf it
+# orphans takes an add into its carry and leaves too, and both re-join.
+KILL_STORM_LEAVES = 2
 
 
 def _lane_live(peer) -> bool:
@@ -3988,6 +4004,34 @@ def kill_storm_phase(device, seed: int, smi: str) -> dict:
                 if len(c.node.links) != 2:
                     raise AssertionError("phase 23: the leaf did not join below the re-grafted child")
                 out["redirected_joins"] += 1
+        t_leaves = time.perf_counter()
+        out["leave_verdicts"] = []
+        for _ in range(KILL_STORM_LEAVES):
+            stream()
+            count_lane()
+            # the child leaves gracefully; the leaf it orphans still owes
+            # the tree what the sealed child discarded, and takes one more
+            # add while orphaned: its leave must wait for the re-graft that
+            # hands that carry on
+            out["leave_verdicts"].append(c.leave(timeout=KILL_STORM_WAIT_S))
+            peers.remove(c)
+            wait(lambda: leaf.node.uplink is None or leaf.node.uplink != uplinks[leaf], "the orphan never noticed")
+            u = rng.uniform(-KILL_STORM_SCALE, KILL_STORM_SCALE, KILL_STORM_N).astype(np.float32)
+            leaf.add({"w": u})
+            total[:] += u
+            out["leave_verdicts"].append(leaf.leave(timeout=KILL_STORM_WAIT_S))
+            peers.remove(leaf)
+            c = create_or_fetch("127.0.0.1", port, {"w": np.zeros(KILL_STORM_N, np.float32)}, tcfg(),
+                                timeout=KILL_STORM_WAIT_S, host_tier=True)
+            peers.append(c)
+            joined(c)
+            leaf = create_or_fetch("127.0.0.1", port, {"w": np.zeros(KILL_STORM_N, np.float32)}, tcfg(),
+                                   timeout=KILL_STORM_WAIT_S, host_tier=True)
+            peers.append(leaf)
+            joined(leaf)
+            if len(c.node.links) != 2:
+                raise AssertionError("phase 23: the re-joined leaf did not land below the re-joined child")
+        out["leave_s"] = time.perf_counter() - t_leaves
         stream()
         deadline = time.perf_counter() + KILL_STORM_WAIT_S
         while True:
@@ -4007,13 +4051,18 @@ def kill_storm_phase(device, seed: int, smi: str) -> dict:
     print(f"[23] hard link kills on the lane: a {device} device-tier master, an engine child and an engine leaf "
           f"on {KILL_STORM_N} elements, liveness timeout {KILL_STORM_PEER_TIMEOUT_S} s; {out['kills']} kills, "
           f"none died unkilled, {out['redirected_joins']} joins redirected to the re-grafted "
-          f"child, {out['lanes']} lanes live; lane messages {out['lane_msgs']}; signed deviation from the exact "
+          f"child, {out['lanes']} lanes live; then {KILL_STORM_LEAVES} rounds of the child's and its orphaned "
+          f"leaf's graceful leaves and re-joins in {out['leave_s']:.3f} s, verdicts {out['leave_verdicts']}; "
+          f"lane messages {out['lane_msgs']}; signed deviation from the exact "
           f"sum -{out['dev_neg']:.3e} / +{out['dev_pos']:.3e} (tolerance {KILL_STORM_TOL}); phase "
           f"{out['seconds']:.3f} s (budget {KILL_STORM_BUDGET_S} s) on {smi}")
     if min(out["lane_msgs"].values()) < 1:
         raise AssertionError(f"phase 23: no traffic on the lane: {out['lane_msgs']}")
+    if not all(out["leave_verdicts"]):
+        raise AssertionError(f"phase 23: a graceful leave's drain timed out: {out['leave_verdicts']}")
     if max(out["dev_neg"], out["dev_pos"]) > KILL_STORM_TOL:
-        raise AssertionError(f"phase 23: the replicas are off the exact sum after {out['kills']} kills: {out}")
+        raise AssertionError(f"phase 23: the replicas are off the exact sum after {out['kills']} kills and "
+                             f"{len(out['leave_verdicts'])} leaves: {out}")
     return out
 
 
@@ -4203,8 +4252,9 @@ def main() -> int:
 
     serve_out, master = serve_tree(CharRNNConfig(), dev, args.seed)
     serve_launches = path_counts()
-    # the subscribers' single frames run A, the engine writer's link bursts
-    require_launched(serve_launches, PEER_KERNELS, "phase 13")
+    # the master's bursts to the engine writer and to both subscribers run
+    # A-cascade and the finish kernel, its applies B
+    require_launched(serve_launches, BURST_KERNELS, "phase 13")
     check13 = tree_kernel_check(master, make_spec(char_template), "13")
     del master
     serve_out["seconds"] = time.perf_counter() - t13

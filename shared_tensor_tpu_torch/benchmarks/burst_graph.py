@@ -118,7 +118,7 @@ def graph_node_types(fn) -> dict:
     g = torch.cuda.CUDAGraph(keep_graph=True)
     s = torch.cuda.Stream()
     s.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.graph(g, stream=s):
+    with torch.cuda.graph(g, stream=s, capture_error_mode="thread_local"):
         fn()
     torch.cuda.current_stream().wait_stream(s)
     cu = ctypes.CDLL("libcuda.so.1")

@@ -23,8 +23,9 @@ survives a SIGKILL. The gates: a fresh verifier joining the quiesced tree
 agrees with the master within ``0.01 + 2e-3 * max |state|``; the master's
 state lies within the re-delivery noise bound of the exact sum of every
 logged add, on each side (``2.0`` a link kill, ``5.0`` a crash; on the
-reference wire ``4.0`` an event); every survivor's drain ok; the
-population intact. Prints one JSON line.
+reference wire ``4.0`` an event); every survivor's drain ok; every
+graceful leave's verdict True (``leave_failures``: a leave whose drain
+timed out owing mass); the population intact. Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ def _worker(rank: int, port: int, n: int, compat: bool, chaos_period: float, sto
     ready.release()
     rng = np.random.default_rng(rank)
     ledger = open(os.path.join(ledger_dir, f"ledger_{rank}.txt"), "a")
-    kills = leaves = 0
+    kills = leaves = leave_failures = 0
     last_chaos = time.time()
     while not stop_ev.is_set():
         lo, hi = sorted(rng.uniform(-1, 1, size=2))
@@ -91,14 +92,16 @@ def _worker(rank: int, port: int, n: int, compat: bool, chaos_period: float, sto
             else:
                 # a graceful leave mid-stream: the sealed ingress re-routes
                 # third-party mass in transit instead of losing it
-                peer.leave(timeout=30.0)
+                # its verdict: False means the drain timed out owing mass
+                leave_failures += not peer.leave(timeout=30.0)
                 leaves += 1
                 ledger.write("L\n")
                 ledger.flush()
                 peer = _mk(port, n, compat)
     ok = peer.drain(timeout=90.0, tol=1e-30)
     ledger.close()
-    out_q.put((rank, kills, leaves, ok, peer._engine is not None, peer.metrics()["st_frames_in_total"]))
+    out_q.put((rank, kills, leaves, ok, peer._engine is not None, peer.metrics()["st_frames_in_total"],
+               leave_failures))
     exit_ev.wait(timeout=300)
     peer.close()
 
@@ -193,6 +196,7 @@ def run(seconds: float = SECONDS, n: int = N, crash: bool = False, compat: bool 
         neg_dev = float(-signed.min()) if signed.min() < 0 else 0.0
         pos_dev = float(signed.max()) if signed.max() > 0 else 0.0
         drains_ok = sum(1 for r in results if r[3])
+        leave_failures = sum(r[6] for r in results)
         # agreement: a fresh verifier joins the quiesced tree and reaches
         # the master's state (state transfer and flood agree)
         verifier = _mk(port, n, compat)
@@ -223,6 +227,7 @@ def run(seconds: float = SECONDS, n: int = N, crash: bool = False, compat: bool 
             "hard_link_kills": kills,
             "process_crashes_sigkill": crashes,
             "graceful_leave_rejoin_cycles": leaves,
+            "leave_failures": leave_failures,
             "final_drains_ok": f"{drains_ok}/{len(results)}",
             "population_ok": population_ok,
             "workers_on_engine": all(r[4] for r in results),
@@ -234,7 +239,7 @@ def run(seconds: float = SECONDS, n: int = N, crash: bool = False, compat: bool 
             "redelivery_noise_bound": noise_bound,
             "master_frames_in": master.metrics()["st_frames_in_total"],
             "pass": bool(agreement_dev < bar and neg_dev < noise_bound and pos_dev < noise_bound
-                         and drains_ok == len(results) and population_ok),
+                         and drains_ok == len(results) and population_ok and leave_failures == 0),
         }
     finally:
         stop_ev.set()

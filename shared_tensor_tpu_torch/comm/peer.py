@@ -201,10 +201,16 @@ SEND_WINDOW = 32
 #: Messages re-sent per retransmission round (the head of the tail is what
 #: restores in-order progress at the receiver).
 RETX_PREFIX = 4
-#: Most frames a host-tier subscriber message carries: a subscriber's
-#: staleness floor is its queue depth times its apply time per message
-#: (the engine's kSubBurstCap).
+#: Most frames a subscriber link's burst quantizes in one pass. A host-tier
+#: message carries them all: a subscriber's staleness floor is its queue
+#: depth times its apply time per message (the engine's kSubBurstCap).
 SUB_BURST_CAP = 32
+#: Most messages a device-tier subscriber link has in its transport send
+#: queue: its bursts go out one message a frame, and the frames the queue
+#: cannot take yet wait, quantized, for the peer's sub-push thread, so the
+#: subscriber's backlog is a few frames, not a few bursts, and the send
+#: thread never waits on a slow subscriber.
+SUB_QUEUED_MSGS = 2
 #: Host seconds by stage of the data path, under their metric names.
 _TIMERS = (
     "st_send_loop_busy_seconds_total",
@@ -585,6 +591,10 @@ class SharedTensorPeer:
         self._sub_fresh: dict[int, float] = {}
         self._sub_mask_ver: dict[int, int] = {}
         self._sub_mu: dict[int, threading.Lock] = {}
+        # _sub_held: a device-tier subscriber burst's frames not yet queued
+        # (ledger seq, payloads in wire order), until the last goes
+        self._sub_held: dict[int, tuple[int, deque]] = {}
+        self._sub_push_wake = threading.Event()
         self._sub_msgs_out = 0
         self._sub_fresh_out = 0
         # delivery ledger per link: (ledger seq, wire seq, payload, slot,
@@ -661,6 +671,8 @@ class SharedTensorPeer:
         if self._engine is None:
             self._send_thread = threading.Thread(target=self._send_loop, daemon=True, name="st-send")
             self._threads += (self._send_thread,)
+            if not self.st.host_tier:
+                self._threads += (threading.Thread(target=self._sub_push_loop, daemon=True, name="st-sub-push"),)
         for t in self._threads:
             t.start()
 
@@ -692,17 +704,34 @@ class SharedTensorPeer:
         """Block until every link's residual is down to ``tol`` RMS, the
         send queues are empty and every sent message is acknowledged: then
         every local update lives in the neighbours' replicas and close()
-        loses nothing. The pow2 scale flushes subnormal RMS to 0, so after
-        long add sequences pass a tiny ``tol`` (1e-30)."""
+        loses nothing. A node below the root is not drained while its
+        uplink has no codec link: orphaned, it holds what it owes the tree
+        in its carry, and mid-handshake in what its snapshot did not claim,
+        neither of which any link carries until the re-graft's WELCOME.
+        Sealed by :meth:`leave`, such a node owes only its uplink, and each
+        poll drops its children's links from the codec. The pow2 scale
+        flushes subnormal RMS to 0, so after long add sequences pass a tiny
+        ``tol`` (1e-30)."""
         deadline = time.time() + timeout
         # the engine quiesces in microseconds; the Python tiers need the
         # coarser poll to stay off their state lock
         poll = 0.005 if self._engine is not None else 0.05
+
+        def owes_nothing(links) -> bool:
+            return all(self.st.residual_rms(l) <= tol for l in (*links, CARRY_LINK))
+
         while time.time() < deadline and not self._stop.is_set():
+            if self._sealed and not self.is_master:
+                self._drop_child_links()  # leave(): a child may have joined since the seal
             links = [l for l in self.st.link_ids if l >= 0]
-            if all(self.st.residual_rms(l) <= tol for l in links):
+            if (self.is_master or self._uplink in links) and owes_nothing(links):
                 stats = [self.node.stats(l) for l in self.node.links]
-                if all(s is None or s.send_queue == 0 for s in stats) and self.st.inflight_total() == 0:
+                # the receive thread moves a dead uplink's unacknowledged
+                # frames into the carry: the residuals are read again after
+                # the ledger, over the same links, so frames that left the
+                # ledger between the two reads are seen where they went
+                if all(s is None or s.send_queue == 0 for s in stats) and self.st.inflight_total() == 0 \
+                        and [l for l in self.st.link_ids if l >= 0] == links and owes_nothing(links):
                     return True
             time.sleep(poll)
         return False
@@ -710,7 +739,13 @@ class SharedTensorPeer:
     def leave(self, timeout: float = 60.0, tol: float = 1e-30) -> bool:
         """Graceful exit that loses nothing mid-stream: seal (incoming data
         is discarded unacknowledged, so its senders re-deliver it around
-        us), drain what we owe, close. Returns the drain's verdict."""
+        us), drain what we owe, close. Below the root we owe only our
+        uplink: the drain drops the children's links from the codec (those
+        that join after the seal too), since each child re-grafts with a
+        diff handshake that brings it what the tree holds and it lacks, and
+        a child that is leaving too discards our frames unacknowledged, so
+        waiting on it would wait out the timeout. The root drains every
+        link. Returns the drain's verdict."""
         if self._engine is not None:
             self._engine.seal()  # the engine puts its seal on the ring
         elif self._obs is not None:
@@ -720,12 +755,29 @@ class SharedTensorPeer:
         self.close()
         return ok
 
+    def _drop_child_links(self) -> None:
+        """A sealed node's children's links leave the codec, their residuals
+        and ledgers with them; the transport links stay up until close().
+        An engine link goes back to the Python receive loop, which discards
+        its data while sealed. Subscriber links stay: unledgered, they
+        drain without waiting on anyone."""
+        for link in [l for l in self.st.link_ids if l >= 0 and l != self._uplink and l not in self._sub_links]:
+            if self._engine is not None:
+                self._engine.drop_link(link)
+                self._engine_links.discard(link)
+                continue
+            self.st.drop_link(link)
+            with self._ack_mu:
+                purged = self._unacked.pop(link, ())
+            self._release_slots(purged)
+
     def close(self) -> None:
         """Leave the tree; the other peers re-graft and carry on. Once: a
         second call (a routed drain closes the peer on a thread of its own)
         waits for the first to finish and returns."""
         self._stop.set()
         self._wake.set()
+        self._sub_push_wake.set()
         with self._close_mu:
             if self._closed:
                 return
@@ -757,8 +809,8 @@ class SharedTensorPeer:
         return self._ready.is_set()
 
     def threads_alive(self) -> bool:
-        """The peer's Python threads are running: receive and send, or on
-        the engine receive only."""
+        """The peer's Python threads are running: receive and send (and on
+        the device tier sub-push), or on the engine receive only."""
         return all(t.is_alive() for t in self._threads)
 
     def metrics(self, cluster: bool = False) -> dict:
@@ -1804,11 +1856,16 @@ class SharedTensorPeer:
         """One send pass of a subscriber link. Unledgered: a message counts
         as delivered once it is queued (``ack_frame`` at once); a message
         the wire loses shows at the subscriber as a seq gap, and its resync
-        re-seeds the link. The frame is quantized and sent in this call
-        (the device tier: one frame, its copy waited for here; the host
-        tier: a burst of up to SUB_BURST_CAP), so when the residual is
-        found drained nothing of the link is quantized and unsent, and the
-        FRESH mark then sent covers exactly what went out. A ranged link's
+        re-seeds the link. A pass quantizes a burst of up to SUB_BURST_CAP
+        frames by the cascade (with ``cascade`` 1 the device tier takes one
+        frame); the host tier sends it at once, as one message. The device
+        tier waits for its copy here and sends one message a frame, queueing
+        at most SUB_QUEUED_MSGS on the link: the frames left over are held,
+        and the sub-push thread queues them as the link's queue drains
+        (:meth:`_sub_push_loop`); the link's next burst waits for the last.
+        The FRESH mark goes only from a pass that holds nothing and finds the
+        residual drained, so nothing of the link is then quantized and
+        unsent, and the mark covers exactly what went out. A ranged link's
         residual is masked to its range first (only when the replica moved)
         and each frame goes out as one RDATA. Returns True if data was
         sent."""
@@ -1819,6 +1876,8 @@ class SharedTensorPeer:
             rng = self._sub_links.get(link)
             if link not in self._sub_links:
                 return False  # detached while the pass began
+            if link in self._sub_held:
+                return False  # the sub-push thread is still queueing its last burst
             if rng is not None:
                 ver = self.st.state_version()
                 if ver != self._sub_mask_ver.get(link):
@@ -1840,6 +1899,15 @@ class SharedTensorPeer:
                 if out is None:
                     return False
                 seq, frames = out
+            elif self.st.cascade > 1:
+                # the cascade drains a residual of any bound to the exact
+                # zero a FRESH mark needs in tens of frames; single frames
+                # re-measure every frame and leave outliers for thousands
+                out = self.st.begin_frame_burst_device(link, min(self._burst_device, SUB_BURST_CAP))
+                if out is None:
+                    return False
+                seq, df = out
+                frames = self.st.finish_frame_burst(df) or []
             else:
                 out = self.st.begin_frame(link)
                 if out is None:
@@ -1852,17 +1920,24 @@ class SharedTensorPeer:
                 self._sub_fresh_mark(link, fresh_t)
                 return False
             self._link_frames_out[link] = self._link_frames_out.get(link, 0) + len(frames)
-            nmsg = len(frames) if rng is not None else 1
+            per_frame = rng is not None or not self.st.host_tier
+            nmsg = len(frames) if per_frame else 1
             with self._ack_mu:
                 base = self._tx_seq.get(link, 0)
                 self._tx_seq[link] = base + nmsg
             if rng is not None:
                 wlo, wcnt = rng
                 payloads = [wire.encode_rdata(f, wlo, wcnt, base + i + 1, trace=trace) for i, f in enumerate(frames)]
-            elif len(frames) == 1:
-                payloads = [wire.encode_frame(frames[0], base + 1, trace=trace)]
+            elif per_frame:
+                payloads = [wire.encode_frame(f, base + i + 1, trace=trace) for i, f in enumerate(frames)]
             else:
                 payloads = [wire.encode_burst(frames, self.st.spec, base + 1, trace=trace)]
+            if not self.st.host_tier:
+                self._sub_held[link] = (seq, deque(payloads))
+                sent = self._push_sub_held(link)
+                if link in self._sub_held:
+                    self._sub_push_wake.set()
+                return sent
             ok = True
             for payload in payloads:
                 self._data_bytes_out += len(payload)
@@ -1898,9 +1973,59 @@ class SharedTensorPeer:
         """A paused sender's FRESH mark: only for a drained residual,
         stamped before the check, as in :meth:`_send_sub`."""
         fresh_t = self._now_ns()
-        if self.st.residual_rms(link) > 0.0:
+        if link in self._sub_held or self.st.residual_rms(link) > 0.0:
             return
         self._sub_fresh_mark(link, fresh_t)
+
+    def _sub_push_loop(self) -> None:
+        """The device tier's sub-push thread: while any subscriber link holds
+        frames, every millisecond each such link's held frames go into its
+        send queue as far as :meth:`_push_sub_held` lets them. So a burst
+        reaches a slow subscriber at the subscriber's pace, not the send
+        thread's, which meanwhile quantizes for the other links. Held frames
+        still go out while the peer is paused."""
+        try:
+            while not self._stop.is_set():
+                if not self._sub_held:
+                    self._sub_push_wake.wait()
+                    self._sub_push_wake.clear()
+                    continue
+                for link in list(self._sub_held):
+                    mu = self._sub_mu.get(link)
+                    if mu is not None:
+                        with mu:
+                            if link in self._sub_held:
+                                self._push_sub_held(link)
+                time.sleep(0.001)
+        except Exception as e:
+            log.exception("sub-push thread died")
+            self._error = e
+            self._ready.set()
+            raise
+
+    def _push_sub_held(self, link: int) -> bool:
+        """Queue a device-tier subscriber link's held frames while its send
+        queue holds fewer than SUB_QUEUED_MSGS messages; once the last is
+        queued, the burst's ledger entry goes (delivered on enqueue). The
+        caller holds the link's ``_sub_mu``. Returns True if data was
+        sent."""
+        seq, held = self._sub_held[link]
+        sent = False
+        while held:
+            st = self.node.stats(link)
+            if st is None or st.send_queue >= SUB_QUEUED_MSGS:
+                return sent  # the rest waits for the subscriber to drain its queue
+            payload = held.popleft()
+            self._data_bytes_out += len(payload)
+            if not self._send_blocking(link, payload, data=True):
+                del self._sub_held[link]
+                self.st.nack_frame(link)
+                return sent
+            self._sub_msgs_out += 1
+            sent = True
+        del self._sub_held[link]
+        self.st.ack_frame(link, seq)  # delivered on enqueue
+        return sent
 
     def _register_data(self, link: int, ledger_seq: int, encode_into):
         """Allocate the link's next wire seq, encode the message into a pool
@@ -2331,6 +2456,7 @@ class SharedTensorPeer:
                     self._sub_links.pop(ev.link_id, None)
                     self._sub_fresh.pop(ev.link_id, None)
                     self._sub_mask_ver.pop(ev.link_id, None)
+                    self._sub_held.pop(ev.link_id, None)
             self._engine_links.discard(ev.link_id)
             self._compat_open.discard(ev.link_id)
             for d in (self._peer_sign2, self._peer_shm, self._peer_r14, self._staleness, self._stale_origin,
@@ -2726,6 +2852,7 @@ class SharedTensorPeer:
             resync = link in self._sub_links
             if resync:
                 self.st.drop_link(link)
+                self._sub_held.pop(link, None)  # superseded by the re-seed
             with self._ack_mu:
                 purged = self._unacked.pop(link, ())
                 for d in (self._tx_seq, self._acked, self._ack_progress, self._retx_rounds):

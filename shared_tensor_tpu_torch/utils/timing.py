@@ -130,12 +130,14 @@ def event_ms(fn: Callable[[], object], iters: int, warmup: int = 3) -> float:
 def graph_ms(fn: Callable[[], object], iters: int, reps: int = 3) -> float:
     """Device ms per call of ``fn``: ``iters`` calls captured in one CUDA
     graph, replayed ``reps`` times between CUDA events, so the host's launch
-    cost is not in the time."""
+    cost is not in the time. The capture is thread-local: a call another
+    thread makes meanwhile (a peer's send thread syncing its copy) does not
+    invalidate it."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with torch.cuda.graph(g, capture_error_mode="thread_local"):
         for _ in range(iters):
             fn()
     g.replay()

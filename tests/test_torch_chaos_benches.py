@@ -177,7 +177,7 @@ def test_soak_kills_and_rejoins():
     _has_keys(out, _artifact("SOAK_CRASH_r04.json"))
     assert out["hard_link_kills"] >= 1 and out["graceful_leave_rejoin_cycles"] >= 1
     assert out["population_ok"] and out["workers_on_engine"]
-    assert out["final_drains_ok"] == "4/4"
+    assert out["final_drains_ok"] == "4/4" and out["leave_failures"] == 0
     assert out["agreement_dev_master_vs_fresh_joiner"] < out["agreement_bar"]
     assert max(out["sum_dev_neg"], out["sum_dev_pos"]) < out["redelivery_noise_bound"]
     assert out["pass"]

@@ -703,24 +703,22 @@ def test_kernels_on_a_compat_frame_match_plain(cuda_device, n):
     assert all(_same_bits(x, y) for x, y in zip(ak, ap))
 
 
-@pytest.mark.cuda
-def test_cuda_writer_serves_a_subscriber(cuda_device):
-    """A CUDA writer serves a read-only subscriber: kernel A quantizes the
-    subscriber link, the subscriber converges on the seed plus an add
-    within 1e-6 once fresh past the add, and its ServingHandle's tensors
-    are on the card and equal read()."""
-    from shared_tensor_tpu_torch import Config, TransportConfig, create_or_fetch, serve
+def _serve_a_subscriber(dev, codec=None) -> None:
+    """A CUDA writer (with ``codec``) and one read-only subscriber: one
+    add, read once fresh past it (within 1e-6), and the subscriber's
+    ServingHandle on the card equal to read(). Launch counts reset before
+    the add."""
+    from shared_tensor_tpu_torch import CodecConfig, Config, TransportConfig, create_or_fetch, serve
 
-    cfg = Config(transport=TransportConfig(peer_timeout_sec=10.0))
+    cfg = Config(transport=TransportConfig(peer_timeout_sec=10.0), codec=codec or CodecConfig())
     seed = {"w": np.arange(4096, dtype=np.float32).reshape(64, 64), "b": np.ones(100, np.float32)}
     zeros = {k: np.zeros_like(v) for k, v in seed.items()}
     port = _free_port()
-    with create_or_fetch("127.0.0.1", port, seed, cfg, device=cuda_device) as m:
-        with serve.subscribe("127.0.0.1", port, zeros, cfg, timeout=30.0) as sub:
+    with create_or_fetch("127.0.0.1", port, seed, cfg, device=dev) as m:
+        with serve.subscribe("127.0.0.1", port, zeros, Config(transport=cfg.transport), timeout=30.0) as sub:
             CC.reset_launches()
             m.add({k: np.full_like(v, 0.5) for k, v in seed.items()})
             sub.wait_fresh(serve.epoch(), timeout=30.0)
-            assert CC.LAUNCHES["quantize_rows"] > 0, CC.LAUNCHES
             got = sub.read(max_staleness=10.0)
             for k in seed:
                 np.testing.assert_allclose(got[k], seed[k] + 0.5, rtol=0, atol=1e-6)
@@ -730,7 +728,36 @@ def test_cuda_writer_serves_a_subscriber(cuda_device):
             for k in seed:
                 assert params[k].device.type == "cuda"
                 np.testing.assert_array_equal(params[k].cpu().numpy(), got[k])
-            assert m.metrics()["st_sub_links"] == 1 and m.st.inflight_total() == 0
+            assert m.metrics()["st_sub_links"] == 1
+            # an idle pass holds its burst's ledger entry from the quantize
+            # to the copy's end: the writer keeps none across passes
+            deadline = time.time() + 10.0
+            while m.st.inflight_total() and time.time() < deadline:
+                time.sleep(0.005)
+            assert m.st.inflight_total() == 0
+
+
+@pytest.mark.cuda
+def test_cuda_writer_serves_a_subscriber(cuda_device):
+    """A CUDA writer serves a read-only subscriber: its cascade bursts
+    (kernel A-cascade and the finish kernel, one CUDA graph) quantize the
+    subscriber link, the subscriber converges on the seed plus an add
+    within 1e-6 once fresh past the add, and its ServingHandle's tensors
+    are on the card and equal read()."""
+    _serve_a_subscriber(cuda_device)
+    assert CC.ENGINE_LAUNCHES["quantize_rows_cascade"] > 0 and CC.ENGINE_LAUNCHES["cascade_round"] > 0, \
+        CC.launches()
+
+
+@pytest.mark.cuda
+def test_cuda_writer_serves_a_subscriber_single_frames(cuda_device):
+    """The same with ``cascade_frames=1``: the subscriber link takes one
+    frame of kernel A a pass, JAX's schedule."""
+    from shared_tensor_tpu_torch import CodecConfig
+
+    _serve_a_subscriber(cuda_device, CodecConfig(cascade_frames=1))
+    assert CC.LAUNCHES["quantize_rows"] > 0 and CC.ENGINE_LAUNCHES["quantize_rows_cascade"] == 0, CC.launches()
+
 
 def _pod_step_kernel_vs_plain(mesh, steps):
     """On each rank: one seeded pod state through ``steps`` sync steps with

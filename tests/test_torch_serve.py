@@ -390,6 +390,130 @@ def test_fresh_never_covers_a_frame_left_in_the_pipeline():
         m.close()
 
 
+#: Seconds a subscriber link may take to reach a FRESH mark past one real
+#: update: the cascade drains it in tens of frames (a few passes); the
+#: per-frame schedule takes thousands.
+FRESH_AFTER_UPDATE_S = 5.0
+
+
+def _fresh_after(m, subs, delta):
+    """Add ``delta`` at the writer, then wait for a FRESH mark past the add
+    at every subscriber, each within FRESH_AFTER_UPDATE_S; returns the
+    writer's replica."""
+    m.add(delta)
+    ep = serve.epoch()
+    for sub in subs:
+        sub.wait_fresh(ep, timeout=FRESH_AFTER_UPDATE_S)
+    return np.asarray(m.read())
+
+
+@pytest.mark.parametrize("tier", PY_TIERS)
+def test_subscriber_fresh_after_a_real_update(tier):
+    """One add of a seeded gaussian scaled by 1e-2 (its bound no power of
+    two), the way an SGD step lands: a full subscriber and a whole-range
+    one (RDATA) both get a FRESH mark past it within a few seconds, and
+    each reads the writer's replica. The writer's subscriber links burst
+    by the cascade on both Python tiers."""
+    port = free_port()
+    n = 4096
+    rng = np.random.default_rng(20)
+    seed = rng.normal(size=n).astype(np.float32)
+    m = _writer(port, seed, tier)
+    full, whole = _sub(port, n), _sub(port, n, (0, n))
+    try:
+        assert m.st.cascade > 1
+        for sub in (full, whole):
+            assert _poll(lambda: np.allclose(sub.read(max_staleness=10.0), seed, atol=1e-6), deadline=20.0)
+        rep = _fresh_after(m, (full, whole), (rng.normal(size=n) * 1e-2).astype(np.float32))
+        np.testing.assert_allclose(full.read(max_staleness=10.0), rep, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(whole.read(max_staleness=10.0), rep, rtol=0, atol=1e-6)
+        assert m._error is None and m.metrics()["st_sub_links"] == 2
+    finally:
+        full.close()
+        whole.close()
+        m.close()
+
+
+@pytest.mark.parametrize("tier", PY_TIERS)
+def test_ranged_subscriber_fresh_after_a_real_update(tier):
+    """A subscriber of a page range gets a FRESH mark past a gaussian add
+    within a few seconds: the writer masks the link's residual to the range
+    before the cascade measures it, and reads equal the writer's replica on
+    the range."""
+    port = free_port()
+    n = 4096
+    lo, hi = 1024, 2560
+    rng = np.random.default_rng(21)
+    m = _writer(port, np.zeros(n, np.float32), tier)
+    sub = _sub(port, n, (lo, hi))
+    try:
+        assert _poll(lambda: sub.read(max_staleness=10.0) is not None, deadline=20.0)
+        for _ in range(3):
+            rep = _fresh_after(m, (sub,), (rng.normal(size=n) * 1e-2).astype(np.float32))
+            np.testing.assert_allclose(sub.read(max_staleness=10.0), rep[lo:hi], rtol=0, atol=1e-6)
+    finally:
+        sub.close()
+        m.close()
+
+
+@pytest.mark.parametrize("tier", PY_TIERS)
+def test_subscriber_fresh_after_uniform_adds(tier):
+    """Sums of uniform adds with unrelated bounds left a device-tier link
+    with subnormal dust that never reached a FRESH mark; the cascade
+    drains it: a FRESH past each of ten adds within a few seconds."""
+    port = free_port()
+    n = 4096
+    rng = np.random.default_rng(22)
+    m = _writer(port, np.zeros(n, np.float32), tier)
+    sub = _sub(port, n)
+    try:
+        assert _poll(lambda: sub.read(max_staleness=10.0) is not None, deadline=20.0)
+        for _ in range(10):
+            d = (rng.uniform(-1, 1, n) * rng.uniform(0.1, 3.0)).astype(np.float32)
+            rep = _fresh_after(m, (sub,), d)
+            np.testing.assert_allclose(sub.read(max_staleness=10.0), rep, rtol=0, atol=1e-5)
+    finally:
+        sub.close()
+        m.close()
+
+
+def test_a_held_device_burst_goes_out_while_paused(monkeypatch):
+    """A device-tier writer holds the frames of a subscriber burst that the
+    link's send queue cannot take (here: none, SUB_QUEUED_MSGS at 0): no
+    FRESH mark goes while any is held, paused or not, and once the queue
+    may take them the sub-push thread sends them while the writer stays
+    paused; resumed, the link reaches a FRESH mark past the add."""
+    from shared_tensor_tpu_torch.comm import peer as peer_mod
+
+    port = free_port()
+    n = 4096
+    rng = np.random.default_rng(23)
+    m = _writer(port, np.zeros(n, np.float32), "device")
+    sub = _sub(port, n)
+    try:
+        assert _poll(lambda: sub.read(max_staleness=10.0) is not None, deadline=20.0)
+        monkeypatch.setattr(peer_mod, "SUB_QUEUED_MSGS", 0)
+        applied = sub.frames_applied
+        m.add((rng.normal(size=n) * 1e-2).astype(np.float32))
+        ep = serve.epoch()
+        assert _poll(lambda: len(m._sub_held) == 1, deadline=10.0)
+        (link,) = m._sub_held
+        m.pause()
+        with pytest.raises(TimeoutError):
+            sub.wait_fresh(ep, timeout=0.5)
+        assert link in m._sub_held and sub.frames_applied == applied
+        monkeypatch.setattr(peer_mod, "SUB_QUEUED_MSGS", 2)
+        assert _poll(lambda: not m._sub_held, deadline=10.0)
+        assert _poll(lambda: sub.frames_applied - applied == m._link_frames_out[link], deadline=10.0)
+        m.pause(False)
+        rep = np.asarray(m.read())
+        sub.wait_fresh(ep, timeout=FRESH_AFTER_UPDATE_S)
+        np.testing.assert_allclose(sub.read(max_staleness=10.0), rep, rtol=0, atol=1e-6)
+    finally:
+        sub.close()
+        m.close()
+
+
 @pytest.mark.parametrize("tier", PY_TIERS)
 def test_a_full_subscriber_queue_holds_up_no_other_link(tier):
     """The send thread waits on S1's full queue (its sends refused, the

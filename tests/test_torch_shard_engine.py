@@ -286,7 +286,16 @@ def test_engine_relay_forwards_verbatim_toward_owner():
         # instead send the relay case through h1's own uplink position:
         # craft a member under the MASTER and address shard 1 (owned by
         # h1): the master does not own it and must relay down the route
-        # its announce learned
+        # its announce learned. h1 returns once granted, with its announce
+        # still in flight, and the master's loop may admit the member
+        # before it reads that announce: a FWD that lands first parks and
+        # goes out later as an unpark, not a relay on arrival. So wait
+        # until the master knows the route; the same loop thread sets the
+        # plane's route before it handles the member's handshake
+        deadline = time.time() + 10.0
+        while time.time() < deadline and h0.node._route.get(1) is None:
+            time.sleep(0.01)
+        assert h0.node._route.get(1) is not None, "the master never learned h1's route"
         cfg = _cfg(1)
         member = TransportNode(
             "127.0.0.1", port, cfg.transport,

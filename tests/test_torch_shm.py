@@ -32,6 +32,7 @@ import pathlib
 import signal
 import subprocess
 import sys
+import threading
 import time
 
 import jax  # noqa: F401  (the JAX package needs its backend configured first)
@@ -388,6 +389,80 @@ def test_lane_hard_kills_conserve_mass(lane):
         if shm:
             assert _wait_lane_live(peers), "a re-grafted link has no lane"
             assert sum(p.metrics()["st_shm_msgs_out_total"] for p in peers) > 0
+    finally:
+        for p in reversed(peers):
+            p.close()
+
+
+LEAVE_ROUNDS = 15
+LEAVE_TIMEOUT_S = 10.0
+
+
+@pytest.mark.parametrize("tier,lane,every,rounds", [("engine", "tcp", 0.02, LEAVE_ROUNDS), ("engine", "shm", 0.02, LEAVE_ROUNDS),
+                                                    ("host", "tcp", 0.02, LEAVE_ROUNDS), ("device", "tcp", 0.1, 3)],
+                         ids=["tcp", "shm", "host", "device"])
+def test_fast_graceful_leaves_conserve_mass(tier, lane, every, rounds):
+    """A same-host chain of four peers (one child each) streams adds while,
+    about every 0.5 s, the leaf's parent leaves gracefully and the leaf
+    leaves too, still owing the tree mass (frames its sealed parent
+    discarded, and one more add); both re-join as fresh peers at the
+    chain's end, 15 times (the device tier, whose drains take seconds on
+    the CPU, 3 times at a fifth of the add rate). In turn, the leaf leaves
+    once its parent's leave has orphaned it, or at the same time as its
+    parent. Every ``leave()`` returns True, and every replica ends within
+    1e-4 of the exact sum of the adds. Before, an orphan's drain found no
+    link owing anything and returned at once, so its close lost its
+    carry; and two neighbours leaving at once each waited for the other's
+    acknowledgements until their drains timed out."""
+    port = free_port()
+    shm = lane == "shm"
+    rng = np.random.default_rng(47)
+    total = np.zeros(KILL_N, np.float64)
+    peers = []
+
+    def mk():
+        return _peer(port, np.zeros(KILL_N, np.float32), tier, shm=shm, max_children=1)
+
+    def add(p):
+        u = rng.uniform(-KILL_SCALE, KILL_SCALE, KILL_N).astype(np.float32)
+        p.add(u)
+        total[:] += u
+
+    try:
+        for _ in range(4):
+            peers.append(mk())
+        t0 = time.time()
+        for r in range(rounds):
+            t_r = time.time()
+            while time.time() - t_r < 0.5:
+                for p in peers:
+                    add(p)
+                time.sleep(every)
+            parent, leaf = peers[2], peers[3]  # each joined at the chain's end
+            assert len(parent.node.links) == 2 and leaf.node.links == [leaf.node.uplink], f"round {r}: not a chain"
+            add(leaf)  # in flight toward the parent as it seals
+            verdicts = []
+            if r % 2 == 0:
+                verdicts.append(parent.leave(timeout=LEAVE_TIMEOUT_S))
+                deadline = time.time() + LEAVE_TIMEOUT_S
+                while time.time() < deadline and leaf.node.uplink is not None:
+                    time.sleep(0.001)
+                add(leaf)  # made while orphaned: into the carry
+                verdicts.append(leaf.leave(timeout=LEAVE_TIMEOUT_S))
+            else:
+                th = threading.Thread(target=lambda: verdicts.append(parent.leave(timeout=LEAVE_TIMEOUT_S)))
+                th.start()
+                add(leaf)
+                verdicts.append(leaf.leave(timeout=LEAVE_TIMEOUT_S))
+                th.join()
+            assert verdicts == [True, True], f"round {r} ({'at once' if r % 2 else 'orphaned'}): {verdicts}"
+            peers[2] = mk()
+            peers[3] = mk()
+        deadline = time.time() + 30.0
+        while time.time() < deadline and _max_dev(peers, total) >= 1e-4:
+            time.sleep(0.1)
+        dev = _max_dev(peers, total)
+        assert dev < 1e-4, f"{2 * rounds} leaves in {time.time() - t0:.1f} s: a replica is {dev} off the exact sum"
     finally:
         for p in reversed(peers):
             p.close()
