@@ -157,7 +157,10 @@ Phases, in order; any failure exits non-zero:
    master adds one SGD step of the char-RNN (bounds no powers of two) and
    S1 is read at the 1 s bound for SERVE_SGD_ARM_S s with no more writes
    (refused fraction, staleness, time to a FRESH past the step, frames
-   applied, S1's distance from the master; a FRESH past the step must come
+   applied, S1's distance from the master, and on a line before it S1's
+   link's frames in flight at the step and the most in the arm: the
+   master's frames sent minus S1's applied seq, beside their bound; a FRESH
+   past the step must come
    within the arm, since the subscriber links burst by the cascade, and S1
    must have taken in most of the step). The launches of A-cascade, the
    finish kernel and B in the phase (each > 0), then A and B against their
@@ -2253,6 +2256,31 @@ def serve_tree(cfg_m, device, seed: int, deadline_s: float = 30.0) -> tuple[dict
     return out, state
 
 
+def _sub_in_flight_bound() -> int:
+    """A subscriber link's most frames in flight: the writer's send queue
+    (SUB_QUEUED_MSGS) and as many in its sender's hand, both sockets at
+    twice the SUB_SOCKET_FRAMES asked for, the subscriber's receive queue,
+    and one message each in its receiver's hand and its apply (as
+    tests/test_torch_serve.py's bound test counts them)."""
+    from shared_tensor_tpu_torch.comm import peer
+    from shared_tensor_tpu_torch.serve import subscriber
+
+    return 2 * peer.SUB_QUEUED_MSGS + 4 * peer.SUB_SOCKET_FRAMES + subscriber.RECV_QUEUE_MSGS + 2
+
+
+def _sub_in_flight(writer, link: int, sub) -> tuple[int, int, int]:
+    """A subscriber link's frames in flight, one message a frame: (the
+    writer's data messages sent on ``link`` minus the subscriber's applied
+    seq, sent, applied). The applied seq is read first, so the difference
+    never under-counts; both restart at a resync."""
+    applied = sub._expected_seq - 1
+    with writer._sub_mu.get(link, threading.Lock()):
+        held = writer._sub_held.get(link)
+        with writer._ack_mu:
+            sent = writer._tx_seq.get(link, 0) - (len(held[1]) if held else 0)
+    return sent - applied, sent, applied
+
+
 def sgd_arm(master, s1, loss_fn, batch, cfg_m, spec, offs) -> dict:
     """Phase 13's last arm, on an update whose bounds are no powers of two:
     the master adds one SGD step of the char-RNN at its own weights (as a
@@ -2276,9 +2304,11 @@ def sgd_arm(master, s1, loss_fn, batch, cfg_m, spec, offs) -> dict:
     grads = torch.autograd.grad(loss_fn(tree_unflatten(treedef, leaves), batch, cfg_m), leaves)
     step = tree_unflatten(treedef, [(-SERVE_SGD_LR * g).detach().float() for g in grads])
     frames0 = s1.frames_applied
+    link = next(lk for lk, rng in master._sub_links.items() if rng is None)  # S1's, on the master
+    at_step = _sub_in_flight(master, link, s1)
     master.add(step)
     t_add, ep = time.perf_counter(), serve.epoch()
-    fresh_at = []
+    fresh_at, worst, done = [], [at_step[0]], threading.Event()
 
     def waiter():
         try:
@@ -2287,12 +2317,23 @@ def sgd_arm(master, s1, loss_fn, batch, cfg_m, spec, offs) -> dict:
         except TimeoutError:
             pass
 
-    th = threading.Thread(target=waiter)
-    th.start()
+    def sampler():  # every 20 ms: it takes the link's lock, which the sub-push thread holds to send
+        while not done.wait(0.02):
+            worst[0] = max(worst[0], _sub_in_flight(master, link, s1)[0])
+
+    threads = [threading.Thread(target=waiter), threading.Thread(target=sampler)]
+    for th in threads:
+        th.start()
     try:
         arm = serve_bench.read_arm(s1, 1.0, SERVE_SGD_ARM_S)
     finally:
-        th.join()
+        threads[0].join()
+        done.set()
+        threads[1].join()
+    arm["in_flight"] = {"at_step": at_step[0], "sent": at_step[1], "applied": at_step[2], "max_in_arm": worst[0],
+                        "bound": _sub_in_flight_bound()}
+    print(f"[13] S1's link at the SGD step: {at_step[0]} frames in flight (the master's frames sent {at_step[1]} "
+          f"minus S1's applied seq {at_step[2]}); most in the arm {worst[0]} (bound {_sub_in_flight_bound()})")
     want = master.st.snapshot_flat().cpu().numpy().astype(np.float64)
     got = np.asarray(s1.read_flat(float("inf"))[0], np.float64)
     d = flatten(step, spec).numpy().astype(np.float64)

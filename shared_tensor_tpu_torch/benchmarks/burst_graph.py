@@ -115,10 +115,12 @@ def graph_node_types(fn) -> dict:
     kept by ``CUDAGraph(keep_graph=True)``."""
     fn()
     torch.cuda.synchronize()
+    from ..utils.timing import no_collection
+
     g = torch.cuda.CUDAGraph(keep_graph=True)
     s = torch.cuda.Stream()
     s.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.graph(g, stream=s, capture_error_mode="thread_local"):
+    with no_collection(), torch.cuda.graph(g, stream=s, capture_error_mode="thread_local"):
         fn()
     torch.cuda.current_stream().wait_stream(s)
     cu = ctypes.CDLL("libcuda.so.1")

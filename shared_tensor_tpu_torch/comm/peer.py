@@ -50,12 +50,16 @@ attach to a peer on any tier: their SYNC carries ``SYNC_FLAG_READ_ONLY``
 seeds them over the control plane (WELCOME, its snapshot of their words as
 CHUNKs, DONE, a FRESH mark stamped at the snapshot) and then streams to
 them unledgered: no ACK, no window, no re-send. On the device and Python
-host tiers the send loop gives a subscriber link one synchronous frame
-(the host tier: a burst of up to 32) a pass, never the pipeline, so a
-FRESH mark ("as of t you have everything") is sent only when the link's
-residual is drained and nothing quantized is left unsent; a ranged link
-gets one RDATA per frame and its residual masked to its range. On the
-engine the C sender runs the same branch (``EngineTensor.new_link_sub``).
+host tiers the peer's sub-push thread (not the send loop) quantizes a
+subscriber link's burst (up to 32 frames, by the cascade), never
+pipelined, and sends it one message a frame with at most
+``SUB_QUEUED_MSGS`` queued, the rest as the link drains; the link's
+sockets hold about ``SUB_SOCKET_FRAMES`` frames each way, so the link has
+a few frames in flight, not the kernel buffers' hundreds. A FRESH mark
+("as of t you have everything") is sent only when the link's residual is
+drained and nothing quantized is left unsent; a ranged link gets one
+RDATA per frame and its residual masked to its range. On the engine the C sender runs the
+same branch (``EngineTensor.new_link_sub``), with the kernel's buffers.
 A lost message shows at the subscriber as a seq gap, which it repairs by
 re-running the handshake; a dead subscriber link leaves no carry.
 
@@ -201,16 +205,35 @@ SEND_WINDOW = 32
 #: Messages re-sent per retransmission round (the head of the tail is what
 #: restores in-order progress at the receiver).
 RETX_PREFIX = 4
-#: Most frames a subscriber link's burst quantizes in one pass. A host-tier
-#: message carries them all: a subscriber's staleness floor is its queue
-#: depth times its apply time per message (the engine's kSubBurstCap).
+#: Most frames a subscriber link's burst quantizes in one pass (the
+#: engine's kSubBurstCap, whose message carries them all).
 SUB_BURST_CAP = 32
-#: Most messages a device-tier subscriber link has in its transport send
-#: queue: its bursts go out one message a frame, and the frames the queue
-#: cannot take yet wait, quantized, for the peer's sub-push thread, so the
-#: subscriber's backlog is a few frames, not a few bursts, and the send
-#: thread never waits on a slow subscriber.
+#: Most messages a subscriber link of either Python tier has in its
+#: transport send queue: its bursts go out one message a frame, and the
+#: frames the queue cannot take yet wait, quantized, for the peer's sub-push
+#: thread, so the subscriber's backlog is a few frames, not a few bursts,
+#: and the send thread never waits on a slow subscriber.
 SUB_QUEUED_MSGS = 2
+#: Frames a subscriber link's sockets hold, each way's kernel buffer: the
+#: writer caps its socket's send buffer at this many of the link's frames,
+#: and the subscriber its receive buffer (``serve.Subscriber``). With the
+#: send queue's cap and the subscriber's 2-message receive queue, a link's
+#: in flight is a few frames, so what the subscriber applies is a few
+#: frames' apply time behind the writer (the kernel's autotuned buffers
+#: held hundreds of small frames).
+SUB_SOCKET_FRAMES = 2
+#: Least bytes a subscriber link's socket buffers each way: a kernel buffer
+#: of a few hundred bytes stalled the link's TCP flow for seconds.
+SUB_SOCKET_MIN_BYTES = 8192
+
+
+def sub_socket_bytes(spec, word_cnt: Optional[int] = None) -> int:
+    """The kernel buffer each socket of a subscriber link asks for:
+    SUB_SOCKET_FRAMES of its frames (a range's RDATA with ``word_cnt``),
+    at least SUB_SOCKET_MIN_BYTES."""
+    return max(SUB_SOCKET_FRAMES * wire.sub_frame_wire_bytes(spec, word_cnt), SUB_SOCKET_MIN_BYTES)
+
+
 #: Host seconds by stage of the data path, under their metric names.
 _TIMERS = (
     "st_send_loop_busy_seconds_total",
@@ -513,6 +536,9 @@ class SharedTensorPeer:
         # every DATA/BURST: re-seeded by add(), advanced by each applied
         # traced message. A tuple, assigned whole.
         self._trace_stamp: Optional[tuple[int, int, int]] = None
+        # _sub_stamp: the newest origin stamp of every update folded in so
+        # far, own and relayed: what a subscriber link's frames carry
+        self._sub_stamp: Optional[tuple[int, int, int]] = None
         self._ready = threading.Event()
         self._error: Optional[Exception] = None
         if self.is_master:
@@ -671,8 +697,7 @@ class SharedTensorPeer:
         if self._engine is None:
             self._send_thread = threading.Thread(target=self._send_loop, daemon=True, name="st-send")
             self._threads += (self._send_thread,)
-            if not self.st.host_tier:
-                self._threads += (threading.Thread(target=self._sub_push_loop, daemon=True, name="st-sub-push"),)
+            self._threads += (threading.Thread(target=self._sub_push_loop, daemon=True, name="st-sub-push"),)
         for t in self._threads:
             t.start()
 
@@ -688,8 +713,9 @@ class SharedTensorPeer:
         peer asynchronously."""
         self.st.add(delta)
         if self._engine is None:  # the engine stamps inside its add
-            self._trace_stamp = (self.node.obs_id, self._now_ns(), 0)
+            self._trace_stamp = self._sub_stamp = (self.node.obs_id, self._now_ns(), 0)
         self._wake.set()
+        self._sub_push_wake.set()
 
     def wait_ready(self, timeout: float = 30.0) -> None:
         """Block until joined and the state stream is flowing."""
@@ -1703,6 +1729,8 @@ class SharedTensorPeer:
         hop = min(hops + 1, 255)
         if self._trace_wire:
             self._trace_stamp = (origin, gen, hop)
+            if self._sub_stamp is None or gen > self._sub_stamp[1]:
+                self._sub_stamp = self._trace_stamp
         if obs is None:
             return
         self._staleness[link] = (gen, hop)
@@ -1755,15 +1783,7 @@ class SharedTensorPeer:
                 hot.discard(stale)
             for link in links:
                 if link in self._sub_links:
-                    # a subscriber link: unledgered and never pipelined.
-                    # Paused, a drained link keeps its FRESH mark; one that
-                    # still owes mass gets none, so a read across the pause
-                    # refuses instead of verifying falsely
-                    if self._paused:
-                        self._sub_fresh_beat(link)
-                    elif self._send_sub(link):
-                        sent_any = True
-                    continue
+                    continue  # the sub-push thread serves subscriber links
                 if self._paused and not pipe.get(link):
                     continue  # paused: what is in the pipeline still goes out
                 if not self._compat and self._window_full(link):
@@ -1853,16 +1873,16 @@ class SharedTensorPeer:
                 self._wake.clear()
 
     def _send_sub(self, link: int) -> bool:
-        """One send pass of a subscriber link. Unledgered: a message counts
-        as delivered once it is queued (``ack_frame`` at once); a message
-        the wire loses shows at the subscriber as a seq gap, and its resync
-        re-seeds the link. A pass quantizes a burst of up to SUB_BURST_CAP
-        frames by the cascade (with ``cascade`` 1 the device tier takes one
-        frame); the host tier sends it at once, as one message. The device
-        tier waits for its copy here and sends one message a frame, queueing
-        at most SUB_QUEUED_MSGS on the link: the frames left over are held,
-        and the sub-push thread queues them as the link's queue drains
-        (:meth:`_sub_push_loop`); the link's next burst waits for the last.
+        """One pass of a subscriber link, on the sub-push thread
+        (:meth:`_sub_push_loop`). Unledgered: a message counts as delivered
+        once it is queued (``ack_frame`` at once); a message the wire loses
+        shows at the subscriber as a seq gap, and its resync re-seeds the
+        link. A pass quantizes a burst of up to SUB_BURST_CAP frames by the
+        cascade (with ``cascade`` 1 the device tier takes one frame; the
+        device tier waits for its copy here) and sends one message a frame,
+        queueing at most SUB_QUEUED_MSGS on the link: the frames left over
+        are held and go out as the link's queue drains; the link's next
+        burst waits for the last.
         The FRESH mark goes only from a pass that holds nothing and finds the
         residual drained, so nothing of the link is then quantized and
         unsent, and the mark covers exactly what went out. A ranged link's
@@ -1884,18 +1904,24 @@ class SharedTensorPeer:
                     wlo, wcnt = rng
                     self.st.mask_link_residual(link, wlo * 32, (wlo + wcnt) * 32)
                     self._sub_mask_ver[link] = ver
-            # the FRESH candidate is stamped BEFORE the drained check: an add
-            # that lands after the check must not be covered by the mark.
-            # Likewise the frame's trace, the origin stamp of the newest
-            # update folded in, is read BEFORE the quantize: it is set only
-            # after that update's mass is in the residuals, so the frame's
-            # stamp may be older than its mass (a read that under-claims)
-            # but never newer. With no stamp yet the frame goes untraced: a
-            # stamp of our own clock would claim updates we never received.
-            fresh_t = self._now_ns()
-            trace = self._trace_stamp if self._trace_wire else None
+            # the FRESH candidate and the frames' trace are read under the
+            # state lock, just before the quantize reads the residual
+            # (``at_lock``): no add or apply lands in between. So a mark
+            # (sent only if the quantize finds the residual drained) covers
+            # no add that lands after it, and the trace, the newest origin
+            # stamp of every update folded in (own or relayed, _sub_stamp),
+            # is set only after that update's mass is in the residuals: the
+            # frames carry that update and everything folded in before it.
+            # Read before waiting for the lock, it aged by the wait. With no
+            # stamp yet the frames go untraced: a stamp of our own clock
+            # would claim updates we never received.
+            at: list = []
+
+            def mark() -> None:
+                at.extend((self._now_ns(), self._sub_stamp if self._trace_wire else None))
+
             if self.st.host_tier:
-                out = self.st.begin_frame_burst(link, min(self._burst, SUB_BURST_CAP))
+                out = self.st.begin_frame_burst(link, min(self._burst, SUB_BURST_CAP), at_lock=mark)
                 if out is None:
                     return False
                 seq, frames = out
@@ -1903,53 +1929,36 @@ class SharedTensorPeer:
                 # the cascade drains a residual of any bound to the exact
                 # zero a FRESH mark needs in tens of frames; single frames
                 # re-measure every frame and leave outliers for thousands
-                out = self.st.begin_frame_burst_device(link, min(self._burst_device, SUB_BURST_CAP))
+                out = self.st.begin_frame_burst_device(link, min(self._burst_device, SUB_BURST_CAP), at_lock=mark)
                 if out is None:
                     return False
                 seq, df = out
                 frames = self.st.finish_frame_burst(df) or []
             else:
-                out = self.st.begin_frame(link)
+                out = self.st.begin_frame(link, at_lock=mark)
                 if out is None:
                     return False
                 seq, df = out
                 f = self.st.finish_frame(df)
                 frames = [f] if f is not None and f.scales.any() else []
+            fresh_t, trace = at[0], at[1]
             if not frames:
                 self.st.ack_frame(link, seq)  # idle: a no-op
                 self._sub_fresh_mark(link, fresh_t)
                 return False
             self._link_frames_out[link] = self._link_frames_out.get(link, 0) + len(frames)
-            per_frame = rng is not None or not self.st.host_tier
-            nmsg = len(frames) if per_frame else 1
             with self._ack_mu:
                 base = self._tx_seq.get(link, 0)
-                self._tx_seq[link] = base + nmsg
+                self._tx_seq[link] = base + len(frames)
+            # encoded here, before the next quantize may reuse the frames'
+            # buffers (the host tier's are views)
             if rng is not None:
                 wlo, wcnt = rng
                 payloads = [wire.encode_rdata(f, wlo, wcnt, base + i + 1, trace=trace) for i, f in enumerate(frames)]
-            elif per_frame:
+            else:
                 payloads = [wire.encode_frame(f, base + i + 1, trace=trace) for i, f in enumerate(frames)]
-            else:
-                payloads = [wire.encode_burst(frames, self.st.spec, base + 1, trace=trace)]
-            if not self.st.host_tier:
-                self._sub_held[link] = (seq, deque(payloads))
-                sent = self._push_sub_held(link)
-                if link in self._sub_held:
-                    self._sub_push_wake.set()
-                return sent
-            ok = True
-            for payload in payloads:
-                self._data_bytes_out += len(payload)
-                if not self._send_blocking(link, payload, data=True):
-                    ok = False
-                    break
-                self._sub_msgs_out += 1
-            if ok:
-                self.st.ack_frame(link, seq)  # delivered on enqueue
-            else:
-                self.st.nack_frame(link)
-            return ok
+            self._sub_held[link] = (seq, deque(payloads))
+            return self._push_sub_held(link)
 
     def _sub_fresh_mark(self, link: int, fresh_t: int) -> None:
         """Send one FRESH mark, at most one per ``fresh_interval_sec``, with
@@ -1971,32 +1980,53 @@ class SharedTensorPeer:
 
     def _sub_fresh_beat(self, link: int) -> None:
         """A paused sender's FRESH mark: only for a drained residual,
-        stamped before the check, as in :meth:`_send_sub`."""
+        stamped before the check (which reads the residual under the state
+        lock, so no add that lands after the stamp is covered), and none
+        while an in-place restore holds the pause: until the link's re-seed
+        (:meth:`_load_shard_inplace`) the replica may already be the cut's
+        while the subscriber still holds the state after it, and a mark
+        would verify that state across the cut."""
+        op = self._lc_op
+        if op is not None and op["op"] == "load":
+            return
         fresh_t = self._now_ns()
         if link in self._sub_held or self.st.residual_rms(link) > 0.0:
             return
         self._sub_fresh_mark(link, fresh_t)
 
     def _sub_push_loop(self) -> None:
-        """The device tier's sub-push thread: while any subscriber link holds
-        frames, every millisecond each such link's held frames go into its
-        send queue as far as :meth:`_push_sub_held` lets them. So a burst
-        reaches a slow subscriber at the subscriber's pace, not the send
-        thread's, which meanwhile quantizes for the other links. Held frames
-        still go out while the peer is paused."""
+        """The Python tiers' sub-push thread, which serves every subscriber
+        link apart from the send thread: a link that holds frames gets them
+        into its send queue as far as :meth:`_push_sub_held` lets them
+        (every millisecond while any are held, paused or not); one that
+        holds none gets its next burst or FRESH mark from :meth:`_send_sub`,
+        or, paused, only its FRESH beat (a drained link keeps its mark; one
+        that still owes mass gets none, so a read across the pause refuses
+        instead of verifying falsely). So a burst reaches a slow subscriber
+        at the subscriber's pace, and a link's next burst follows its last
+        at once, not after the send thread's pass: a CPU writer's pass
+        quantizes its ledgered links' bursts for seconds."""
         try:
             while not self._stop.is_set():
-                if not self._sub_held:
-                    self._sub_push_wake.wait()
+                sent = False
+                for link in list(self._sub_links):
+                    if link in self._sub_held:
+                        mu = self._sub_mu.get(link)
+                        if mu is not None:
+                            with mu:
+                                if link in self._sub_held:
+                                    sent |= self._push_sub_held(link)
+                    elif self._paused:
+                        self._sub_fresh_beat(link)
+                    else:
+                        sent |= self._send_sub(link)
+                if self._sub_held:
+                    time.sleep(0.001)
+                elif not sent:
+                    # until an add, an applied flood or an attach (a link's
+                    # FRESH marks need a pass at least this often)
+                    self._sub_push_wake.wait(0.05 if self._sub_links else None)
                     self._sub_push_wake.clear()
-                    continue
-                for link in list(self._sub_held):
-                    mu = self._sub_mu.get(link)
-                    if mu is not None:
-                        with mu:
-                            if link in self._sub_held:
-                                self._push_sub_held(link)
-                time.sleep(0.001)
         except Exception as e:
             log.exception("sub-push thread died")
             self._error = e
@@ -2004,7 +2034,7 @@ class SharedTensorPeer:
             raise
 
     def _push_sub_held(self, link: int) -> bool:
-        """Queue a device-tier subscriber link's held frames while its send
+        """Queue a subscriber link's held frames while its send
         queue holds fewer than SUB_QUEUED_MSGS messages; once the last is
         queued, the burst's ledger entry goes (delivered on enqueue). The
         caller holds the link's ``_sub_mu``. Returns True if data was
@@ -2337,6 +2367,7 @@ class SharedTensorPeer:
             if self._obs is not None:
                 self._obs.apply.observe(dt)
             self._wake.set()  # the flood refilled the other links' residuals
+            self._sub_push_wake.set()
         if msgs:
             # mass applied and flooded, ACK not sent: the sender re-delivers
             self._fault_point("between-apply-and-ack")
@@ -2862,6 +2893,11 @@ class SharedTensorPeer:
             self._sub_links[link] = rng
             self._sub_fresh[link] = 0.0
             self._sub_mask_ver.pop(link, None)
+            if self._engine is None:
+                # the link's sockets hold a few of its frames, not the
+                # kernel's autotuned megabytes (SUB_SOCKET_FRAMES); the
+                # engine's subscriber branch paces itself in C
+                self.node.cap_inflight(link, sub_socket_bytes(self.st.spec, None if rng is None else rng[1]))
             t_snap = self._now_ns()
             vals = self.st.snapshot_flat().cpu().numpy()
             self._send_blocking(link, bytes([wire.WELCOME]))
@@ -2879,6 +2915,7 @@ class SharedTensorPeer:
                 # residual = the adds and floods that raced the snapshot
                 # (usually none); _send_sub masks a range each pass
                 self.st.new_link_diff(link, vals)
+                self._sub_push_wake.set()
         if self._obs is not None:
             self._obs.event("sub_resync" if resync else "sub_attach", self.node.obs_id, link, wcnt)
         log.info(

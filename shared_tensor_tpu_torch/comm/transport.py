@@ -56,6 +56,7 @@ class _StConfigC(ctypes.Structure):
         ("connect_timeout_sec", ctypes.c_double),
         ("join_timeout_sec", ctypes.c_double),
         ("stripe_count", ctypes.c_int32),
+        ("rcvbuf_bytes", ctypes.c_int32),
     ]
 
 
@@ -123,6 +124,7 @@ _SIGNATURES = {
     "st_node_uplink": (_I32, [_VP]),
     "st_node_stats": (_I32, [_VP, _I32, ctypes.POINTER(_StStatsC)]),
     "st_node_drop_link": (_I32, [_VP, _I32]),
+    "st_node_cap_inflight": (_I32, [_VP, _I32, _I32]),
     "st_node_close": (None, [_VP]),
     "st_obs_set_enabled": (None, [_I32]),
     "st_obs_drain": (_I32, [_VP, _I32]),
@@ -176,9 +178,13 @@ class TransportNode:
         max_children: int = 2,
         queue_depth: int = 8,
         keepalive_sec: float = 1.0,
+        rcvbuf_bytes: int = 0,
     ):
         """``frame_bytes`` sizes the receive buffer; under ``wire_compat``
-        it is the reference frame's size, which the transport frames by."""
+        it is the reference frame's size, which the transport frames by.
+        ``rcvbuf_bytes`` > 0 sets the kernel receive buffer of every socket
+        the node connects, before the connect (0: the kernel's autotuned
+        size)."""
         cfg = config or TransportConfig()
         self._lib = _load()
         c = _StConfigC(
@@ -195,6 +201,7 @@ class TransportNode:
             connect_timeout_sec=cfg.connect_timeout_sec,
             join_timeout_sec=cfg.join_timeout_sec,
             stripe_count=cfg.stripe_count,
+            rcvbuf_bytes=rcvbuf_bytes,
         )
         is_master = _I32(0)
         self._h_cv = threading.Condition()  # guards _h and _h_users
@@ -399,6 +406,21 @@ class TransportNode:
             return None
         keys = ("state", "msgs_out", "msgs_in", "bytes_out", "bytes_in", "ring_bytes", "tx_waits", "rx_waits")
         return {k: int(v) for k, v in zip(keys, out)}
+
+    def cap_inflight(self, link_id: int, nbytes: int) -> bool:
+        """Bound what the sending side of the link holds in flight: the
+        transport writes its queued messages one at a time (not in batches
+        of up to 16), and each of the link's sockets buffers about
+        ``nbytes`` (its kernel send buffer), so that a write waits for the
+        peer to read. False for an unknown link, a closed node or no socket
+        capped."""
+        h = self._enter()
+        if not h:
+            return False
+        try:
+            return self._lib.st_node_cap_inflight(h, link_id, int(nbytes)) > 0
+        finally:
+            self._exit()
 
     def drop_link(self, link_id: int) -> None:
         h = self._enter()

@@ -178,6 +178,14 @@ def frame_payload_bytes(spec: TableSpec) -> int:
     return 4 * spec.num_leaves + 4 * (spec.total // 32)
 
 
+def sub_frame_wire_bytes(spec: TableSpec, word_cnt: Optional[int] = None) -> int:
+    """Bytes of one frame as a subscriber link carries it: a traced DATA
+    of the whole table, or a traced RDATA of ``word_cnt`` words."""
+    if word_cnt is None:
+        return DATA_HDR_T + frame_payload_bytes(spec)
+    return RDATA_HDR_T + 4 * spec.num_leaves + 4 * word_cnt
+
+
 def frame_payload2_bytes(spec: TableSpec) -> int:
     """Bytes of one sign2 frame's wire body: scales, sign words and
     magnitude words."""

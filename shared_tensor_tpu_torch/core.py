@@ -60,7 +60,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -518,15 +518,21 @@ class SharedTensor:
 
     # -- sync engine hooks -------------------------------------------------
 
-    def begin_frame(self, link_id: int) -> Optional[tuple[int, DeviceFrame]]:
+    def begin_frame(
+        self, link_id: int, at_lock: Optional[Callable[[], None]] = None
+    ) -> Optional[tuple[int, DeviceFrame]]:
         """Quantize a link's residual into a frame (device tensors, their
         host copy started) and apply error feedback. Returns (seq, frame),
         or None if the link is gone. The caller must eventually ack it, or
-        let nack/drop roll it back."""
+        let nack/drop roll it back. ``at_lock`` is called under the state
+        lock just before the residual is read: what it observes is in the
+        frame (no add or apply lands in between)."""
         with self._lock:
             resid = self._links.get(link_id)
             if resid is None:
                 return None
+            if at_lock is not None:
+                at_lock()
             if self._np:
                 r = resid.numpy()
                 scales, words, _ = codec_np.quantize_table_np(
@@ -542,13 +548,16 @@ class SharedTensor:
             self._inflight.setdefault(link_id, {})[seq] = (frame,)
         return seq, self._start_fetch(frame)
 
-    def begin_frame_burst(self, link_id: int, k: int) -> Optional[tuple[int, list[TableFrame]]]:
+    def begin_frame_burst(
+        self, link_id: int, k: int, at_lock: Optional[Callable[[], None]] = None
+    ) -> Optional[tuple[int, list[TableFrame]]]:
         """Host tier: up to ``k`` successive halvings of a link's residual in
         one call, stopping at the first all-zero-scale frame; ONE ledger
         entry (one wire message, one ACK). ``self.cascade`` > 1 quantizes
         them by the engine's cascade (module docstring). Returns (seq,
         frames), numpy frames ready for the wire (0 frames: the link is
-        idle), or None if the link is gone."""
+        idle), or None if the link is gone. ``at_lock`` as in
+        :meth:`begin_frame`."""
         if not self._np:
             raise RuntimeError("begin_frame_burst is the host tier's; the device tier bursts with "
                                "begin_frame_burst_device")
@@ -556,6 +565,8 @@ class SharedTensor:
             resid = self._links.get(link_id)
             if resid is None:
                 return None
+            if at_lock is not None:
+                at_lock()
             r = resid.numpy()
             frames: list[TableFrame] = []
             if self.cascade > 1:
@@ -578,15 +589,20 @@ class SharedTensor:
             self.frames_out += len(frames)
         return seq, frames
 
-    def begin_frame_burst_device(self, link_id: int, k: int) -> Optional[tuple[int, DeviceFrame]]:
+    def begin_frame_burst_device(
+        self, link_id: int, k: int, at_lock: Optional[Callable[[], None]] = None
+    ) -> Optional[tuple[int, DeviceFrame]]:
         """K successive halvings of a link's residual in one call; one
         ledger entry. ``self.cascade`` > 1 quantizes them by the engine's
         cascade (module docstring). Returns (seq, stacked frame with a
-        leading K axis), device tensors, their host copy started."""
+        leading K axis), device tensors, their host copy started.
+        ``at_lock`` as in :meth:`begin_frame`."""
         with self._lock:
             resid = self._links.get(link_id)
             if resid is None:
                 return None
+            if at_lock is not None:
+                at_lock()
             if self.device.type == "cuda":
                 frames = self._burst_graph(link_id, resid, k).run()
             else:

@@ -671,6 +671,11 @@ struct Config {
   double connect_timeout_sec = 5.0;
   double join_timeout_sec = 30.0;
   int32_t stripe_count = 1;  // sockets per logical link (r11; 1..8)
+  // SO_RCVBUF of every socket this node connects (its uplink's stripes),
+  // set before connect() so that the window scale it negotiates follows
+  // it; 0 keeps the kernel's autotuned size. A read-only subscriber sets
+  // a few frames here: the bytes its writer can have in flight to it.
+  int32_t rcvbuf_bytes = 0;
   FaultPlan fault;  // env-gated wire chaos (parse_fault_plan)
 };
 
@@ -867,6 +872,9 @@ struct Link {
   std::atomic<uint64_t> stripe_deaths{0}, reroutes{0};
   // tx stripe-seq allocator (stamped in push_hook / dup-injection)
   std::atomic<uint64_t> sseq_next{0};
+  // most messages a sender thread takes from sendq for one socket write
+  // (st_node_cap_inflight lowers it to 1 on a subscriber link)
+  std::atomic<int> batch_max{kCoalesce};
   // rx reassembly (striped links only): out-of-order messages park in
   // `reorder` until `rnext` arrives; `delivering` elects one drainer; the
   // window condvar blocks readers that run too far ahead (backpressure).
@@ -1109,6 +1117,10 @@ void set_common_sockopts(int fd) {
   int yes = 1;
   setsockopt(fd, SOL_SOCKET, SO_REUSEADDR, &yes, sizeof yes);
   setsockopt(fd, IPPROTO_TCP, TCP_NODELAY, &yes, sizeof yes);
+}
+
+void set_rcvbuf(int fd, int32_t bytes) {
+  if (bytes > 0) setsockopt(fd, SOL_SOCKET, SO_RCVBUF, &bytes, sizeof bytes);
 }
 
 void set_recv_timeout(int fd, double sec) {
@@ -1910,7 +1922,8 @@ void link_sender_loop(Node* node, std::shared_ptr<Link> link, int sidx) {
     int nb = 1;
     batch[0] = std::move(msg);
     if (!node->cfg.wire_compat && !fp.enabled && cap <= 0) {
-      while (nb < kCoalesce && link->sendq.pop(&batch[nb], 0.0)) nb++;
+      const int bmax = link->batch_max.load(std::memory_order_relaxed);
+      while (nb < bmax && link->sendq.pop(&batch[nb], 0.0)) nb++;
     }
     bool ok = true;
     if (node->cfg.wire_compat) {
@@ -2331,6 +2344,7 @@ int join_walk(Node* node, sockaddr_in target, bool allow_master,
     int fd = ::socket(AF_INET, SOCK_STREAM, 0);
     if (fd < 0) return -1;
     set_common_sockopts(fd);
+    set_rcvbuf(fd, node->cfg.rcvbuf_bytes);
     // bounded per-hop connect (see connect_with_timeout): a dead or
     // silently-dropping target fails this hop after the bound instead of
     // hanging the join forever
@@ -2415,6 +2429,7 @@ void open_stripes(Node* node, const std::shared_ptr<Link>& link,
     int fd = ::socket(AF_INET, SOCK_STREAM, 0);
     if (fd < 0) continue;
     set_common_sockopts(fd);
+    set_rcvbuf(fd, node->cfg.rcvbuf_bytes);
     if (!connect_with_timeout(fd, &target, node->cfg.connect_timeout_sec)) {
       ::close(fd);
       continue;
@@ -2588,6 +2603,7 @@ struct StConfigC {
   double connect_timeout_sec;  // per-hop connect/reply bound (0 = blocking)
   double join_timeout_sec;     // total create-time join budget (0 = 30 s)
   int32_t stripe_count;        // r11: sockets per logical link (1..8)
+  int32_t rcvbuf_bytes;        // SO_RCVBUF before connect (0 = autotuned)
 };
 
 struct StEventC {
@@ -2635,6 +2651,7 @@ void* st_node_create(const char* host, int port, const StConfigC* cfg_c,
                                 ? kMaxStripes
                                 : cfg_c->stripe_count);
   if (cfg.wire_compat) cfg.stripe_count = 1;
+  cfg.rcvbuf_bytes = cfg_c->rcvbuf_bytes;
   cfg.fault = parse_fault_plan();  // env hook table, per-node at create
   node->jrng = (uint64_t)::getpid() * 0x9e3779b97f4a7c15ull +
                (uint64_t)Clock::now().time_since_epoch().count();
@@ -3020,6 +3037,43 @@ void st_node_pool_stats(void* h, uint64_t* out5) {
 // out4[1] = live stripes, out4[2] = stripe deaths on this link,
 // out4[3] = messages re-routed off a dying stripe. Returns -1 for an
 // unknown link.
+// Bound what the sending side of a link holds in flight: each sender
+// thread takes one message at a time from sendq (no batch of up to
+// kCoalesce, which a producer that keeps sendq short refills while the
+// batch gathers), and the kernel send buffer of each live socket is capped
+// at `bytes` (SO_SNDBUF, which the kernel doubles for its bookkeeping and
+// stops autotuning), so a blocking write waits for the peer to read. The
+// writer of a read-only subscriber link calls it once the link is
+// attached. Each stripe's fd is held open for the call as its I/O threads
+// hold it (stripe_io), so a dying stripe's fd is never closed under it.
+// Returns the count of sockets capped, or -1 for an unknown link.
+int32_t st_node_cap_inflight(void* h, int32_t link_id, int32_t bytes) {
+  auto* node = (Node*)h;
+  if (!node || bytes <= 0) return -1;
+  std::shared_ptr<Link> link;
+  {
+    StLockGuard lk(node->mu);
+    auto it = node->links.find(link_id);
+    if (it == node->links.end()) return -1;
+    link = it->second;
+  }
+  link->batch_max.store(1, std::memory_order_relaxed);
+  int32_t capped = 0;
+  for (int i = 0; i < link->nstripes; i++) {
+    int io = link->stripe_io[i].load();
+    while (io > 0 && !link->stripe_io[i].compare_exchange_weak(io, io + 1)) {
+    }
+    if (io <= 0) continue;  // never attached, or its threads have exited
+    int v = bytes;
+    if (link->stripe_ok[i].load() &&
+        setsockopt(link->stripe_fd[i], SOL_SOCKET, SO_SNDBUF, &v, sizeof v) ==
+            0)
+      capped++;
+    if (--link->stripe_io[i] == 0) ::close(link->stripe_fd[i]);
+  }
+  return capped;
+}
+
 int32_t st_node_stripe_stats(void* h, int32_t link_id, uint64_t* out4) {
   auto* node = (Node*)h;
   for (int i = 0; i < 4; i++) out4[i] = 0;

@@ -52,6 +52,7 @@ import numpy as np
 from .. import compat
 from .. import obs as _obs
 from ..comm import wire
+from ..comm.peer import sub_socket_bytes
 from ..comm.transport import EventKind, TransportNode
 from ..config import Config
 from ..core import SnapshotPublisher
@@ -70,6 +71,11 @@ _MALFORMED = (ValueError, struct.error)
 #: run again (a parent that died mid-handshake must not wedge the
 #: subscriber).
 HANDSHAKE_RETRY_S = 5.0
+#: Messages the subscriber's transport receive queue holds. With its
+#: socket's receive buffer of a few frames (``comm.peer.sub_socket_bytes``,
+#: set before the connect) and the writer's caps, a frame waits a few
+#: frames' apply time before it is applied.
+RECV_QUEUE_MSGS = 2
 
 
 def epoch() -> int:
@@ -188,7 +194,8 @@ class Subscriber:
         self.frames_applied = 0
         self.node = TransportNode(
             host, port, tcfg, frame_bytes=wire.frame_wire_bytes(self.spec), max_children=1,
-            keepalive_sec=min(1.0, max(0.05, tcfg.peer_timeout_sec / 4)),
+            queue_depth=RECV_QUEUE_MSGS, keepalive_sec=min(1.0, max(0.05, tcfg.peer_timeout_sec / 4)),
+            rcvbuf_bytes=sub_socket_bytes(self.spec, wcnt if self._ranged else None),
         )
         if self.node.is_master:
             # a read-only replica has nothing to seed a tree with: claiming

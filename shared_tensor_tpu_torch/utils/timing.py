@@ -15,10 +15,12 @@ CPU (for tests only) the loop is timed with ``time.perf_counter``.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import itertools
 import math
 import time
-from typing import Callable
+from typing import Callable, Iterator
 
 import torch
 
@@ -127,17 +129,32 @@ def event_ms(fn: Callable[[], object], iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+@contextlib.contextmanager
+def no_collection() -> Iterator[None]:
+    """No garbage collection inside the block (a capture): a finalizer the
+    collector runs in the capturing thread, freeing a CUDA object of work
+    done before, invalidates the capture (phase 22a of ``chip_smoke.py``
+    died so twice with no other thread alive)."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
 def graph_ms(fn: Callable[[], object], iters: int, reps: int = 3) -> float:
     """Device ms per call of ``fn``: ``iters`` calls captured in one CUDA
     graph, replayed ``reps`` times between CUDA events, so the host's launch
     cost is not in the time. The capture is thread-local: a call another
     thread makes meanwhile (a peer's send thread syncing its copy) does not
-    invalidate it."""
+    invalidate it; and no collection runs inside it (:func:`no_collection`)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g, capture_error_mode="thread_local"):
+    with no_collection(), torch.cuda.graph(g, capture_error_mode="thread_local"):
         for _ in range(iters):
             fn()
     g.replay()

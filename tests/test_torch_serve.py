@@ -514,6 +514,82 @@ def test_a_held_device_burst_goes_out_while_paused(monkeypatch):
         m.close()
 
 
+#: Seconds to a FRESH mark past a writer's last add once its adds stop,
+#: at a subscriber that applies a frame every 20 ms: what is in flight
+#: (at most the bound below) and the cascade's drain of what is left.
+FRESH_AFTER_STOP_S = 5.0
+
+
+def _inflight_bound() -> int:
+    """A subscriber link's most data messages (one a frame) sent and not
+    yet applied: SUB_QUEUED_MSGS in the writer's send queue and as many in
+    its transport sender's hand, SUB_SOCKET_FRAMES in each socket's buffer
+    at twice the size asked for (the kernel doubles it for its own
+    bookkeeping), the subscriber's receive queue, and one message each in
+    its receiver's hand and in its apply."""
+    from shared_tensor_tpu_torch.comm import peer as peer_mod
+    from shared_tensor_tpu_torch.serve import subscriber as sub_mod
+
+    return 2 * peer_mod.SUB_QUEUED_MSGS + 2 * 2 * peer_mod.SUB_SOCKET_FRAMES + sub_mod.RECV_QUEUE_MSGS + 2
+
+
+@pytest.mark.parametrize("tier", PY_TIERS)
+def test_a_slow_subscriber_link_holds_a_few_frames_in_flight(tier, monkeypatch):
+    """The writer adds every 2 ms (ten times faster than its subscriber
+    applies: each apply sleeps 20 ms more) for 3 s. Throughout, the data
+    messages it has sent on the link minus the subscriber's applied seq stay
+    within :func:`_inflight_bound`, where the kernel's autotuned socket
+    buffers held hundreds of these 8 KiB frames. Once the adds stop, a FRESH
+    mark past the last one arrives within FRESH_AFTER_STOP_S."""
+    port = free_port()
+    n = 1 << 16  # 8 KiB frames: two of them exceed the kernel's least socket buffer
+    rng = np.random.default_rng(24)
+    m = _writer(port, np.zeros(n, np.float32), tier)
+    sub = _sub(port, n)
+    stop, worst = threading.Event(), [0]
+    real_apply = sub._apply
+
+    def slow_apply(scales, words, word_lo):
+        time.sleep(0.02)
+        return real_apply(scales, words, word_lo)
+
+    def sample():
+        while not stop.is_set():
+            applied = sub._expected_seq - 1  # read first: the difference never under-counts
+            worst[0] = max(worst[0], m._sub_msgs_out - applied)
+            time.sleep(0.002)
+
+    deltas = [(rng.normal(size=n) * 1e-2).astype(np.float32) for _ in range(8)]
+    sampler = threading.Thread(target=sample, daemon=True)
+    try:
+        assert _poll(lambda: sub.read(max_staleness=10.0) is not None, deadline=20.0)
+        assert m._sub_msgs_out == 0
+        monkeypatch.setattr(sub, "_apply", slow_apply)
+        sampler.start()
+        t0 = time.monotonic()
+        i = 0
+        while time.monotonic() - t0 < 3.0:
+            m.add(deltas[i % len(deltas)])
+            i += 1
+            time.sleep(0.002)
+        ep = serve.epoch()
+        sub.wait_fresh(ep, timeout=FRESH_AFTER_STOP_S)
+        stop.set()
+        sampler.join()
+        assert sub.metrics()["st_sub_resyncs_total"] == 0  # one seq stream: sent and applied compare
+        assert m._sub_msgs_out >= 50, m._sub_msgs_out  # the link was busy throughout
+        assert worst[0] <= _inflight_bound(), (worst[0], _inflight_bound())
+        # the subscriber sums the frames in another order than the writer
+        # its adds: each applied frame rounds once, at 2^-24 of the value
+        rep = np.asarray(m.read())
+        tol = sub.frames_applied * 2.0**-24 * float(np.abs(rep).max())
+        np.testing.assert_allclose(sub.read(max_staleness=10.0), rep, rtol=0, atol=tol)
+    finally:
+        stop.set()
+        sub.close()
+        m.close()
+
+
 @pytest.mark.parametrize("tier", PY_TIERS)
 def test_a_full_subscriber_queue_holds_up_no_other_link(tier):
     """The send thread waits on S1's full queue (its sends refused, the

@@ -24,6 +24,11 @@ read the JAX one. Nothing under tools/ is edited.
 - Metrics: ``lint_metrics.run``, where a quoted ``st_*`` name that is a
   native function (``lint_abi.native_functions`` over native/ and csrc/)
   is a ctypes symbol, not a metric.
+- Locks in C++: ``analyze_clang.run`` (clang's -Wthread-safety through the
+  libclang front-end) over a temp tree whose native/ holds the port's
+  transport copy and its two headers in place of JAX's, so the copy's
+  own ``ST_GUARDED_BY`` fields are analysed as the port builds them. It
+  skips only where ``analyze_clang.probe()`` finds no libclang.
 
 Each gate is green on the tree and red, by name, on a violation seeded in
 a temp copy, as the JAX package's negative tests are.
@@ -41,6 +46,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "tools"))
 
 import _lintlib as L  # noqa: E402
+import analyze_clang  # noqa: E402
 import lint_abi  # noqa: E402
 import lint_events  # noqa: E402
 import lint_locks  # noqa: E402
@@ -497,3 +503,41 @@ def test_metrics_gate_flags_undocumented_name(tmp_path):
           '    UNDOC = "st_totally_undocumented_metric"\n\n    def metrics(')
     findings = metrics_findings(root)
     assert any("st_totally_undocumented_metric" in f for f in findings), findings
+
+
+# -- the clang thread-safety gate over the port's transport copy -------------------------------
+
+_LIBCLANG_REASON = analyze_clang.probe()
+#: what analyze_clang reads: its three units and the headers they include
+_CLANG_SOURCES = ("sttransport.cpp", "stengine.cpp", "stcodec.c", "st_annotations.h", "st_cv.h")
+
+
+def _clang_tree(tmp_path: pathlib.Path) -> pathlib.Path:
+    """native/ as analyze_clang reads it, with the port's own copies (the
+    transport and its headers) in place of JAX's."""
+    root = tmp_path / "repo"
+    (root / "native").mkdir(parents=True)
+    for name in _CLANG_SOURCES:
+        own = REPO / PORT_NATIVE / name
+        shutil.copy(own if own.is_file() else REPO / "native" / name, root / "native" / name)
+    return root
+
+
+@pytest.mark.skipif(_LIBCLANG_REASON is not None, reason=str(_LIBCLANG_REASON))
+def test_clang_thread_safety_green_on_the_transport_copy(tmp_path):
+    root = _clang_tree(tmp_path)
+    assert (root / "native/sttransport.cpp").read_bytes() == (REPO / TRANSPORT_SRC).read_bytes()
+    assert analyze_clang.run(root) == []
+
+
+@pytest.mark.skipif(_LIBCLANG_REASON is not None, reason=str(_LIBCLANG_REASON))
+def test_clang_thread_safety_flags_an_unguarded_field_of_the_copy(tmp_path):
+    """The listen fds the port's copy added under the node's lock, read
+    in st_node_close without it: the gate must name the field."""
+    root = _clang_tree(tmp_path)
+    _edit(root, "native/sttransport.cpp",
+          "  {\n    StLockGuard lk(node->mu);\n    rg_fd = node->regraft_listen_fd;",
+          "  {\n    rg_fd = node->regraft_listen_fd;")
+    findings = analyze_clang.run(root)
+    assert any("regraft_listen_fd" in f and "sttransport.cpp" in f and ("warning" in f or "error" in f)
+               for f in findings), findings
