@@ -335,11 +335,14 @@ Phases, in order; any failure exits non-zero:
    compute_scales_np (reported); then A-cascade's ms per launch at each
    depth of CASCADE_TIMED_KCS from a CUDA graph over buffer sets holding
    four times the L2, beside its bytes bound and copy_ms, the plain twin's
-   ms at CASCADE_TIMED_KC; the finish kernel's ms, its bound, its plain
-   twin's and the torch chain's it replaces (table._table_scales and
-   cascade_ladder); and a CASCADE_BURST_K-frame core._BurstGraph: ms of a
-   replay alone and the node types of its capture, at most 2K + 2 kernel
-   nodes. (22b) benchmarks/drain_tail's device
+   ms at CASCADE_TIMED_KC; the finish kernel's ms, its bound, its spent
+   launch's (a stopped round's, its latency floor), its plain twin's and
+   the torch chain's it replaces (table._table_scales and cascade_ladder);
+   and a CASCADE_BURST_K-frame core._BurstGraph: ms of a replay alone and
+   the node types of its capture, at most 2K + 2 kernel nodes. Then the
+   finish alone at ResNet-18's table (56 leaves, 87,504 rows: finish_check):
+   kernel against twin over one round trip at CASCADE_TIMED_KC, the same
+   times and the burst graph. (22b) benchmarks/drain_tail's device
    row at DRAIN_N under DRAIN_TIMEOUT_S: two CUDA peers, one gaussian add
    drained to exact zero in under DRAIN_MAX_FRAMES frames, and the
    launches of A-cascade, the finish and B in it (all > 0).
@@ -3822,15 +3825,56 @@ def cascade_kernel_check(spec, device, rate: float, seed: int) -> dict:
     meas = BG.measure_times(spec, device, seed, CASCADE_BURST_K, 32)
     finish_plain_ms = event_ms(lambda: CC.cascade_round_plain(b.partials, c.leaf_slots, c.ns, b.scales, b.state,
                                                               b.ladder, b.leaf_sums, kc, 32, pol, True, True), 3, 1)
-    # the finish reads the partials, the leaf bounds and counts, the last
-    # scale row and the state; writes the ladder, the leaf sums and the state
-    finish_bytes = 24 * slots + 8 * (n_leaves + 1) + 8 * n_leaves + 4 * n_leaves + 12 + 36 * n_leaves + 12
+    finish_bytes = finish_bytes_of(spec)
     burst = BG.burst_replay(spec, device, seed, CASCADE_BURST_K, 32)
     out.update(kc=kc, ms=t["ms"], sets=t["sets"], bytes=t["bytes"], bound_ms=t["bound_ms"], copy_ms=t["copy_ms"],
                plain_ms=plain_ms, times={str(k): v for k, v in times.items()},
                finish={"ms": meas["finish_ms"], "plain_ms": finish_plain_ms, "bytes": finish_bytes,
-                       "bound_ms": finish_bytes / rate * 1e3, "library_ms": meas["torch_chain_ms"]},
+                       "bound_ms": finish_bytes / rate * 1e3, "library_ms": meas["torch_chain_ms"],
+                       "spent_ms": meas["spent_finish_ms"]},
                burst=burst)
+    return out
+
+
+def finish_bytes_of(spec) -> int:
+    """The finish's bytes at a table: it reads the partials, the leaf bounds
+    and counts, the last scale row and the state; writes the ladder, the
+    leaf sums and the state."""
+    n_leaves, slots = spec.num_leaves, spec.rows // 8
+    return 24 * slots + 8 * (n_leaves + 1) + 8 * n_leaves + 4 * n_leaves + 12 + 36 * n_leaves + 12
+
+
+def finish_check(spec, device, rate: float, seed: int) -> dict:
+    """Phase 22a's finish alone at a table (ResNet-18's): kernel against
+    twin over one round trip at depth CASCADE_TIMED_KC, the finish's time
+    beside its spent launch, its bound, its twin and the torch chain, and
+    the 16-frame burst graph's replay and nodes."""
+    from shared_tensor_tpu_torch.benchmarks import burst_graph as BG
+    from shared_tensor_tpu_torch.config import ScalePolicy
+    from shared_tensor_tpu_torch.ops import codec_cuda as CC
+    from shared_tensor_tpu_torch.ops import table as TT
+    from shared_tensor_tpu_torch.utils.timing import event_ms
+
+    pol, kc = ScalePolicy.POW2_RMS, CASCADE_TIMED_KC
+    resid = BG.residual(spec, device, seed)
+    got = BG.round_trip(spec, resid, kc, CC.quantize_rows_cascade_kernel, CC.cascade_round_kernel, pol, cap=kc)
+    want = BG.round_trip(spec, resid, kc, CC.quantize_rows_cascade_plain, CC.cascade_round_plain, pol, cap=kc)
+    _sync(device)
+    out = {"shape": f"rows={spec.rows} leaves={spec.num_leaves}",
+           "mismatches": sum(_bitdiff(x, y) for g, w in zip(got, want) for x, y in zip(g, w)),
+           "max_abs_err": _maxerr(got[2][0], want[2][0])}
+    meas = BG.measure_times(spec, device, seed, CASCADE_BURST_K, 32)
+    c = TT._cascade_consts(spec, str(torch.device(device)))
+    b = TT.cascade_buffers(spec, kc, device)
+    row_leaf, rowcount, *_ = TT._consts(spec, str(torch.device(device)))
+    CC.quantize_rows_cascade_kernel(b.ladder[2], row_leaf, rowcount, b.state, resid.clone(), b.words, b.scales,
+                                    b.partials, begin=True)
+    plain_ms = event_ms(lambda: CC.cascade_round_plain(b.partials, c.leaf_slots, c.ns, b.scales, b.state, b.ladder,
+                                                       b.leaf_sums, kc, 32, pol, True, True), 3, 1)
+    nbytes = finish_bytes_of(spec)
+    out.update(finish={"ms": meas["finish_ms"], "plain_ms": plain_ms, "bytes": nbytes, "bound_ms": nbytes / rate * 1e3,
+                       "library_ms": meas["torch_chain_ms"], "spent_ms": meas["spent_finish_ms"]},
+               burst=BG.burst_replay(spec, device, seed, CASCADE_BURST_K, 32))
     return out
 
 
@@ -3856,10 +3900,17 @@ def cascade_phase(device, rate: float, seed: int, smi: str) -> dict:
         print(f"[22a] A-cascade at {name}: " + ", ".join(
             f"kc={k} {v['ms']:.6f} ms ({100 * v['bound_ms'] / v['ms']:.1f}% of {v['bound_ms']:.6f}, copy_ms "
             f"{v['copy_ms']:.6f})" for k, v in r["times"].items()) + f"; plain at kc={r['kc']} {r['plain_ms']:.4f} ms")
-        print(f"[22a] finish at {name}: {f['ms']:.6f} ms (bound {f['bound_ms']:.6f}, plain {f['plain_ms']:.4f}, "
-              f"the torch chain it replaces {f['library_ms']:.6f}); the {CASCADE_BURST_K}-frame burst graph "
-              f"{g['replay_ms']:.6f} ms a replay ({g['replay_ms_min']:.6f}-{g['replay_ms_max']:.6f}), {g['frames']} "
-              f"frames, nodes {g['nodes']}")
+        print(f"[22a] finish at {name}: {f['ms']:.6f} ms (bound {f['bound_ms']:.6f}, spent launch "
+              f"{f['spent_ms']:.6f}, plain {f['plain_ms']:.4f}, the torch chain it replaces {f['library_ms']:.6f}); "
+              f"the {CASCADE_BURST_K}-frame burst graph {g['replay_ms']:.6f} ms a replay ({g['replay_ms_min']:.6f}-"
+              f"{g['replay_ms_max']:.6f}), {g['frames']} frames, nodes {g['nodes']}")
+    r = out["22a"]["resnet18"] = finish_check(make_spec(resnet18_template()), device, rate, seed + 22)
+    f, g = r["finish"], r["burst"]
+    print(f"[22a] finish at resnet18 ({r['shape']}): mismatches against the plain twins {r['mismatches']}; "
+          f"{f['ms']:.6f} ms (bound {f['bound_ms']:.6f}, spent launch {f['spent_ms']:.6f}, plain "
+          f"{f['plain_ms']:.4f}, the torch chain it replaces {f['library_ms']:.6f}); the {CASCADE_BURST_K}-frame burst "
+          f"graph {g['replay_ms']:.6f} ms a replay ({g['replay_ms_min']:.6f}-{g['replay_ms_max']:.6f}), "
+          f"{g['frames']} frames, nodes {g['nodes']}; on {smi}")
     bad = {k: v["mismatches"] for k, v in out["22a"].items() if v["mismatches"]}
     if bad:
         raise AssertionError(f"phase 22a: A-cascade or finish mismatches: {bad}")
@@ -4434,7 +4485,7 @@ def main() -> int:
     # then drain_tail's device row (the launch counts of A-cascade, the
     # finish and B are 22b's)
     cascade = cascade_phase(dev, rate, args.seed, smi)
-    c2, c1 = cascade["22a"]["config2"], cascade["22a"]["1Mi"]
+    c2, c1, c4 = cascade["22a"]["config2"], cascade["22a"]["1Mi"], cascade["22a"]["resnet18"]
     for k in ("quantize_rows_cascade", "cascade_round"):
         parity[k] = {"mismatches": sum(r["mismatches"] for r in cascade["22a"].values()),
                      "max_abs_err": max(r["max_abs_err"] for r in cascade["22a"].values())}
@@ -4445,8 +4496,9 @@ def main() -> int:
         launches_phase22=cascade["22b"]["launches"]["quantize_rows_cascade"])
     t["cascade_round"].update(
         c2["finish"], shape=c2["shape"],
-        **{f"{x}_1Mi": c1["finish"][x] for x in ("ms", "plain_ms", "bound_ms", "library_ms")},
-        burst={"config2": c2["burst"], "1Mi": c1["burst"]},
+        **{f"{x}_1Mi": c1["finish"][x] for x in ("ms", "plain_ms", "bound_ms", "library_ms", "spent_ms")},
+        **{f"{x}_resnet18": c4["finish"][x] for x in ("ms", "plain_ms", "bound_ms", "library_ms", "spent_ms")},
+        burst={"config2": c2["burst"], "1Mi": c1["burst"], "resnet18": c4["burst"]},
         launches_phase22=cascade["22b"]["launches"]["cascade_round"])
     t["apply_rows_batch"]["launches_phase22"] = cascade["22b"]["launches"]["apply_rows_batch"]
 

@@ -4,25 +4,28 @@ peer the compat tests and ``chip_smoke.py`` run beside the port.
 
 The counterpart of ``shared_tensor_tpu/_build.py``, which runs ``make`` in
 ``native/`` and builds every native library in place. The port compiles
-the sources of ``native/`` as they stand, with the flags of
+its own copies of those sources, ``csrc/native/`` (``PORT_NATIVE_DIR``:
+``sttransport.cpp``, ``stcodec.c``, ``stengine.cpp``, ``stc_harness.c``
+and the two headers they include), with the flags of
 ``native/Makefile``'s rules, into ``csrc/build/`` (beside the CUDA
-kernels); the transport alone it compiles from its own copy,
-``csrc/native/`` (``PORT_NATIVE_DIR``: ``sttransport.cpp`` and the two
-headers it includes), which repairs the shared-memory lane's liveness and
-a re-grafted node's redirect address (a second listener there, beside the
-first) and otherwise equals ``native/``'s, comments aside:
+kernels). The transport's copy repairs the shared-memory lane's liveness
+and a re-grafted node's redirect address (a second listener there, beside
+the first); the engine's keeps a severed uplink's rolled-back messages
+until the re-join's WELCOME, so that the prefix the parent applied is
+retracted, and reports a detached link's applied count. Nothing is read
+from ``native/``:
 
-- ``csrc/native/sttransport.cpp`` with ``g++`` (``$CXX``), the
-  ``libsttransport.so`` rule;
-- ``native/stcodec.c`` with ``gcc`` (``$CC``), the ``libstcodec.so`` rule;
-- ``native/stengine.cpp`` with ``g++``, the ``libstengine.so`` rule, linked
+- ``sttransport.cpp`` with ``g++`` (``$CXX``), the ``libsttransport.so``
+  rule;
+- ``stcodec.c`` with ``gcc`` (``$CC``), the ``libstcodec.so`` rule;
+- ``stengine.cpp`` with ``g++``, the ``libstengine.so`` rule, linked
   against the port's own transport and codec builds by their file names
   (``-l:<name>``) with ``-Wl,-rpath,$ORIGIN``. It is compiled to an object
   (the rule's flags and ``-c``) while the two libraries compile beside it,
   then linked: its compile is the longest of the three, and a first build
   (every run from a fresh checkout) would otherwise pay all three in turn;
-- ``native/stc_harness.c``, a standalone C peer that speaks the reference
-  wire format, with ``gcc``: the ``stc_harness`` rule (an executable).
+- ``stc_harness.c``, a standalone C peer that speaks the reference wire
+  format, with ``gcc``: the ``stc_harness`` rule (an executable).
 
 Each library is named by a hash of its sources, its flags and the names
 of the libraries it links, so an edit to any of them rebuilds it and the
@@ -63,8 +66,9 @@ import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+#: the JAX package's native sources, which the port copies and never builds
 NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
-#: the port's own copies of the native sources it repairs (the transport)
+#: the port's own copies of the native sources, which it builds
 PORT_NATIVE_DIR = Path(__file__).resolve().parent / "csrc" / "native"
 BUILD_DIR = Path(__file__).resolve().parent / "csrc" / "build"
 HEADERS = ("st_annotations.h", "st_cv.h")
@@ -115,10 +119,10 @@ def build_lock(name: str):
             fcntl.flock(f, fcntl.LOCK_UN)
 
 
-def _hashed(stem: str, sources, flags, links=(), suffix: str = ".so", src_dir: Path | None = None) -> Path:
+def _hashed(stem: str, sources, flags, links=(), suffix: str = ".so") -> Path:
     h = hashlib.sha256()
     for name in sources:
-        h.update(((src_dir or NATIVE_DIR) / name).read_bytes())
+        h.update((PORT_NATIVE_DIR / name).read_bytes())
     h.update(" ".join(flags).encode())
     for path in links:
         h.update(path.name.encode())
@@ -127,7 +131,7 @@ def _hashed(stem: str, sources, flags, links=(), suffix: str = ".so", src_dir: P
 
 def transport_path() -> Path:
     """Where the transport library for the current sources lives."""
-    return _hashed("libsttransport", TRANSPORT_SOURCES, _cxx_flags(), src_dir=PORT_NATIVE_DIR)
+    return _hashed("libsttransport", TRANSPORT_SOURCES, _cxx_flags())
 
 
 def codec_path() -> Path:
@@ -170,10 +174,10 @@ def build_transport() -> Path:
 
 
 def build_codec() -> Path:
-    """Compile the host codec loops (``native/stcodec.c``) if need be and
+    """Compile the host codec loops (``csrc/native/stcodec.c``) if need be and
     return the library's path. Raises ``RuntimeError`` if ``gcc`` is
     missing or the compile fails."""
-    src = str(NATIVE_DIR / "stcodec.c")
+    src = str(PORT_NATIVE_DIR / "stcodec.c")
     return _compile(codec_path(), "codec", "CC", "gcc", lambda o: [*_cc_flags(), "-o", str(o), src])
 
 
@@ -183,24 +187,24 @@ def harness_path() -> Path:
 
 
 def build_harness() -> Path:
-    """Compile the reference-protocol C peer (``native/stc_harness.c``:
+    """Compile the reference-protocol C peer (``csrc/native/stc_harness.c``:
     ``stc_harness <host> <port> <n> <seconds> <add> [children]``) if need
     be and return the executable's path. Raises ``RuntimeError`` if
     ``gcc`` is missing or the compile fails."""
-    src = str(NATIVE_DIR / "stc_harness.c")
+    src = str(PORT_NATIVE_DIR / "stc_harness.c")
     return _compile(harness_path(), "reference peer", "CC", "gcc",
                     lambda o: [*HARNESS_FLAGS, "-o", str(o), src, "-lm", "-lpthread"])
 
 
 def build_engine() -> Path:
-    """Compile the link engine (``native/stengine.cpp``), and the transport
+    """Compile the link engine (``csrc/native/stengine.cpp``), and the transport
     and codec it links, if need be (the three compiles in parallel);
     returns the engine library's path. Raises ``RuntimeError`` if a
     compiler is missing or a compile fails."""
     out = engine_path()
     if out.exists():
         return out
-    src = str(NATIVE_DIR / "stengine.cpp")
+    src = str(PORT_NATIVE_DIR / "stengine.cpp")
     flags = _cxx_flags()
     obj_path = _hashed("stengine", ENGINE_SOURCES, flags, suffix=".o")
     with ThreadPoolExecutor(3) as pool:

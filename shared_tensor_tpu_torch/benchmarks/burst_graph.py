@@ -4,7 +4,8 @@ several depths, and the whole K-frame burst graph's replay.
     python -m shared_tensor_tpu_torch.benchmarks.burst_graph [--kcs 1,11,16,32] [--k 16] [--out FILE]
 
 On BASELINE config 2's table (the default ``CharRNNConfig``'s 9 leaves,
-3,870,976 elements) and on a 1 Mi flat table, with ``chip_smoke.py``
+3,870,976 elements), on a 1 Mi flat table and on config 4's (ResNet-18's
+56 leaves, 11,172,170 elements), with ``chip_smoke.py``
 phase 22a's residual (gaussian times 1e-2, every 997th element times 50,
 padding 0, from a seeded ``torch.Generator``):
 
@@ -52,6 +53,17 @@ def config2_template() -> dict:
     from ..ops.table import tree_flatten, tree_unflatten
 
     params = m.init_params(torch.Generator().manual_seed(0), m.CharRNNConfig(), device="cpu")
+    leaves, treedef = tree_flatten(params)
+    return tree_unflatten(treedef, [np.zeros(tuple(x.shape), np.float32) for x in leaves])
+
+
+def resnet18_template() -> dict:
+    """BASELINE config 4's table: the default ResNetConfig's (ResNet-18)
+    parameter shapes as zero float32 arrays."""
+    from ..models import resnet as m
+    from ..ops.table import tree_flatten, tree_unflatten
+
+    params = m.init_params(torch.Generator().manual_seed(0), m.ResNetConfig(), device="cpu")
     leaves, treedef = tree_flatten(params)
     return tree_unflatten(treedef, [np.zeros(tuple(x.shape), np.float32) for x in leaves])
 
@@ -267,7 +279,8 @@ def main(argv=None) -> int:
     print(smi)
     kcs = [int(x) for x in args.kcs.split(",")]
     rows = []
-    for name, tmpl in (("config2", config2_template()), ("1Mi", {"t": np.zeros(1 << 20, np.float32)})):
+    for name, tmpl in (("config2", config2_template()), ("1Mi", {"t": np.zeros(1 << 20, np.float32)}),
+                       ("resnet18", resnet18_template())):
         spec = make_spec(tmpl)
         row = {"bench": "burst_graph", "table": name, "rows": spec.rows, "leaves": spec.num_leaves, "k": args.k,
                "cascade": args.cascade, "card": smi, "torch": torch.__version__,

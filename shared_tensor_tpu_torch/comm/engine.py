@@ -80,8 +80,12 @@ _SIGNATURES = {
     # link, snapshot (nullable), rx_init, word lo, word count (0: the whole
     # table), FRESH interval seconds
     "st_engine_attach_sub": (_I32, [_VP, _I32, _VP, ctypes.c_uint64, _I64, _I64, _F64]),
-    "st_engine_detach": (_I32, [_VP, _I32, _f32p]),
-    "st_engine_stash_carry": (_I32, [_VP, _I32]),
+    # link, residual out (nullable), applied messages out
+    "st_engine_detach": (_I32, [_VP, _I32, _VP, _u64p]),
+    # link, frames rolled out
+    "st_engine_stash_carry": (_I32, [_VP, _I32, _u64p]),
+    # the applied wire seq the WELCOME reported (0: drop the record)
+    "st_engine_retract_kept": (_I64, [_VP, ctypes.c_uint64]),
     # both outputs nullable (drop_carry)
     "st_engine_take_carry_and_snapshot": (_I32, [_VP, _VP, _VP]),
     "st_engine_inject": (None, [_VP, _I32, _I32, _f32p, _u32p]),
@@ -311,11 +315,25 @@ class EngineTensor:
         if self._lib.st_engine_compat_regraft(self._handle(), link_id) == 0:
             raise DuplicateLink(f"link {link_id} already exists")
 
-    def stash_carry(self, link_id: int) -> bool:
+    def stash_carry(self, link_id: int) -> Optional[int]:
         """Park a dead uplink's residual (unacknowledged frames rolled back)
         in the engine's live carry slot, which keeps absorbing adds and
-        floods while the node is orphaned. False if the link is unknown."""
-        return bool(self._lib.st_engine_stash_carry(self._handle(), link_id))
+        floods while the node is orphaned. The rolled-back messages become
+        the severed link's record, in place of any earlier one, until
+        :meth:`retract_kept`. Returns their frames with a nonzero scale,
+        or None if the link is unknown."""
+        rolled = np.zeros(1, np.uint64)
+        if self._lib.st_engine_stash_carry(self._handle(), link_id, rolled) == 0:
+            return None
+        return int(rolled[0])
+
+    def retract_kept(self, applied: int) -> int:
+        """The re-join's WELCOME reported the severed link's messages up to
+        wire seq ``applied`` applied by the parent: take their frames out
+        of the replica, every link's residual and the carry, then drop the
+        record (``applied`` 0 drops it whole). Returns the frames
+        retracted."""
+        return int(self._lib.st_engine_retract_kept(self._handle(), applied))
 
     def take_carry_and_snapshot(self) -> tuple[Optional[torch.Tensor], torch.Tensor]:
         """Consume the carry and copy the replica under one lock."""
@@ -335,9 +353,19 @@ class EngineTensor:
         """Detach a link; its residual with every unacknowledged frame
         rolled back, or None if unknown."""
         out = np.empty(self.spec.total, np.float32)
-        if self._lib.st_engine_detach(self._handle(), link_id, out) == 0:
+        applied = np.zeros(1, np.uint64)
+        if self._lib.st_engine_detach(self._handle(), link_id, out.ctypes.data_as(ctypes.c_void_p), applied) == 0:
             return None
         return torch.from_numpy(out)
+
+    def detach_applied(self, link_id: int) -> Optional[int]:
+        """Detach a link and return the data messages applied from it, read
+        under the lock that removes it (so none is applied after the
+        count), or None if unknown; its residual is dropped."""
+        applied = np.zeros(1, np.uint64)
+        if self._lib.st_engine_detach(self._handle(), link_id, None, applied) == 0:
+            return None
+        return int(applied[0])
 
     @property
     def link_ids(self) -> tuple[int, ...]:

@@ -582,19 +582,20 @@ class SharedTensorPeer:
         self._shm_fallbacks = 0
         self._uplink: Optional[int] = None
         # a severed uplink's applied prefix (wire.SYNC_FLAG_PREV_LINK),
-        # between the Python tiers of this package: the roll-back at
+        # between the peers of this package, every tier: the roll-back at
         # LINK_DOWN puts every unacknowledged frame into the carry, yet
         # the parent may have applied some (its ACK lost with the link, or
         # never sent). The child keeps those frames by wire seq (_kept: the
-        # severed link's token and [(seq, frames)]) until the next WELCOME,
-        # which reports how many the parent applied, and retracts them. A
-        # parent records each child link's SYNC tokens (_link_token: its
-        # own and its previous link's) and, once the link is down, the
-        # messages it applied (_gone_applied). The engine keeps its ledger
-        # in C and takes neither role
-        self._prev_link_ok = self._engine is None and not self._compat
+        # severed link's token and [(seq, frames)]; on the engine the
+        # frames stay in C, _kept[1] is None) until the next WELCOME, which
+        # reports how many the parent applied, and retracts them. A parent
+        # records each child link's SYNC tokens (_link_token: its own and
+        # its previous link's) and, once the link is down, the messages it
+        # applied (_gone_applied; on the engine the count C kept until the
+        # link's detach). The reference wire has no ledger to keep
+        self._prev_link_ok = not self._compat
         self._uplink_token = 0
-        self._kept: Optional[tuple[int, list]] = None
+        self._kept: Optional[tuple[int, Optional[list]]] = None
         self._link_token: dict[int, tuple[int, int]] = {}
         self._gone_applied: dict[int, int] = {}
         self._carry_frames_rolled = 0
@@ -2495,7 +2496,7 @@ class SharedTensorPeer:
                 d.pop(ev.link_id, None)
             tokens = self._link_token.pop(ev.link_id, None)
             if tokens is not None:
-                self._record_applied(tokens[0], self._rx_count.get(ev.link_id, 0))
+                self._record_applied(tokens[0], self._applied_count(ev.link_id))
             with self._ack_mu:
                 purged = self._unacked.pop(ev.link_id, ())
                 for d in (self._tx_seq, self._acked, self._rx_count, self._ack_sent, self._ack_progress,
@@ -2507,7 +2508,11 @@ class SharedTensorPeer:
                 # handshake never finished there was no codec link, and what
                 # we owe is values - the snapshot we sent (lazily, at re-join)
                 if self._engine is not None:
-                    stashed = self._engine.stash_carry(ev.link_id)
+                    rolled = self._engine.stash_carry(ev.link_id)
+                    stashed = rolled is not None
+                    if stashed and self._uplink_token:
+                        self._kept = (self._uplink_token, None)
+                        self._carry_frames_rolled += rolled
                 else:
                     kept = self.st.inflight_frames(ev.link_id, [e[0] for e in purged])
                     stashed = self.st.stash_carry(ev.link_id, CARRY_LINK)
@@ -2541,6 +2546,7 @@ class SharedTensorPeer:
             # mass is already in it
             if self._engine is not None:
                 self._engine.drop_carry()
+                self._engine.retract_kept(0)
             else:
                 self.st.take_link_and_snapshot(CARRY_LINK)
             self._mid_handshake_base = None
@@ -2751,10 +2757,19 @@ class SharedTensorPeer:
             return None
         for old, (tok, _) in list(self._link_token.items()):
             if tok == token and old != link:
+                applied = self._applied_count(old)
                 self.node.drop_link(old)
                 self._link_token.pop(old)
-                self._record_applied(token, self._rx_count.get(old, 0))
+                self._record_applied(token, applied)
         return self._gone_applied.get(token)
+
+    def _applied_count(self, link: int) -> int:
+        """Parent side: the data messages applied from a child link that is
+        leaving. On the engine the link is detached first, and the count
+        read under the lock that removes it, so none is applied after it;
+        a link the engine never took has Python's count."""
+        applied = self._engine.detach_applied(link) if self._engine is not None else None
+        return self._rx_count.get(link, 0) if applied is None else applied
 
     def _retract_applied(self, applied: Optional[int]) -> None:
         """Child side, at WELCOME: the frames of the severed uplink's first
@@ -2763,14 +2778,19 @@ class SharedTensorPeer:
         it, so take them out of our state; None (no record, or a parent
         that does not speak the flag) leaves the carry as it is."""
         kept, self._kept = self._kept, None
-        if kept is None or applied is None:
+        if self._engine is not None:
+            # the record is in C, and dropped there whatever the WELCOME says
+            n = self._engine.retract_kept(applied if kept is not None and applied is not None else 0)
+        elif kept is None or applied is None:
             return
-        frames = [f for seq, fs in kept[1] if seq <= applied for f in fs]
-        self.st.retract_frames(frames)
-        self._carry_frames_retracted += len(frames)
-        if frames:
+        else:
+            frames = [f for seq, fs in kept[1] if seq <= applied for f in fs]
+            self.st.retract_frames(frames)
+            n = len(frames)
+        self._carry_frames_retracted += n
+        if n:
             log.info("re-join: %d frame(s) of the severed uplink were applied by the parent; retracted from the carry",
-                     len(frames))
+                     n)
 
     def _attach_diff(self, link: int, snap) -> None:
         """Open the codec link with residual = replica - ``snap``. On the

@@ -378,6 +378,10 @@ using EClock = std::chrono::steady_clock;
 struct ELink {
   std::vector<float> resid;
   std::deque<SentMsg> unacked;
+  // the ledger a teardown (send failure, black hole) rolled back, kept with
+  // its slot references until Python stashes the link (a severed uplink's
+  // record, Engine::kept) or detaches it
+  std::deque<SentMsg> rolled;
   uint64_t acked_cum = 0;  // cumulative ACK count received from the peer
   uint64_t tx_seq = 0;     // wire seq of the last DATA/BURST sent
   // last IN-ORDER wire seq accepted from the peer (== cumulative accepted
@@ -518,6 +522,14 @@ struct Engine {
   // loss in the churn soak before this existed).
   std::vector<float> carry ST_GUARDED_BY(mu);
   bool has_carry ST_GUARDED_BY(mu) = false;
+  // A severed uplink's unacknowledged messages, rolled into the carry by
+  // st_engine_stash_carry and kept (their tx slots' ledger references
+  // with them: at most kSendWindow messages) until the re-join's WELCOME
+  // says how many of them the parent applied. The diff handshake brings
+  // those back from the parent, so st_engine_retract_kept takes them out
+  // of this node's state (the port peer's SYNC_FLAG_PREV_LINK handshake);
+  // a WELCOME without the count drops the record (retract with 0).
+  std::deque<SentMsg> kept ST_GUARDED_BY(mu);
 
   // r11 staged adds: st_engine_add used to take the data-plane mutex for
   // its two full-table passes, serializing every trainer add behind
@@ -737,29 +749,37 @@ bool any_nonzero(const float* s, int64_t L) {
   return false;
 }
 
+// frame f of a ledgered message: its scales and (first) word plane
+void msg_frame(Engine* e, const SentMsg& msg, int32_t f, const float** fs,
+               const uint32_t** fw) {
+  size_t per = (size_t)e->L * 4 + (size_t)e->W * 4;
+  size_t fb = msg.prec == 2 ? per + (size_t)e->W * 4 : per;
+  if (msg.slot) {
+    const uint8_t* body = msg.slot->buf.data() + kBodyOff + (size_t)f * fb;
+    *fs = (const float*)body;
+    *fw = (const uint32_t*)(body + (size_t)e->L * 4);
+  } else {
+    *fs = msg.scales.data() + (size_t)f * e->L;
+    *fw = msg.words.data() + (size_t)f * e->W;
+  }
+}
+
 // Roll every unacked message's error feedback back into the residual
 // (core.SharedTensor._unapply: re-applying a frame to the residual restores
 // the pre-quantize state bit-for-bit). Native-framing entries read their
 // frames straight out of the ledgered tx slot (the slot body offsets are
 // 4-aligned by construction — see TxSlot) and drop the ledger's pool
-// reference. Caller holds e->mu.
-void rollback_unacked(Engine* e, ELink& lk) ST_REQUIRES(e->mu) {
-  size_t per = (size_t)e->L * 4 + (size_t)e->W * 4;
+// reference — or, given `keep`, moves each entry (its reference with it)
+// there. Caller holds e->mu.
+void rollback_unacked(Engine* e, ELink& lk,
+                      std::deque<SentMsg>* keep = nullptr) ST_REQUIRES(e->mu) {
   for (auto& msg : lk.unacked) {
     // frame stride follows the ledgered message's precision (r11): a
-    // sign2 frame carries a second (magnitude) word plane
-    size_t fb = msg.prec == 2 ? per + (size_t)e->W * 4 : per;
+    // sign2 frame carries a second (magnitude) word plane (msg_frame)
     for (int32_t f = 0; f < msg.nframes; f++) {
       const float* fs;
       const uint32_t* fw;
-      if (msg.slot) {
-        const uint8_t* body = msg.slot->buf.data() + kBodyOff + (size_t)f * fb;
-        fs = (const float*)body;
-        fw = (const uint32_t*)(body + (size_t)e->L * 4);
-      } else {
-        fs = msg.scales.data() + (size_t)f * e->L;
-        fw = msg.words.data() + (size_t)f * e->W;
-      }
+      msg_frame(e, msg, f, &fs, &fw);
       if (msg.prec == 2)
         stc_apply_frame2(lk.resid.data(), lk.resid.data(), e->off.data(),
                          e->ns.data(), e->padded.data(), e->L, e->W, fs, fw);
@@ -767,10 +787,20 @@ void rollback_unacked(Engine* e, ELink& lk) ST_REQUIRES(e->mu) {
         stc_apply_frame(lk.resid.data(), lk.resid.data(), e->off.data(),
                         e->ns.data(), e->padded.data(), e->L, fs, fw);
     }
-    if (msg.slot) e->txpool.unref(msg.slot);
+    if (keep)
+      keep->push_back(std::move(msg));
+    else if (msg.slot)
+      e->txpool.unref(msg.slot);
   }
   lk.unacked.clear();
   lk.pvalid = false;  // rollback bypasses the fused-partials kernels
+}
+
+// Drop ledger entries that were rolled back, and their slot references.
+void drop_msgs(Engine* e, std::deque<SentMsg>& msgs) ST_REQUIRES(e->mu) {
+  for (auto& msg : msgs)
+    if (msg.slot) e->txpool.unref(msg.slot);
+  msgs.clear();
 }
 
 // Apply k decoded frames from `src_link` to the replica and every OTHER
@@ -915,7 +945,7 @@ void retransmit_pass(Engine* e, const std::vector<int32_t>& ids)
       lk2.retx_rounds++;
       lk2.ack_progress = now;
       if (lk2.retx_rounds > e->ack_retry_limit) {
-        rollback_unacked(e, lk2);
+        rollback_unacked(e, lk2, &lk2.rolled);
         lk2.dead = true;
         teardown = true;
       } else {
@@ -1605,7 +1635,7 @@ void sender_loop(Engine* e) {
                               msg.words.data() + (size_t)f * e->W);
             it->second.pvalid = false;  // inline rollback bypasses the cache
           } else {
-            rollback_unacked(e, it->second);
+            rollback_unacked(e, it->second, &it->second.rolled);
           }
           it->second.dead = true;
         }
@@ -3272,10 +3302,10 @@ __attribute__((visibility("default"))) void st_engine_destroy(void* h) {
   {
     StLockGuard lk(e->mu);
     for (auto& kv : e->links) {
-      for (auto& msg : kv.second.unacked)
-        if (msg.slot) e->txpool.unref(msg.slot);
-      kv.second.unacked.clear();
+      drop_msgs(e, kv.second.unacked);
+      drop_msgs(e, kv.second.rolled);
     }
+    drop_msgs(e, e->kept);
   }
   // Transport release callbacks can still be in flight for a moment after
   // st_node_close returns: a link's queues are destroyed on its detached
@@ -3462,16 +3492,30 @@ __attribute__((visibility("default"))) int32_t st_engine_compat_regraft(
 
 // Park a dead uplink's residual (unacked rolled back) into the LIVE carry
 // slot, which keeps accumulating add()/flood mass until the re-graft
-// consumes it (see Engine::carry). Returns 1 if the link existed.
+// consumes it (see Engine::carry). The rolled-back messages become the
+// severed link's record (Engine::kept), in place of any earlier one;
+// out1[0] is their frames with a nonzero scale. Returns 1 if the link
+// existed (out1 untouched otherwise).
 __attribute__((visibility("default"))) int32_t st_engine_stash_carry(
-    void* h, int32_t link_id) {
+    void* h, int32_t link_id, uint64_t* out1) {
   if (!h) return 0;
   auto* e = (Engine*)h;
   StLockGuard lk(e->mu);
   fold_pending(e);
   auto it = e->links.find(link_id);
   if (it == e->links.end()) return 0;
-  rollback_unacked(e, it->second);
+  drop_msgs(e, e->kept);
+  e->kept = std::move(it->second.rolled);
+  rollback_unacked(e, it->second, &e->kept);
+  uint64_t rolled = 0;
+  for (const auto& msg : e->kept)
+    for (int32_t f = 0; f < msg.nframes; f++) {
+      const float* fs;
+      const uint32_t* fw;
+      msg_frame(e, msg, f, &fs, &fw);
+      rolled += any_nonzero(fs, e->L);
+    }
+  out1[0] = rolled;
   if (!e->has_carry) {
     e->carry = std::move(it->second.resid);
     e->has_carry = true;
@@ -3509,9 +3553,12 @@ __attribute__((visibility("default"))) int32_t st_engine_take_carry_and_snapshot
 }
 
 // Close a link; writes its undelivered residual (unacked frames rolled
-// back) into out_resid. Returns 1 if the link existed.
+// back) into out_resid (nullable), and into out1[0] the data messages
+// applied from it, read under the lock that erases it: no message of the
+// link is applied after the count (a severed child's re-join reports it).
+// Returns 1 if the link existed (out1 untouched otherwise).
 __attribute__((visibility("default"))) int32_t st_engine_detach(
-    void* h, int32_t link_id, float* out_resid) {
+    void* h, int32_t link_id, float* out_resid, uint64_t* out1) {
   if (!h) return 0;
   auto* e = (Engine*)h;
   StLockGuard lk(e->mu);
@@ -3519,10 +3566,61 @@ __attribute__((visibility("default"))) int32_t st_engine_detach(
   auto it = e->links.find(link_id);
   if (it == e->links.end()) return 0;
   rollback_unacked(e, it->second);
+  drop_msgs(e, it->second.rolled);
   if (out_resid)
     std::memcpy(out_resid, it->second.resid.data(), (size_t)e->total * 4);
+  out1[0] = it->second.rx_count;
   e->links.erase(it);
   return 1;
+}
+
+// The re-join's WELCOME reported that the parent applied the severed
+// link's messages up to wire seq `applied`: take those of the record
+// (Engine::kept) back out of the replica, every link's residual and the
+// carry — their frames with negated scales, each at its own precision —
+// as core.SharedTensor.retract_frames does on the Python tiers, counted
+// nowhere; then drop the record (0 drops it whole). Returns the frames
+// retracted with a nonzero scale.
+__attribute__((visibility("default"))) int64_t st_engine_retract_kept(
+    void* h, uint64_t applied) {
+  if (!h) return 0;
+  auto* e = (Engine*)h;
+  int64_t retracted = 0;
+  {
+    StLockGuard lk(e->mu);
+    fold_pending(e);
+    std::vector<float> neg((size_t)e->L);
+    std::vector<float*> targets{e->values.data()};
+    for (auto& kv : e->links) targets.push_back(kv.second.resid.data());
+    if (e->has_carry) targets.push_back(e->carry.data());
+    for (const auto& msg : e->kept) {
+      if (msg.seq > applied) continue;
+      for (int32_t f = 0; f < msg.nframes; f++) {
+        const float* fs;
+        const uint32_t* fw;
+        msg_frame(e, msg, f, &fs, &fw);
+        if (!any_nonzero(fs, e->L)) continue;
+        for (int64_t i = 0; i < e->L; i++) neg[i] = -fs[i];
+        for (float* t : targets) {
+          if (msg.prec == 2)
+            stc_apply_frame2(t, t, e->off.data(), e->ns.data(),
+                             e->padded.data(), e->L, e->W, neg.data(), fw);
+          else
+            stc_apply_frame(t, t, e->off.data(), e->ns.data(),
+                            e->padded.data(), e->L, neg.data(), fw);
+        }
+        retracted++;
+      }
+    }
+    if (retracted > 0)
+      for (auto& kv : e->links) {
+        kv.second.pvalid = false;  // bypasses the fused-partials kernels
+        kv.second.dirty = true;
+      }
+    drop_msgs(e, e->kept);
+  }
+  if (retracted > 0) e->wake();
+  return retracted;
 }
 
 // Apply k externally-decoded frames from src_link (which need not be

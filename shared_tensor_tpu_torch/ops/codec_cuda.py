@@ -643,11 +643,97 @@ def _check_round(partials, leaf_slots, ns, scales, state, ladder, leaf_sums, k, 
     _check(leaf_sums, "leaf_sums", (torch.float64,), (3, n_leaves), dev)
     if int(k) < 1 or not 1 <= int(cap) <= CASCADE_MAX_LEVELS:
         raise ValueError(f"need k >= 1 and a cap in [1, {CASCADE_MAX_LEVELS}], got {k}, {cap}")
+    if slots >= 1 << 31:
+        raise ValueError(f"the finish takes fewer than 2^31 slots, got {slots}")
     if policy not in POLICY_CODES:
         raise ValueError(f"unknown scale policy {policy!r}")
     check_distinct([state, ladder, leaf_sums])
     _check_disjoint([partials, leaf_slots, ns, scales], [state, ladder, leaf_sums])
     return slots, n_leaves
+
+
+#: the finish kernel's block: 512 threads for a table of at most
+#: FINISH_FEW_LEAVES leaves, else 1024 (:func:`finish_threads`)
+FINISH_FEW_LEAVES = 16
+
+
+def finish_threads(n_leaves: int) -> int:
+    """The finish kernel's block size for a table of ``n_leaves`` leaves: a
+    warp closes its leaves' parts one after another, so many leaves want
+    many warps, and few leaves fewer trees."""
+    return 512 if n_leaves <= FINISH_FEW_LEAVES else 1024
+
+
+def _max_into(acc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The kernel's ``if (x > acc) acc = x`` on row 0 (max |r|), elementwise."""
+    return torch.where(x > acc, x, acc)
+
+
+def _tree(acc: torch.Tensor) -> torch.Tensor:
+    """A warp's shuffle tree over the lanes (the last axis, 32) of ``acc``
+    (f64[3 or 4, ..., 32]: max |r|, then sums): the lanes halve five times.
+    Returns what lane 0 holds."""
+    h = BITS_PER_WORD // 2
+    while h:
+        acc = torch.cat([_max_into(acc[:1, ..., :h], acc[:1, ..., h : 2 * h]), acc[1:, ..., :h] + acc[1:, ..., h : 2 * h]])
+        h //= 2
+    return acc[..., 0]
+
+
+def _warp_sum(seq: torch.Tensor) -> torch.Tensor:
+    """A warp's reduction of the columns of ``seq`` (f64[3 or 4, m]): lane
+    i takes columns i, i + 32, ... in turn from 0, then :func:`_tree`."""
+    pad = -seq.shape[1] % BITS_PER_WORD
+    seq = torch.cat([seq, seq.new_zeros((seq.shape[0], pad))], dim=1).view(seq.shape[0], -1, BITS_PER_WORD)
+    acc = seq.new_zeros((seq.shape[0], BITS_PER_WORD))
+    for m in range(seq.shape[1]):
+        acc = torch.cat([_max_into(acc[:1], seq[:1, m]), acc[1:] + seq[1:, m]])
+    return _tree(acc)
+
+
+def _finish_leaf_sums(partials: torch.Tensor, bounds: list, leaf_sums: torch.Tensor) -> None:
+    """Each leaf's partials reduced into ``leaf_sums`` in the finish
+    kernel's order (``csrc/cascade_round.cu``, step 2): each warp's range
+    of consecutive slots (:func:`finish_threads` / 32 ranges, each a
+    multiple of 32 long) in rows of 32, lane i summing the slots wb + 32 m
+    + i of a leaf in turn, closed by :func:`_tree`; a leaf over several
+    ranges is the :func:`_warp_sum` of its first part and the later ranges'
+    parts."""
+    n_leaves, n = len(bounds) - 1, bounds[-1]
+    leaf_sums.zero_()
+    threads = finish_threads(n_leaves)
+    span = -(-n // threads) * BITS_PER_WORD
+    warps, rows = threads // BITS_PER_WORD, span // BITS_PER_WORD
+    dev = partials.device
+    # every (range, leaf) pair with slots in common, in range order
+    pairs = []
+    for w in range(warps):
+        wb, we = min(w * span, n), min(w * span + span, n)
+        pairs += [(w, l) for l in range(n_leaves) if bounds[l] < min(bounds[l + 1], we) and bounds[l + 1] > wb]
+    if not pairs:
+        return
+    pw, pl = (torch.tensor(c, dtype=torch.int64, device=dev) for c in zip(*pairs))
+    bt = torch.tensor(bounds, dtype=torch.int64, device=dev)
+    x = torch.cat([partials[:, :n], partials.new_zeros((3, warps * span - n))], dim=1)
+    x = x.view(3, warps, rows, BITS_PER_WORD)[:, pw]
+    slot = torch.arange(warps * span, device=dev).view(warps, rows, BITS_PER_WORD)[pw]
+    mask = (slot >= bt[pl, None, None]) & (slot < bt[pl + 1, None, None])
+    acc = partials.new_zeros((3, len(pairs), BITS_PER_WORD))
+    for m in range(rows):  # lane i: its slots of the leaf in row order, from 0
+        xm = torch.where(mask[:, m], x[:, :, m], torch.zeros_like(x[:, :, m]))
+        acc = torch.cat([torch.where(mask[:, m] & (xm[:1] > acc[:1]), xm[:1], acc[:1]), acc[1:] + xm[1:]])
+    part = _tree(acc)
+    head = bt[pl] < torch.clamp(pw * span, max=n)  # the range's part of a leaf begun before it
+    heads = partials.new_zeros((3, warps))
+    heads[:, pw[head]] = part[:, head]
+    leaf_sums[:, pl[~head]] = part[:, ~head]
+    for l in range(n_leaves):
+        lo, hi = bounds[l], bounds[l + 1]
+        if lo == hi:
+            continue
+        wa, wz = lo // span, (hi - 1) // span
+        if wa < wz:
+            leaf_sums[:, l] = _warp_sum(torch.cat([leaf_sums[:, l : l + 1], heads[:, wa + 1 : wz + 1]], dim=1))
 
 
 def cascade_round_plain(
@@ -674,7 +760,8 @@ def cascade_round_plain(
     subnormal floor) stops, and so does a burst with no frame left, before
     anything is measured. Then each leaf's partials summed (its slots
     ``leaf_slots[l]`` to ``leaf_slots[l + 1]``) into ``leaf_sums``
-    f64[3, L]; the scales by the host tier's rule (``ns``: f64 live counts)
+    f64[3, L] in the kernel's order (:func:`_finish_leaf_sums`; without
+    ``per_leaf`` their sum over the leaves is :func:`_warp_sum`'s); the scales by the host tier's rule (``ns``: f64 live counts)
     and each leaf's max |r| into ``ladder`` rows 0 and 1; the ladder top
     (row 2) and depth by :func:`..table.cascade_ladder` with the cap
     min(``cap``, K - j0); kc 0 stops."""
@@ -690,25 +777,13 @@ def cascade_round_plain(
         state.copy_(torch.tensor([j0, 0, 1], dtype=torch.int32))
         return
     bounds = leaf_slots.tolist()
-    for l in range(n_leaves):  # a warp a leaf: lanes strided over its slots, then a halving tree
-        seg = partials[:, bounds[l] : bounds[l + 1]]
-        pad = -seg.shape[1] % BITS_PER_WORD
-        seg = torch.cat([seg, seg.new_zeros((3, pad))], dim=1).view(3, -1, BITS_PER_WORD)
-        acc = seg.new_zeros((2, BITS_PER_WORD))
-        for m in range(seg.shape[1]):
-            acc = acc + seg[1:, m]
-        h = BITS_PER_WORD // 2
-        while h:
-            acc = acc[:, :h] + acc[:, h : 2 * h]
-            h //= 2
-        leaf_sums[0, l] = seg[0].max()
-        leaf_sums[1:, l] = acc[:, 0]
+    if bounds[0] != 0 or bounds[-1] != slots:
+        raise ValueError(f"leaf_slots must run from 0 to the partials' {slots} slots, got {bounds[0]}..{bounds[-1]}")
+    _finish_leaf_sums(partials, bounds, leaf_sums)
     amax, ss, sabs = leaf_sums[0], leaf_sums[1], leaf_sums[2]
     n = ns
-    if not per_leaf:  # one sum over the leaves, in leaf order
-        tot = leaf_sums.new_zeros(4)
-        for l in range(n_leaves):
-            tot = torch.stack((torch.maximum(tot[0], amax[l]), tot[1] + ss[l], tot[2] + sabs[l], tot[3] + ns[l]))
+    if not per_leaf:  # warp 0: lanes strided over the leaves, then its tree
+        tot = _warp_sum(torch.cat([leaf_sums, ns.view(1, -1)]))
         amax, ss, sabs, n = (x.expand(n_leaves) for x in tot)
     if policy == ScalePolicy.ABS_MEAN:
         s = (sabs / n).to(torch.float32)

@@ -521,6 +521,111 @@ def test_finish_twin_follows_the_host_tiers_rule(policy, per_leaf):
             assert state.tolist() == [0, int(kc), int(kc) == 0] and int(kc) > 1
 
 
+def _finish_in_the_old_order(partials, leaf_slots, ns, state, ladder, leaf_sums, k, cap, policy, per_leaf):
+    """The finish's first round as its twin computed it before the kernel's
+    redesign: a warp a leaf (lanes strided over the leaf's slots, then a
+    halving tree) and, without per_leaf, one sum over the leaves in leaf
+    order. Only the order of the double sums differs from today's."""
+    n_leaves = ns.shape[0]
+    bounds = leaf_slots.tolist()
+    for l in range(n_leaves):
+        seg = partials[:, bounds[l] : bounds[l + 1]]
+        pad = -seg.shape[1] % 32
+        seg = torch.cat([seg, seg.new_zeros((3, pad))], dim=1).view(3, -1, 32)
+        acc = seg.new_zeros((2, 32))
+        for m in range(seg.shape[1]):
+            acc = acc + seg[1:, m]
+        h = 16
+        while h:
+            acc = acc[:, :h] + acc[:, h : 2 * h]
+            h //= 2
+        leaf_sums[0, l] = seg[0].max()
+        leaf_sums[1:, l] = acc[:, 0]
+    amax, ss, sabs = leaf_sums[0], leaf_sums[1], leaf_sums[2]
+    n = ns
+    if not per_leaf:
+        tot = leaf_sums.new_zeros(4)
+        for l in range(n_leaves):
+            tot = torch.stack((torch.maximum(tot[0], amax[l]), tot[1] + ss[l], tot[2] + sabs[l], tot[3] + ns[l]))
+        amax, ss, sabs, n = (x.expand(n_leaves) for x in tot)
+    if policy == ScalePolicy.ABS_MEAN:
+        s = (sabs / n).to(torch.float32)
+    else:
+        s = torch.sqrt(ss / n).to(torch.float32)
+        if policy == ScalePolicy.POW2_RMS:
+            s = (s.view(torch.int32) & 0x7F800000).view(torch.float32)
+    s = torch.where((amax > 0) & torch.isfinite(s), s, torch.zeros_like(s))
+    leaf_amax = leaf_sums[0].to(torch.float32)
+    top, kc = T.cascade_ladder(s, leaf_amax, torch.tensor(min(int(cap), int(k))))
+    kc = max(int(kc), 0)
+    ladder[0], ladder[1], ladder[2] = s, leaf_amax, top
+    state.copy_(torch.tensor([0, kc, int(kc == 0)], dtype=torch.int32))
+
+
+def _zeros_like_params(params) -> dict:
+    leaves, treedef = T.tree_flatten(params)
+    return T.tree_unflatten(treedef, [np.zeros(tuple(x.shape), np.float32) for x in leaves])
+
+
+def _finish_table(name):
+    from shared_tensor_tpu_torch.models import char_rnn, resnet
+
+    if name == "config2":
+        return _zeros_like_params(char_rnn.init_params(torch.Generator().manual_seed(0), char_rnn.CharRNNConfig(),
+                                                       device="cpu"))
+    if name == "resnet18":
+        return _zeros_like_params(resnet.init_params(torch.Generator().manual_seed(0), resnet.ResNetConfig(),
+                                                     device="cpu"))
+    return {"t": np.zeros(1 << 20, np.float32)}
+
+
+#: the leaf sums' relative tolerance between the two orders: a sum of at
+#: most a few thousand positive doubles moves by at most n ulps
+FINISH_ORDER_RTOL = 1e-12
+
+
+@pytest.fixture(scope="module", params=["config2", "resnet18", "1Mi"])
+def finish_table(request):
+    """A table's spec and a seeded set of A-cascade partials for it:
+    gaussian-like per-tile max |r|, sums of squares and of magnitudes
+    spread over four octaves, some tiles all zero."""
+    spec = T.make_spec(_finish_table(request.param))
+    rng = np.random.default_rng(22)
+    slots = CC.partial_slots(spec.rows)
+    amax = np.abs(rng.normal(0, 1e-2, slots)) * 2.0 ** rng.integers(-2, 3, slots)
+    amax[rng.random(slots) < 0.02] = 0.0
+    ss = amax**2 * rng.uniform(50, 300, slots)
+    sabs = amax * rng.uniform(100, 500, slots)
+    return request.param, spec, torch.from_numpy(np.stack([amax, ss, sabs]))
+
+
+@pytest.mark.parametrize("per_leaf", [True, False], ids=["per-leaf", "aggregate"])
+@pytest.mark.parametrize("policy", list(ScalePolicy), ids=lambda p: p.name)
+def test_finish_twin_reorders_only_the_sums(finish_table, policy, per_leaf):
+    """The finish twin in the redesigned kernel's order (runs of slots a
+    thread, then each leaf's parts by one warp) against the order before it,
+    at config 2's table (9 leaves, 3,781 slots), ResNet-18's (56 leaves,
+    10,938 slots) and a flat 1 Mi table (one leaf): scales, each leaf's max
+    |r|, ladder top and state bit for bit; the leaf sums within
+    FINISH_ORDER_RTOL, and the max |r| exact."""
+    name, spec, partials = finish_table
+    k, cap = 16, 32
+    c = T._cascade_consts(spec, "cpu")
+    assert {"config2": (9, 3781), "resnet18": (56, 10938), "1Mi": (1, 1024)}[name] == (spec.num_leaves,
+                                                                                       int(c.leaf_slots[-1]))
+    new, old = T.cascade_buffers(spec, k, "cpu"), T.cascade_buffers(spec, k, "cpu")
+    scales = new.scales.zero_()
+    CC.cascade_round(partials, c.leaf_slots, c.ns, scales, new.state, new.ladder, new.leaf_sums, k, cap, policy,
+                     per_leaf, True)
+    _finish_in_the_old_order(partials, c.leaf_slots, c.ns, old.state, old.ladder, old.leaf_sums, k, cap, policy,
+                             per_leaf)
+    assert new.state.tolist() == old.state.tolist() and new.state[1] > 1
+    np.testing.assert_array_equal(_f32bits(new.ladder.numpy()), _f32bits(old.ladder.numpy()))
+    assert torch.equal(new.leaf_sums[0], old.leaf_sums[0])
+    np.testing.assert_allclose(new.leaf_sums[1:].numpy(), old.leaf_sums[1:].numpy(), rtol=FINISH_ORDER_RTOL, atol=0)
+    assert not torch.equal(new.leaf_sums, old.leaf_sums) or spec.num_leaves == 1
+
+
 def _run_rounds(r0, spec, k, cascade, rounds, policy=ScalePolicy.POW2_RMS):
     """A cascade burst driven round by round with the plain twins: a
     snapshot of everything it wrote after each round (the residual, then

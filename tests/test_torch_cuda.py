@@ -418,10 +418,51 @@ def test_cascade_burst_graph_equals_the_eager_cascade(cuda_device):
 
 
 def _burst_table(name):
-    from shared_tensor_tpu_torch.benchmarks.burst_graph import config2_template
+    from shared_tensor_tpu_torch.benchmarks.burst_graph import config2_template, resnet18_template
     from shared_tensor_tpu_torch.ops.table import make_spec
 
+    if name == "resnet18":
+        return make_spec(resnet18_template())
     return make_spec(config2_template() if name == "config2" else {"t": np.zeros(1 << 20, np.float32)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_leaf", [True, False], ids=["per-leaf", "aggregate"])
+@pytest.mark.parametrize("table", ["config2", "resnet18", "1Mi", "1500-leaves"])
+def test_finish_kernel_matches_plain_on_every_layout(cuda_device, table, per_leaf):
+    """The finish kernel alone against its twin on seeded partials, at
+    config 2's, ResNet-18's and the 1 Mi table's leaf layouts, and at 1,500
+    leaves of 0 to 12 slots (the leaf bounds read from global memory rather
+    than staged, leaves with no slots, runs that cross many leaves): leaf
+    sums, ladder and state bit-equal."""
+    from shared_tensor_tpu_torch.config import ScalePolicy
+    from shared_tensor_tpu_torch.ops import table as T
+
+    rng = np.random.default_rng(5)
+    if table == "1500-leaves":
+        sizes = rng.integers(0, 13, 1500)
+        bounds = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64))
+        ns = torch.from_numpy((sizes * 1024 + 1).astype(np.float64))
+    else:
+        spec = _burst_table(table)
+        c = T._cascade_consts(spec, "cpu")
+        bounds, ns = c.leaf_slots, c.ns
+    slots, n_leaves, k = int(bounds[-1]), ns.shape[0], 16
+    amax = np.abs(rng.normal(0, 1e-2, slots)) * 2.0 ** rng.integers(-3, 4, slots)
+    partials = torch.from_numpy(np.stack([amax, amax**2 * rng.uniform(50, 300, slots),
+                                          amax * rng.uniform(100, 500, slots)]))
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        scales = torch.zeros((k, n_leaves), dtype=torch.float32, device=dev)
+        state = torch.zeros(3, dtype=torch.int32, device=dev)
+        ladder = torch.zeros((3, n_leaves), dtype=torch.float32, device=dev)
+        sums = torch.zeros((3, n_leaves), dtype=torch.float64, device=dev)
+        fn = CC.cascade_round_kernel if dev.type == "cuda" else CC.cascade_round_plain
+        fn(partials.to(dev), bounds.to(dev), ns.to(dev), scales, state, ladder, sums, k, 32, ScalePolicy.POW2_RMS,
+           per_leaf, True)
+        outs.append([x.cpu() for x in (sums, ladder, state)])
+    assert all(_same_bits(x, y) for x, y in zip(*outs))
+    assert outs[0][2].tolist()[1] > 1
 
 
 @pytest.mark.cuda

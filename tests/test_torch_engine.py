@@ -356,7 +356,7 @@ def test_failed_engine_build_raises_and_never_falls_back(tmp_path):
     native = tmp_path / "native"
     native.mkdir()
     for name in (*_build.TRANSPORT_SOURCES, *_build.CODEC_SOURCES, *_build.ENGINE_SOURCES):
-        shutil.copy(_build.NATIVE_DIR / name, native / name)
+        shutil.copy(_build.PORT_NATIVE_DIR / name, native / name)
     with open(native / "stengine.cpp", "a") as f:
         f.write("\n#error deliberately broken engine\n")
     build = tmp_path / "build"
@@ -366,7 +366,7 @@ def test_failed_engine_build_raises_and_never_falls_back(tmp_path):
     code = (
         "import pathlib, numpy as np\n"
         "import shared_tensor_tpu_torch._build as B\n"
-        f"B.NATIVE_DIR, B.BUILD_DIR = pathlib.Path({str(native)!r}), pathlib.Path({str(build)!r})\n"
+        f"B.PORT_NATIVE_DIR, B.BUILD_DIR = pathlib.Path({str(native)!r}), pathlib.Path({str(build)!r})\n"
         "from shared_tensor_tpu_torch import Config, create_or_fetch\n"
         f"port = {free_port()}\n"
         "try:\n"

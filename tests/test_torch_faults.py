@@ -261,16 +261,100 @@ def _gate_sends_after_first(peer, link, wait):
     peer._send_blocking = gated
 
 
+#: the engine cases' hold: the parent's transport plan keeps each data
+#: message of its own on its first child link this long in its sender,
+#: and what the link's send queue holds behind it waits with it, past the
+#: child's go-back-N teardown (ack_timeout 1 s, one retry: about 3 s)
+ENGINE_HOLD_S = 6.0
+
+
+def _holding_engine_parent(port, seed, monkeypatch, **tkw):
+    """An engine master whose transport plan (ST_FAULT_PLAN, around its
+    creation only) delays every data message it sends on its first child
+    link by ENGINE_HOLD_S."""
+    env = faults.to_env(FaultConfig(enabled=True, seed=3, delay_pct=1.0, delay_sec=ENGINE_HOLD_S, only_link=1))
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    m = _peer(port, seed, "engine", **tkw)
+    for k in env:
+        monkeypatch.delenv(k)
+    return m
+
+
+def _hold_the_link(m, child, case, total):
+    """The parent's first data message on ``child`` goes into its sender's
+    hold; for ack_not_arrived, more follow until the link's send queue is
+    full, so that an ACK finds no room there and never leaves the engine
+    (ack_unread: the ACK queues behind the held message). Returns the
+    table with the parent's adds."""
+    add = np.full(total.shape, 0.25, np.float32)
+    while True:
+        m.add(add)
+        total = total + add
+        if case == "ack_unread":
+            _until(lambda: m.metrics()["st_msgs_out_total"] >= 1, what="the parent's held message")
+            time.sleep(0.2)  # popped into the sender's hold
+            return total
+        time.sleep(0.05)
+        if m.node.stats(child).send_queue >= 8:
+            return total
+
+
+def _engine_sever_counts_once(case, monkeypatch, sign2=False):
+    """The engine's side of the cases below: an engine child under an
+    engine parent whose transport plan holds its data on the child's link
+    (_hold_the_link); the ACK of the child's first message is queued behind
+    the held message (ack_unread) or finds the queue full and is never sent
+    (ack_not_arrived). The child's go-back-N tears its uplink down, its C
+    ledger rolls the message into the carry and keeps it, the parent counts
+    it applied as it detaches the link, and the re-join's WELCOME has the
+    child retract it. ``sign2`` pins both engines to 2-bit frames."""
+    if sign2:
+        monkeypatch.setenv("ST_SIGN2", "2")
+    port = free_port()
+    seed = np.full((256,), 2.0, np.float32)
+    m = _holding_engine_parent(port, seed, monkeypatch)
+    j = _peer(port, np.zeros_like(seed), "engine", cls=SharedTensorPeer, ack_timeout_sec=1.0, ack_retry_limit=1)
+    monkeypatch.delenv("ST_SIGN2", raising=False)
+    try:
+        j.wait_ready(60.0)
+        _check_tier(j, "engine")
+        _check_tier(m, "engine")
+        wait_converged([j], seed)
+        first = j._uplink
+        (child,) = m.node.links
+        assert child == 1, "the parent's plan holds its first child link"
+        if sign2:
+            _until(lambda: j.metrics().get(f'st_link_precision{{link="{first}"}}') == 2, what="sign2 on the uplink")
+        total = _hold_the_link(m, child, case, seed)
+        delta = np.random.default_rng(7).normal(size=(256,)).astype(np.float32)
+        j.add(delta)
+        _until(lambda: j._uplink not in (None, first) and j._kept is None, timeout=90.0, what="the re-join")
+        wait_converged([m, j], total + delta, tol=1e-5, timeout=90.0)
+        assert max(m._gone_applied.values()) >= 1
+        got = j.metrics()
+        assert got["st_carry_frames_rolled_total"] >= got["st_carry_frames_retracted_total"] >= 1
+        if sign2:
+            assert got["st_frames2_out_total"] >= 1
+    finally:
+        j.close()
+        m.close()
+
+
 @pytest.mark.parametrize("case", ["ack_unread", "ack_not_arrived"])
-@pytest.mark.parametrize("tier", PY_TIERS)
-def test_sever_counts_the_applied_prefix_once(tier, case):
+@pytest.mark.parametrize("tier", (*PY_TIERS, "engine"))
+def test_sever_counts_the_applied_prefix_once(tier, case, monkeypatch):
     """The two ways the sever case above double-counted, each made certain:
     the parent applied the first message, and its ACK either arrived and
     lay unread when the link and its receive queue went (ack_unread), or
     never reached the child (ack_not_arrived: the parent sends no ACK on
     that link). Either way the message's frames roll into the carry, the
     re-join's WELCOME reports them applied, the child retracts them, and
-    every replica ends at seed + the delta."""
+    every replica ends at seed + the delta. On the engine, whose receive
+    thread reads an ACK the moment it lands, the ACK is held at the parent
+    (_engine_sever_counts_once)."""
+    if tier == "engine":
+        return _engine_sever_counts_once(case, monkeypatch)
     port = free_port()
     seed = np.full((256,), 2.0, np.float32)
     fault = FaultConfig(enabled=True, seed=11, stall_after_frames=1, sever_after_frames=4, only_link=1)
@@ -311,6 +395,65 @@ def test_sever_counts_the_applied_prefix_once(tier, case):
         got = j.metrics()
         assert got["st_carry_frames_retracted_total"] >= 1
         assert got["st_carry_frames_rolled_total"] > got["st_carry_frames_retracted_total"]
+    finally:
+        j.close()
+        m.close()
+
+
+def test_sever_retracts_sign2_frames_at_their_precision(monkeypatch):
+    """The engine case with both engines pinned to sign2 (ST_SIGN2=2): the
+    severed uplink's applied message is 2-bit, and its frames come back
+    out of the child's state with both planes."""
+    _engine_sever_counts_once("ack_unread", monkeypatch, sign2=True)
+
+
+@pytest.mark.parametrize("case", ["engine_under_device", "device_under_engine"])
+def test_sever_counts_the_applied_prefix_once_across_tiers(case, monkeypatch):
+    """The handshake between an engine and a Python tier (the device tier,
+    on the CPU). An engine child under a device-tier parent that sends it
+    no ACK: the child's go-back-N tears its uplink down and the parent
+    reports the message applied. A device-tier child under an engine
+    parent: the parent's ACK lies unread in the child's receive queue when
+    its plan severs the uplink, and the parent reads its count from C as it
+    detaches the link. Either way the child retracts the message and every
+    replica ends at seed + the delta."""
+    port = free_port()
+    seed = np.full((256,), 2.0, np.float32)
+    delta = np.random.default_rng(7).normal(size=(256,)).astype(np.float32)
+    if case == "engine_under_device":
+        m = _peer(port, seed, "device")
+        j = _peer(port, np.zeros_like(seed), "engine", cls=SharedTensorPeer, ack_timeout_sec=1.0, ack_retry_limit=1)
+    else:
+        m = _peer(port, seed, "engine")
+        fault = FaultConfig(enabled=True, seed=11, stall_after_frames=1, sever_after_frames=4, only_link=1)
+        j = _peer(port, np.zeros_like(seed), "device", fault, cls=SharedTensorPeer, ack_timeout_sec=1.0)
+    try:
+        j.wait_ready(60.0)
+        _check_tier(j, "engine" if case == "engine_under_device" else "device")
+        wait_converged([j], seed)
+        first = j._uplink
+        (child,) = m.node.links
+        if case == "engine_under_device":
+            flush = m._flush_acks
+            m._flush_acks = lambda link: None if link == child else flush(link)
+        else:
+            recv = j.node.recv
+
+            def held(link, timeout=0.0):
+                if link == first:
+                    if link not in j.node.links:
+                        raise BrokenPipeError(link)
+                    return None
+                return recv(link, timeout)
+
+            j.node.recv = held
+            _gate_sends_after_first(j, first, lambda: _until(
+                lambda: (s := j.node.stats(first)) is None or s.recv_queue >= 1, what="the parent's ACK queued"))
+        j.add(delta)
+        _until(lambda: j._uplink not in (None, first) and j._kept is None, timeout=90.0, what="the re-join")
+        wait_converged([m, j], seed + delta, tol=1e-5, timeout=90.0)
+        assert max(m._gone_applied.values()) >= 1
+        assert j.metrics()["st_carry_frames_retracted_total"] >= 1
     finally:
         j.close()
         m.close()

@@ -143,3 +143,33 @@ def test_transport_builds_its_own_library_without_make(tmp_path):
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+def test_every_native_build_reads_the_port_copies(tmp_path):
+    """The codec, the engine (with the transport it links) and the C
+    reference peer compile from the port's copies in csrc/native/ into the
+    port's build directory: no compile reads a source of native/, and no
+    library the process loads lies there."""
+    code = (
+        "import pathlib, subprocess, sys\n"
+        "import shared_tensor_tpu_torch._build as B\n"
+        f"B.BUILD_DIR = pathlib.Path({str(tmp_path)!r})\n"
+        "calls, real = [], subprocess.run\n"
+        "subprocess.run = lambda cmd, *a, **k: (calls.append(cmd), real(cmd, *a, **k))[1]\n"
+        "from shared_tensor_tpu_torch.comm.engine import load_engine\n"
+        "load_engine()\n"
+        "B.build_harness()\n"
+        "srcs = sorted(pathlib.Path(a).name for c in calls for a in c if a.endswith(('.c', '.cpp')))\n"
+        "assert srcs == ['stc_harness.c', 'stcodec.c', 'stengine.cpp', 'sttransport.cpp'], srcs\n"
+        "for c in calls:\n"
+        "    assert pathlib.Path(c[0]).name != 'make', c\n"
+        "    assert not [a for a in c if str(B.NATIVE_DIR) in a], c\n"
+        "    assert all(pathlib.Path(a).parent == B.PORT_NATIVE_DIR for a in c if a.endswith(('.c', '.cpp'))), c\n"
+        "    assert pathlib.Path(c[c.index('-o') + 1]).parent == B.BUILD_DIR, c\n"
+        "libs = {l.split()[-1] for l in open('/proc/self/maps') if '.so' in l}\n"
+        "assert not [p for p in libs if p.startswith(str(B.NATIVE_DIR))], libs\n"
+        "mine = sorted(pathlib.Path(p).name.split('-')[0] for p in libs if p.startswith(str(B.BUILD_DIR)))\n"
+        "assert mine == ['libstcodec', 'libstengine', 'libsttransport'], mine\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr

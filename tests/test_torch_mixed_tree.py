@@ -244,7 +244,7 @@ def test_port_sharded_joiner_falls_back_under_jax_parent(tier):
 
 
 @pytest.mark.parametrize("jax_tier", ("engine", "host"))
-@pytest.mark.parametrize("port_tier", ("device", "host"))
+@pytest.mark.parametrize("port_tier", ("device", "host", "engine"))
 def test_port_child_under_a_jax_parent_keeps_its_whole_carry(port_tier, jax_tier, monkeypatch):
     """A port child under the sever fault plan (test_torch_faults.py's)
     below a JAX parent. Its SYNCs carry the port's SYNC_FLAG_PREV_LINK and
@@ -253,8 +253,12 @@ def test_port_child_under_a_jax_parent_keeps_its_whole_carry(port_tier, jax_tier
     its whole carry at the re-join, as before the port had the flag, and
     the tree converges. The child's sends after its first wait until it has
     read the first one's ACK, so no applied frame is left in the carry and
-    that path is exact here."""
+    that path is exact here. An engine child's plan is its transport's
+    (ST_FAULT_PLAN, around its creation): every data message on its first
+    uplink is swallowed until the sever, so the parent applies none of
+    them."""
     from shared_tensor_tpu.comm import wire as JW
+    from shared_tensor_tpu_torch.comm import faults
     from shared_tensor_tpu_torch.comm.peer import SharedTensorPeer
     from shared_tensor_tpu_torch.config import FaultConfig
 
@@ -272,10 +276,20 @@ def test_port_child_under_a_jax_parent_keeps_its_whole_carry(port_tier, jax_tier
     seed = _seed()
     m = jax_create_or_fetch("127.0.0.1", port, seed, _jax_cfg(jax_tier))
     fault = FaultConfig(enabled=True, seed=11, stall_after_frames=1, sever_after_frames=4, only_link=1)
-    cfg = Config(transport=TransportConfig(peer_timeout_sec=10.0, ack_timeout_sec=1.0), faults=fault,
-                 native_engine=False)
+    if port_tier == "engine":
+        env = faults.to_env(FaultConfig(enabled=True, seed=11, stall_after_frames=0, sever_after_frames=4,
+                                        only_link=1))
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        cfg = Config(transport=TransportConfig(peer_timeout_sec=10.0, ack_timeout_sec=1.0))
+    else:
+        cfg = Config(transport=TransportConfig(peer_timeout_sec=10.0, ack_timeout_sec=1.0), faults=fault,
+                     native_engine=False)
     j = SharedTensorPeer("127.0.0.1", port, _zeros(seed), cfg,
                          **({"device": "cpu"} if port_tier == "device" else {"host_tier": True}))
+    if port_tier == "engine":
+        for k in env:
+            monkeypatch.delenv(k)
     try:
         j.wait_ready(60.0)
         _check_tier(m, jax_tier)
@@ -300,7 +314,8 @@ def test_port_child_under_a_jax_parent_keeps_its_whole_carry(port_tier, jax_tier
         while len(welcomes) < 2 and time.time() < deadline:
             time.sleep(0.02)  # the re-join (one burst may carry the whole delta at this tolerance)
         wait_converged([m, j], {k: seed[k] + delta[k] for k in seed}, tol=1e-5, timeout=90.0)
-        assert j._faults.counts["severed"] >= 1 and j._faults.counts["stalled"] >= 1
+        if port_tier != "engine":
+            assert j._faults.counts["severed"] >= 1 and j._faults.counts["stalled"] >= 1
         # the child named each uplink, and the severed one in the re-join
         tokens = [wire.sync_prev_link(s) for s in syncs]
         assert len(tokens) >= 2 and all(t is not None for t in tokens)

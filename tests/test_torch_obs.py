@@ -152,10 +152,10 @@ def test_schema_keeps_jax_entries():
 
 
 def _native_symbols() -> set[str]:
-    """The functions the native sources (native/, csrc/ and its native copies) export."""
+    """The functions the port's native sources (csrc/ and its native copies) export."""
     out = set()
     csrc = ROOT / "shared_tensor_tpu_torch" / "csrc"
-    for path in [*(ROOT / "native").glob("*.c*"), *csrc.glob("*.cu"), *_build.PORT_NATIVE_DIR.glob("*.c*")]:
+    for path in [*csrc.glob("*.cu"), *_build.PORT_NATIVE_DIR.glob("*.c*")]:
         out.update(re.findall(r"\b(st_[a-z0-9_]+)\s*\(", path.read_text(errors="replace")))
     return out
 
@@ -231,8 +231,8 @@ def test_native_ring_codes_match_jax_and_the_native_sources():
     for names in ("LIFECYCLE_EVENT_NAMES", "HEALTH_EVENT_NAMES", "RESHARD_EVENT_NAMES", "FAULT_EVENT_NAMES"):
         assert getattr(obs_events, names) == getattr(jax_events, names)
     # every code the native sources emit has its name here
-    # (the transport's are those of the port's own copy, which it builds)
-    for src in (_build.PORT_NATIVE_DIR / "sttransport.cpp", ROOT / "native" / "stengine.cpp"):
+    # (those of the port's own copies, which it builds)
+    for src in (_build.PORT_NATIVE_DIR / "sttransport.cpp", _build.PORT_NATIVE_DIR / "stengine.cpp"):
         consts = re.findall(r"constexpr uint32_t kEv(?!RingCap)\w+ = (\d+);", src.read_text())
         assert consts
         for code in consts:

@@ -59,6 +59,8 @@ PKG = "shared_tensor_tpu_torch"
 #: the port's own copies of native sources, and the transport it builds from there
 PORT_NATIVE = _build.PORT_NATIVE_DIR.relative_to(REPO).as_posix()
 TRANSPORT_SRC = f"{PORT_NATIVE}/sttransport.cpp"
+ENGINE_SRC = f"{PORT_NATIVE}/stengine.cpp"
+CODEC_SRC = f"{PORT_NATIVE}/stcodec.c"
 #: the module-level ctypes tables, by file: (table name, its value's shape)
 TABLES = {
     "comm/transport.py": ("_SIGNATURES", "restype+args"),
@@ -81,15 +83,15 @@ _CTYPES_ALIAS = {"ctypes.c_longlong": "ctypes.c_int64", "ctypes.c_int": "ctypes.
 
 
 def _tree(tmp_path: pathlib.Path) -> pathlib.Path:
-    """A copy of what the gates read: native/ and the port (csrc/ sources
-    included, its native copies too), and the port again as
-    ``shared_tensor_tpu/``, the package path lint_events, lint_locks and
-    lint_metrics read."""
+    """A copy of what the gates read: the port (csrc/ sources included),
+    its native copies both in place and as ``native/``, where a lint of
+    tools/ looks for them, and the port again as ``shared_tensor_tpu/``,
+    the package path lint_events, lint_locks and lint_metrics read."""
     root = tmp_path / "repo"
     for sub in ("native", PORT_NATIVE):
+        (root / sub).mkdir(parents=True, exist_ok=True)
         for ext in ("*.c", "*.cpp", "*.h"):
-            for src in (REPO / sub).glob(ext):
-                (root / sub).mkdir(parents=True, exist_ok=True)
+            for src in (REPO / PORT_NATIVE).glob(ext):
                 shutil.copy(src, root / sub / src.name)
     for dst in (PKG, "shared_tensor_tpu"):
         for src in [*(REPO / PKG).rglob("*.py"), *(REPO / PKG / "csrc").glob("*.cu")]:
@@ -115,9 +117,9 @@ def _native(root: pathlib.Path) -> dict[str, dict]:
     read as ``st_stc_*`` and given back their own; the CUDA sources' long
     long and pointer-to-pointer parameters are spelled as the parser knows
     them."""
-    text = "".join(L.strip_c_comments(L.read(root, f)) for f in ("native/stengine.cpp", TRANSPORT_SRC))
+    text = "".join(L.strip_c_comments(L.read(root, f)) for f in (ENGINE_SRC, TRANSPORT_SRC))
     nat = lint_abi.native_functions(text)
-    codec = re.sub(r"\bstc_", "st_stc_", L.strip_c_comments(L.read(root, "native/stcodec.c")))
+    codec = re.sub(r"\bstc_", "st_stc_", L.strip_c_comments(L.read(root, CODEC_SRC)))
     nat.update({k[3:]: v for k, v in lint_abi.native_functions(codec).items() if k.startswith("st_stc_")})
     for cu in sorted((root / PKG / "csrc").glob("*.cu")):
         t = L.strip_c_comments(cu.read_text())
@@ -289,7 +291,7 @@ def _int_literals(text: str) -> set[int]:
 
 def wire_findings(root: pathlib.Path) -> list[str]:
     findings = []
-    engine = L.strip_c_comments(L.read(root, "native/stengine.cpp"))
+    engine = L.strip_c_comments(L.read(root, ENGINE_SRC))
     transport = L.strip_c_comments(L.read(root, TRANSPORT_SRC))
     nat, tnat = lint_wire._native_constants(engine), lint_wire._native_constants(transport)
     py = lint_wire._py_constants(L.strip_py_comments(L.read(root, f"{PKG}/comm/wire.py")))
@@ -442,6 +444,18 @@ def test_abi_gate_flags_seeded_violation(tmp_path, seed):
     assert any(all(n in f for n in names) for f in findings), findings
 
 
+def test_engine_copy_keeps_the_native_wire_constants():
+    """The port's engine speaks the wire of native/stengine.cpp, which JAX
+    engines on a mixed tree and a shared lane build: the copy's wire
+    constants are the same, name for name and value for value, and so are
+    the two header sizes of a ranged subscriber's RDATA message."""
+    copy, orig = (L.strip_c_comments(L.read(REPO, f)) for f in (ENGINE_SRC, "native/stengine.cpp"))
+    assert lint_wire._native_constants(copy) and lint_wire._native_constants(copy) == lint_wire._native_constants(orig)
+    rdata = r"hdr\s*=\s*e->trace_wire\s*\?\s*(\d+)\s*:\s*(\d+)"
+    sizes = [re.findall(rdata, t) for t in (copy, orig)]
+    assert sizes[0] and sizes[0] == sizes[1]
+
+
 def test_transport_copy_keeps_the_native_wire_constants():
     """The port's transport speaks the wire of native/sttransport.cpp, which
     JAX peers on a mixed tree build: the copy's wire constants are the
@@ -513,20 +527,19 @@ _CLANG_SOURCES = ("sttransport.cpp", "stengine.cpp", "stcodec.c", "st_annotation
 
 
 def _clang_tree(tmp_path: pathlib.Path) -> pathlib.Path:
-    """native/ as analyze_clang reads it, with the port's own copies (the
-    transport and its headers) in place of JAX's."""
+    """native/ as analyze_clang reads it, made of the port's own copies."""
     root = tmp_path / "repo"
     (root / "native").mkdir(parents=True)
     for name in _CLANG_SOURCES:
-        own = REPO / PORT_NATIVE / name
-        shutil.copy(own if own.is_file() else REPO / "native" / name, root / "native" / name)
+        shutil.copy(REPO / PORT_NATIVE / name, root / "native" / name)
     return root
 
 
 @pytest.mark.skipif(_LIBCLANG_REASON is not None, reason=str(_LIBCLANG_REASON))
 def test_clang_thread_safety_green_on_the_transport_copy(tmp_path):
     root = _clang_tree(tmp_path)
-    assert (root / "native/sttransport.cpp").read_bytes() == (REPO / TRANSPORT_SRC).read_bytes()
+    for name in _CLANG_SOURCES:
+        assert (root / "native" / name).read_bytes() == (REPO / PORT_NATIVE / name).read_bytes()
     assert analyze_clang.run(root) == []
 
 
