@@ -70,8 +70,10 @@ Phases, in order; any failure exits non-zero:
 9. The pod tier, BASELINE config 2 at full width (CharRNNConfig(): 2 layers,
    hidden 512, 3,870,976 parameters; batch 32 x seq 128 per peer, lr 0.5,
    the built-in pangram corpus, batches from --seed): the first 4 of phase
-   10's 8 ranks (one parallel.run_mesh for both phases; the other 4 wait at
-   a barrier), all on the one card with backend gloo (NCCL refuses two
+   10's 8 ranks (one parallel.run_mesh for phases 9-11, started right
+   after the build so that the ranks' start runs beside phases 2-8; they
+   wait at a go file until phase 9, and the other 4 then wait at a
+   barrier until phase 10), all on the one card with backend gloo (NCCL refuses two
    ranks on one device; printed), 20 compressed steps then 5 with
    overlap=True;
    tokens/s, ms per step and its stages (grads, scales, A, collective, B,
@@ -84,8 +86,8 @@ Phases, in order; any failure exits non-zero:
    reductions on the card). Fails if a rank dies, a launch count is off, a
    kernel disagrees with its plain version or the loss does not fall.
 10. BASELINE config 4: ResNet-18 at ResNetConfig() (width 64, CIFAR stem, 10
-   classes), 8 ranks on the card (gloo), 12 steps of the compressed arm and
-   12 of the exact arm from the same parameters, on synthetic 32x32 images
+   classes), 8 ranks on the card (gloo), 8 steps of the compressed arm and
+   8 of the exact arm from the same parameters, on synthetic 32x32 images
    and labels from --seed (the repo holds no CIFAR); both arms' losses,
    ms per step and frame_ici_bytes. Then A and B alone at phase 9's shapes
    (one rank's block of the char-RNN table), timed as in phase 4.
@@ -398,6 +400,7 @@ import shutil
 import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1291,7 +1294,7 @@ DRAIN_STEPS = 10  # sync-only steps before replica_spread
 SHARDED_STEPS = 10  # 2 peers x 2 shards
 SHARDED_LR = 0.1  # at 0.5 the first 10 steps of SGD are too noisy to show the loss falling
 RESNET_PEERS, RESNET_BATCH, RESNET_HW, RESNET_LR = 8, 32, 32, 0.05  # BASELINE config 4
-RESNET_STEPS = 12  # per arm
+RESNET_STEPS = 8  # per arm (cut from 12 for the script's time)
 BRIDGE_STEPS = 4  # timed steps per arm, after one warm-up step
 RESUME_STEPS = 2  # steps from the checkpoint, live and restored
 PROFILE_WARM, PROFILE_STEPS = 2, 3  # phase 19: untraced, then traced compressed steps
@@ -1542,18 +1545,34 @@ def _loss_fell(losses) -> bool:
     return bool(np.isfinite(ls).all() and ls[-5:].mean() < ls[0])
 
 
-def pod_ranks(world, seed: int, port: int) -> dict:
+#: Seconds a started rank waits for the go file before it gives up.
+POD_GO_WAIT_S = 600.0
+
+
+def pod_ranks(world, seed: int, go_dir: str) -> dict:
     """Phases 9, 19, 10, 11 and 18b in one spawn of RESNET_PEERS ranks (a
-    spawn and a CUDA context per rank cost seconds): every rank builds every
-    mesh; phases 9 and 19 run on the first CHAR_PEERS ranks while the
-    others wait at a barrier, then phase 10 on all, then phase 11 on the
-    first 2 * PEERS of benchmarks/hierarchical.py, then 18b on the first
-    CHAR_PEERS."""
+    spawn and a CUDA context per rank cost seconds, so :class:`PodSpawn`
+    starts them early): each rank makes its CUDA context, then waits for
+    the file ``go`` in ``go_dir``, which holds phase 11's port; every rank
+    builds every mesh; phases 9 and 19 run on the first CHAR_PEERS ranks
+    while the others wait at a barrier, then phase 10 on all, then phase
+    11 on the first 2 * PEERS of benchmarks/hierarchical.py, then 18b on
+    the first CHAR_PEERS."""
     import torch.distributed as dist
 
     from shared_tensor_tpu_torch.benchmarks import hierarchical as H
     from shared_tensor_tpu_torch.parallel import make_mesh
 
+    torch.zeros(1, device=world.device)  # the CUDA context, before the wait
+    t_in = time.time()  # the parent reads each rank's start on the wall clock
+    go = os.path.join(go_dir, "go")
+    while not os.path.exists(go):
+        if time.time() - t_in > POD_GO_WAIT_S:
+            raise TimeoutError(f"no go file after {POD_GO_WAIT_S} s")
+        time.sleep(0.02)
+    with open(go) as f:
+        port = int(f.read())
+    t_go, p_in = time.time(), time.perf_counter()
     first = range(CHAR_PEERS)
     mesh4 = make_mesh(CHAR_PEERS, 1, device=world.device, backend=world.backend, ranks=first)
     mesh22 = make_mesh(2, 2, device=world.device, backend=world.backend, ranks=first)
@@ -1574,7 +1593,8 @@ def pod_ranks(world, seed: int, port: int) -> dict:
     sign2 = None if mesh4 is None else pod_sign2(mesh4, seed)
     dist.barrier()
     return {"char": char, "profile": prof, "resnet": resnet, "bridge": bridge, "sign2": sign2, "phase9_s": t1 - t0,
-            "phase19_s": t19 - t1, "phase10_s": t2 - t19, "phase11_s": t3 - t2, "phase18b_s": time.perf_counter() - t3}
+            "phase19_s": t19 - t1, "phase10_s": t2 - t19, "phase11_s": t3 - t2, "phase18b_s": time.perf_counter() - t3,
+            "t_in": t_in, "t_go": t_go, "meshes_s": t0 - p_in, "t_out": time.time()}
 
 
 def _stopwatch():
@@ -1781,22 +1801,65 @@ def bridge_report(res: list, secs: float) -> dict:
     return {"summary": summ, "bad": bad}
 
 
-def pod_phases(device, rate: float, seed: int) -> dict:
-    """Phases 9, 10 and 11 (see the module docstring); raises on any failed
-    check. Returns their results and the pod-shape times of A and B."""
+class PodSpawn:
+    """The RESNET_PEERS ranks of phases 9-11, started right after the build
+    so that their start (an interpreter and a CUDA context each, 15-20 s
+    for eight on the card's host) runs beside phases 2-8: each rank waits
+    at its go file (:func:`pod_ranks`) until :meth:`go` writes it."""
+
+    def __init__(self, device, seed: int):
+        from shared_tensor_tpu_torch.parallel import run_mesh
+
+        # phase 11's resume runs with deterministic algorithms, which need
+        # cuBLAS's workspace pinned in every rank before its first matmul
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        self.dir = tempfile.mkdtemp(prefix="st_pod_go_")
+        self.w0 = time.time()
+        self.out: dict = {}
+
+        def run():
+            try:
+                self.out["ranks"] = run_mesh(pod_ranks, RESNET_PEERS, 1, seed, self.dir, device=device,
+                                             backend=POD_BACKEND, timeout_s=POD_GO_WAIT_S + 600)
+            except BaseException as e:  # raised by go()
+                self.out["error"] = e
+
+        self.thread = threading.Thread(target=run, daemon=True, name="pod-spawn")
+        self.thread.start()
+
+    def go(self, port: int) -> list:
+        """Release the ranks with phase 11's port; every rank's result."""
+        tmp = os.path.join(self.dir, "go.tmp")
+        with open(tmp, "w") as f:
+            f.write(str(port))
+        self.w_go = time.time()
+        os.replace(tmp, os.path.join(self.dir, "go"))
+        self.thread.join()
+        shutil.rmtree(self.dir, ignore_errors=True)
+        if "error" in self.out:
+            raise self.out["error"]
+        return self.out["ranks"]
+
+
+def pod_phases(spawn: PodSpawn, device, rate: float, seed: int) -> dict:
+    """Phases 9, 10 and 11 (see the module docstring) on the ranks that
+    ``spawn`` started; raises on any failed check. Returns their results
+    and the pod-shape times of A and B."""
     from shared_tensor_tpu_torch.models import char_rnn as m
     from shared_tensor_tpu_torch.ops.table import make_spec
-    from shared_tensor_tpu_torch.parallel import run_mesh
 
     print(f"[9] {CHAR_PEERS} of {RESNET_PEERS} ranks on one card (the rest wait for phase 10), "
           f"backend={POD_BACKEND} (NCCL refuses two ranks on one device)")
-    # phase 11's resume runs with deterministic algorithms, which need
-    # cuBLAS's workspace pinned in every rank before its first matmul
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t0 = time.perf_counter()
-    ranks = run_mesh(pod_ranks, RESNET_PEERS, 1, seed, _free_port(), device=device, backend=POD_BACKEND,
-                     timeout_s=600)
+    ranks = spawn.go(_free_port())
     spawn_s = time.perf_counter() - t0
+    starts = [r["t_in"] - spawn.w0 for r in ranks]
+    print(f"[9] the ranks' start: ready {min(starts):.3f}-{max(starts):.3f} s after the spawn, "
+          f"{spawn.w_go - spawn.w0:.3f} s before the go; after the go {spawn_s:.3f} s: the ranks' release "
+          f"{max(r['t_go'] for r in ranks) - spawn.w_go:.3f} s, their meshes {max(r['meshes_s'] for r in ranks):.3f} s, "
+          "phases 9, 19, 10, 11 and 18b "
+          + ", ".join(f"{ranks[0][k]:.3f}" for k in ("phase9_s", "phase19_s", "phase10_s", "phase11_s", "phase18b_s"))
+          + f" s, the results back {time.time() - max(r['t_out'] for r in ranks):.3f} s after the last rank's")
     char = [r["char"] for r in ranks[:CHAR_PEERS]]
     res10 = [r["resnet"] for r in ranks]
     secs9, secs10 = ranks[0]["phase9_s"], ranks[0]["phase10_s"]
@@ -1828,7 +1891,7 @@ def pod_phases(device, rate: float, seed: int) -> dict:
         for name, ls in (("4x1", res["losses"]), ("2x2", sh["losses"])):
             if not _loss_fell(np.mean(ls, axis=1)):
                 bad.append(f"rank {rk} {name}: loss did not fall ({np.mean(ls, axis=1).tolist()})")
-    print(f"[9] phase 9 {secs9:.3f} s (phases 9, 19, 10 and 11 with the ranks' start {spawn_s:.3f} s)")
+    print(f"[9] phase 9 {secs9:.3f} s (phases 9, 19, 10, 11 and 18b after the go {spawn_s:.3f} s)")
     if bad:
         raise AssertionError("phase 9: " + "; ".join(bad))
     prof = [r["profile"] for r in ranks[:CHAR_PEERS]]
@@ -1862,7 +1925,8 @@ def pod_phases(device, rate: float, seed: int) -> dict:
     mean = lambda rows: float(np.mean(rows))
     summary = {
         "seconds": {"phase9": secs9, "phase19": ranks[0]["phase19_s"], "phase10": secs10,
-                    "phase11": ranks[0]["phase11_s"], "phases_9_19_10_11_with_start": spawn_s}, "backend": POD_BACKEND,
+                    "phase11": ranks[0]["phase11_s"], "phases_9_19_10_11_18b_after_go": spawn_s,
+                    "ranks_ready_after_spawn": max(starts), "go_after_spawn": spawn.w_go - spawn.w0}, "backend": POD_BACKEND,
         "profile": profile,
         "bridge": bridge["summary"],
         "char_rnn": [{k: v for k, v in r.items() if k not in ("losses", "sharded")}
@@ -4158,6 +4222,21 @@ def kill_storm_phase(device, seed: int, smi: str) -> dict:
     return out
 
 
+class PhaseClock:
+    """Wall seconds of the script's phases, in order: :meth:`lap` closes the
+    phase that ends there. ``s`` is printed on one line before the kernels'
+    line."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.s: dict[str, float] = {}
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.s[name] = round(now - self.t, 3)
+        self.t = now
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4166,6 +4245,7 @@ def main() -> int:
     ap.add_argument("--kill-storm", action="store_true", help="after the build, run phase 23 alone, and stop")
     args = ap.parse_args()
     t_script = time.perf_counter()
+    clock = PhaseClock()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4202,6 +4282,7 @@ def main() -> int:
         for line in v["log"].splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"[1] {k}: {line.strip()}")
+    clock.lap("1")
     if args.phase20_cost:
         phase20_cost(dev, hbm_rate(name), args.seed, smi)
         return 0
@@ -4210,6 +4291,8 @@ def main() -> int:
         kill_storm_phase(dev, args.seed, smi)
         require_launched(path_counts(), BURST_KERNELS, "phase 23")
         return 0
+    # the ranks of phases 9-11 start now and wait for their go
+    pods = PodSpawn(dev, args.seed)
 
     template = resnet18_template()
     spec = make_spec(template)
@@ -4221,6 +4304,7 @@ def main() -> int:
     bad = {k: v["mismatches"] for k, v in parity.items() if v["mismatches"]}
     if bad:
         raise AssertionError(f"kernel vs plain mismatches: {bad}")
+    clock.lap("2")
 
     # 3. tree drive (the launch counts of A and B are this phase's)
     CC.reset_launches()
@@ -4228,6 +4312,7 @@ def main() -> int:
     launches = path_counts()
     print(f"[3] launches {launches}, frames out {drive['frames_out']}, in {drive['frames_in']}")
     require_launched(launches, ("quantize_rows", "apply_rows_batch"), "phase 3")
+    clock.lap("3")
 
     # 4. times at the drive's shapes; B's row in the kernels line is the
     # interior's flood (K = BATCH, N = 2), its other shapes beside it
@@ -4237,6 +4322,7 @@ def main() -> int:
     t["apply_rows_batch"] = dict(b_rows[B_SHAPES.index((BATCH, 2))], shapes=b_rows)
     t["quantize_rows_cascade"] = {}  # phase 22 times it
     t["cascade_round"] = {}
+    clock.lap("4")
 
     # 5. C and D against plain, then all four kernels past 2^31 bytes
     parity.update(scalar_kernel_vs_plain(dev, seed=args.seed))
@@ -4246,6 +4332,7 @@ def main() -> int:
     if bad:
         raise AssertionError(f"kernel vs plain mismatches: {bad}")
     torch.cuda.empty_cache()
+    clock.lap("5")
 
     # 6. the headline codec bench (the launch counts of C and D are this phase's)
     bench = codec_bench(dev, rate, 1 << 20, BENCH_SECONDS)
@@ -4258,6 +4345,7 @@ def main() -> int:
                 "shape": f"n={1 << 20} K=1" if k == "apply_frame_many" else f"n={1 << 20}"}
     for k in ("quantize", "apply_frame_many"):
         t[k]["copy_ms"] = sp[f"{k}_copy_ms"]
+    clock.lap("6")
 
     # 7. the config-5 sweep up to 2^30
     sw = sweep(dev, rate)
@@ -4269,6 +4357,7 @@ def main() -> int:
         d = sw["big"][f"apply_frame_many_k{k}"]
         suffix = "_2e30" if k == 1 else f"_2e30_k{k}"
         t["apply_frame_many"].update({f"{x}{suffix}": d[x] for x in ("ms", "bound_ms", "copy_ms")})
+    clock.lap("7")
 
     # 8. the peer tier over loopback TCP (the launch counts of A and B are this phase's)
     torch.cuda.empty_cache()
@@ -4276,6 +4365,7 @@ def main() -> int:
     CC.reset_launches()
     t8 = time.perf_counter()
     example = peer_example(dev)
+    clock.lap("8a")
     tree = peer_tree(template, dev, args.seed)
     peer_launches = path_counts()
     tree["seconds"] = time.perf_counter() - t8
@@ -4283,7 +4373,9 @@ def main() -> int:
     print(f"[8] launches {peer_launches}; peak device memory {tree['max_memory_allocated'] / 2**30:.3f} GiB; "
           f"phase 8a+8b {tree['seconds']:.3f} s; on {smi}")
     require_launched(peer_launches, BURST_KERNELS, "phase 8")
+    clock.lap("8b")
     fetch = fetch_ab(template, dev, min(16, wire.burst_frames_cap(spec)))
+    clock.lap("8c")
     for k, n in peer_launches.items():
         t[k]["launches_phase3"] = launches[k]
         t[k]["launches_phase8"] = launches[k] = n
@@ -4291,7 +4383,7 @@ def main() -> int:
     # 9, 10 and 11. the pod tier: BASELINE config 2 (4 ranks, and 2 x 2), config 4 (8 ranks, both arms)
     # and config 2 as two pods of 2 bridged over TCP
     torch.cuda.empty_cache()
-    pod = pod_phases(dev, rate, args.seed)
+    pod = pod_phases(pods, dev, rate, args.seed)
     for k in ("quantize_rows", "apply_rows_batch"):
         pt = pod["times"][k]
         t[k].update({
@@ -4309,6 +4401,7 @@ def main() -> int:
     launches["quantize_rows"] = t["quantize_rows"]["launches_pod"]
     t["quantize_rows_cascade"]["launches_phase11"] = sum(r["cascade_launches"] for r in pod["bridge"])
     t["cascade_round"]["launches_phase11"] = sum(r["round_launches"] for r in pod["bridge"])
+    clock.lap("9-11")
 
     # 12. the host tier: the C loops on this machine's CPU, then a CUDA
     # master with two engine peers (the launch counts of A and B are 12b's)
@@ -4335,6 +4428,7 @@ def main() -> int:
     bad = {k: v["mismatches"] for k, v in check12.items() if v["mismatches"]}
     if bad:
         raise AssertionError(f"phase 12b: kernel vs plain mismatches on the master's state: {bad}")
+    clock.lap("12")
 
     # 13. the serving path: a CUDA master, an engine writer and two subscribers
     # (the launch counts of A and B are this phase's)
@@ -4360,6 +4454,7 @@ def main() -> int:
     bad = {k: v["mismatches"] for k, v in check13.items() if v["mismatches"]}
     if bad:
         raise AssertionError(f"phase 13: kernel vs plain mismatches on the master's state: {bad}")
+    clock.lap("13")
 
     # 14. the peer's wire capabilities: the reference wire (with the C peer),
     # the shared-memory lane, sign2 and striping (the launch counts of A and
@@ -4372,6 +4467,7 @@ def main() -> int:
         t[k]["mismatches_phase14"] = check14[k]["mismatches"]
         t[k]["mismatches_phase14_by_arm"] = check14[k]["by_arm"]
         t[k]["max_abs_err_phase14"] = check14[k]["max_abs_err"]
+    clock.lap("14")
 
     # 15. the observability plane on config 2's table (the launch counts of A
     # and B are this phase's)
@@ -4391,6 +4487,7 @@ def main() -> int:
     if bad:
         raise AssertionError(f"phase 15: kernel vs plain mismatches on the master's state: {bad}")
     print(f"[15] launches {obs_launches}")
+    clock.lap("15")
 
     # 16. the cluster lifecycle on config 2's table (the launch counts of A
     # and B are 16a-16d's), then the kill-restore arm
@@ -4424,6 +4521,7 @@ def main() -> int:
           f"{conf['routed_events']} routed to {conf['scopes']} scopes, violations {conf['violations']}")
     if not kr["pass"]:
         raise AssertionError(f"phase 16: the kill-restore arm failed: {kr}")
+    clock.lap("16")
 
     # phase 20's child process starts now: its imports overlap phases 17-18
     from shared_tensor_tpu_torch.benchmarks import e2e_sync
@@ -4448,10 +4546,12 @@ def main() -> int:
     if bad:
         raise AssertionError(f"phase 17c: kernel vs plain mismatches on the master's state: {bad}")
     print(f"[17] launches {shard_launches}")
+    clock.lap("17")
 
     # 18. the codec lab: its device twins on the card (18a); the sign2 pod
     # step ran as 18b in the phases 9-11 spawn
     lab = lab_phase(dev, rate, args.seed, pod["sign2"], pod["phase18b_s"], smi)
+    clock.lap("18")
 
     # 20. an end-to-end exchange: the CUDA parent and a host-tier child
     # process (the launch counts of A and B are 20a's)
@@ -4461,6 +4561,7 @@ def main() -> int:
     for k in e2e["kernel_check"]:
         t[k]["mismatches_phase20"] = e2e["kernel_check"][k]["mismatches"]
         t[k]["max_abs_err_phase20"] = e2e["kernel_check"][k]["max_abs_err"]
+    clock.lap("20")
 
     # 21. a severed uplink's applied prefix counted once (the launch counts
     # of A and B are this phase's)
@@ -4479,6 +4580,7 @@ def main() -> int:
     if bad:
         raise AssertionError(f"phase 21: kernel vs plain mismatches on the joiner's state: {bad}")
     print(f"[21] launches {sever['launches']}")
+    clock.lap("21")
 
     # 22. the engine's cascade on the device tier: A-cascade and the finish
     # against their plain twins and the C pass, timed, and the burst graph;
@@ -4501,6 +4603,7 @@ def main() -> int:
         burst={"config2": c2["burst"], "1Mi": c1["burst"], "resnet18": c4["burst"]},
         launches_phase22=cascade["22b"]["launches"]["cascade_round"])
     t["apply_rows_batch"]["launches_phase22"] = cascade["22b"]["launches"]["apply_rows_batch"]
+    clock.lap("22")
 
     # 23. hard link kills on the lane (the launch counts of A-cascade, the
     # finish and B are this phase's)
@@ -4509,8 +4612,10 @@ def main() -> int:
     storm["launches"] = path_counts()
     require_launched(storm["launches"], BURST_KERNELS, "phase 23")
     print(f"[23] launches {storm['launches']}")
+    clock.lap("23")
     serve_out["script_s"] = time.perf_counter() - t_script
     print(f"[23] script {serve_out['script_s']:.3f} s")
+    print(json.dumps({"phase_s": clock.s, "script_s": round(serve_out["script_s"], 3)}))
 
     print(smi)
     kernels = []

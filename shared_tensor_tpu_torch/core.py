@@ -54,6 +54,19 @@ device tier's one jitted dispatch per burst. The state lock is held
 throughout a burst, so its host time is what every other state change of
 the node waits for. A graph is captured again whenever the link's residual
 is a new tensor (a new link, a re-graft).
+
+On the CPU the same burst is the plain cascade, some 30 operations a
+level run from Python: milliseconds for even a small table. So there it
+quantizes off the lock. The burst takes the link's residual out under the
+lock and leaves in its place a buffer of -0.0, into which every add,
+apply, NACK or retraction meanwhile lands; then it quantizes the taken
+residual with no lock held, and folds the buffer back into what remains
+under the lock, where it takes its ledger entry. -0.0 is the identity of
+IEEE addition (``-0.0 + x`` is ``x`` for every x, a signed zero
+included), so a burst that nothing raced leaves the residual bit for bit
+as the locked burst did. A call that reads or replaces a link's
+residual whole (a drop, a carry, a snapshot, a mask, the link's next
+frame) first waits for that link's burst to fold (:meth:`_settle`).
 """
 
 from __future__ import annotations
@@ -67,20 +80,24 @@ import torch
 
 from .config import CodecConfig
 from .ops import codec_cuda, codec_np
+from .ops.codec import SAT
 from .ops.packing import words_from_host, words_to_host
 from .ops.table import (
     TableFrame,
     TableSpec,
     accumulate_table,
+    apply_delta,
     apply_table_batch,
     apply_table_many,
     flatten,
+    frames_delta,
     make_spec,
     quantize_table,
     quantize_table_burst,
     quantize_table_cascade,
     unflatten,
 )
+from .utils import locktrace
 
 
 class DuplicateLink(ValueError):
@@ -233,7 +250,7 @@ class SharedTensor:
         # the schedule of every begin_frame_burst* call: 1 re-measures
         # every frame, K > 1 is the engine's cascade (module docstring)
         self.cascade = max(1, int(cascade))
-        self._lock = threading.Lock()
+        self._lock = locktrace.new_lock()  # traced under ST_LOCK_TRACE=1
         if host_tier:
             codec_np.native()  # build (or fail) now, not at the first frame
         if seed_values and host_tier:
@@ -243,6 +260,9 @@ class SharedTensor:
         else:
             self.values = self._zeros()
         self._links: dict[int, torch.Tensor] = {}
+        # links whose CPU device-tier burst quantizes off the lock, each
+        # with the event its fold sets (module docstring)
+        self._bursting: dict[int, threading.Event] = {}
         # Per-link ledger of dispatched-but-unacknowledged frames, keyed by
         # sequence number. Quantizing applies error feedback at once, but
         # delivery is certain only when the receiver acknowledges: if the
@@ -326,6 +346,20 @@ class SharedTensor:
         self.fetch_wait_s += time.perf_counter() - t0
         return out
 
+    def _settle(self, link_id: Optional[int] = None) -> None:
+        """Under the lock: return once no burst quantizes ``link_id``'s
+        residual off the lock (any link's when None), releasing the lock
+        while one does."""
+        while self._bursting:
+            done = self._bursting.get(link_id) if link_id is not None else next(iter(self._bursting.values()))
+            if done is None:
+                return
+            self._lock.release()
+            try:
+                done.wait()
+            finally:
+                self._lock.acquire()
+
     # -- links -------------------------------------------------------------
 
     def new_link(self, link_id: int, seed: bool = True, residual=None) -> None:
@@ -357,6 +391,7 @@ class SharedTensor:
         carry pseudo-slot ``carry_id``, merging with any existing carry, in
         one lock acquisition. False if ``link_id`` is unknown."""
         with self._lock:
+            self._settle(link_id)
             resid = self._links.pop(link_id, None)
             self._graphs.pop(link_id, None)
             if resid is None:
@@ -371,6 +406,7 @@ class SharedTensor:
     def take_link_and_snapshot(self, link_id: int) -> tuple[Optional[torch.Tensor], torch.Tensor]:
         """drop_link + a copy of the replica under one lock acquisition."""
         with self._lock:
+            self._settle(link_id)
             resid = self._links.pop(link_id, None)
             self._graphs.pop(link_id, None)
             inflight = self._inflight.pop(link_id, {})
@@ -382,6 +418,7 @@ class SharedTensor:
         """Close a link; returns its undelivered residual (None if unknown)
         with every unacknowledged frame rolled back into it."""
         with self._lock:
+            self._settle(link_id)
             resid = self._links.pop(link_id, None)
             self._graphs.pop(link_id, None)
             inflight = self._inflight.pop(link_id, {})
@@ -439,6 +476,7 @@ class SharedTensor:
         """Consistent copies of (replica, {link: residual}) under one lock
         acquisition: the checkpoint primitive."""
         with self._lock:
+            self._settle()
             return self.values.clone(), {i: r.clone() for i, r in self._links.items()}
 
     def restore_state(self, values, links: dict) -> None:
@@ -447,6 +485,7 @@ class SharedTensor:
         that exist here (and of a carry pseudo-slot, a negative id, which
         is recreated)."""
         with self._lock:
+            self._settle()
             self.values = self._own(values)
             for lid, r in links.items():
                 if lid in self._links or lid < 0:
@@ -510,6 +549,7 @@ class SharedTensor:
         included, which launches on the current stream); the port's
         buffers are never shared, so no snapshot sees them."""
         with self._lock:
+            self._settle(link_id)
             r = self._links.get(link_id)
             if r is None:
                 return
@@ -528,6 +568,7 @@ class SharedTensor:
         lock just before the residual is read: what it observes is in the
         frame (no add or apply lands in between)."""
         with self._lock:
+            self._settle(link_id)
             resid = self._links.get(link_id)
             if resid is None:
                 return None
@@ -596,8 +637,11 @@ class SharedTensor:
         ledger entry. ``self.cascade`` > 1 quantizes them by the engine's
         cascade (module docstring). Returns (seq, stacked frame with a
         leading K axis), device tensors, their host copy started.
-        ``at_lock`` as in :meth:`begin_frame`."""
+        ``at_lock`` as in :meth:`begin_frame`. On a CUDA device the burst
+        graph replays under the lock; on the CPU the burst quantizes off it
+        (module docstring)."""
         with self._lock:
+            self._settle(link_id)
             resid = self._links.get(link_id)
             if resid is None:
                 return None
@@ -605,18 +649,45 @@ class SharedTensor:
                 at_lock()
             if self.device.type == "cuda":
                 frames = self._burst_graph(link_id, resid, k).run()
+                seq = self._ledger_burst(link_id, frames, k)
             else:
-                frames, _ = quantize_table_cascade(
-                    resid, self.spec, k, self.cascade, self.codec.scale_policy, self.codec.per_leaf_scale
-                )
-            self._frame_seq += 1
-            seq = self._frame_seq
-            # zero-scale tail frames are exact no-ops, so storing all K is
-            # right (a cascade writes no non-zero frame after a zero one)
-            self._inflight.setdefault(link_id, {})[seq] = tuple(
-                TableFrame(frames.scales[i], frames.words[i]) for i in range(k)
-            )
+                self._links[link_id] = torch.full_like(resid, -0.0)
+                done = self._bursting[link_id] = threading.Event()
+        if self.device.type != "cuda":
+            seq, frames = self._burst_off_lock(link_id, resid, k, done)
         return seq, self._start_fetch(frames)
+
+    def _burst_off_lock(self, link_id: int, resid: torch.Tensor, k: int, done: threading.Event):
+        """The CPU burst of a residual taken out of its link (module
+        docstring): quantize it with no lock held, then, under the lock,
+        fold in what came in meanwhile and take the ledger entry, in one
+        section, so a drop or a NACK sees the burst whole or not at all."""
+        frames = None
+        try:
+            frames, _ = quantize_table_cascade(
+                resid, self.spec, k, self.cascade, self.codec.scale_policy, self.codec.per_leaf_scale
+            )
+        finally:
+            with self._lock:
+                # in place (the link keeps its tensor), clamped as an add is
+                resid.add_(self._links[link_id]).clamp_(-SAT, SAT)
+                self._links[link_id] = resid
+                del self._bursting[link_id]
+                done.set()
+                if frames is not None:
+                    seq = self._ledger_burst(link_id, frames, k)
+        return seq, frames
+
+    def _ledger_burst(self, link_id: int, frames: TableFrame, k: int) -> int:
+        """A burst's ledger entry and its seq. The caller holds the lock."""
+        self._frame_seq += 1
+        seq = self._frame_seq
+        # zero-scale tail frames are exact no-ops, so storing all K is right
+        # (a cascade writes no non-zero frame after a zero one)
+        self._inflight.setdefault(link_id, {})[seq] = tuple(
+            TableFrame(frames.scales[i], frames.words[i]) for i in range(k)
+        )
+        return seq
 
     def _burst_graph(self, link_id: int, resid: torch.Tensor, k: int) -> _BurstGraph:
         """The link's burst graph, captured anew if the residual is another
@@ -687,6 +758,9 @@ class SharedTensor:
         if self._np:
             return self._receive_host(link_id, [frame], 1)
         dframe = self._device_frame(frame)
+        if self.device.type == "cpu":
+            stacked = TableFrame(dframe.scales.reshape(1, -1), dframe.words.reshape(1, -1))
+            return self._receive_cpu(link_id, stacked, 1)
         t0 = time.perf_counter()
         with self._lock:
             self.apply_lock_wait_s += time.perf_counter() - t0
@@ -721,11 +795,26 @@ class SharedTensor:
             w_host[i] = _host(f.words).view(np.uint32)
         stacked = TableFrame(scales.to(self.device, non_blocking=True), words.to(self.device, non_blocking=True))
         self.h2d_s += time.perf_counter() - t0
+        if self.device.type == "cpu":
+            return self._receive_cpu(link_id, stacked, applied)
         t0 = time.perf_counter()
         with self._lock:
             self.apply_lock_wait_s += time.perf_counter() - t0
             others = [r for i, r in self._links.items() if i != link_id]
             apply_table_batch((self.values, *others), stacked, self.spec)
+            self.frames_in += applied
+
+    def _receive_cpu(self, link_id: int, stacked: TableFrame, applied: int) -> None:
+        """The device tier on the CPU: the frames' summed delta before the
+        lock, only its add under it (plain kernel B in its two halves, bit
+        for bit), so a receive holds the state lock for one pass over the
+        targets."""
+        delta = frames_delta(stacked, self.spec)
+        t0 = time.perf_counter()
+        with self._lock:
+            self.apply_lock_wait_s += time.perf_counter() - t0
+            others = [r for i, r in self._links.items() if i != link_id]
+            apply_delta((self.values, *others), delta, self.spec)
             self.frames_in += applied
 
     def _receive_host(self, link_id: int, frames: list, applied: int) -> None:
@@ -756,8 +845,15 @@ class SharedTensor:
         send pass masks its residual only when this moved."""
         return self.updates + self.frames_in
 
+    def lock_stats(self) -> dict[str, dict]:
+        """Per call site, the state lock's acquisitions, wait and hold
+        seconds (``utils/locktrace``); {} unless ``ST_LOCK_TRACE=1`` was set
+        when this tensor was made."""
+        return locktrace.stats(self._lock)
+
     def residual_rms(self, link_id: int) -> float:
         with self._lock:
+            self._settle(link_id)
             r = self._links.get(link_id)
             if r is None:
                 return 0.0

@@ -14,10 +14,10 @@ digest beat, and turns the series into three signals:
 
   Rates come from the reset-tolerant store (``timeseries.TimeSeriesStore``)
   over a short trailing window. The hot shard is named only when its rate
-  beats the mean of the others by ``skew_ratio`` (default 3x). The port
-  has no cluster-sharded tensor yet and emits no ``st_shard_*``
-  telemetry, so on a tree of port peers the heat table stays empty; a
-  JAX sharded subtree's digests fill it.
+  beats the mean of the others by ``skew_ratio`` (default 3x). The
+  port's sharded nodes (``shard/node.py``) report ``st_shard_heat_*``
+  in their digests, as a JAX sharded subtree's do; a tree of full-replica
+  peers alone leaves the heat table empty.
 
 - **Cross-host staleness.** Raw ``st_staleness_seconds`` compares the
   applier's CLOCK_MONOTONIC to the origin's. Each node exports its

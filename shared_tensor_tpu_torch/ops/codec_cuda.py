@@ -505,11 +505,16 @@ def slot_partials_plain(v: torch.Tensor, partials: torch.Tensor) -> torch.Tensor
     a = x.abs()
     amax = torch.where(a.isnan(), torch.zeros_like(a), a).amax(dim=1)  # a NaN never wins a max
     d = x.to(torch.float64)
-    ss = torch.zeros(x.shape[0], dtype=torch.float64, device=v.device)
-    sabs = torch.zeros_like(ss)
-    for b in range(x.shape[1]):
-        ss = ss + d[:, b] * d[:, b]
-        sabs = sabs + d[:, b].abs()
+    if v.device.type == "cpu":
+        # the CPU's cumsum adds along a row in order: the loop below, bit
+        # for bit, in two operations instead of 64
+        ss, sabs = torch.cumsum(d * d, dim=1)[:, -1], torch.cumsum(d.abs(), dim=1)[:, -1]
+    else:
+        ss = torch.zeros(x.shape[0], dtype=torch.float64, device=v.device)
+        sabs = torch.zeros_like(ss)
+        for b in range(x.shape[1]):
+            ss = ss + d[:, b] * d[:, b]
+            sabs = sabs + d[:, b].abs()
     ss, sabs = ss.view(-1, 32), sabs.view(-1, 32)
     h = 16
     while h:
@@ -857,27 +862,52 @@ def cascade_round(
 # -- kernel B: apply_rows_batch ------------------------------------------------
 
 
+#: the elements of frame deltas that the plain kernel B unpacks at once
+APPLY_PLAIN_ELEMS = 1 << 22
+
+
+def frames_delta_plain(s_rows: torch.Tensor, rowcount: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
+    """The first half of plain kernel B: the K frames' ``s*(1-2b)`` deltas
+    summed in frame order from 0.0 and masked, f32[rows, LANES]. The frames
+    are unpacked a few at a time: few operations for a small table, bounded
+    memory for a large one."""
+    k, rows = s_rows.shape
+    dev = s_rows.device
+    live = torch.arange(LANES, dtype=torch.int32, device=dev)[None, :] < rowcount[:, None]
+    delta = torch.zeros(rows, LANES, dtype=torch.float32, device=dev)
+    w32 = words.view(torch.int32) if words.dtype != torch.int32 else words
+    per = max(1, min(k, APPLY_PLAIN_ELEMS // (rows * LANES)))
+    for lo in range(0, k, per):
+        hi = min(k, lo + per)
+        bits = unpack_bits(w32[lo:hi]).view(hi - lo, rows, LANES).to(torch.float32)
+        for x in s_rows[lo:hi, :, None] * (1.0 - 2.0 * bits):
+            delta = delta + x
+    return torch.where(live, delta, torch.zeros_like(delta))
+
+
+def add_delta_plain(delta: torch.Tensor, rowcount: torch.Tensor, arrays: Sequence[torch.Tensor]) -> tuple:
+    """The second half of plain kernel B: ``delta`` (from
+    :func:`frames_delta_plain`) added to each array, clamped to +/-SAT,
+    padding zeroed, in place."""
+    rows = delta.shape[0]
+    live = torch.arange(LANES, dtype=torch.int32, device=delta.device)[None, :] < rowcount[:, None]
+    for a in arrays:
+        v = a.view(rows, LANES)
+        v.copy_(torch.where(live, torch.clamp(v + delta, -SAT, SAT), torch.zeros_like(v)))
+    return tuple(arrays)
+
+
 def apply_rows_batch_plain(
     s_rows: torch.Tensor,
     rowcount: torch.Tensor,
     words: torch.Tensor,
     arrays: Sequence[torch.Tensor],
 ) -> tuple[torch.Tensor, ...]:
-    """Plain PyTorch version of kernel B; updates ``arrays`` in place."""
-    rows, k = _check_apply(s_rows, rowcount, words, arrays)
-    dev = arrays[0].device
-    lane = torch.arange(LANES, dtype=torch.int32, device=dev)
-    live = lane[None, :] < rowcount[:, None]
-    delta = torch.zeros(rows, LANES, dtype=torch.float32, device=dev)
-    w32 = words.view(torch.int32) if words.dtype != torch.int32 else words
-    for kf in range(k):  # frame order, from 0.0: bit-equal to the kernel
-        bits = unpack_bits(w32[kf]).view(rows, LANES).to(torch.float32)
-        delta = delta + s_rows[kf][:, None] * (1.0 - 2.0 * bits)
-    delta = torch.where(live, delta, torch.zeros_like(delta))
-    for a in arrays:
-        v = a.view(rows, LANES)
-        v.copy_(torch.where(live, torch.clamp(v + delta, -SAT, SAT), torch.zeros_like(v)))
-    return tuple(arrays)
+    """Plain PyTorch version of kernel B (:func:`frames_delta_plain`, then
+    :func:`add_delta_plain`): bit-equal to the kernel; updates ``arrays``
+    in place."""
+    _check_apply(s_rows, rowcount, words, arrays)
+    return add_delta_plain(frames_delta_plain(s_rows, rowcount, words), rowcount, arrays)
 
 
 def apply_rows_batch_kernel(

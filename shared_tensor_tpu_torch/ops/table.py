@@ -539,6 +539,8 @@ def quantize_table_cascade(
     for i in range(int(k)):
         finish(b.partials, c.leaf_slots, c.ns, b.scales, b.state, b.ladder, b.leaf_sums, k, cascade, policy,
                per_leaf, first=i == 0)
+        if dev.type == "cpu" and int(b.state[2]):
+            break  # stopped: every later round does nothing (the state is on the host here)
         quantize(top, row_leaf, rowcount, b.state, residual, b.words, b.scales, b.partials)
     return TableFrame(b.scales, b.words), residual
 
@@ -575,6 +577,31 @@ def apply_table_batch(
     s_rows = frames.scales[:, row_leaf].contiguous()  # [K, rows]
     words = frames.words.reshape(k, spec.rows * WORDS_PER_ROW).contiguous()
     return fn(s_rows, rowcount, words, tuple(arrays))
+
+
+def frames_delta(frames: TableFrame, spec: TableSpec) -> torch.Tensor:
+    """The first half of :func:`apply_table_batch` on the CPU: a stack of K
+    frames' deltas summed in frame order and masked (f32[rows, 128];
+    ``codec_cuda.frames_delta_plain``). With :func:`apply_delta` it is the
+    plain kernel B bit for bit, split so that a caller computes the delta
+    before it takes a lock and only adds it under the lock. Raises off the
+    CPU: there kernel B applies in one launch."""
+    if frames.scales.device.type != "cpu":
+        raise ValueError("frames_delta is the CPU's split apply; on a GPU apply_table_batch launches kernel B")
+    row_leaf, rowcount, *_ = _consts(spec, "cpu")
+    k = frames.scales.shape[0]
+    s_rows = frames.scales[:, row_leaf].contiguous()
+    words = frames.words.reshape(k, spec.rows * WORDS_PER_ROW).contiguous()
+    return codec_cuda.frames_delta_plain(s_rows, rowcount, words)
+
+
+def apply_delta(arrays: Sequence[torch.Tensor], delta: torch.Tensor, spec: TableSpec) -> tuple[torch.Tensor, ...]:
+    """The second half of the CPU's split apply (:func:`frames_delta`):
+    ``delta`` added to every array, clamped to +/-SAT, in place."""
+    if delta.device.type != "cpu":
+        raise ValueError("apply_delta is the CPU's split apply; on a GPU apply_table_batch launches kernel B")
+    codec_cuda.check_distinct(arrays)
+    return codec_cuda.add_delta_plain(delta, _consts(spec, "cpu")[1], arrays)
 
 
 def accumulate_table(

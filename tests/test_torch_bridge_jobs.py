@@ -26,6 +26,7 @@ from shared_tensor_tpu_torch.parallel import make_mesh
 from shared_tensor_tpu_torch.parallel.mesh import all_gather, all_true, broadcast_
 from shared_tensor_tpu_torch.train import HierarchicalTrainer, PodTrainer
 from shared_tensor_tpu_torch.utils import checkpoint as ckpt
+from shared_tensor_tpu_torch.utils.timing import Spans
 
 from tests.test_torch_pod_jobs import CHAR_TEXT, _np_tree
 
@@ -295,7 +296,11 @@ def mixed_pod(world, port, tmp, steps, period):
     """A port pod joining a JAX pod's tree (tests/test_torch_hierarchical.py
     drives the JAX side in the test process): files under ``tmp`` say
     ``joined``, ``go`` and ``stop``; the bridge writes the pod's mean to
-    ``mean_<i>.npy`` as it quiesces. Trains toward -2."""
+    ``mean_<i>.npy`` as it quiesces. Trains toward -2. Besides the mean
+    and the exchange count, returns the live steps' seconds and median ms,
+    the bridge stages' seconds over them (``utils/timing.Spans``) and, on
+    the bridge rank, the state lock's table by call site (empty unless
+    ``ST_LOCK_TRACE=1``)."""
     import pathlib
 
     tmp = pathlib.Path(tmp)
@@ -308,10 +313,18 @@ def mixed_pod(world, port, tmp, steps, period):
         while not all_true(pod, not tr.is_bridge or (tmp / "go").exists() or time.time() > deadline):
             time.sleep(0.02)
         target = tr.pod.shard_batch(np.full((2, 8), -2.0, np.float32))
+        tr.spans = Spans()
+        step_s, t_live = [], time.perf_counter()
         for _ in range(steps):
             t0 = time.time()
             tr.step(target, lr=0.05)
+            step_s.append(time.time() - t0)
             time.sleep(max(0.0, period - (time.time() - t0)))
+        live = {"live_s": time.perf_counter() - t_live, "steps_s": float(sum(step_s)),
+                "median_step_ms": 1e3 * float(np.median(step_s)),
+                "stage_s": dict(tr.spans.totals),
+                "lock": tr.peer.st.lock_stats() if tr.is_bridge else {}}
+        tr.spans = None
         i = 0
         while not all_true(pod, not tr.is_bridge or (tmp / "stop").exists() or time.time() > deadline):
             tr.step(target, lr=0.0)
@@ -321,7 +334,7 @@ def mixed_pod(world, port, tmp, steps, period):
                 os.replace(tmp / "mean.tmp.npy", tmp / "mean.npy")
             i += 1
             time.sleep(0.02)
-        return {"mean": float(tr.read(0)["w"].mean()), "exchanges": tr.exchanges}
+        return {"mean": float(tr.read(0)["w"].mean()), "exchanges": tr.exchanges} | live
     finally:
         tr.close()
 

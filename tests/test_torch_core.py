@@ -220,10 +220,15 @@ def test_receive_frames_backlog_contract(monkeypatch):
     batched.new_link(2, seed=False)
     calls = {"batch": [], "single": 0}
     orig_batch, orig_many = core_mod.apply_table_batch, core_mod.apply_table_many
+    orig_delta = core_mod.frames_delta
 
     def counting_batch(arrays, frames_, spec, *a, **kw):
         calls["batch"].append(frames_.scales.shape[0])
         return orig_batch(arrays, frames_, spec, *a, **kw)
+
+    def counting_delta(frames_, spec):  # the CPU's one pass: its delta off the lock
+        calls["batch"].append(frames_.scales.shape[0])
+        return orig_delta(frames_, spec)
 
     def counting_many(*a, **kw):
         calls["single"] += 1
@@ -231,6 +236,7 @@ def test_receive_frames_backlog_contract(monkeypatch):
 
     monkeypatch.setattr(core_mod, "apply_table_batch", counting_batch)
     monkeypatch.setattr(core_mod, "apply_table_many", counting_many)
+    monkeypatch.setattr(core_mod, "frames_delta", counting_delta)
     batched.receive_frames(1, frames)
     assert calls == {"batch": [len(frames)], "single": 0}, calls
     assert batched.frames_in == len(frames)

@@ -155,6 +155,24 @@ def test_exchange_matches_jax(port, n_peer, n_shard):
             np.testing.assert_allclose(g[key], w[key], rtol=0, atol=atol, err_msg=key)
 
 
+def mixed_report(jax_warm_s: float, jax_live_s: float, live_a: float, port: dict) -> str:
+    """One line on the mixed tree's live steps (``pytest -s`` shows it):
+    the JAX pod's compiling step before the start line, each pod's live
+    seconds, the port bridge's stages, and with ``ST_LOCK_TRACE=1`` the
+    state lock's call sites by mean wait and hold."""
+    stages = port["stage_s"]
+    line = (f"[mixed] live_a {live_a:.4f}; JAX pod's first step {jax_warm_s:.3f} s; "
+            f"live steps: JAX pod {jax_live_s:.3f} s, port pod {port['live_s']:.3f} s "
+            f"({port['live_s'] / jax_live_s:.2f}x, median step {port['median_step_ms']:.1f} ms); bridge stages s "
+            + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+            + f"; snapshot+push {(stages.get('snapshot', 0) + stages.get('push', 0)) / port['steps_s']:.1%} of its steps' "
+            f"{port['steps_s']:.3f} s")
+    for site, r in port["lock"].items():
+        line += (f"\n[mixed] lock {site}: n {r['n']}, wait {r['wait_s']:.3f} s (mean {r['mean_wait_ms']:.2f} ms), "
+                 f"hold {r['hold_s']:.3f} s (mean {r['mean_hold_ms']:.2f} ms, max {1e3 * r['max_hold_s']:.1f} ms)")
+    return line
+
+
 def test_mixed_tree_jax_pod_and_port_pod():
     """A JAX pod (2 virtual CPU devices, the tree's master, training toward
     +2) and a port pod (2 gloo ranks, training toward -2) bridged at one
@@ -191,13 +209,21 @@ def test_mixed_tree_jax_pod_and_port_pod():
             while not (d / "joined").exists() and time.time() < deadline and th.is_alive():
                 time.sleep(0.05)
             assert (d / "joined").exists(), out.get("err")
-            (d / "go").touch()
+            # the JAX pod's step compiles at its first call (0.5-0.7 s on a
+            # CPU): take that call before the start line, at lr 0 (a no-op
+            # step and exchange), so both pods' live steps start together
             ta = jnp.full((2, 8), 2.0)
+            t_warm = time.perf_counter()
+            a.step(ta, lr=0.0)
+            warm_s = time.perf_counter() - t_warm
+            (d / "go").touch()
+            t_live = time.perf_counter()
             for _ in range(steps):
                 t0 = time.time()
                 a.step(ta, lr=0.05)
                 time.sleep(max(0.0, period - (time.time() - t0)))
             live_a = float(jnp.mean(a.read(0)["w"]))
+            live_s = time.perf_counter() - t_live
             # agreement at quiescence: both pods quiescing, and the port
             # pod's mean within 0.05 of ours on 5 reads in a row
             streak, last, deadline = 0, -1, time.time() + 60
@@ -220,6 +246,7 @@ def test_mixed_tree_jax_pod_and_port_pod():
             a.close()
         assert not th.is_alive() and "err" not in out, out.get("err")
     final_b = out["res"][0]["mean"]
+    print(mixed_report(warm_s, live_s, live_a, out["res"][0]))
     assert abs(live_a) < 1.6, live_a
     assert streak >= 5, (final_a, final_b)
     assert abs(final_a - final_b) < 0.05 and abs(final_b) < 1.6, (final_a, final_b)
