@@ -43,7 +43,9 @@ Phases, in order; any failure exits non-zero:
    per frame; the launches of C and D in the kernel run; the device time
    per launch of compute_scale, C and D and of one whole frame, each from
    a CUDA graph of many launches, so the eager frame splits into scale,
-   C, D and launch/host overhead; a torch.profiler window of the eager
+   C, D and launch/host overhead; C and D also over buffer sets that hold
+   four times the L2, as phase 4 times A and B, each beside copy_ms over
+   as many sets (the kernel table's time); a torch.profiler window of the eager
    chain (busy share of the device; trace in profiles/).
 7. The config-5 sweep (shared_tensor_tpu_torch.benchmarks.pareto) at 2^20,
    2^24, 2^27 and 2^30 elements with a short target: one JSON line per
@@ -204,9 +206,10 @@ Phases, in order; any failure exits non-zero:
    adding child drained, S fresh past it). Fails unless: M's cluster view
    counts 4 nodes within OBS_VIEW_S of the last add, its summed
    st_frames_out_total equal to the nodes' own; E's and C's clock offsets
-   lie within their uncertainty of their skews; health.json parses and its
-   correction of M's link to E is E's skew within the record's
-   uncertainty; obs.top renders one row per live node of cluster.json; the
+   lie within their uncertainty of their skews; health.json parses and,
+   read right after E's add (while E's stamp is the newest in the tree),
+   M's record is its link to E, corrected by E's skew within the record's
+   uncertainty, with E in its clock table; obs.top renders one row per live node of cluster.json; the
    hub's timeline exports as Chrome trace JSON (profiles/phase15_trace.json)
    holding a contiguous path from an update's origin to every other writer;
    M's st_encode_seconds and st_apply_seconds and E's st_update_hops
@@ -901,7 +904,7 @@ def codec_bench(device, rate: float, n: int, seconds: float) -> dict:
     from shared_tensor_tpu_torch.ops import codec_cuda as CC
     from shared_tensor_tpu_torch.ops.codec import compute_scale
     from shared_tensor_tpu_torch.utils.profiling import trace
-    from shared_tensor_tpu_torch.utils.timing import copy_ms, graph_ms
+    from shared_tensor_tpu_torch.utils.timing import copy_ms, graph_ms, l2_sets
 
     CC.reset_launches()
     kern = bench.run("kernel", device, n, target_seconds=seconds)
@@ -926,19 +929,38 @@ def codec_bench(device, rate: float, n: int, seconds: float) -> dict:
         f, _ = CC.quantize_kernel(r, n, pol)
         CC.apply_frame(v, f, n)
 
+    # C and D as phase 4 times A and B: each launch of the graph takes the
+    # next of enough buffer sets (a residual; an array and its own frame)
+    # that they hold four times the L2 (``_ms``, read against the bytes
+    # bound), and the same graph on one set (``_ms_hot``: at 2^20 a set
+    # stays in the L2)
+    nbytes = scalar_bytes(n)
+    c_sets = [r.clone() for _ in range(l2_sets(nbytes["quantize"], device))]
+    d_sets = [(torch.zeros(n, device=device), CC.quantize_kernel(x.clone(), n, pol)[0])
+              for x in c_sets[:l2_sets(nbytes["apply_frame_many"], device)]]
+    c_turn, d_turn = itertools.cycle(c_sets), itertools.cycle(d_sets)
+
+    def d_cold():
+        arr, f = next(d_turn)
+        CC.apply_frame_many_kernel((arr,), f, n)
+
     split = {
         "scale_ms": graph_ms(lambda: compute_scale(r, n, pol), iters),
-        "quantize_ms": graph_ms(lambda: CC.quantize_kernel(r, n, pol, scale=scale), iters),
-        "apply_frame_many_ms": graph_ms(lambda: CC.apply_frame_many_kernel((v,), frame, n), iters),
+        "quantize_ms": graph_ms(lambda: CC.quantize_kernel(next(c_turn), n, pol, scale=scale), iters),
+        "quantize_ms_hot": graph_ms(lambda: CC.quantize_kernel(r, n, pol, scale=scale), iters),
+        "apply_frame_many_ms": graph_ms(d_cold, iters),
+        "apply_frame_many_ms_hot": graph_ms(lambda: CC.apply_frame_many_kernel((v,), frame, n), iters),
         "frame_graph_ms": graph_ms(whole_frame, iters),
         "quantize_plain_ms": graph_ms(lambda: CC.quantize_plain(r, n, pol, scale=scale), 50),
         "apply_frame_many_plain_ms": graph_ms(lambda: CC.apply_frame_many_plain((v,), frame, n), 50),
     }
-    for k in ("quantize", "apply_frame_many"):
-        split[f"{k}_copy_ms"] = copy_ms(scalar_bytes(n)[k], device, lambda fn: graph_ms(fn, iters))
+    for k, sets in (("quantize", c_sets), ("apply_frame_many", d_sets)):
+        split[f"{k}_sets"] = len(sets)
+        split[f"{k}_copy_ms"] = copy_ms(nbytes[k], device, lambda fn: graph_ms(fn, iters), sets=len(sets))
+    del c_sets, d_sets, c_turn, d_turn
     eager_ms = kern["detail"]["frame_s"] * 1e3
     split["frame_eager_ms"] = eager_ms
-    split["overhead_ms"] = eager_ms - split["scale_ms"] - split["quantize_ms"] - split["apply_frame_many_ms"]
+    split["overhead_ms"] = eager_ms - split["scale_ms"] - split["quantize_ms_hot"] - split["apply_frame_many_ms_hot"]
     for k, b in scalar_bytes(n).items():
         split[f"{k}_bound_ms"] = b / rate * 1e3
 
@@ -2847,6 +2869,26 @@ OBS_VIEW_S = 3.0
 OBS_CLOCK_REPLIES = 3
 
 
+def _m_link_to_e(health_path: str, ids: dict) -> tuple[dict, dict]:
+    """Phase 15's check 4: wait up to OBS_VIEW_S for health.json to hold
+    M's worst record with E as its origin, corrected (an uncertainty, E's
+    entry in the clock table). Returns the document and that record."""
+    deadline = time.perf_counter() + OBS_VIEW_S
+    while True:
+        try:
+            with open(health_path) as fh:
+                health = json.load(fh)
+        except (OSError, ValueError):
+            health = {}
+        rec = health.get("staleness", {}).get("nodes", {}).get(str(ids["M"]))
+        if rec is not None and rec["origin"] == ids["E"] and rec["unc_sec"] is not None \
+                and str(ids["E"]) in health.get("clock", {}):
+            return health, rec
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"phase 15: health.json has no corrected record of M's link to E: {rec}")
+        time.sleep(0.02)
+
+
 def obs_phase(device, seed: int, smi: str, cfg_m=None) -> tuple[dict, tuple]:
     """Phase 15 (module docstring): the observability plane on the table of
     the char-RNN ``cfg_m`` (None: config 2's). Returns the report and the
@@ -2899,9 +2941,10 @@ def obs_phase(device, seed: int, smi: str, cfg_m=None) -> tuple[dict, tuple]:
         # the writers add in turn, E first, each add agreed, the adding
         # child drained and S fresh past it before the next: a link residual
         # holding two updates of unrelated bounds drains in thousands of
-        # frames (PERF.md §4), and E never sends after its add, so M's link
-        # to E keeps E's stamp as the oldest origin M holds (check 4 reads
-        # that link)
+        # frames (PERF.md §4). Check 4 reads M's record right after E's add,
+        # while E's stamp is the newest in the tree: a link's record is its
+        # latest traced message, and once M has added, a frame E sends
+        # carries M's stamp, so E's origin may then be on no link of M's
         for who, p, d in (("E", e, deltas[0]), ("C", c, deltas[1]), ("M", m, deltas[2])):
             for j, x in enumerate(tree_flatten(d)[0]):
                 leaves[j] += x
@@ -2914,6 +2957,8 @@ def obs_phase(device, seed: int, smi: str, cfg_m=None) -> tuple[dict, tuple]:
                 raise AssertionError(f"phase 15: {who} did not drain its add")
             sub.wait_fresh(serve.epoch(), timeout=10.0)
             out[f"fresh_s_{who}"] = time.perf_counter() - t_add
+            if who == "E":
+                health, rec = _m_link_to_e(health_path, ids)
         master = m.st.snapshot_all() + (flatten(deltas[2], spec, device), m.st.codec)
         # 2: the cluster view at M: four nodes (the subscriber counted), and
         # the summed frames equal to the nodes' own counts at quiescence
@@ -2943,22 +2988,8 @@ def obs_phase(device, seed: int, smi: str, cfg_m=None) -> tuple[dict, tuple]:
             if clock[who]["offset_s"] is None or abs(clock[who]["offset_s"] - skew) > clock[who]["unc_s"]:
                 raise AssertionError(f"phase 15: {who}'s clock offset {clock[who]} misses its skew")
         out["clock"] = clock
-        # 4: health.json: M's record is its link to E (E added first), whose
-        # correction is E's offset (M's is 0) within the record's uncertainty
-        deadline = time.perf_counter() + OBS_VIEW_S
-        while True:
-            try:
-                with open(health_path) as fh:
-                    health = json.load(fh)
-            except (OSError, ValueError):
-                health = {}
-            rec = health.get("staleness", {}).get("nodes", {}).get(str(ids["M"]))
-            if rec is not None and rec["origin"] == ids["E"] and rec["unc_sec"] is not None \
-                    and str(ids["E"]) in health.get("clock", {}):
-                break
-            if time.perf_counter() > deadline:
-                raise AssertionError(f"phase 15: health.json has no corrected record of M's link to E: {rec}")
-            time.sleep(0.02)
+        # 4: health.json, read after E's add: M's record (its link to E),
+        # whose correction is E's offset (M's is 0) within its uncertainty
         shift = rec["corrected_sec"] - rec["raw_sec"]
         out["health"] = {"m_link_to_e": rec, "correction_s": shift, "clock": health["clock"],
                          "slo": {"alert": health["slo"]["alert"], "bad_beats": m.metrics().get("st_slo_bad_beats_total")},
@@ -4344,7 +4375,7 @@ def main() -> int:
         t[k] = {"ms": sp[f"{k}_ms"], "plain_ms": sp[f"{k}_plain_ms"], "bound_ms": sp[f"{k}_bound_ms"],
                 "shape": f"n={1 << 20} K=1" if k == "apply_frame_many" else f"n={1 << 20}"}
     for k in ("quantize", "apply_frame_many"):
-        t[k]["copy_ms"] = sp[f"{k}_copy_ms"]
+        t[k].update({x: sp[f"{k}_{x}"] for x in ("copy_ms", "ms_hot", "sets")})
     clock.lap("6")
 
     # 7. the config-5 sweep up to 2^30

@@ -165,6 +165,15 @@ std::atomic<uint64_t> g_dropped{0};
 // nodes per process before in-block reuse; a long pytest session creates
 // hundreds, not thousands. Cross-process risk left: two pids equal mod
 // 4096 in ONE tree (1/4096 per pair — accepted, documented).
+//
+// This copy counts its local part DOWN from 0xFFF. A process may load the
+// JAX package's transport build beside this one (a mixed tree, a JAX shard
+// master with a port owner): that build has a counter of its own, which
+// counts UP from 1 under the same pid block. Counting from both ends, the
+// two never hand out the same id while the process has made at most 4095
+// nodes of both builds together. Counting up from 1 here too, the first
+// node of each would take the same id, and a shard plane that keys
+// ownership by it would forward nothing to the other node.
 std::atomic<uint32_t> g_next_node_local{0};
 const uint32_t g_node_id_base = ((uint32_t)getpid() & 0xFFFu) << 12;
 
@@ -2627,8 +2636,8 @@ void* st_node_create(const char* host, int port, const StConfigC* cfg_c,
   auto* node = new Node();
   node->obs_id =
       stobs::g_node_id_base |
-      ((stobs::g_next_node_local.fetch_add(1, std::memory_order_relaxed) +
-        1u) &
+      ((0xFFFu -
+        stobs::g_next_node_local.fetch_add(1, std::memory_order_relaxed)) &
        0xFFFu);
   Config& cfg = node->cfg;
   cfg.wire_compat = cfg_c->wire_compat;
