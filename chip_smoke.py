@@ -32,26 +32,32 @@ Phases, in order; any failure exits non-zero:
    copy_ms: a device-to-device copy_ that moves the same bytes over as many
    sets, the card's practical streaming ceiling (not a library call for the
    same function).
-5. Kernel vs plain on the card for the scalar codec: kernel C (quantize)
-   and kernel D (apply_frame_many) at n in {17, 1000, 2^20 + 3, 2^24 + 5},
-   all three scale policies, garbage in the padding, scale 0 given
-   explicitly, D with K in {1, 3, 9}; then all four kernels at 2^30 + 1024
-   elements (byte offsets past 2^31), against their plain versions chunk by
-   chunk. Any mismatch fails.
+5. Kernel vs plain on the card for the scalar codec: kernel C (quantize,
+   with its scale from the scale pass) and kernel D (apply_frame_many) at n
+   in {17, 1000, 2^20 + 3, 2^24 + 5}, all three scale policies, garbage in
+   the padding, scale 0 given explicitly, D with K in {1, 3, 9}; the scale
+   pass (frame_scale) against its plain twin, bit for bit, at each n and
+   policy, twice; then all four kernels at 2^30 + 1024 elements (byte
+   offsets past 2^31), against their plain versions chunk by chunk. Any
+   mismatch fails.
 6. The headline codec bench (shared_tensor_tpu_torch.bench) at N = 1 Mi
    with the kernel and the plain codec: its JSON lines, frames/s and us
-   per frame; the launches of C and D in the kernel run; the device time
-   per launch of compute_scale, C and D and of one whole frame, each from
-   a CUDA graph of many launches, so the eager frame splits into scale,
-   C, D and launch/host overhead; C and D also over buffer sets that hold
-   four times the L2, as phase 4 times A and B, each beside copy_ms over
-   as many sets (the kernel table's time); a torch.profiler window of the eager
-   chain (busy share of the device; trace in profiles/).
+   per frame; the launches of the scale pass, C and D in the kernel run;
+   the device time per launch of the scale pass, C and D and of one whole
+   frame, each from a CUDA graph of many launches, so the eager frame
+   splits into scale, C, D and launch/host overhead; the scale pass, C and
+   D also over buffer sets that hold four times the L2, as phase 4 times A
+   and B, C and D each beside copy_ms over as many sets (the kernel table's
+   time); the scale pass beside the torch chain it replaces
+   (ops/codec.compute_scale) and its plain twin; a torch.profiler window
+   of the eager chain (busy share of the device; trace in profiles/).
 7. The config-5 sweep (shared_tensor_tpu_torch.benchmarks.pareto) at 2^20,
    2^24, 2^27 and 2^30 elements with a short target: one JSON line per
-   size, RMS decay per frame within 0.45-0.55, peak device memory, and the
-   times of C and D per launch at 2^30 by CUDA events: D with K = 1 and
-   K = 3 targets, each beside its bound and copy_ms.
+   size, RMS decay per frame within 0.45-0.55, peak device memory, the
+   launches of the scale pass, C and D, and the times per launch at 2^30
+   by CUDA events: C; D with K = 1 and K = 3 targets, each beside its
+   bound and copy_ms; the scale pass beside its bound and the torch chain,
+   and against its twin, bit for bit.
 8. The peer tier over loopback TCP in this process, every SharedTensor on
    the card, through create_or_fetch / add / read: (8a) BASELINE config 1,
    a master seeding arange(1, 241) as 4x5x6x2 and a joiner, both adding,
@@ -426,6 +432,8 @@ AGREE_REL = 1e-5  # replicas agree when every leaf is within this * its max |val
 BATCH = 4  # frames per link per round, delivered together (K of kernel B)
 B_SHAPES = ((1, 1), (BATCH, 2), (BATCH, 3), (BATCH, 1), (1, 3))  # phase 4: (K, N) of the flood
 D_TARGETS = (1, 3)  # phase 7: target arrays of D at 2^30
+#: The kernels of the scalar codec's frame (phases 6-7): the scale pass, C, D.
+SCALAR_KERNELS = ("frame_scale", "quantize", "apply_frame_many")
 MAX_ROUNDS = 400
 WORDS_BYTES = 4 * 4  # packed words per row x bytes per word
 SCALAR_SIZES = (17, 1000, 2**20 + 3, 2**24 + 5)  # phase 5: live counts, padded to 1024
@@ -791,7 +799,8 @@ def scalar_kernel_vs_plain(device, sizes=SCALAR_SIZES, seed: int = 0) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(seed)
     out = {"quantize": {"mismatches": 0, "max_abs_err": 0.0},
-           "apply_frame_many": {"mismatches": 0, "max_abs_err": 0.0}}
+           "apply_frame_many": {"mismatches": 0, "max_abs_err": 0.0},
+           "frame_scale": {"mismatches": 0, "max_abs_err": 0.0}}
 
     def note(name, m, e):
         out[name]["mismatches"] += m
@@ -802,6 +811,13 @@ def scalar_kernel_vs_plain(device, sizes=SCALAR_SIZES, seed: int = 0) -> dict:
         base = torch.randn(n_pad, generator=gen, device=device)  # the padding holds garbage
         base[::97] = 0.0  # zeros count as negative
         base[:3] = torch.tensor([1e-40, -1e-45, 0.0])  # subnormals survive
+        for policy in ScalePolicy:  # the scale pass, twice, against its twin
+            got = [CC.frame_scale_kernel(base, n, policy) for _ in range(2)]
+            want = CC.frame_scale_plain(base, n, policy)
+            _sync(device)
+            m = _bitdiff(got[0], want) + _bitdiff(got[1], want)
+            note("frame_scale", m, _maxerr(got[0], want))
+            print(f"[5] scale pass n={n} {policy.name}: {float(want):.6g}, mismatches {m}")
         cases = [(p.name, p, None) for p in ScalePolicy] + [("scale=0", ScalePolicy.POW2_RMS, 0.0)]
         for label, policy, fixed in cases:
             r_k, r_p = base.clone(), base.clone()
@@ -892,23 +908,24 @@ def big_index_check(device, n_pad: int = BIG_PAD, chunk: int = 2**26, seed: int 
 def scalar_bytes(n: int, k: int = 1) -> dict:
     """Bytes each kernel must move at ``n`` padded elements: C reads and
     writes the residual and writes the words; D reads the words and reads
-    and writes K arrays; each reads the 4-byte scale."""
-    return {"quantize": 8 * n + n / 8 + 4, "apply_frame_many": 8 * k * n + n / 8 + 4}
+    and writes K arrays; each reads the 4-byte scale; the scale pass reads
+    the residual and writes the scale."""
+    return {"quantize": 8 * n + n / 8 + 4, "apply_frame_many": 8 * k * n + n / 8 + 4, "frame_scale": 4 * n + 4}
 
 
 def codec_bench(device, rate: float, n: int, seconds: float) -> dict:
-    """Phase 6: the bench for both codecs, the launches of C and D in the
-    kernel run, and the device time split of one frame."""
+    """Phase 6: the bench for both codecs, the launches of the scale pass,
+    C and D in the kernel run, and the device time split of one frame."""
     from shared_tensor_tpu_torch import bench
     from shared_tensor_tpu_torch.config import ScalePolicy
     from shared_tensor_tpu_torch.ops import codec_cuda as CC
     from shared_tensor_tpu_torch.ops.codec import compute_scale
     from shared_tensor_tpu_torch.utils.profiling import trace
-    from shared_tensor_tpu_torch.utils.timing import copy_ms, graph_ms, l2_sets
+    from shared_tensor_tpu_torch.utils.timing import copy_ms, event_ms, graph_ms, l2_sets
 
     CC.reset_launches()
     kern = bench.run("kernel", device, n, target_seconds=seconds)
-    launches = {k: CC.LAUNCHES[k] for k in ("quantize", "apply_frame_many")}
+    launches = {k: CC.launches()[k] for k in SCALAR_KERNELS}
     plain = bench.run("plain", device, n, target_seconds=seconds)
     for res in (kern, plain):
         print(json.dumps(res))
@@ -924,6 +941,17 @@ def codec_bench(device, rate: float, n: int, seconds: float) -> dict:
     frame, _ = CC.quantize_kernel(r.clone(), n, pol)
     scale = frame.scale
     iters = 200
+    # the sender's two kernels against their twins at the bench's size
+    r_k, r_p = r.clone(), r.clone()
+    f_k, _ = CC.quantize_kernel(r_k, n, pol)
+    f_p, _ = CC.quantize_plain(r_p, n, pol)
+    _sync(device)
+    check = {"frame_scale": _bitdiff(f_k.scale, f_p.scale),
+             "quantize": _bitdiff(f_k.words, f_p.words) + _bitdiff(r_k, r_p)}
+    print(f"[6] the scale pass and C against their twins at n={n}: mismatches {check}")
+    if any(check.values()):
+        raise AssertionError(f"phase 6: kernel vs plain mismatches: {check}")
+    del r_k, r_p, f_k, f_p
 
     def whole_frame():
         f, _ = CC.quantize_kernel(r, n, pol)
@@ -944,8 +972,12 @@ def codec_bench(device, rate: float, n: int, seconds: float) -> dict:
         arr, f = next(d_turn)
         CC.apply_frame_many_kernel((arr,), f, n)
 
+    s_turn = itertools.cycle(c_sets)
     split = {
-        "scale_ms": graph_ms(lambda: compute_scale(r, n, pol), iters),
+        "frame_scale_ms": graph_ms(lambda: CC.frame_scale_kernel(next(s_turn), n, pol), iters),
+        "frame_scale_ms_hot": graph_ms(lambda: CC.frame_scale_kernel(r, n, pol), iters),
+        "frame_scale_library_ms": graph_ms(lambda: compute_scale(r, n, pol), iters),
+        "frame_scale_plain_ms": event_ms(lambda: CC.frame_scale_plain(r, n, pol), 5, 1),
         "quantize_ms": graph_ms(lambda: CC.quantize_kernel(next(c_turn), n, pol, scale=scale), iters),
         "quantize_ms_hot": graph_ms(lambda: CC.quantize_kernel(r, n, pol, scale=scale), iters),
         "apply_frame_many_ms": graph_ms(d_cold, iters),
@@ -957,10 +989,11 @@ def codec_bench(device, rate: float, n: int, seconds: float) -> dict:
     for k, sets in (("quantize", c_sets), ("apply_frame_many", d_sets)):
         split[f"{k}_sets"] = len(sets)
         split[f"{k}_copy_ms"] = copy_ms(nbytes[k], device, lambda fn: graph_ms(fn, iters), sets=len(sets))
-    del c_sets, d_sets, c_turn, d_turn
+    del c_sets, d_sets, c_turn, d_turn, s_turn
     eager_ms = kern["detail"]["frame_s"] * 1e3
     split["frame_eager_ms"] = eager_ms
-    split["overhead_ms"] = eager_ms - split["scale_ms"] - split["quantize_ms_hot"] - split["apply_frame_many_ms_hot"]
+    split["overhead_ms"] = (eager_ms - split["frame_scale_ms_hot"] - split["quantize_ms_hot"]
+                            - split["apply_frame_many_ms_hot"])
     for k, b in scalar_bytes(n).items():
         split[f"{k}_bound_ms"] = b / rate * 1e3
 
@@ -990,7 +1023,7 @@ def codec_bench(device, rate: float, n: int, seconds: float) -> dict:
               f"{e.count / frames:.2f} launches/frame")
     print(f"[6] frame split at n={n} (ms): " + ", ".join(f"{k} {v:.6f}" if v is not None else f"{k} not measured"
                                                        for k, v in split.items()))
-    return {"bench": {"kernel": kern, "plain": plain}, "launches": launches, "split": split}
+    return {"bench": {"kernel": kern, "plain": plain}, "launches": launches, "split": split, "check": check}
 
 
 # -- phase 7 --------------------------------------------------------------------
@@ -1002,6 +1035,7 @@ def sweep(device, rate: float, log2s=SWEEP_LOG2, seconds: float = SWEEP_SECONDS)
     from shared_tensor_tpu_torch.benchmarks import pareto
     from shared_tensor_tpu_torch.config import ScalePolicy
     from shared_tensor_tpu_torch.ops import codec_cuda as CC
+    from shared_tensor_tpu_torch.ops.codec import compute_scale
     from shared_tensor_tpu_torch.utils.timing import copy_ms, event_ms
 
     rows = []
@@ -1016,7 +1050,7 @@ def sweep(device, rate: float, log2s=SWEEP_LOG2, seconds: float = SWEEP_SECONDS)
             raise AssertionError(f"RMS decay {row['rms_decay_per_frame']} at 2^{log2n} is outside 0.45-0.55")
         rows.append(row)
         torch.cuda.empty_cache()
-    launches = {k: CC.LAUNCHES[k] for k in ("quantize", "apply_frame_many")}
+    launches = {k: CC.launches()[k] for k in SCALAR_KERNELS}
     print(f"[7] launches in the sweep: {launches}")
 
     n = 1 << log2s[-1]
@@ -1026,7 +1060,23 @@ def sweep(device, rate: float, log2s=SWEEP_LOG2, seconds: float = SWEEP_SECONDS)
     events = lambda fn: event_ms(fn, 10)
     big = {"n": n, "quantize_ms": events(lambda: CC.quantize_kernel(r, n, scale=frame.scale)),
            "quantize_bound_ms": scalar_bytes(n)["quantize"] / rate * 1e3}
-    del r
+    # the scale pass on the residual C left, against its twin and the torch chain
+    got = [CC.frame_scale_kernel(r, n, ScalePolicy.POW2_RMS) for _ in range(2)]
+    t0 = time.perf_counter()
+    want = CC.frame_scale_plain(r, n, ScalePolicy.POW2_RMS)
+    _sync(device)
+    big.update(frame_scale_plain_ms=(time.perf_counter() - t0) * 1e3,
+               frame_scale_mismatches=_bitdiff(got[0], want) + _bitdiff(got[1], want),
+               frame_scale_max_abs_err=_maxerr(got[0], want),
+               frame_scale_ms=events(lambda: CC.frame_scale_kernel(r, n, ScalePolicy.POW2_RMS)),
+               frame_scale_bound_ms=scalar_bytes(n)["frame_scale"] / rate * 1e3,
+               frame_scale_library_ms=events(lambda: compute_scale(r, n, ScalePolicy.POW2_RMS)))
+    print(f"[7] scale pass at n=2^{log2s[-1]}: {big['frame_scale_ms']:.4f} ms (bound "
+          f"{big['frame_scale_bound_ms']:.4f}), the torch chain {big['frame_scale_library_ms']:.4f}, its twin "
+          f"{big['frame_scale_plain_ms']:.1f} ms (host clock), mismatches {big['frame_scale_mismatches']}")
+    if big["frame_scale_mismatches"]:
+        raise AssertionError(f"phase 7: the scale pass disagrees with its twin at 2^{log2s[-1]}")
+    del r, got, want
     for k in D_TARGETS:
         vs = [torch.zeros(n, device=device) for _ in range(k)]
         nbytes = scalar_bytes(n, k)["apply_frame_many"]
@@ -2174,6 +2224,28 @@ def _rel_err(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.abs(a - b).max()) / mag if mag > 0 else float(np.abs(a - b).max())
 
 
+def _record_messages(sub, spec) -> list:
+    """Log (monotonic ns, kind, seq, origin stamp) of every data message
+    and FRESH mark the subscriber ``sub`` handles, by wrapping its handler
+    on the instance (``del sub._on_message`` undoes it). Returns the log."""
+    from shared_tensor_tpu_torch.comm import wire
+
+    log, handle = [], sub._on_message
+
+    def on_message(link, payload):
+        kind = payload[0]
+        if kind in (wire.DATA, wire.BURST, wire.RDATA):
+            trace = wire.decode_rdata(payload, spec)[4] if kind == wire.RDATA else wire.data_trace(payload, spec)
+            log.append((time.monotonic_ns(), "data", wire.data_seq(payload), None if trace is None else trace[1]))
+        elif kind == wire.FRESH:
+            stamp, last_seq = wire.decode_fresh(payload)
+            log.append((time.monotonic_ns(), "fresh", last_seq, stamp))
+        return handle(link, payload)
+
+    sub._on_message = on_message
+    return log
+
+
 def serve_tree(cfg_m, device, seed: int, deadline_s: float = 30.0) -> tuple[dict, tuple]:
     """Phase 13 (module docstring) on the table of the char-RNN ``cfg_m``
     (benchmarks/serve.tables' data): the tree, the writes, the reads, the handle and
@@ -2248,6 +2320,7 @@ def serve_tree(cfg_m, device, seed: int, deadline_s: float = 30.0) -> tuple[dict
         ep1 = serve.epoch()
         for sub in subs:
             sub.wait_fresh(ep1, timeout=deadline_s)
+        s1_log = _record_messages(s1, spec)
         master.add(deltas[0])
         t_add = time.perf_counter()
         ep = serve.epoch()
@@ -2255,6 +2328,8 @@ def serve_tree(cfg_m, device, seed: int, deadline_s: float = 30.0) -> tuple[dict
         for name, sub in zip(("s1", "s2"), subs):
             sub.wait_fresh(ep, timeout=deadline_s)
             fresh[name] = {"last_add_to_fresh_s": time.perf_counter() - t_add}
+            if name == "s1":
+                s1_fresh_ns = time.monotonic_ns()
         out["writers_agree_s"], out["writers_err"] = _wait_agree(peers, target, mag, spec, AGREE_REL, deadline_s)
         want = master.st.snapshot_flat().cpu().numpy()
         got1 = s1.read_flat(1.0)[0]
@@ -2275,8 +2350,18 @@ def serve_tree(cfg_m, device, seed: int, deadline_s: float = 30.0) -> tuple[dict
         handle.refresh(1.0)
         out["refresh_ms"] = 1e3 * (time.perf_counter() - t1)
         p1 = handle.params()
-        if p1 is not handle.params() or handle.refresh(1.0) or handle.params() is not p1:
-            raise AssertionError("phase 13: params() changed between refreshes of an unchanged state")
+        swapped = p1 is not handle.params() or handle.refresh(1.0) or handle.params() is not p1
+        # every message S1 handled after its wait_fresh(ep) returned: which
+        # frame (seq, the origin stamp it carries) and FRESH mark came late
+        out["s1_after_fresh"] = [{"after_s": (t - s1_fresh_ns) / 1e9, "kind": kind, "seq": seq,
+                                  "stamp_minus_epoch_s": None if stamp is None else (stamp - ep) / 1e9}
+                                 for t, kind, seq, stamp in list(s1_log) if t > s1_fresh_ns]
+        del s1._on_message  # back to the class's handler
+        print(f"[13] S1 handled {len(out['s1_after_fresh'])} messages after its wait_fresh returned: "
+              f"{out['s1_after_fresh'][:6]}")
+        if swapped:
+            raise AssertionError(f"phase 13: params() changed between refreshes of an unchanged state; S1's "
+                                 f"messages after its wait_fresh: {out['s1_after_fresh']}")
         on_card = all(x.device.type == torch.device(device).type for x in tree_flatten(p1)[0])
         data = m.encode_corpus(PANGRAM, cfg_m.vocab, device=device)
         x, y = m.make_batches(data, SERVE_BATCH, CHAR_SEQ, torch.Generator().manual_seed(seed + 13))
@@ -4063,6 +4148,9 @@ SOURCES = {
     "apply_rows_batch": ("shared_tensor_tpu_torch/csrc/apply_rows.cu", "shared_tensor_tpu/ops/codec_pallas.py:337"),
     "quantize": ("shared_tensor_tpu_torch/csrc/quantize.cu", "shared_tensor_tpu/ops/codec_pallas.py:160"),
     "apply_frame_many": ("shared_tensor_tpu_torch/csrc/apply_frame.cu", "shared_tensor_tpu/ops/codec_pallas.py:216"),
+    # the scale JAX computes in XLA before kernel C's Pallas call
+    "frame_scale": ("shared_tensor_tpu_torch/csrc/frame_scale.cu",
+                    "shared_tensor_tpu/ops/codec.py:67 via shared_tensor_tpu/ops/codec_pallas.py:174"),
     # no TPU kernel: the native engine's C pass (stc_quantize_ef_cascade)
     "quantize_rows_cascade": ("shared_tensor_tpu_torch/csrc/quantize_rows_cascade.cu", "native/stcodec.c:2088"),
     # no TPU kernel: the engine's scales_from_partials and its cascade round (stengine.cpp:1200-1309)
@@ -4371,11 +4459,13 @@ def main() -> int:
     if not all(bench["launches"].values()):
         raise AssertionError(f"a kernel of the bench never launched: {bench['launches']}")
     sp = bench["split"]
-    for k in ("quantize", "apply_frame_many"):
+    for k in SCALAR_KERNELS:
         t[k] = {"ms": sp[f"{k}_ms"], "plain_ms": sp[f"{k}_plain_ms"], "bound_ms": sp[f"{k}_bound_ms"],
                 "shape": f"n={1 << 20} K=1" if k == "apply_frame_many" else f"n={1 << 20}"}
     for k in ("quantize", "apply_frame_many"):
         t[k].update({x: sp[f"{k}_{x}"] for x in ("copy_ms", "ms_hot", "sets")})
+    t["frame_scale"].update(ms_hot=sp["frame_scale_ms_hot"], sets=sp["quantize_sets"],
+                            library_ms=sp["frame_scale_library_ms"])
     clock.lap("6")
 
     # 7. the config-5 sweep up to 2^30
@@ -4384,6 +4474,12 @@ def main() -> int:
         raise AssertionError(f"a kernel of the sweep never launched: {sw['launches']}")
     t["quantize"]["ms_2e30"] = sw["big"]["quantize_ms"]
     t["quantize"]["bound_ms_2e30"] = sw["big"]["quantize_bound_ms"]
+    t["frame_scale"].update({f"{x}_2e30": sw["big"][f"frame_scale_{x}"]
+                             for x in ("ms", "bound_ms", "library_ms", "plain_ms")})
+    t["frame_scale"]["launches_sweep"] = sw["launches"]["frame_scale"]
+    parity["frame_scale"]["mismatches"] += sw["big"]["frame_scale_mismatches"]
+    parity["frame_scale"]["max_abs_err"] = max(parity["frame_scale"]["max_abs_err"],
+                                               sw["big"]["frame_scale_max_abs_err"])
     for k in D_TARGETS:
         d = sw["big"][f"apply_frame_many_k{k}"]
         suffix = "_2e30" if k == 1 else f"_2e30_k{k}"

@@ -98,6 +98,7 @@ from .ops.table import (
     unflatten,
 )
 from .utils import locktrace
+from .utils.timing import no_collection
 
 
 class DuplicateLink(ValueError):
@@ -193,10 +194,14 @@ class _BurstGraph:
     stacked frame as fresh tensors, since the next replay overwrites the
     graph's own outputs. The capture runs on ``stream`` in
     thread-local mode, so other threads (other nodes of the process) may
-    keep using the device meanwhile; it is preceded by one eager burst on a
-    copy of the residual, which loads the kernel and the layout constants
-    (a capture may not). ``tally`` holds the kernel launches the capture
-    recorded, which every replay adds to ``codec_cuda``'s launch counts."""
+    keep using the device meanwhile, and with the garbage collector held
+    off (:func:`.utils.timing.no_collection`): a collection inside it would
+    run, in this thread, the finalizers of CUDA objects of earlier work,
+    and one of those invalidates the capture. It is preceded by one eager
+    burst on a copy of the residual, which loads the kernel and the layout
+    constants (a capture may not). ``tally`` holds the kernel launches the
+    capture recorded, which every replay adds to ``codec_cuda``'s launch
+    counts."""
 
     def __init__(self, resid: torch.Tensor, spec: TableSpec, k: int, cascade: int, codec: CodecConfig, stream):
         self.resid = resid
@@ -206,7 +211,7 @@ class _BurstGraph:
         burst(resid.clone())
         self.graph = torch.cuda.CUDAGraph()
         stream.wait_stream(torch.cuda.current_stream(resid.device))
-        with torch.cuda.stream(stream), codec_cuda.capture_tally() as self.tally:
+        with no_collection(), torch.cuda.stream(stream), codec_cuda.capture_tally() as self.tally:
             self.graph.capture_begin(capture_error_mode="thread_local")
             try:
                 self.out = burst(resid)

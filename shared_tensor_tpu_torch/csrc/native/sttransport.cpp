@@ -860,6 +860,13 @@ struct Link {
   int fd = -1;  // stripe 0's fd (kept for the pre-stripe call sites)
   int32_t is_uplink = 0;
   std::atomic<bool> alive{true};
+  // Set once, under Node::ev_mu, in the critical section that queues the
+  // link's LINK_UP (Node::emit): st_node_links and st_node_uplink list only
+  // announced links, so a caller that sees a link there finds its LINK_UP
+  // queued. make_link publishes the link in Node::links before it starts
+  // the stripe's threads and queues the event; Node::mu and Node::ev_mu stay
+  // unnested leaves.
+  std::atomic<bool> announced{false};
   // r11 striping: up to kMaxStripes sockets carry this ONE logical link.
   // stripe_fd[0] == fd; each ATTACHED stripe runs its own sender+receiver
   // thread pair (the last of a stripe's two threads closes that stripe's
@@ -1022,12 +1029,15 @@ struct Node {
     data_cv.notify_all();
   }
 
-  void emit(int32_t kind, int32_t link_id, int32_t is_uplink)
-      ST_EXCLUDES(ev_mu) {
+  // `announce`: the link whose LINK_UP this is, marked announced in the
+  // same critical section that queues the event.
+  void emit(int32_t kind, int32_t link_id, int32_t is_uplink,
+            Link* announce = nullptr) ST_EXCLUDES(ev_mu) {
     // membership events double as timeline events (codes 1..4 == kinds)
     st_obs_emit(obs_id, (uint32_t)kind, link_id, (uint64_t)is_uplink);
     StLockGuard lk(ev_mu);
     events.push_back({kind, link_id, is_uplink});
+    if (announce) announce->announced.store(true, std::memory_order_release);
     ev_cv.notify_all();
   }
 };
@@ -1201,7 +1211,7 @@ std::shared_ptr<Link> make_link(Node* node, int fd, int32_t is_uplink,
     if (is_uplink) node->uplink_id = link->id;
   }
   attach_stripe(node, link, 0, fd);
-  node->emit(1, link->id, is_uplink);
+  node->emit(1, link->id, is_uplink, link.get());
   return link;
 }
 
@@ -3320,7 +3330,8 @@ int32_t st_node_links(void* h, int32_t* out, int32_t cap) {
   int32_t n = 0;
   for (auto& kv : node->links) {
     if (n >= cap) break;
-    out[n++] = kv.first;
+    // a link shows once its LINK_UP is queued (Link::announced)
+    if (kv.second->announced.load(std::memory_order_acquire)) out[n++] = kv.first;
   }
   return n;
 }
@@ -3328,6 +3339,10 @@ int32_t st_node_links(void* h, int32_t* out, int32_t cap) {
 int32_t st_node_uplink(void* h) {
   auto* node = (Node*)h;
   StLockGuard lk(node->mu);
+  auto it = node->links.find(node->uplink_id);
+  if (it == node->links.end() ||
+      !it->second->announced.load(std::memory_order_acquire))
+    return -1;
   return node->uplink_id;
 }
 

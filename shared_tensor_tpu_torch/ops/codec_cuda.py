@@ -13,7 +13,13 @@ The counterpart of every TPU kernel in ``shared_tensor_tpu/ops/codec_pallas.py``
   masked, then added to N arrays clamped to +/-SAT, in place.
 - kernel C, :func:`quantize` (``csrc/quantize.cu``) replaces
   ``codec_pallas.quantize`` / ``_quantize_kernel``: A with one scalar scale
-  (from :func:`..codec.compute_scale`, on the device) and a flat live count.
+  and a flat live count, in kernel D's shape (a warp for two 128-element rows,
+  16-byte lanes, each row's words from four ballots). Without a scale it runs
+  first the scale pass :func:`frame_scale_kernel` (``csrc/frame_scale.cu``),
+  which replaces the scale JAX computes in XLA before the Pallas kernel
+  (``codec.compute_scale``): max |r|, sum r^2 and sum |r| over the whole
+  padded buffer in one pass, in a fixed order, then the host tier's rule
+  (``codec_np.compute_scales_np``), all on the device.
 - kernel D, :func:`apply_frame_many` / :func:`apply_frame`
   (``csrc/apply_frame.cu``) replace ``codec_pallas.apply_frame_many`` /
   ``apply_frame`` / ``_apply_kernel``: one scalar-scale frame into K arrays,
@@ -48,8 +54,9 @@ Pallas kernel wanted them row-major for its block specs.
 Dispatch: each wrapper runs the kernel for CUDA tensors and the plain
 version for CPU tensors, and nothing else: there is no fallback from a CUDA
 tensor to the plain path. ``LAUNCHES`` counts the launches of A-D and
-``ENGINE_LAUNCHES`` those of A-cascade and the finish kernel (not plain
-calls). A launch that a wrapper makes while its thread captures a CUDA
+``ENGINE_LAUNCHES`` those of the kernels that port no TPU kernel:
+A-cascade, the finish kernel and the scale pass, two a call; plain calls
+count nothing. A launch that a wrapper makes while its thread captures a CUDA
 graph (:func:`capture_tally`) does not run then: it goes to the capture's
 tally, and every replay of the graph adds that tally (:func:`count_replay`).
 
@@ -96,10 +103,11 @@ import weakref
 from pathlib import Path
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from ..config import ScalePolicy
-from .codec import CASCADE_MAX_LEVELS, SAT, Frame, compute_scale
+from .codec import CASCADE_MAX_LEVELS, SAT, Frame
 from .packing import BITS_PER_WORD, LANES, pack_bits, unpack_bits
 
 WORDS_PER_ROW = 4
@@ -117,8 +125,10 @@ SOURCES = {
     "apply_frame_many": "apply_frame.cu",
     "quantize_rows_cascade": "quantize_rows_cascade.cu",
     "cascade_round": "cascade_round.cu",
+    "frame_scale": "frame_scale.cu",
 }
-#: The kernels that port a TPU kernel (A-D); the others port the engine's C passes.
+#: The kernels that port a TPU kernel (A-D); the others port the engine's C
+#: passes and the scale that JAX computes in XLA before kernel C.
 TPU_KERNELS = ("quantize_rows", "apply_rows_batch", "quantize", "apply_frame_many")
 #: Host helpers built like the kernels; they launch nothing.
 HELPERS = {"stream": "stream.cu"}
@@ -129,7 +139,7 @@ NVCC_FLAGS = (
 )
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`: A-D
-#: here, A-cascade and the finish kernel in ``ENGINE_LAUNCHES``.
+#: here, A-cascade, the finish kernel and the scale pass in ``ENGINE_LAUNCHES``.
 LAUNCHES = {name: 0 for name in TPU_KERNELS}
 ENGINE_LAUNCHES = {name: 0 for name in SOURCES if name not in TPU_KERNELS}
 
@@ -155,14 +165,14 @@ def _counts(name: str) -> dict[str, int]:
 _TALLY = threading.local()
 
 
-def _count(name: str) -> None:
-    """One launch of kernel ``name``; while this thread captures a CUDA
-    graph under :func:`capture_tally`, the capture's tally takes it."""
+def _count(name: str, launches: int = 1) -> None:
+    """``launches`` launches of kernel ``name``; while this thread captures
+    a CUDA graph under :func:`capture_tally`, the capture's tally takes them."""
     tally = getattr(_TALLY, "tally", None)
     if tally is None:
-        _counts(name)[name] += 1
+        _counts(name)[name] += launches
     else:
-        tally[name] = tally.get(name, 0) + 1
+        tally[name] = tally.get(name, 0) + launches
 
 
 @contextlib.contextmanager
@@ -247,6 +257,8 @@ _ARGTYPES = {
     "apply_rows_batch": ("st_apply_rows_batch", [_VP, _VP, _VP, _PP, _I32, _I32, _I64, _VP]),
     # scale, resid, words, n_live, n_pad, stream
     "quantize": ("st_quantize", [_VP, _VP, _VP, _I64, _I64, _VP]),
+    # resid, n_pad, n_live, policy, partials (f64), slots, scale, stream
+    "frame_scale": ("st_frame_scale", [_VP, _I64, _I64, _I32, _VP, _I32, _VP, _VP]),
     # scale, words, targets (host array), n_targets <= 8, n_live, n_pad, stream
     "apply_frame_many": ("st_apply_frame_many", [_VP, _VP, _PP, _I32, _I64, _I64, _VP]),
     # top, row_leaf (int64), rowcount, state (j0, kc on the device), resid, words, scales,
@@ -330,7 +342,8 @@ def check_distinct(arrays: Sequence[torch.Tensor]) -> None:
 
 def check_aligned(tensors: Sequence[torch.Tensor], what: str) -> None:
     """Raise ``ValueError`` unless every tensor starts on a 16-byte boundary:
-    kernels B and D move each lane's 4 elements as one 16-byte access."""
+    kernels B, C and D and the scale pass move each lane's 4 elements as one
+    16-byte access."""
     for i, t in enumerate(tensors):
         if t.data_ptr() % LANE_BYTES:
             raise ValueError(
@@ -1002,6 +1015,112 @@ def _check_apply_frame(arrays, frame: Frame, n) -> tuple[int, int]:
     return n, n_pad
 
 
+# -- the scale pass: frame_scale ---------------------------------------------------
+
+#: The scale pass's threads a block and blocks at most (``csrc/frame_scale.cu``):
+#: they fix its order, which the plain twin repeats.
+SCALE_THREADS = 512
+SCALE_BLOCKS = 264
+
+
+def scale_slots(n_pad: int) -> int:
+    """The scale pass's partial slots (its first launch's blocks) for
+    ``n_pad`` elements."""
+    return min(-(-(n_pad // 4) // SCALE_THREADS), SCALE_BLOCKS)
+
+
+def _check_scale(residual, n, policy) -> tuple[int, int]:
+    n_pad = _check_flat(residual, "residual")
+    if policy not in POLICY_CODES:
+        raise ValueError(f"unknown scale policy {policy!r}")
+    return _check_live(n, n_pad), n_pad
+
+
+def _halve(acc, lanes: int):
+    """A shuffle tree's sums over the last axis (``lanes``, a power of two)
+    of ``acc`` (a tensor or a numpy array): lane i adds lane i + h for
+    h = lanes / 2, ..., 1. Returns what lane 0 holds."""
+    h = lanes // 2
+    while h:
+        acc = acc[..., :h] + acc[..., h : 2 * h]
+        h //= 2
+    return acc[..., 0]
+
+
+def frame_scale_plain(residual: torch.Tensor, n: int, policy: ScalePolicy = ScalePolicy.POW2_RMS) -> torch.Tensor:
+    """Plain twin of the scale pass: the frame's scale (0-d f32) from the
+    whole padded ``residual`` and the live count ``n``, in the kernel's
+    order and arithmetic, so the bits are the kernel's on any device: each
+    thread's units in turn (x, y, z, w each), its warp's tree, the block's
+    tree over its 16 warps, then the finish warp (lane i over slots i,
+    i + 32, ... in turn, then its tree); then the rule of
+    ``codec_np.compute_scales_np``. Max |r| only decides whether the scale
+    is 0, and a max is exact in any order, so it is one reduction here. A
+    CPU residual is reduced through numpy: the same IEEE double arithmetic,
+    at a fraction of torch's cost a call on the tree's small arrays."""
+    n, n_pad = _check_scale(residual, n, policy)
+    cpu = residual.device.type == "cpu"
+    slots = scale_slots(n_pad)
+    threads = slots * SCALE_THREADS
+    k = -(-(n_pad // 4) // threads)
+    x = residual.numpy() if cpu else residual
+    live = bool((abs(x) > 0).any()) if cpu else (x.abs() > 0).any()  # max |r| > 0: a NaN never wins a max
+    d = x.astype(np.float64) if cpu else x.to(torch.float64)
+    tail = k * threads * 4 - n_pad
+    if tail:  # zeros past the buffer add nothing, as in the kernel
+        d = np.concatenate([d, np.zeros(tail)]) if cpu else torch.cat([d, d.new_zeros(tail)])
+    # each thread's units in turn, each unit's components in order
+    d = d.reshape(k, threads, 4)
+    ss, sabs = d[0, :, 0] * d[0, :, 0], abs(d[0, :, 0])
+    for i in range(1, 4 * k):
+        v = d[i // 4, :, i % 4]
+        ss, sabs = ss + v * v, sabs + abs(v)
+    acc = (np.stack if cpu else torch.stack)([ss, sabs])
+    acc = _halve(acc.reshape(2, slots, SCALE_THREADS // BITS_PER_WORD, BITS_PER_WORD), BITS_PER_WORD)
+    # warp 0 over the block's warps (lanes past them hold 0, which adds nothing)
+    acc = _halve(acc, SCALE_THREADS // BITS_PER_WORD)
+    # the finish warp: lane i takes slots i, i + 32, ... in turn
+    width = -(-slots // BITS_PER_WORD) * BITS_PER_WORD
+    cols = np.zeros((2, width)) if cpu else acc.new_zeros((2, width))
+    cols[:, :slots] = acc
+    cols = cols.reshape(2, -1, BITS_PER_WORD)
+    lane = cols[:, 0]
+    for m in range(1, cols.shape[1]):
+        lane = lane + cols[:, m]
+    ss, sabs = _halve(lane, BITS_PER_WORD)
+    if cpu:
+        s = np.float32(sabs / n if policy == ScalePolicy.ABS_MEAN else np.sqrt(ss / n))
+        if policy == ScalePolicy.POW2_RMS:
+            s = (s.view(np.uint32) & np.uint32(0x7F800000)).view(np.float32)
+        return torch.tensor(s if live and np.isfinite(s) else np.float32(0.0))
+    s = (sabs / n if policy == ScalePolicy.ABS_MEAN else torch.sqrt(ss / n)).to(torch.float32)
+    if policy == ScalePolicy.POW2_RMS:
+        s = (s.view(torch.int32) & 0x7F800000).view(torch.float32)
+    return torch.where(live & torch.isfinite(s), s, torch.zeros_like(s))
+
+
+def frame_scale_kernel(residual: torch.Tensor, n: int, policy: ScalePolicy = ScalePolicy.POW2_RMS) -> torch.Tensor:
+    """The scale pass on the GPU: two launches (the partials into a
+    workspace of f64[3, :func:`scale_slots`], then the finish warp), both
+    counted; the scale (0-d f32) stays on the device.
+    Raises for a residual that is not on a GPU or not 16-byte aligned."""
+    if not isinstance(residual, torch.Tensor) or residual.device.type != "cuda":
+        raise ValueError("frame_scale kernel needs a CUDA residual")
+    n, n_pad = _check_scale(residual, n, policy)
+    check_aligned([residual], "residual")
+    slots = scale_slots(n_pad)
+    partials = torch.empty((3, slots), dtype=torch.float64, device=residual.device)
+    scale = torch.empty((), dtype=torch.float32, device=residual.device)
+    fn = _fn("frame_scale")
+    with torch.cuda.device(residual.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(residual.data_ptr(), n_pad, n, POLICY_CODES[policy], partials.data_ptr(), slots,
+                 scale.data_ptr(), stream)
+    _check_launch("frame_scale", err)
+    _count("frame_scale", 2)
+    return scale
+
+
 # -- kernel C: quantize ------------------------------------------------------------
 
 
@@ -1013,10 +1132,11 @@ def quantize_plain(
 ) -> tuple[Frame, torch.Tensor]:
     """Plain PyTorch version of kernel C. Returns ``(Frame, residual)``
     with ``residual`` updated in place; ``scale`` (a 0-d f32 tensor)
-    defaults to ``compute_scale(residual, n, policy)``."""
+    defaults to the scale pass's twin, ``frame_scale_plain(residual, n,
+    policy)``."""
     n, n_pad = _check_quantize_flat(residual, n, scale)
     if scale is None:
-        scale = compute_scale(residual, n, policy)
+        scale = frame_scale_plain(residual, n, policy)
     live = torch.arange(n_pad, device=residual.device) < n
     neg = residual <= 0.0  # zero counts as negative
     words = pack_bits(live & neg)
@@ -1032,15 +1152,17 @@ def quantize_kernel(
     policy: ScalePolicy = ScalePolicy.POW2_RMS,
     scale: torch.Tensor | None = None,
 ) -> tuple[Frame, torch.Tensor]:
-    """Kernel C on the GPU: the scale in plain torch on the device (as JAX
-    computes it in XLA outside the Pallas kernel), then one launch. Returns
-    ``(Frame, residual)`` with ``residual`` updated in place. Raises for
-    tensors that are not on a GPU."""
+    """Kernel C on the GPU: without ``scale``, the scale pass first
+    (:func:`frame_scale_kernel`, where JAX computes the scale in XLA outside
+    the Pallas kernel), then one launch; nothing waits for the device.
+    Returns ``(Frame, residual)`` with ``residual`` updated in place. Raises
+    for tensors that are not on a GPU or a residual off a 16-byte boundary."""
     if not isinstance(residual, torch.Tensor) or residual.device.type != "cuda":
         raise ValueError("quantize kernel needs a CUDA residual")
     n, n_pad = _check_quantize_flat(residual, n, scale)
+    check_aligned([residual], "residual")
     if scale is None:
-        scale = compute_scale(residual, n, policy)
+        scale = frame_scale_kernel(residual, n, policy)
     words = torch.empty(n_pad // BITS_PER_WORD, dtype=torch.int32, device=residual.device)
     fn = _fn("quantize")
     with torch.cuda.device(residual.device):

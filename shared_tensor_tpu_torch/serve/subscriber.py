@@ -511,7 +511,10 @@ class Subscriber:
                 self._m_fresh.inc()
                 self._pub.touch(self._fresh_ns)
                 self._ready.set()
-            return True
+            # the state did not move: touch() advanced its verified age, and
+            # no new version goes out (a ServingHandle would swap in the same
+            # values at every idle mark)
+            return False
         if kind == wire.REJECT:
             self._error = ConnectionError(f"parent rejected subscription: {wire.decode_reject(payload)}")
             self._ready.set()

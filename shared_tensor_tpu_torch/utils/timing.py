@@ -134,7 +134,8 @@ def no_collection() -> Iterator[None]:
     """No garbage collection inside the block (a capture): a finalizer the
     collector runs in the capturing thread, freeing a CUDA object of work
     done before, invalidates the capture (phase 22a of ``chip_smoke.py``
-    died so twice with no other thread alive)."""
+    died so twice with no other thread alive, and phase 22b once, in a
+    link's burst graph, ``core._BurstGraph``)."""
     was = gc.isenabled()
     gc.disable()
     try:

@@ -233,7 +233,7 @@ def test_cascade_wrapper_checks_and_counts():
     # kc 9 at j0 2 of 4 frames: frames 2 and 3, the idle leaf's scale 0
     assert scales[2:, top != 0].ne(0).all() and not scales[2:, top == 0].any() and not scales[:2].any()
     assert words[2:].any() and not words[:2].any()
-    assert CC.ENGINE_LAUNCHES == {"quantize_rows_cascade": 0, "cascade_round": 0}
+    assert CC.ENGINE_LAUNCHES == {"quantize_rows_cascade": 0, "cascade_round": 0, "frame_scale": 0}
     assert CC.launches()["quantize_rows_cascade"] == 0
     state = torch.tensor([0, 1], dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):

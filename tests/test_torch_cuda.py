@@ -276,6 +276,146 @@ def test_scalar_kernels_past_2_gib(cuda_device):
         assert _same_bits(vp, v[lo:hi])
 
 
+#: (rows, live count): inside a float4, inside a word, at a row's edge, at
+#: nothing and at everything, on 1, 2, 8 and 4,099 rows (a count no
+#: block's 8 rows divide)
+_C_EDGES = [(1, 0), (1, 1), (1, 2), (1, 31), (1, 45), (1, 127), (1, 128), (2, 129), (2, 130), (8, 1024),
+            (8, 511), (8, 512), (8, 900), (4099, 4099 * 128), (4099, 4098 * 128), (4099, 4098 * 128 + 66),
+            (4099, 300_007)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [None, 0.37, 2.0**-126, 0.0], ids=["pass", "0.37", "2^-126", "0"])
+@pytest.mark.parametrize("rows,n", _C_EDGES)
+def test_quantize_kernel_on_the_redesigns_edges(cuda_device, rows, n, scale):
+    """Kernel C (a warp a row, 16-byte lanes, a row's words from four
+    ballots) against its plain version, bit for bit, with the live count
+    inside a float4, inside a word and at a row's edge; specials at both
+    ends of the live range; the scale from the scale pass or given (0
+    zeroes the padding all the same)."""
+    n_pad = rows * 128
+    base = _scalar_case(rows + n, n, n_pad)
+    base[:8] = _SPECIALS[:3] + [-2.0] + _SPECIALS[4:]  # no NaN, so the pass's scale is not 0
+    if n >= 16:
+        base[n - 8 : n] = base[:8]
+    r_k = torch.from_numpy(base).to(cuda_device)
+    r_p = r_k.clone()
+    s_k = None if scale is None else torch.tensor(scale, dtype=torch.float32, device=cuda_device)
+    s_p = None if scale is None else s_k.clone()
+    fk, _ = CC.quantize_kernel(r_k, n, scale=s_k)
+    fp, _ = CC.quantize_plain(r_p, n, scale=s_p)
+    torch.cuda.synchronize()
+    assert _same_bits(fk.scale, fp.scale)
+    assert _same_bits(fk.words, fp.words) and _same_bits(r_k, r_p)
+    assert not r_k[n:].any()
+
+
+@pytest.mark.cuda
+def test_quantize_and_scale_raise_on_a_misaligned_residual(cuda_device):
+    """A residual 4 bytes off a 16-byte boundary raises ValueError in C and
+    in the scale pass: no fallback, nothing launched, nothing written."""
+    buf = torch.ones(1024 + 1, device=cuda_device)
+    bad = buf[1:]
+    CC.reset_launches()
+    with pytest.raises(ValueError):
+        CC.quantize_kernel(bad, 1000)
+    with pytest.raises(ValueError):
+        CC.quantize(bad, 1000, scale=torch.tensor(0.5, device=cuda_device))
+    with pytest.raises(ValueError):
+        CC.frame_scale_kernel(bad, 1000)
+    assert CC.launches()["quantize"] == 0 and CC.launches()["frame_scale"] == 0
+    assert bool((buf == 1).all())
+
+
+def _scale_case(seed, n_pad, kind):
+    rng = np.random.default_rng(seed)
+    r = rng.normal(size=n_pad).astype(np.float32)
+    if kind == "wide":  # magnitudes over the whole f32 range, subnormals to 3e38
+        r *= (10.0 ** rng.uniform(-44, 37, n_pad)).astype(np.float32)
+    elif kind == "zero":
+        r[:] = 0.0
+    elif kind == "inf_padding":
+        r[-5:] = np.inf
+    elif kind == "subnormal":
+        r *= np.float32(1e-39)
+    return r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["POW2_RMS", "RMS", "ABS_MEAN"])
+@pytest.mark.parametrize("n_pad,kind", [(128, "normal"), (1024, "normal"), (1024, "zero"), (1024, "inf_padding"),
+                                        (4096, "subnormal"), (540_672, "normal"), (540_800, "wide"),
+                                        (2**20 + 1024, "normal"), (2**24 + 1024, "wide")])
+def test_frame_scale_kernel_is_its_twin_bit_for_bit(cuda_device, n_pad, kind, policy):
+    """The scale pass against its plain twin on the same device, bit for bit,
+    for every policy, at sizes from one row to past one pass of its grid
+    (540,672 elements: 264 blocks x 512 threads x a float4) with a ragged
+    last pass; and the same bits on a second run."""
+    from shared_tensor_tpu_torch.config import ScalePolicy
+
+    pol = ScalePolicy[policy]
+    n = n_pad - 77 if n_pad > 128 else 100
+    r = torch.from_numpy(_scale_case(n_pad, n_pad, kind)).to(cuda_device)
+    before = r.clone()
+    got = [CC.frame_scale_kernel(r, n, pol) for _ in range(2)]
+    want = CC.frame_scale_plain(r, n, pol)
+    torch.cuda.synchronize()
+    assert _same_bits(got[0], want) and _same_bits(got[1], want)
+    assert _same_bits(r, before)  # it only reads
+    if kind in ("zero", "inf_padding"):
+        assert float(want) == 0.0
+    elif kind != "subnormal" or pol != ScalePolicy.POW2_RMS:
+        assert float(want) > 0.0
+
+
+@pytest.mark.cuda
+def test_frame_scale_past_2_gib(cuda_device):
+    """The scale pass over 2^29 + 1024 elements (byte offsets past 2^31)
+    against its twin, bit for bit, for every policy."""
+    from shared_tensor_tpu_torch.config import ScalePolicy
+
+    n_pad = 2**29 + 1024
+    free, _ = torch.cuda.mem_get_info(cuda_device)
+    if free < 6 * n_pad * 4:
+        pytest.skip(f"needs {6 * n_pad * 4 / 2**30:.0f} GiB free on the GPU, has {free / 2**30:.0f}")
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    r = torch.randn(n_pad, generator=gen, device=cuda_device)
+    r[-1024:] = 0.0
+    r[-1025] = 40.0  # the largest |r| lies past 2 GiB
+    for pol in ScalePolicy:
+        k = CC.frame_scale_kernel(r, n_pad - 1024, pol)
+        p = CC.frame_scale_plain(r, n_pad - 1024, pol)
+        torch.cuda.synchronize()
+        assert _same_bits(k, p), (pol, float(k), float(p))
+
+
+@pytest.mark.cuda
+def test_quantize_without_a_scale_runs_the_pass_and_c_and_no_torch_reduction(cuda_device):
+    """A CUDA quantize with no scale launches the scale pass's two kernels
+    and kernel C (the launch counters), and on the device runs those three,
+    nothing else: no torch reduction, no copy to the host (the profiler's
+    kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 2**20 + 3
+    r = torch.randn(n + 1021, device=cuda_device)
+    CC.quantize(r.clone(), n)  # builds and loads both
+    torch.cuda.synchronize()
+    CC.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        frame, _ = CC.quantize(r, n)
+        torch.cuda.synchronize()
+    assert CC.launches()["frame_scale"] == 2 and CC.launches()["quantize"] == 1
+    assert sum(CC.launches().values()) == 3
+    names = {e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
+    kernels = {k for k in names if "Memcpy" not in k and "Memset" not in k}
+    assert len(kernels) == 3, names
+    assert all(any(s in k for s in ("scale_partials_kernel", "scale_finish_kernel", "quantize_kernel"))
+               for k in kernels), names
+    assert not any("Memcpy" in k or "reduce" in k.lower() for k in names), names
+    assert float(frame.scale) > 0
+
+
 def _begin(st, k, rng):
     # a fresh normal delta first, so none of the K halvings is idle (a delta
     # of ones can leave a residual that one frame zeroes exactly)
@@ -415,6 +555,65 @@ def test_cascade_burst_graph_equals_the_eager_cascade(cuda_device):
         assert st.finish_frame_burst(dev) is not None
         st.ack_frame(1, seq)
         st.add({"w": (rng.normal(size=(300, 70)) * 1e-2).astype(np.float32), "b": np.zeros(5, np.float32)})
+
+
+@pytest.mark.cuda
+def test_a_burst_capture_runs_no_collection_of_earlier_cuda_objects(cuda_device, monkeypatch):
+    """A link's burst-graph capture holds the garbage collector off. A
+    collection inside it would run, in the capturing thread, the finalizers
+    of an earlier node's CUDA objects, and one of them invalidates the
+    capture ("operation failed due to a previous error during capture"),
+    as it did to every capture of a link in one run of ``chip_smoke.py``'s
+    phase 22b. Here an earlier SharedTensor, with its own burst graph and a
+    fetch never finished, becomes cyclic garbage just as the capture
+    begins, with the collector's thresholds at 1: the capture completes, no
+    collection starts inside it, and the burst is the eager one's."""
+    import gc
+
+    from shared_tensor_tpu_torch.ops.table import quantize_table_cascade
+
+    rng = np.random.default_rng(23)
+    tpl = {"w": rng.normal(size=(300, 70)).astype(np.float32)}
+    held = {}
+    collections = []
+
+    def started(phase, info):
+        if phase == "start" and torch.cuda.is_current_stream_capturing():
+            collections.append(info["generation"])
+
+    class Graph(torch.cuda.CUDAGraph):
+        def capture_begin(self, *args, **kwargs):
+            super().capture_begin(*args, **kwargs)
+            held.clear()  # the last outside reference: only its cycle holds the old node now
+            gc.set_threshold(1, 1, 1)
+            [[] for _ in range(1000)]  # enough new containers to start a collection, were it allowed
+
+    thresholds = gc.get_threshold()
+    gc.collect()
+    gc.freeze()  # what the process held so far is never collected, so full collections are due
+    gc.callbacks.append(started)
+    try:
+        old = SharedTensor(tpl, seed_values=True, device=cuda_device, cascade=32)
+        old.new_link(1)
+        old.pending = old.begin_frame_burst_device(1, 8)
+        old.cycle = old
+        held["old"] = old
+        del old
+        st = SharedTensor(tpl, seed_values=True, device=cuda_device, cascade=32)
+        st.new_link(1)
+        ref = st._links[1].clone()
+        want, _ = quantize_table_cascade(ref, st.spec, 8, 32, impl="plain")
+        monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+        seq, dev = st.begin_frame_burst_device(1, 8)
+        torch.cuda.synchronize()
+    finally:
+        gc.set_threshold(*thresholds)
+        gc.callbacks.remove(started)
+        gc.unfreeze()
+    assert collections == []
+    assert _same_bits(dev.scales, want.scales) and _same_bits(dev.words, want.words)
+    assert _same_bits(st._links[1], ref)
+    assert st.finish_frame_burst(dev) is not None
 
 
 def _burst_table(name):

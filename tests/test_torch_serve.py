@@ -305,6 +305,25 @@ def test_serving_handle_hot_swap_identity():
             np.testing.assert_array_equal(p2.numpy(), sub.read(max_staleness=30.0))
 
 
+def test_idle_fresh_marks_leave_the_version_and_the_handle_alone():
+    """A FRESH mark advances the verified instant and nothing else: on an
+    idle tree the snapshot's version stays, and a refresh swaps nothing
+    (params() the same object) however many marks arrive between two
+    refreshes."""
+    port = free_port()
+    n = 256
+    with _writer(port, np.ones(n, np.float32), "device"):
+        with _sub(port, n) as sub:
+            handle = sub.serving_handle(max_staleness=30.0, device="cpu")
+            assert _poll(lambda: handle.refresh() or handle.params() is not None)
+            p1, v1 = handle.params(), sub.version
+            for _ in range(3):  # three more marks, each a newer verified instant
+                f0 = sub._pub.acquire()[1]
+                assert _poll(lambda: sub._pub.acquire()[1] > f0, deadline=20.0)
+            assert sub.version == v1
+            assert not handle.refresh() and handle.params() is p1
+
+
 def test_serving_handle_tree_equals_read():
     """On a table of several leaves the handle's tensors are the template's
     tree, each leaf bit for bit read()'s."""

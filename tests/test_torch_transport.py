@@ -59,6 +59,33 @@ def test_master_election_and_join():
             assert any(e.kind == EventKind.LINK_UP for e in ev)
 
 
+def test_a_listed_link_has_its_link_up_queued():
+    """The moment a link shows in ``links`` (or as ``uplink``), its LINK_UP
+    is already in the queue: a ``poll_events`` with no wait finds it. The
+    acceptor publishes a link before it starts the link's threads and
+    queues the event, so a listing that ran ahead of the queue showed a
+    link with no LINK_UP to poll; checked on 50 joins against one master,
+    each caught by a busy loop on ``links``. Only the links that the join
+    adds are held to it: a node of another process that still re-joins at
+    a rendezvous of this port number may sit below the master too."""
+    port = free_port()
+    with TransportNode("127.0.0.1", port, CFG) as master:
+        seen = set()
+        for _ in range(50):
+            before = set(master.links)
+            with TransportNode("127.0.0.1", port, CFG) as joiner:
+                assert joiner.uplink is not None  # the joiner's own uplink, listed at create
+                up = {e.link_id for e in joiner.poll_events() if e.kind == EventKind.LINK_UP}
+                assert joiner.uplink in up
+                deadline = time.time() + 30.0
+                while not set(master.links) - before and time.time() < deadline:
+                    pass
+                new = set(master.links) - before
+                seen |= {e.link_id for e in master.poll_events() if e.kind == EventKind.LINK_UP}
+                assert new and new <= seen, (new, before, seen)
+            assert _wait(lambda: not new & set(master.links))
+
+
 def test_frame_roundtrip():
     port = free_port()
     with TransportNode("127.0.0.1", port, CFG) as a, TransportNode("127.0.0.1", port, CFG) as b:
