@@ -12,7 +12,10 @@ Phases, in order; any failure exits non-zero:
 2. Kernel vs plain on the card, at the ResNet-18 table shape (87,504 rows,
    partial rows, zero-scale leaves): kernel A (quantize_rows) words and
    residual bit-equal, kernel B (apply_rows_batch) bit-equal for
-   K in {1, 2, 8} and N in {1, 3, 9} (9 targets take two launches).
+   K in {1, 2, 8} and N in {1, 3, 9} (9 targets take two launches); the
+   per-leaf scale pass (leaf_scale) against its plain twin, bit for bit
+   (scales and leaf sums), every policy, per_leaf on and off, the kernel
+   twice, NaN in the dead lanes, and its rule alone on the twin's sums.
 3. Tree drive at full width: three SharedTensors on the GPU in a chain
    master - interior - leaf over the ResNet-18 parameter table (56 leaves,
    11,172,170 elements). The master is seeded; the seed spreads, then each
@@ -31,7 +34,11 @@ Phases, in order; any failure exits non-zero:
    beside it), each beside its bytes bound, the plain version's time and
    copy_ms: a device-to-device copy_ that moves the same bytes over as many
    sets, the card's practical streaming ceiling (not a library call for the
-   same function).
+   same function). The per-leaf scale pass likewise, beside the torch chain
+   it replaced (ops/table.compute_scales, its library time) over as many
+   sets and its twin; then a profiler window of three quantize_table calls
+   at the ResNet-18 table, which must launch the pass's two kernels and A
+   and none of the chain's reductions (segment max, running sum).
 5. Kernel vs plain on the card for the scalar codec: kernel C (quantize,
    with its scale from the scale pass) and kernel D (apply_frame_many) at n
    in {17, 1000, 2^20 + 3, 2^24 + 5}, all three scale policies, garbage in
@@ -87,9 +94,12 @@ Phases, in order; any failure exits non-zero:
    tokens/s, ms per step and its stages (grads, scales, A, collective, B,
    the rest) over the last 10 compressed steps, the loss at the first and
    the last step, the replica spread after 10 sync-only steps, peak device
-   memory and each rank's launches of A and B (one each per sync step);
-   each rank then holds A and B against their plain versions on its
-   trained state (B with K = 4 frames, its own column zeroed, N = 1).
+   memory and each rank's launches of A and B (one each per sync step) and
+   of the per-leaf scale pass (two with every A; three on the 2 x 2 mesh,
+   its rule after the shard group's sum); each rank then holds A, B and
+   the pass against their plain versions on its trained state (B with
+   K = 4 frames, its own column zeroed, N = 1; the pass on its block, whose
+   tile grid on the 2 x 2 mesh's second shard starts 4 rows in).
    Then 2 peers x 2 shards on the same ranks for 10 steps (the shard-group
    reductions on the card). Fails if a rank dies, a launch count is off, a
    kernel disagrees with its plain version or the loss does not fall.
@@ -97,8 +107,9 @@ Phases, in order; any failure exits non-zero:
    classes), 8 ranks on the card (gloo), 8 steps of the compressed arm and
    8 of the exact arm from the same parameters, on synthetic 32x32 images
    and labels from --seed (the repo holds no CIFAR); both arms' losses,
-   ms per step and frame_ici_bytes. Then A and B alone at phase 9's shapes
-   (one rank's block of the char-RNN table), timed as in phase 4.
+   ms per step and frame_ici_bytes. Then A, B and the per-leaf scale pass
+   alone at phase 9's shapes (one rank's block of the char-RNN table),
+   timed as in phase 4.
 11. BASELINE config 2 as two pods of two: ranks 0-1 and 2-3 of the same
    spawn as two (2, 1) meshes, each a HierarchicalTrainer at full width
    (benchmarks/hierarchical.py) whose bridge rank (0 and 2) holds a CUDA
@@ -348,7 +359,7 @@ Phases, in order; any failure exits non-zero:
    four times the L2, beside its bytes bound and copy_ms, the plain twin's
    ms at CASCADE_TIMED_KC; the finish kernel's ms, its bound, its spent
    launch's (a stopped round's, its latency floor), its plain twin's and
-   the torch chain's it replaces (table._table_scales and cascade_ladder);
+   the torch chain's it replaces (table.compute_scales and cascade_ladder);
    and a CASCADE_BURST_K-frame core._BurstGraph: ms of a replay alone and
    the node types of its capture, at most 2K + 2 kernel nodes. Then the
    finish alone at ResNet-18's table (56 leaves, 87,504 rows: finish_check):
@@ -418,7 +429,7 @@ import torch
 
 #: The kernels a CUDA peer launches: A-cascade and its finish kernel for its
 #: bursts (the engine's cascade), A for its single frames, B for every apply.
-PEER_KERNELS = ("quantize_rows", "quantize_rows_cascade", "cascade_round", "apply_rows_batch")
+PEER_KERNELS = ("quantize_rows", "quantize_rows_cascade", "cascade_round", "apply_rows_batch", "leaf_scale")
 #: The kernels a phase of bursting CUDA peers must launch.
 BURST_KERNELS = ("quantize_rows_cascade", "cascade_round", "apply_rows_batch")
 
@@ -434,6 +445,14 @@ B_SHAPES = ((1, 1), (BATCH, 2), (BATCH, 3), (BATCH, 1), (1, 3))  # phase 4: (K, 
 D_TARGETS = (1, 3)  # phase 7: target arrays of D at 2^30
 #: The kernels of the scalar codec's frame (phases 6-7): the scale pass, C, D.
 SCALAR_KERNELS = ("frame_scale", "quantize", "apply_frame_many")
+#: the per-leaf scale pass's launches a launch of A on the pod path: its
+#: partials and its finish; a pod of more than one shard adds the rule alone
+LEAF_PER_A = 2
+#: the kernels of the pod step (phases 9 and 11)
+POD_KERNELS = ("quantize_rows", "apply_rows_batch", "leaf_scale")
+#: kernel names the card's quantize_table must not launch: the torch chain's
+#: reductions, segment max and running sum (phase 4's profiler window)
+CHAIN_KERNELS = ("reduce_kernel", "scatter", "scan", "cumsum")
 MAX_ROUNDS = 400
 WORDS_BYTES = 4 * 4  # packed words per row x bytes per word
 SCALAR_SIZES = (17, 1000, 2**20 + 3, 2**24 + 5)  # phase 5: live counts, padded to 1024
@@ -583,7 +602,43 @@ def kernel_vs_plain(spec, device, rng) -> dict:
             err = max(err, e)
             print(f"[2] B apply_rows_batch K={k} N={n_arr}: mismatches {m}")
     out["apply_rows_batch"] = {"mismatches": mism, "max_abs_err": err}
+    out["leaf_scale"] = leaf_vs_twin(spec, resid, device)
     return out
+
+
+def leaf_vs_twin(spec, resid, device, phase: int = 0, consts=None, tag: str = "2", cases=None) -> dict:
+    """The per-leaf scale pass against its plain twin on ``resid`` (a table
+    of ``spec``, or with ``consts`` = (rowcount, leaf_slots, ns) a pod
+    block whose first row lies ``phase`` rows into its tile), bit for bit:
+    every policy, per_leaf on and off, the kernel twice (a fixed order
+    gives the same bits every run), with NaN in the dead lanes (the pass
+    reads live lanes only); and the rule alone on the twin's sums. ``cases``
+    narrows the (policy, per_leaf) pairs; ``tag`` None prints nothing.
+    Returns {"mismatches", "max_abs_err", "phase"}."""
+    from shared_tensor_tpu_torch.config import ScalePolicy
+    from shared_tensor_tpu_torch.ops import codec_cuda as CC
+    from shared_tensor_tpu_torch.ops import table as TT
+
+    if consts is None:
+        c = TT._cascade_consts(spec, str(torch.device(device)))
+        consts = (TT._consts(spec, str(torch.device(device)))[1], c.leaf_slots, c.ns)
+    rowcount, leaf_slots, ns = consts
+    live = torch.arange(128, device=resid.device)[None, :] < rowcount[:, None]
+    r = torch.where(live.view(-1), resid, torch.full_like(resid, float("nan")))
+    mism, err = 0, 0.0
+    for policy, per_leaf in cases or [(p, pl) for p in ScalePolicy for pl in (True, False)]:
+        got = [CC.leaf_scales_kernel(r, rowcount, leaf_slots, ns, policy, per_leaf, phase) for _ in range(2)]
+        want = CC.leaf_scales_plain(r, rowcount, leaf_slots, ns, policy, per_leaf, phase)
+        rule = CC.leaf_rule_kernel(want[1], ns, policy, per_leaf)
+        _sync(device)
+        m = sum(_bitdiff(g[0], want[0]) + _bitdiff(g[1].view(torch.int32), want[1].view(torch.int32))
+                for g in got) + _bitdiff(rule, want[0])
+        mism += m
+        err = max(err, _maxerr(got[0][0], want[0]))
+    if tag is not None:
+        print(f"[{tag}] leaf scale pass rows={resid.numel() // 128} phase={phase} leaves={ns.numel()}: mismatches "
+              f"{mism} (3 policies x per_leaf on/off, the kernel twice, the rule alone)")
+    return {"mismatches": mism, "max_abs_err": err, "phase": phase}
 
 
 # -- phase 3 --------------------------------------------------------------------
@@ -766,6 +821,7 @@ def times(spec, device, rate: float, shapes=B_SHAPES) -> dict:
           f"({r['ms_hot']:.4f} on one set, {r['eager_ms']:.4f} eager), bound {r['bound_ms']:.4f} ms "
           f"({r['bytes'] / 1e6:.1f} MB at {rate / 1e12:.2f} TB/s, {100 * r['bound_ms'] / r['ms']:.1f}% of it), "
           f"copy_ms {r['copy_ms']:.4f}, plain {r['plain_ms']:.4f} ms")
+    out["leaf_scale"] = leaf_times(spec, resid, rowcount, rate, timed)
     frames, _ = TT.quantize_table_burst(resid.clone(), spec, max(k for k, _ in shapes), impl="kernel")
     out["apply_rows_batch"] = []
     for k, n_arr in shapes:
@@ -784,6 +840,70 @@ def times(spec, device, rate: float, shapes=B_SHAPES) -> dict:
               f"({r['bytes'] / 1e6:.1f} MB, {100 * r['bound_ms'] / r['ms']:.1f}% of it), "
               f"copy_ms {r['copy_ms']:.4f}, plain {r['plain_ms']:.4f} ms")
         del arrays
+    return out
+
+
+def leaf_times(spec, resid, rowcount, rate: float, timed) -> dict:
+    """The per-leaf scale pass at this table's shape by ``times``' timer
+    (``ms`` over buffer sets that hold four times the L2, ``ms_hot`` on one
+    set, ``copy_ms``), its bytes bound (the residual and the live counts
+    read, 24 B of partials a tile, the scales and leaf sums written), the
+    torch chain it replaced (``table.compute_scales``) over as many sets
+    and on one, and its plain twin (numpy, through host copies)."""
+    from shared_tensor_tpu_torch.ops import codec_cuda as CC
+    from shared_tensor_tpu_torch.ops import table as TT
+    from shared_tensor_tpu_torch.utils.timing import event_ms, graph_ms
+
+    c = TT._cascade_consts(spec, str(resid.device))
+    rows, slots = spec.rows, CC.leaf_slot_count(spec.rows)
+    nbytes = 4 * spec.total + 4 * rows + 24 * slots + 28 * spec.num_leaves
+    r = timed(lambda x: CC.leaf_scales_kernel(x, rowcount, c.leaf_slots, c.ns), lambda: (resid.clone(),), nbytes)
+    sets = [resid.clone() for _ in range(r["sets"])]
+    turn = itertools.cycle(sets)
+    r["library_ms"] = graph_ms(lambda: TT.compute_scales(next(turn), spec), 50)
+    r["library_ms_hot"] = graph_ms(lambda: TT.compute_scales(resid, spec), 50)
+    r["plain_ms"] = event_ms(lambda: CC.leaf_scales_plain(resid, rowcount, c.leaf_slots, c.ns), 5, 1)
+    r.update(shape=f"rows={rows} leaves={spec.num_leaves} slots={slots}", slots=slots)
+    del sets, turn
+    print(f"[4] leaf_scale {r['shape']}: {r['ms']:.4f} ms/call (two launches) from a graph over {r['sets']} buffer "
+          f"sets ({r['ms_hot']:.4f} on one set, {r['eager_ms']:.4f} eager), bound {r['bound_ms']:.4f} ms "
+          f"({r['bytes'] / 1e6:.2f} MB, {100 * r['bound_ms'] / r['ms']:.1f}% of it), copy_ms {r['copy_ms']:.4f}; "
+          f"the torch chain {r['library_ms']:.4f} ms ({r['library_ms_hot']:.4f} on one set), "
+          f"{r['library_ms'] / r['ms']:.1f}x; plain twin {r['plain_ms']:.3f} ms")
+    return r
+
+
+def leaf_profile(spec, device, calls: int = 3) -> dict:
+    """A profiler window (the device's side) of ``calls`` calls of
+    ``quantize_table`` on a CUDA residual of this table (the profiler may
+    miss the first kernels of a window): the kernels they launched by name,
+    which must hold the per-leaf scale pass's two and kernel A and none of
+    the torch chain's reductions (CHAIN_KERNELS)."""
+    from shared_tensor_tpu_torch.benchmarks.profile_trace import kind
+    from shared_tensor_tpu_torch.ops import table as TT
+    from shared_tensor_tpu_torch.utils.profiling import trace
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    resid = torch.where(TT._consts(spec, str(torch.device(device)))[2].view(-1),
+                        torch.randn(spec.total, generator=gen, device=device), torch.zeros(1, device=device))
+    TT.quantize_table(resid.clone(), spec)  # loaded and warm
+    torch.cuda.synchronize()
+    with trace(None, host_ops=False) as prof:
+        for _ in range(calls):
+            TT.quantize_table(resid, spec)
+            torch.cuda.synchronize()
+    names = [e.name() for e in prof.kineto_results.events() if kind(e) == "kernel"]
+    want = {"leaf_partials_kernel": 0, "leaf_finish_kernel": 0, "quantize_rows_kernel": 0}
+    for n in names:
+        for k in want:
+            want[k] += k in n
+    chain = [n for n in names if any(c in n for c in CHAIN_KERNELS)]
+    out = {"calls": calls, "kernels": len(names), "codec": want, "chain_kernels": chain,
+           "others": sorted({n[:80] for n in names if not any(k in n for k in want)})}
+    print(f"[4] profiler window of {calls} quantize_table calls at rows={spec.rows}: {len(names)} kernels, {want}; "
+          f"the torch chain's {chain}; others {out['others']}")
+    if not all(want.values()) or chain:
+        raise AssertionError(f"phase 4: quantize_table on the card launched {names}")
     return out
 
 
@@ -1376,8 +1496,9 @@ def pod_kernel_check(state, spec, mesh) -> dict:
     """Kernels A and B against their plain versions on this rank's block of
     the trained state, at the pod shapes: A with the per-leaf scales of the
     block, B with K = n_peer frames gathered from every peer (this peer's
-    column zeroed) into N = 1 target. Collective (the scales and the
-    frames). Returns {kernel: {"mismatches", "max_abs_err"}}."""
+    column zeroed) into N = 1 target; the per-leaf scale pass on the block
+    against its twin. Collective (the scales and the frames). Returns
+    {kernel: {"mismatches", "max_abs_err"}}."""
     from shared_tensor_tpu_torch.config import ScalePolicy
     from shared_tensor_tpu_torch.ops import codec_cuda as CC
     from shared_tensor_tpu_torch.parallel import ici
@@ -1397,6 +1518,9 @@ def pod_kernel_check(state, spec, mesh) -> dict:
         "quantize_rows": {"mismatches": _bitdiff(w_k, w_p) + _bitdiff(r_k, r_p), "max_abs_err": _maxerr(r_k, r_p)},
         "apply_rows_batch": {"mismatches": _bitdiff(v_k, v_p), "max_abs_err": _maxerr(v_k, v_p),
                              "k": int(words_all.shape[0]), "zero_column": int(mesh.peer)},
+        # the block's pass (a 2 x 2 mesh's shard 1 starts mid-tile) against its twin
+        "leaf_scale": leaf_vs_twin(None, r0, mesh.device, ctx.phase, (ctx.rowcount, ctx.leaf_slots, ctx.ns),
+                                   tag=None, cases=[(ScalePolicy.POW2_RMS, True)]),
     }
 
 
@@ -1453,7 +1577,7 @@ def pod_char_rnn(mesh, mesh22, seed: int) -> dict:
         l, _ = over.step(over.shard_batch(batch(i)), lr=CHAR_LR)
         losses.append(l.cpu().numpy())
     t4 = time.perf_counter()
-    launches = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
+    launches = {k: CC.launches()[k] for k in POD_KERNELS}
     check = pod_kernel_check(over.state, over.spec, mesh)
     drain = build_sync_step(mesh, over.spec)
     for _ in range(DRAIN_STEPS):
@@ -1467,7 +1591,7 @@ def pod_char_rnn(mesh, mesh22, seed: int) -> dict:
     batch22 = _char_batches(data, seed + 1, 2)
     CC.reset_launches()
     sh_losses = [sh.step(sh.shard_batch(batch22(i)), lr=SHARDED_LR)[0].cpu().numpy() for i in range(SHARDED_STEPS)]
-    sh_launches = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
+    sh_launches = {k: CC.launches()[k] for k in POD_KERNELS}
     sh_check = pod_kernel_check(sh.state, sh.spec, mesh22)
     rows_local = tr.spec.rows // mesh.n_shard
     del tr, over, sh, timed, drain
@@ -1784,7 +1908,7 @@ def pod_bridge(pod, index: int, both, seed: int, port: int) -> dict:
         lap("settle")
         out["split_ms"] = H.step_split(tr, index, setup)
         out["frames"] = H.bridge_frames(tr)
-        out["launches"] = {k: CC.LAUNCHES[k] for k in ("quantize_rows", "apply_rows_batch")}
+        out["launches"] = {k: CC.launches()[k] for k in POD_KERNELS}
         out["cascade_launches"] = CC.ENGINE_LAUNCHES["quantize_rows_cascade"]  # the bridge peer's bursts
         out["round_launches"] = CC.ENGINE_LAUNCHES["cascade_round"]
         lap("split")
@@ -1954,10 +2078,13 @@ def pod_phases(spawn: PodSpawn, device, rate: float, seed: int) -> dict:
         print(f"[9] 2x2 rank {rk} (peer {sh['peer']}, shard {sh['shard']}): loss first "
               f"{np.mean(sh['losses'][0]):.4f} last {np.mean(sh['losses'][-1]):.4f}; launches {sh['launches']}; "
               f"kernel vs plain {sh['check']}")
-        for name, want in (("launches", steps), ("sharded", SHARDED_STEPS)):
+        # A and B once a step, the per-leaf scale pass LEAF_PER_A launches
+        # with every A, and its rule alone once more on the 2 x 2 mesh
+        for name, want, leaf in (("launches", steps, LEAF_PER_A * steps),
+                                 ("sharded", SHARDED_STEPS, (LEAF_PER_A + 1) * SHARDED_STEPS)):
             got = res["launches"] if name == "launches" else sh["launches"]
-            if any(v != want for v in got.values()):
-                bad.append(f"rank {rk} {name}: {got} (want {want} each)")
+            if any(v != want for k, v in got.items() if k != "leaf_scale") or got["leaf_scale"] != leaf:
+                bad.append(f"rank {rk} {name}: {got} (want {want} of A and B, {leaf} of the leaf scale pass)")
         for c in (res["check"], sh["check"]):
             bad += [f"rank {rk} {k}: {v['mismatches']} mismatches" for k, v in c.items() if v["mismatches"]]
         for name, ls in (("4x1", res["losses"]), ("2x2", sh["losses"])):
@@ -2009,11 +2136,13 @@ def pod_phases(spawn: PodSpawn, device, rate: float, seed: int) -> dict:
         "resnet": {arm: res10[0][arm] for arm in ("compressed", "exact")}
                   | {"peak_bytes": [r["peak_bytes"] for r in res10]},
     }
-    # A and B alone at the pod shapes of phase 9 (one rank's block of the
-    # char-RNN table; B with K = 4 frames and N = 1 target)
+    # A, B and the per-leaf scale pass alone at the pod shapes of phase 9
+    # (one rank's block of the char-RNN table; B with K = 4 frames and N = 1
+    # target)
     t = times(spec, device, rate, shapes=((CHAR_PEERS, 1),))
     return {"char_rnn": char, "profile": prof, "bridge": res11, "summary": summary,
-            "times": {"quantize_rows": t["quantize_rows"], "apply_rows_batch": t["apply_rows_batch"][0]},
+            "times": {"quantize_rows": t["quantize_rows"], "apply_rows_batch": t["apply_rows_batch"][0],
+                      "leaf_scale": t["leaf_scale"]},
             "sign2": [r["sign2"] for r in ranks[:CHAR_PEERS]], "phase18b_s": ranks[0]["phase18b_s"]}
 
 
@@ -4155,6 +4284,10 @@ SOURCES = {
     "quantize_rows_cascade": ("shared_tensor_tpu_torch/csrc/quantize_rows_cascade.cu", "native/stcodec.c:2088"),
     # no TPU kernel: the engine's scales_from_partials and its cascade round (stengine.cpp:1200-1309)
     "cascade_round": ("shared_tensor_tpu_torch/csrc/cascade_round.cu", "native/stengine.cpp:697"),
+    # the per-leaf scales JAX computes in XLA before kernel A's Pallas call
+    "leaf_scale": ("shared_tensor_tpu_torch/csrc/leaf_scale.cu",
+                   "shared_tensor_tpu/ops/table.py:147 and shared_tensor_tpu/parallel/ici.py:214 via "
+                   "shared_tensor_tpu/ops/codec_pallas.py:300"),
 }
 
 
@@ -4441,6 +4574,7 @@ def main() -> int:
     t["apply_rows_batch"] = dict(b_rows[B_SHAPES.index((BATCH, 2))], shapes=b_rows)
     t["quantize_rows_cascade"] = {}  # phase 22 times it
     t["cascade_round"] = {}
+    t["leaf_scale"]["profile"] = leaf_profile(spec, dev)
     clock.lap("4")
 
     # 5. C and D against plain, then all four kernels past 2^31 bytes
@@ -4511,7 +4645,7 @@ def main() -> int:
     # and config 2 as two pods of 2 bridged over TCP
     torch.cuda.empty_cache()
     pod = pod_phases(pods, dev, rate, args.seed)
-    for k in ("quantize_rows", "apply_rows_batch"):
+    for k in POD_KERNELS:
         pt = pod["times"][k]
         t[k].update({
             "launches_pod": sum(r["launches"][k] for r in pod["char_rnn"]),
@@ -4524,8 +4658,13 @@ def main() -> int:
             "launches_phase11_per_rank": [r["launches"][k] for r in pod["bridge"]],
             "mismatches_phase11": sum(r["check"][k]["mismatches"] for r in pod["bridge"]),
         })
-    # kernel A's main path is the pod step: a CUDA peer's bursts run A-cascade
+    # kernel A's main path is the pod step: a CUDA peer's bursts run A-cascade;
+    # the per-leaf scale pass runs with every A
     launches["quantize_rows"] = t["quantize_rows"]["launches_pod"]
+    launches["leaf_scale"] = t["leaf_scale"]["launches_pod"]
+    t["leaf_scale"]["library_ms_pod"] = pod["times"]["leaf_scale"]["library_ms"]
+    parity["leaf_scale"]["mismatches"] += t["leaf_scale"]["mismatches_pod"] + t["leaf_scale"]["mismatches_phase11"]
+    parity["leaf_scale"]["phases_pod"] = sorted({r["sharded"]["check"]["leaf_scale"]["phase"] for r in pod["char_rnn"]})
     t["quantize_rows_cascade"]["launches_phase11"] = sum(r["cascade_launches"] for r in pod["bridge"])
     t["cascade_round"]["launches_phase11"] = sum(r["round_launches"] for r in pod["bridge"])
     clock.lap("9-11")

@@ -4,9 +4,11 @@ line, and the trace-conformance gate every chaos arm ends on."""
 
 from __future__ import annotations
 
+import json
 import os
 import subprocess
 import sys
+import tempfile
 from typing import Optional
 
 import torch
@@ -27,6 +29,33 @@ def smi_line() -> Optional[str]:
         return None
     lines = out.strip().splitlines()
     return lines[0] if lines else None
+
+
+def trees_in_turns(trees, child: str, argv: list, tag: str, bench: str, timeout: float) -> int:
+    """Run the Python source ``child`` once for each tree in the order given
+    (a directory holding ``shared_tensor_tpu_torch``, such as a ``git
+    archive`` of another commit; list a tree twice to alternate, e.g.
+    parent, change, change, parent): a fresh process from a file of its own
+    (spawned workers can import it), in the tree's root, with ``argv``.
+    Each line it prints that starts with ``tag`` and a space is a JSON
+    object: printed again as one line with ``bench``, the tree and the
+    card's ``nvidia-smi`` line. Returns 0, or the first failed child's exit
+    code after its output's tail."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"{bench}_child.py")
+        with open(path, "w") as f:
+            f.write(child)
+        for tree in trees:
+            proc = subprocess.run([sys.executable, path, *map(str, argv)], cwd=tree, capture_output=True, text=True,
+                                  timeout=timeout)
+            if proc.returncode:
+                print(proc.stdout[-2000:] + proc.stderr[-4000:], file=sys.stderr)
+                return proc.returncode
+            for line in proc.stdout.splitlines():
+                if line.startswith(tag + " "):
+                    print(json.dumps({"bench": bench, "tree": tree, "card": smi_line(),
+                                      **json.loads(line[len(tag) + 1 :])}), flush=True)
+    return 0
 
 
 def device_record(device) -> dict:

@@ -15,7 +15,7 @@ padding 0, from a seeded ``torch.Generator``):
   ``copy_ms`` (a device copy of the same bytes);
 - the measurement A-cascade's rounds stand on: ms of one finish kernel
   where the tree has it, and of the torch chain it replaces
-  (``table._table_scales`` and ``table.cascade_ladder``) from a graph; and
+  (``table.compute_scales`` and ``table.cascade_ladder``) from a graph; and
   of a spent round's two launches (the burst stopped: each returns at
   once);
 - one K-frame ``core._BurstGraph`` (cascade 32, the peer's default): ms of
@@ -208,7 +208,7 @@ def measure_times(spec, device, seed: int, k: int, cascade: int) -> dict:
     r0 = residual(spec, device, seed)
     cap = torch.tensor(min(k, cascade), device=device)
     out = {"torch_chain_ms": _graph_ms(lambda: T.cascade_ladder(
-        *T._table_scales(r0, spec, ScalePolicy.POW2_RMS, True, with_amax=True), cap))}
+        *T.compute_scales(r0, spec, ScalePolicy.POW2_RMS, with_amax=True), cap))}
     if hasattr(CC, "cascade_round_kernel"):
         c = T._cascade_consts(spec, str(torch.device(device)))
         bufs = T.cascade_buffers(spec, k, device)

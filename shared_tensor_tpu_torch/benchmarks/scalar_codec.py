@@ -19,12 +19,11 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 
 import torch
 
-from . import smi_line
+from . import smi_line, trees_in_turns
 
 BENCH_LOG2 = (20, 30)
 
@@ -59,20 +58,6 @@ for log2 in json.loads(sys.argv[1]):
 """
 
 
-def frame(args) -> int:
-    for tree in args.trees:
-        proc = subprocess.run([sys.executable, "-c", _FRAME_CHILD, json.dumps(args.log2)], cwd=tree,
-                              capture_output=True, text=True, timeout=args.timeout)
-        if proc.returncode:
-            print(proc.stdout[-2000:] + proc.stderr[-4000:], file=sys.stderr)
-            return proc.returncode
-        for line in proc.stdout.splitlines():
-            if line.startswith("FRAME "):
-                print(json.dumps({"bench": "scalar_frame", "tree": tree, "card": smi_line(),
-                                  **json.loads(line[6:])}), flush=True)
-    return 0
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trees", nargs="+", required=True)
@@ -83,7 +68,7 @@ def main(argv=None) -> int:
         print("scalar_codec: needs a CUDA device", file=sys.stderr)
         return 2
     print(smi_line())
-    return frame(args)
+    return trees_in_turns(args.trees, _FRAME_CHILD, [json.dumps(args.log2)], "FRAME", "scalar_frame", args.timeout)
 
 
 if __name__ == "__main__":

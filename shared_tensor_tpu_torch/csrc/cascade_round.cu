@@ -16,21 +16,15 @@
 //    every later one, and so does a burst with no frame left, both before
 //    anything is measured;
 // 2. each leaf's partials reduced in a fixed order into leaf sums (max |r|,
-//    sum r^2, sum |r|, double). The slot range is cut into one range of
-//    consecutive slots a warp, a multiple of 32 long, in rows of 32: lane i
-//    takes slot wb + 32 m + i of row m. A warp loads kRows rows at a time,
-//    every load issued before the first sum (the first rows' beside the
-//    leaf bounds and the state's checks), and lane i sums its slots of the
-//    open leaf in turn; a leaf's part ends with a shuffle tree over the
-//    lanes (a part of one slot is its lane's value, which the tree would
-//    give as well). The range's first part of a leaf begun before it goes
-//    to shared memory; any other part (a whole leaf, or a leaf's first
-//    part) to the leaf's sums. A leaf over several ranges is then one
-//    warp's: lane i sums the parts i, i + 32, ... of its list (the first
-//    part, then the later ranges' parts) in turn, then a shuffle tree. A
-//    warp closes its leaves one after another, so a table of many leaves
-//    takes 1024 threads, and one of few fewer trees with 512;
-// 3. the scales by the host tier's rule (ops/codec_np.compute_scales_np):
+//    sum r^2, sum |r|, double), by the block reduction that the per-leaf
+//    scale pass (leaf_scale.cu) shares (scale_common.cuh: a range of
+//    consecutive slots a warp, lane i over slots wb + 32 m + i, a tree a
+//    leaf's part, a warp a leaf over several ranges); the first rows' loads
+//    are issued beside the leaf bounds and the state's checks. A warp
+//    closes its leaves one after another, so a table of many leaves takes
+//    1024 threads, and one of few fewer trees with 512;
+// 3. the scales by the host tier's rule (scale_common.cuh's scale_rule,
+//    ops/codec_np.compute_scales_np):
 //    POW2_RMS and RMS take sqrt(ss / n) in double, rounded to f32, POW2_RMS
 //    then floored to a power of two; ABS_MEAN takes sabs / n; 0 where max
 //    |r| is 0 or the scale is not finite. Without per_leaf, one sum over
@@ -53,32 +47,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scale_common.cuh"
+
 namespace {
 
-constexpr int kRows = 4;         // rows of its range a warp loads before it sums them
+using st_scale::pow2_floor;
 constexpr int kFewLeaves = 16;   // at most this many leaves: 512 threads
 constexpr int kExtraLevels = 8;  // CASCADE_EXTRA_LEVELS
-enum { kPow2Rms = 0, kRms = 1, kAbsMean = 2 };
-
-__device__ __forceinline__ float pow2_floor(float x) {
-  return __uint_as_float(__float_as_uint(x) & 0x7F800000u);
-}
 
 // floor(log2 x) of a finite x > 0, subnormals included (C's ilogbf)
 __device__ __forceinline__ int ilogb_pos(float x) {
   const unsigned u = __float_as_uint(x);
   const int e = (int)(u >> 23);
   return e ? e - 127 : (31 - __clz((int)u)) - 149;
-}
-
-__device__ __forceinline__ void warp_tree(double& amax, double& ss, double& sabs) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const double a = __shfl_down_sync(0xffffffffu, amax, off);
-    if (a > amax) amax = a;
-    ss += __shfl_down_sync(0xffffffffu, ss, off);
-    sabs += __shfl_down_sync(0xffffffffu, sabs, off);
-  }
 }
 
 template <int kThreads>
@@ -96,7 +77,7 @@ cascade_round_kernel(const double* __restrict__ partials, const long long* __res
   __shared__ double s_ns[kSharedLeaves];
   __shared__ double s_sums[3][kSharedLeaves];
   __shared__ float s_scale[kSharedLeaves];
-  __shared__ double s_part[3][kWarps];  // each warp's part of a leaf begun before its range
+  __shared__ double s_part[3 * kWarps];  // each warp's part of a leaf begun before its range
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   int j0 = 0, kc_prev = 0;
   if (!first) {
@@ -107,17 +88,10 @@ cascade_round_kernel(const double* __restrict__ partials, const long long* __res
   // one round trip of memory: the first kRows rows of the warp's range,
   // the leaf bounds and counts and the last scale row, all issued before
   // any is used
-  const int span = (n_slots + kThreads - 1) / kThreads * 32;
+  const int span = st_scale::range_span<kThreads>(n_slots);
   const int wb = min(warp * span, n_slots), we = min(wb + span, n_slots);
-  const int rows = (we - wb + 31) / 32;
-  double a[kRows], q[kRows], b[kRows];
-#pragma unroll
-  for (int j = 0; j < kRows; j++) {
-    const int t = wb + 32 * j + lane;
-    a[j] = t < we ? partials[t] : 0.0;
-    q[j] = t < we ? partials[n_slots + t] : 0.0;
-    b[j] = t < we ? partials[2 * n_slots + t] : 0.0;
-  }
+  st_scale::Rows rows0;
+  st_scale::load_rows(partials, n_slots, wb, we, 0, lane, rows0);
   const bool staged = n_leaves <= kSharedLeaves;  // then a thread a leaf at most
   const int bound_t = staged && tid <= n_leaves ? (int)leaf_slots[tid] : 0;
   const double ns_t = staged && tid < n_leaves ? ns[tid] : 0.0;
@@ -143,159 +117,24 @@ cascade_round_kernel(const double* __restrict__ partials, const long long* __res
   // table of more than kSharedLeaves leaves, global memory (leaf_sums)
   const int* sb = s_bounds;
   auto bound = [&](int l) { return staged ? sb[l] : (int)leaf_slots[l]; };
+  auto leaf_n = [&](int l) { return staged ? s_ns[l] : ns[l]; };
   double* sums = staged ? &s_sums[0][0] : leaf_sums;
   const int stride = staged ? kSharedLeaves : n_leaves;
 
-  // the warp's range, row by row; each lane sums its slots of the open
-  // leaf in turn; a leaf that ends in a row is closed by the warp's tree:
-  // the range's first part of a leaf begun before it to s_part, any other
-  // part (a whole leaf, or a leaf's first part) to sums
-  if (wb < we) {
-    int l = 0;
-    for (int lo = 0, hi = n_leaves - 1; lo < hi;) {  // the leaf of slot wb
-      const int mid = (lo + hi + 1) >> 1;
-      if (bound(mid) <= wb) lo = mid;
-      else hi = mid - 1;
-      l = lo;
-    }
-    int lo = bound(l), hi = bound(l + 1);
-    double am = 0.0, ss = 0.0, sa = 0.0;
-    auto close = [&]() {
-      const int p0 = max(lo, wb), p1 = min(hi, we);
-      if (p1 - p0 == 1) {  // one slot: its lane holds the part, every other lane 0
-        if (lane == (p0 - wb) % 32) {
-          if (lo < wb) {
-            s_part[0][warp] = am;
-            s_part[1][warp] = ss;
-            s_part[2][warp] = sa;
-          } else {
-            sums[l] = am;
-            sums[stride + l] = ss;
-            sums[2 * stride + l] = sa;
-          }
-        }
-      } else {
-        warp_tree(am, ss, sa);
-        if (lane == 0) {
-          if (lo < wb) {
-            s_part[0][warp] = am;
-            s_part[1][warp] = ss;
-            s_part[2][warp] = sa;
-          } else {
-            sums[l] = am;
-            sums[stride + l] = ss;
-            sums[2 * stride + l] = sa;
-          }
-        }
-      }
-      am = ss = sa = 0.0;
-    };
-    for (int c = 0; c < rows; c += kRows) {
-      if (c > 0) {
-#pragma unroll
-        for (int j = 0; j < kRows; j++) {
-          const int t = wb + 32 * (c + j) + lane;
-          a[j] = t < we ? partials[t] : 0.0;
-          q[j] = t < we ? partials[n_slots + t] : 0.0;
-          b[j] = t < we ? partials[2 * n_slots + t] : 0.0;
-        }
-      }
-      if (min(wb + 32 * (c + kRows), we) <= hi) {  // the chunk lies in the open leaf
-#pragma unroll
-        for (int j = 0; j < kRows; j++) {
-          if (a[j] > am) am = a[j];  // a slot past the range holds 0
-          ss += q[j];
-          sa += b[j];
-        }
-        continue;
-      }
-#pragma unroll
-      for (int j = 0; j < kRows; j++) {
-        if (c + j >= rows) break;
-        const int t = wb + 32 * (c + j) + lane;
-        const int row_end = min(wb + 32 * (c + j) + 32, we);
-        while (true) {
-          if (t < we && t >= lo && t < hi) {
-            if (a[j] > am) am = a[j];
-            ss += q[j];
-            sa += b[j];
-          }
-          if (hi >= row_end) break;  // the leaf goes on past the row
-          close();                   // the leaf ends in the row
-          do {
-            l++;
-            lo = hi;
-            hi = bound(l + 1);
-          } while (lo == hi);  // a leaf with no slots is the combine's
-        }
-      }
-    }
-    close();
-  }
+  st_scale::reduce_ranges<kWarps>(partials, n_slots, n_leaves, wb, we, bound, sums, stride, s_part, rows0);
   __syncthreads();
-
-  // each leaf over several ranges, a warp's: lane i sums the parts i, i +
-  // 32, ... of its list in turn, then the warp's tree; a leaf with no slots is 0
-  for (int l = warp; l < n_leaves; l += kWarps) {
-    const int lo = bound(l), hi = bound(l + 1);
-    if (lo == hi) {
-      if (lane == 0) sums[l] = sums[stride + l] = sums[2 * stride + l] = 0.0;
-      continue;
-    }
-    const int wa = lo / span, wz = (hi - 1) / span;
-    if (wa == wz) continue;  // one range's: written whole
-    double am = 0.0, ss = 0.0, sa = 0.0;
-    for (int i = lane; i <= wz - wa; i += 32) {
-      const double x0 = i ? s_part[0][wa + i] : sums[l];
-      const double x1 = i ? s_part[1][wa + i] : sums[stride + l];
-      const double x2 = i ? s_part[2][wa + i] : sums[2 * stride + l];
-      if (x0 > am) am = x0;
-      ss += x1;
-      sa += x2;
-    }
-    warp_tree(am, ss, sa);
-    if (lane == 0) {
-      sums[l] = am;
-      sums[stride + l] = ss;
-      sums[2 * stride + l] = sa;
-    }
-  }
+  st_scale::combine_ranges<kWarps>(n_leaves, span, bound, sums, stride, s_part);
   __syncthreads();
-  if (!per_leaf) {  // warp 0: lane i sums the leaves i, i + 32, ... in turn, then its tree
-    if (warp == 0) {
-      double am = 0.0, s2 = 0.0, sa = 0.0, n = 0.0;
-      for (int l = lane; l < n_leaves; l += 32) {
-        if (sums[l] > am) am = sums[l];
-        s2 += sums[stride + l];
-        sa += sums[2 * stride + l];
-        n += staged ? s_ns[l] : ns[l];
-      }
-      warp_tree(am, s2, sa);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) n += __shfl_down_sync(0xffffffffu, n, off);
-      if (lane == 0) {
-        s_all[0] = am;
-        s_all[1] = s2;
-        s_all[2] = sa;
-        s_all[3] = n;
-      }
-    }
+  if (!per_leaf) {
+    if (warp == 0) st_scale::sum_leaves(n_leaves, sums, stride, leaf_n, s_all);
     __syncthreads();
   }
 
   int maxd = 1, live_any = 0;
   for (int l = tid; l < n_leaves; l += kThreads) {
     const double am = sums[l];
-    const double a = per_leaf ? am : s_all[0];
-    const double n = per_leaf ? (staged ? s_ns[l] : ns[l]) : s_all[3];
-    float s;
-    if (policy == kAbsMean) {
-      s = (float)((per_leaf ? sums[2 * stride + l] : s_all[2]) / n);
-    } else {
-      s = (float)sqrt((per_leaf ? sums[stride + l] : s_all[1]) / n);
-      if (policy == kPow2Rms) s = pow2_floor(s);
-    }
-    if (!(a > 0.0) || !isfinite(s)) s = 0.0f;
+    const float s = per_leaf ? st_scale::scale_rule(am, sums[stride + l], sums[2 * stride + l], leaf_n(l), policy)
+                             : st_scale::scale_rule(s_all[0], s_all[1], s_all[2], s_all[3], policy);
     const float amax = (float)am;  // the leaf's own, whatever per_leaf
     ladder[l] = s;
     ladder[n_leaves + l] = amax;

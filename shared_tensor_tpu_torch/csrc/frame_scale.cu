@@ -13,9 +13,9 @@
 // power of two, ABS_MEAN sabs / n; 0 where max |r| is 0 or the scale is not
 // finite. The divisor n is the live count.
 // Bound: memory, 4 B an element read once (2^30: 1.28 ms at 3.35 TB/s).
-// Design: two launches, no atomics, a fixed order, so every run gives the
-// same bits and the plain twin (ops/codec_cuda.frame_scale_plain) repeats
-// them:
+// Design: two launches, no atomics, a fixed order (the tree and the rule
+// are scale_common.cuh's), so every run gives the same bits and the plain
+// twin (ops/codec_cuda.frame_scale_plain) repeats them:
 // 1. partials: a grid of min(ceil(units / 512), kScaleBlocks) blocks of
 //    512 threads over the buffer's float4 units; thread g of T takes units
 //    g, g + T, g + 2T, ... in turn (kScaleUnroll loads in flight at once) and
@@ -30,7 +30,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scale_common.cuh"
+
 namespace {
+
+using st_scale::warp_tree;
 
 constexpr int kScaleThreads = 512;
 constexpr int kScaleWarps = kScaleThreads / 32;
@@ -39,7 +43,6 @@ constexpr int kScaleWarps = kScaleThreads / 32;
 // the card.
 constexpr int kScaleBlocks = 264;
 constexpr int kScaleUnroll = 4;
-enum { kPow2Rms = 0, kRms = 1, kAbsMean = 2 };
 
 __device__ __forceinline__ void add_unit(float4 v, double& am, double& ss, double& sa) {
   const float x[4] = {v.x, v.y, v.z, v.w};
@@ -50,16 +53,6 @@ __device__ __forceinline__ void add_unit(float4 v, double& am, double& ss, doubl
     if (a > am) am = a;  // a NaN never wins
     ss += d * d;         // exact in double: fused or not, one rounding
     sa += a;
-  }
-}
-
-__device__ __forceinline__ void warp_tree(double& am, double& ss, double& sa) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const double a = __shfl_down_sync(0xffffffffu, am, off);
-    if (a > am) am = a;
-    ss += __shfl_down_sync(0xffffffffu, ss, off);
-    sa += __shfl_down_sync(0xffffffffu, sa, off);
   }
 }
 
@@ -119,12 +112,7 @@ scale_finish_kernel(const double* __restrict__ partials, int slots, double n, in
     sa += partials[2 * slots + i];
   }
   warp_tree(am, ss, sa);
-  if (lane == 0) {
-    float s = (float)(policy == kAbsMean ? sa / n : sqrt(ss / n));
-    if (policy == kPow2Rms) s = __uint_as_float(__float_as_uint(s) & 0x7F800000u);
-    if (!(am > 0.0) || !isfinite(s)) s = 0.0f;
-    *scale = s;
-  }
+  if (lane == 0) *scale = st_scale::scale_rule(am, ss, sa, n, policy);
 }
 
 }  // namespace

@@ -13,7 +13,9 @@ digest beat, and turns the series into three signals:
              + 0.1 * alloc_k/max_alloc
 
   Rates come from the reset-tolerant store (``timeseries.TimeSeriesStore``)
-  over a short trailing window. The hot shard is named only when its rate
+  over a short trailing window, each node's series at its digests' own
+  sample times (a re-merged digest adds no point; JAX's store samples
+  every node at the beat). The hot shard is named only when its rate
   beats the mean of the others by ``skew_ratio`` (default 3x). The
   port's sharded nodes (``shard/node.py``) report ``st_shard_heat_*``
   in their digests, as a JAX sharded subtree's do; a tree of full-replica

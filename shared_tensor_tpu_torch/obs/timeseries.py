@@ -22,6 +22,18 @@ Series are keyed by tuples, so callers never parse strings:
 - ``("hist", name, "p50"|"p99")``: quantile tracks of merged histograms;
 - ``("node", node_id, name)``: per-node breakdown entries, labeled gauges
   included (the rendered name is the key's last element).
+
+A node's breakdown is filed at its digest entry's own sample time (the
+entry's ``t_ns``, less the node's clock offset to the root,
+``st_clock_offset_seconds``, where the node exports one: on one host the
+monotonic clocks agree and the offset is about 0), not at the beat that
+reads it, and an entry that did not advance since the last beat (the same
+child digest merged again) adds no point. A child's digest reaches the
+root one or more beats old, and its age varies from beat to beat: filed at
+the beat, a re-merged digest left a flat step in the node's counters and a
+fresher one a steep one, both of which skewed its rates. The cluster
+series stay at the beat. JAX's store files every node at the beat (a
+documented divergence of the port).
 """
 
 from __future__ import annotations
@@ -117,6 +129,7 @@ class TimeSeriesStore:
         self._series: dict = {}
         self.evicted = 0
         self.beats = 0
+        self._node_t: dict = {}  # node id -> the own t_ns of its last digest entry filed
 
     # -- feeding ---------------------------------------------------------
 
@@ -129,7 +142,9 @@ class TimeSeriesStore:
         s.append(t_ns, value)
 
     def ingest(self, doc: dict, t_ns: int) -> None:
-        """Sample one cluster digest document at time ``t_ns``."""
+        """Sample one cluster digest document at the beat ``t_ns``: the
+        cluster series at ``t_ns``, each node's breakdown at its own sample
+        time (module docstring)."""
         self.beats += 1
         for name, v in doc.get("counters", {}).items():
             self._put(("cluster", name), t_ns, v)
@@ -146,11 +161,33 @@ class TimeSeriesStore:
                     t_ns,
                     hist_quantile(h, q),
                 )
-        for nid, entry in doc.get("nodes", {}).items():
+        nodes = doc.get("nodes", {})
+        for nid, entry in nodes.items():
             node = int(nid)
+            at = self._sample_ns(node, entry, t_ns)
+            if at is None:
+                continue  # the digest filed at an earlier beat
             for name, v in entry.get("m", {}).items():
-                self._put(("node", node, name), t_ns, v)
+                self._put(("node", node, name), at, v)
+        if len(self._node_t) > self._max_series:
+            self._node_t = {n: t for n, t in self._node_t.items() if str(n) in nodes}
         self._evict()
+
+    def _sample_ns(self, node: int, entry: dict, beat_ns: int) -> Optional[int]:
+        """When a node's digest entry was sampled, on the root's clock: its
+        own ``t_ns`` less its clock offset to the root (where it exports
+        one), or None if that entry was filed already. An entry without a
+        sample time is filed at the beat."""
+        own = entry.get("t_ns")
+        if not isinstance(own, (int, float)):
+            return beat_ns
+        own = int(own)
+        last = self._node_t.get(node)
+        if last is not None and own <= last:
+            return None
+        self._node_t[node] = own
+        off = entry.get("m", {}).get("st_clock_offset_seconds")
+        return own - int(round(float(off) * 1e9)) if isinstance(off, (int, float)) else own
 
     def _evict(self) -> None:
         over = len(self._series) - self._max_series

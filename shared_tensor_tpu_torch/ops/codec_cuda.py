@@ -24,6 +24,13 @@ The counterpart of every TPU kernel in ``shared_tensor_tpu/ops/codec_pallas.py``
   (``csrc/apply_frame.cu``) replace ``codec_pallas.apply_frame_many`` /
   ``apply_frame`` / ``_apply_kernel``: one scalar-scale frame into K arrays,
   clamped, in place.
+- the per-leaf scale pass, :func:`leaf_scales` (``csrc/leaf_scale.cu``),
+  replaces the per-leaf scales JAX computes in XLA before kernel A's
+  ``pallas_call`` (``table.compute_scales``, ``ici._leaf_scales``): each
+  leaf's max |r|, sum r^2 and sum |r| in double from per-tile partials, in a
+  fixed order (the finish kernel's leaf reduction, ``csrc/scale_common.cuh``),
+  then the host tier's rule; :func:`leaf_rule` is its finish alone, on leaf
+  sums a pod has reduced over its shard group.
 
 Beside them, two kernels that port no TPU kernel but the native engine's
 cascade round, for the device tier's K-frame burst
@@ -55,8 +62,9 @@ Dispatch: each wrapper runs the kernel for CUDA tensors and the plain
 version for CPU tensors, and nothing else: there is no fallback from a CUDA
 tensor to the plain path. ``LAUNCHES`` counts the launches of A-D and
 ``ENGINE_LAUNCHES`` those of the kernels that port no TPU kernel:
-A-cascade, the finish kernel and the scale pass, two a call; plain calls
-count nothing. A launch that a wrapper makes while its thread captures a CUDA
+A-cascade, the finish kernel, the scale pass (two a call) and the per-leaf
+scale pass (two a call, one for its rule alone); plain calls count
+nothing. A launch that a wrapper makes while its thread captures a CUDA
 graph (:func:`capture_tally`) does not run then: it goes to the capture's
 tally, and every replay of the graph adds that tally (:func:`count_replay`).
 
@@ -92,6 +100,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import operator
 import os
@@ -126,9 +135,10 @@ SOURCES = {
     "quantize_rows_cascade": "quantize_rows_cascade.cu",
     "cascade_round": "cascade_round.cu",
     "frame_scale": "frame_scale.cu",
+    "leaf_scale": "leaf_scale.cu",
 }
 #: The kernels that port a TPU kernel (A-D); the others port the engine's C
-#: passes and the scale that JAX computes in XLA before kernel C.
+#: passes and the scales that JAX computes in XLA before kernels C and A.
 TPU_KERNELS = ("quantize_rows", "apply_rows_batch", "quantize", "apply_frame_many")
 #: Host helpers built like the kernels; they launch nothing.
 HELPERS = {"stream": "stream.cu"}
@@ -139,7 +149,7 @@ NVCC_FLAGS = (
 )
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`: A-D
-#: here, A-cascade, the finish kernel and the scale pass in ``ENGINE_LAUNCHES``.
+#: here, A-cascade, the finish kernel and the two scale passes in ``ENGINE_LAUNCHES``.
 LAUNCHES = {name: 0 for name in TPU_KERNELS}
 ENGINE_LAUNCHES = {name: 0 for name in SOURCES if name not in TPU_KERNELS}
 
@@ -269,6 +279,9 @@ _ARGTYPES = {
     # slots, n_leaves, k_frames, cap, policy, per_leaf, first, stream
     "cascade_round": ("st_cascade_round",
                       [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _I32, _I32, _I32, _I32, _I32, _VP]),
+    # resid (null: the rule alone on leaf_sums), rowcount, rows, phase, partials (f64), slots,
+    # leaf_slots (int64), ns (f64), leaf_sums (f64), scales, n_leaves, policy, per_leaf, stream
+    "leaf_scale": ("st_leaf_scales", [_VP, _VP, _I64, _I32, _VP, _I64, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _VP]),
     # device, out: the new stream's handle
     "stream": ("st_stream_create", [_I32, ctypes.POINTER(_VP)]),
 }
@@ -682,78 +695,6 @@ def finish_threads(n_leaves: int) -> int:
     return 512 if n_leaves <= FINISH_FEW_LEAVES else 1024
 
 
-def _max_into(acc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """The kernel's ``if (x > acc) acc = x`` on row 0 (max |r|), elementwise."""
-    return torch.where(x > acc, x, acc)
-
-
-def _tree(acc: torch.Tensor) -> torch.Tensor:
-    """A warp's shuffle tree over the lanes (the last axis, 32) of ``acc``
-    (f64[3 or 4, ..., 32]: max |r|, then sums): the lanes halve five times.
-    Returns what lane 0 holds."""
-    h = BITS_PER_WORD // 2
-    while h:
-        acc = torch.cat([_max_into(acc[:1, ..., :h], acc[:1, ..., h : 2 * h]), acc[1:, ..., :h] + acc[1:, ..., h : 2 * h]])
-        h //= 2
-    return acc[..., 0]
-
-
-def _warp_sum(seq: torch.Tensor) -> torch.Tensor:
-    """A warp's reduction of the columns of ``seq`` (f64[3 or 4, m]): lane
-    i takes columns i, i + 32, ... in turn from 0, then :func:`_tree`."""
-    pad = -seq.shape[1] % BITS_PER_WORD
-    seq = torch.cat([seq, seq.new_zeros((seq.shape[0], pad))], dim=1).view(seq.shape[0], -1, BITS_PER_WORD)
-    acc = seq.new_zeros((seq.shape[0], BITS_PER_WORD))
-    for m in range(seq.shape[1]):
-        acc = torch.cat([_max_into(acc[:1], seq[:1, m]), acc[1:] + seq[1:, m]])
-    return _tree(acc)
-
-
-def _finish_leaf_sums(partials: torch.Tensor, bounds: list, leaf_sums: torch.Tensor) -> None:
-    """Each leaf's partials reduced into ``leaf_sums`` in the finish
-    kernel's order (``csrc/cascade_round.cu``, step 2): each warp's range
-    of consecutive slots (:func:`finish_threads` / 32 ranges, each a
-    multiple of 32 long) in rows of 32, lane i summing the slots wb + 32 m
-    + i of a leaf in turn, closed by :func:`_tree`; a leaf over several
-    ranges is the :func:`_warp_sum` of its first part and the later ranges'
-    parts."""
-    n_leaves, n = len(bounds) - 1, bounds[-1]
-    leaf_sums.zero_()
-    threads = finish_threads(n_leaves)
-    span = -(-n // threads) * BITS_PER_WORD
-    warps, rows = threads // BITS_PER_WORD, span // BITS_PER_WORD
-    dev = partials.device
-    # every (range, leaf) pair with slots in common, in range order
-    pairs = []
-    for w in range(warps):
-        wb, we = min(w * span, n), min(w * span + span, n)
-        pairs += [(w, l) for l in range(n_leaves) if bounds[l] < min(bounds[l + 1], we) and bounds[l + 1] > wb]
-    if not pairs:
-        return
-    pw, pl = (torch.tensor(c, dtype=torch.int64, device=dev) for c in zip(*pairs))
-    bt = torch.tensor(bounds, dtype=torch.int64, device=dev)
-    x = torch.cat([partials[:, :n], partials.new_zeros((3, warps * span - n))], dim=1)
-    x = x.view(3, warps, rows, BITS_PER_WORD)[:, pw]
-    slot = torch.arange(warps * span, device=dev).view(warps, rows, BITS_PER_WORD)[pw]
-    mask = (slot >= bt[pl, None, None]) & (slot < bt[pl + 1, None, None])
-    acc = partials.new_zeros((3, len(pairs), BITS_PER_WORD))
-    for m in range(rows):  # lane i: its slots of the leaf in row order, from 0
-        xm = torch.where(mask[:, m], x[:, :, m], torch.zeros_like(x[:, :, m]))
-        acc = torch.cat([torch.where(mask[:, m] & (xm[:1] > acc[:1]), xm[:1], acc[:1]), acc[1:] + xm[1:]])
-    part = _tree(acc)
-    head = bt[pl] < torch.clamp(pw * span, max=n)  # the range's part of a leaf begun before it
-    heads = partials.new_zeros((3, warps))
-    heads[:, pw[head]] = part[:, head]
-    leaf_sums[:, pl[~head]] = part[:, ~head]
-    for l in range(n_leaves):
-        lo, hi = bounds[l], bounds[l + 1]
-        if lo == hi:
-            continue
-        wa, wz = lo // span, (hi - 1) // span
-        if wa < wz:
-            leaf_sums[:, l] = _warp_sum(torch.cat([leaf_sums[:, l : l + 1], heads[:, wa + 1 : wz + 1]], dim=1))
-
-
 def cascade_round_plain(
     partials: torch.Tensor,
     leaf_slots: torch.Tensor,
@@ -778,14 +719,15 @@ def cascade_round_plain(
     subnormal floor) stops, and so does a burst with no frame left, before
     anything is measured. Then each leaf's partials summed (its slots
     ``leaf_slots[l]`` to ``leaf_slots[l + 1]``) into ``leaf_sums``
-    f64[3, L] in the kernel's order (:func:`_finish_leaf_sums`; without
-    ``per_leaf`` their sum over the leaves is :func:`_warp_sum`'s); the scales by the host tier's rule (``ns``: f64 live counts)
-    and each leaf's max |r| into ``ladder`` rows 0 and 1; the ladder top
+    f64[3, L] in the kernel's order and the scales by the host tier's rule
+    (``ns``: f64 live counts), both by the per-leaf scale pass's twin
+    (:func:`_leaf_sums_np`, :func:`_leaf_rule_np`, on host copies), and
+    each leaf's max |r| into ``ladder`` rows 0 and 1; the ladder top
     (row 2) and depth by :func:`..table.cascade_ladder` with the cap
     min(``cap``, K - j0); kc 0 stops."""
     from .table import cascade_ladder
 
-    slots, n_leaves = _check_round(partials, leaf_slots, ns, scales, state, ladder, leaf_sums, k, cap, policy)
+    slots, _ = _check_round(partials, leaf_slots, ns, scales, state, ladder, leaf_sums, k, cap, policy)
     j0, kc_prev, stop = (0, 0, 0) if first else (int(x) for x in state.tolist())
     if stop:
         return
@@ -797,19 +739,9 @@ def cascade_round_plain(
     bounds = leaf_slots.tolist()
     if bounds[0] != 0 or bounds[-1] != slots:
         raise ValueError(f"leaf_slots must run from 0 to the partials' {slots} slots, got {bounds[0]}..{bounds[-1]}")
-    _finish_leaf_sums(partials, bounds, leaf_sums)
-    amax, ss, sabs = leaf_sums[0], leaf_sums[1], leaf_sums[2]
-    n = ns
-    if not per_leaf:  # warp 0: lanes strided over the leaves, then its tree
-        tot = _warp_sum(torch.cat([leaf_sums, ns.view(1, -1)]))
-        amax, ss, sabs, n = (x.expand(n_leaves) for x in tot)
-    if policy == ScalePolicy.ABS_MEAN:
-        s = (sabs / n).to(torch.float32)
-    else:
-        s = torch.sqrt(ss / n).to(torch.float32)
-        if policy == ScalePolicy.POW2_RMS:
-            s = (s.view(torch.int32) & 0x7F800000).view(torch.float32)
-    s = torch.where((amax > 0) & torch.isfinite(s), s, torch.zeros_like(s))
+    sums = _leaf_sums_np(partials.cpu().numpy(), bounds)
+    leaf_sums.copy_(torch.from_numpy(sums))
+    s = torch.from_numpy(_leaf_rule_np(sums, ns.cpu().numpy(), policy, per_leaf)).to(partials.device)
     leaf_amax = leaf_sums[0].to(torch.float32)
     left = torch.tensor(min(int(cap), int(k) - j0), dtype=torch.int64, device=s.device)
     top, kc = cascade_ladder(s, leaf_amax, left)
@@ -869,6 +801,271 @@ def cascade_round(
         return cascade_round_kernel(*args)
     if dev is not None and dev.type == "cpu":
         return cascade_round_plain(*args)
+    raise ValueError(f"unsupported device {dev}")
+
+
+# -- the per-leaf scale pass: leaf_scales ---------------------------------------------
+
+
+def leaf_slot_count(rows: int, phase: int = 0) -> int:
+    """The per-leaf scale pass's partial slots for ``rows`` rows whose first
+    lies ``phase`` rows into its 8-row tile: one a tile they touch."""
+    return (rows + phase + TILE_ROWS - 1) // TILE_ROWS
+
+
+def _check_leaf(residual, rowcount, leaf_slots, ns, policy, phase) -> tuple[int, int, int]:
+    if not isinstance(residual, torch.Tensor) or residual.dim() != 1 or residual.shape[0] == 0 \
+            or residual.shape[0] % LANES:
+        raise ValueError(f"residual must be a flat tensor with a positive multiple of {LANES} elements")
+    rows = residual.shape[0] // LANES
+    dev = residual.device
+    _check(residual, "residual", (torch.float32,), (rows * LANES,), dev)
+    _check(rowcount, "rowcount", (torch.int32,), (rows,), dev)
+    if not isinstance(ns, torch.Tensor) or ns.dim() != 1 or ns.shape[0] < 1:
+        raise ValueError("ns must be f64 [n_leaves]")
+    n_leaves = ns.shape[0]
+    _check(ns, "ns", (torch.float64,), (n_leaves,), dev)
+    _check(leaf_slots, "leaf_slots", (torch.int64,), (n_leaves + 1,), dev)
+    if not 0 <= int(phase) < TILE_ROWS:
+        raise ValueError(f"phase must lie in [0, {TILE_ROWS}), got {phase}")
+    if rows >= 1 << 31:
+        raise ValueError(f"the pass takes fewer than 2^31 rows, got {rows}")
+    if policy not in POLICY_CODES:
+        raise ValueError(f"unknown scale policy {policy!r}")
+    return rows, leaf_slot_count(rows, int(phase)), n_leaves
+
+
+_LANE_INDEX = np.arange(LANES)[None, :]
+
+#: slots the twin's partials take at once: their double copies (24 B an
+#: element) stay at 6 MiB however large the table
+LEAF_NP_SLOTS = 256
+
+
+def _leaf_partials_np(r: np.ndarray, rowcount: np.ndarray, phase: int, slots: int) -> np.ndarray:
+    """The per-leaf scale pass's partials (f64[3, slots]) of ``r`` (flat
+    f32, live lanes by ``rowcount``, the rest 0, the tile grid shifted by
+    ``phase`` rows): each slot's max |r|, sum r^2 and sum |r| in the
+    kernel's order (lane i adds r^2 and |r| in double for the 4 elements of
+    unit i of each of the slot's 8 rows in turn from 0.0, then the warp's
+    tree over its 32 lanes; a NaN never wins the max), so the bits are the
+    kernel's."""
+    rows = r.shape[0] // LANES
+    x = r.reshape(rows, LANES)
+    if rowcount.min() < LANES:
+        x = np.where(_LANE_INDEX < rowcount[:, None], x, np.float32(0.0))
+    tail = slots * TILE_ROWS - rows - phase
+    if phase or tail:  # rows off the block add nothing, as in the kernel
+        x = np.concatenate([np.zeros((phase, LANES), np.float32), x, np.zeros((tail, LANES), np.float32)])
+    x = x.reshape(slots, TILE_ROWS, BITS_PER_WORD, 4)  # [slot, row, lane, component]
+    out = np.empty((3, slots))
+    acc = np.empty((2, slots, BITS_PER_WORD))
+    for lo in range(0, slots, LEAF_NP_SLOTS):
+        hi = min(slots, lo + LEAF_NP_SLOTS)
+        # [value, slot, lane]: a lane's 32 values, in its order, on the first axis
+        out[0, lo:hi] = np.fmax(np.fmax.reduce(np.abs(x[lo:hi]).reshape(hi - lo, -1), axis=1), 0.0)
+        d = x[lo:hi].transpose(1, 3, 0, 2).astype(np.float64).reshape(-1, hi - lo, BITS_PER_WORD)
+        y = np.empty((d.shape[0], 2, hi - lo, BITS_PER_WORD))
+        np.multiply(d, d, out=y[:, 0])
+        np.abs(d, out=y[:, 1])
+        a = acc[:, lo:hi]
+        a[...] = y[0]  # 0.0 + v is v
+        for m in range(1, d.shape[0]):
+            a += y[m]
+    out[1:] = _halve(acc, BITS_PER_WORD)
+    return out
+
+
+def _warp_sum_np(seq: np.ndarray) -> np.ndarray:
+    """A warp's reduction of the columns of ``seq`` (f64[3 or 4, m], max |r|
+    first, then sums): lane i takes columns i, i + 32, ... in turn from
+    0.0, then the halving tree over the lanes."""
+    pad = -seq.shape[1] % BITS_PER_WORD
+    x = np.concatenate([seq, np.zeros((seq.shape[0], pad))], axis=1).reshape(seq.shape[0], -1, BITS_PER_WORD)
+    acc = np.cumsum(x[1:], axis=1)[:, -1]  # lane i: its columns in turn
+    return np.concatenate([[x[0].max()], _halve(acc, BITS_PER_WORD)])
+
+
+@functools.lru_cache(maxsize=64)
+def _leaf_plan(bounds: tuple) -> tuple:
+    """The finish kernel's order for leaf bounds ``bounds`` (a layout's
+    constant): every (range, leaf) part's slots as [part, row, lane]
+    indices with a mask of those in the part, and each leaf's run of parts
+    in range order."""
+    n_leaves, n = len(bounds) - 1, bounds[-1]
+    span = -(-n // finish_threads(n_leaves)) * BITS_PER_WORD
+    parts = [(l, w, max(lo, w * span), min(hi, w * span + span))
+             for l, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])) if lo < hi
+             for w in range(lo // span, (hi - 1) // span + 1)]
+    leaf, w, plo, phi = (np.asarray(c) for c in zip(*parts))
+    idx = (w[:, None, None] * span + BITS_PER_WORD * np.arange(span // BITS_PER_WORD)[None, :, None]
+           + np.arange(BITS_PER_WORD)[None, None, :])
+    inside = (idx >= plo[:, None, None]) & (idx < phi[:, None, None])
+    first = [i for i in range(len(parts)) if i == 0 or leaf[i] != leaf[i - 1]]
+    runs = tuple((int(leaf[f]), f, z) for f, z in zip(first, first[1:] + [len(parts)]))
+    return np.minimum(idx, n - 1), inside, runs
+
+
+def _leaf_sums_np(partials: np.ndarray, bounds: list) -> np.ndarray:
+    """Each leaf's partials (f64[3, n]) reduced into f64[3, L] in the finish
+    kernel's order (``csrc/scale_common.cuh``, shared by the per-leaf scale
+    pass and the cascade's finish): the slots split into one range of
+    consecutive slots a warp (:func:`finish_threads` / 32 ranges, each a
+    multiple of 32 long); every (range, leaf) part is a lane's sum of the
+    leaf's slots wb + 32 m + i row by row, then the warp's tree; a leaf
+    over several ranges is the :func:`_warp_sum_np` of its parts in range
+    order."""
+    out = np.zeros((3, len(bounds) - 1))
+    if bounds[-1] == 0:
+        return out
+    idx, inside, runs = _leaf_plan(tuple(bounds))
+    vals = np.where(inside, partials[:, idx], 0.0)  # [stat, part, row, lane]
+    sums = np.empty((3, idx.shape[0]))
+    sums[0] = vals[0].max(axis=(1, 2))
+    sums[1:] = _halve(np.cumsum(vals[1:], axis=2)[:, :, -1], BITS_PER_WORD)  # a lane's rows in turn, then the tree
+    for leaf, f, z in runs:
+        out[:, leaf] = sums[:, f] if z - f == 1 else _warp_sum_np(sums[:, f:z])
+    return out
+
+
+def _scale_rule_np(amax, ss, sabs, n, policy: ScalePolicy) -> np.ndarray:
+    """The host tier's rule on double sums (``scale_common.cuh``'s
+    ``scale_rule``): POW2_RMS and RMS take sqrt(ss / n) rounded to f32,
+    POW2_RMS then floored to a power of two, ABS_MEAN sabs / n; 0 where max
+    |r| is not above 0 or the scale is not finite (n >= 1 and the sums >= 0
+    or NaN: no division by 0 or root of a negative; an RMS never exceeds
+    its max |r|, so only an inf rounds out of f32)."""
+    if policy == ScalePolicy.ABS_MEAN:
+        s = (sabs / n).astype(np.float32)
+    else:
+        s = np.sqrt(ss / n).astype(np.float32)
+        if policy == ScalePolicy.POW2_RMS:
+            s = (s.view(np.uint32) & np.uint32(0x7F800000)).view(np.float32)
+    return np.where((amax > 0) & np.isfinite(s), s, np.float32(0.0))
+
+
+def _leaf_rule_np(sums: np.ndarray, n: np.ndarray, policy: ScalePolicy, per_leaf: bool) -> np.ndarray:
+    """f32[L] scales from leaf sums f64[3, L] and live counts ``n`` by the
+    rule; without ``per_leaf`` one sum over the leaves (warp 0's
+    :func:`_warp_sum_np`), replicated to every leaf."""
+    if per_leaf or n.shape[0] == 1:  # one leaf: the sum over the leaves is its own (x + 0.0 = x)
+        return _scale_rule_np(sums[0], sums[1], sums[2], n, policy)
+    return np.repeat(_scale_rule_np(*_warp_sum_np(np.concatenate([sums, n[None]])), policy), n.shape[0])
+
+
+def leaf_scales_plain(residual: torch.Tensor, rowcount: torch.Tensor, leaf_slots: torch.Tensor, ns: torch.Tensor,
+                      policy: ScalePolicy = ScalePolicy.POW2_RMS, per_leaf: bool = True,
+                      phase: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the per-leaf scale pass: ``(scales f32[L], leaf_sums
+    f64[3, L])`` of ``residual`` (flat f32, live lanes by ``rowcount``),
+    leaf l owning the partial slots ``leaf_slots[l]`` to ``leaf_slots[l +
+    1]`` of a tile grid shifted by ``phase`` rows (:func:`leaf_slot_count`);
+    ``ns`` holds each leaf's live count (f64). The partials
+    (:func:`_leaf_partials_np`), each leaf's sum of them in the finish
+    kernel's order (:func:`_leaf_sums_np`), then the host tier's rule, in
+    numpy: the kernel's IEEE double arithmetic in its order, so the bits are
+    the kernel's. A CUDA residual (a reference run) is read through a host
+    copy and its results come back to its device."""
+    _, slots, _ = _check_leaf(residual, rowcount, leaf_slots, ns, policy, phase)
+    bounds = leaf_slots.tolist()
+    if bounds[0] != 0 or bounds[-1] != slots:
+        raise ValueError(f"leaf_slots must run from 0 to the pass's {slots} slots, got {bounds[0]}..{bounds[-1]}")
+    sums = _leaf_sums_np(_leaf_partials_np(residual.cpu().numpy(), rowcount.cpu().numpy(), int(phase), slots),
+                         bounds)
+    s = _leaf_rule_np(sums, ns.cpu().numpy(), policy, per_leaf)
+    return torch.from_numpy(s).to(residual.device), torch.from_numpy(sums).to(residual.device)
+
+
+def leaf_rule_plain(leaf_sums: torch.Tensor, ns: torch.Tensor, policy: ScalePolicy = ScalePolicy.POW2_RMS,
+                    per_leaf: bool = True) -> torch.Tensor:
+    """Plain twin of the pass's rule alone: f32[L] scales from leaf sums
+    f64[3, L] (max |r|, sum r^2, sum |r|) and live counts ``ns`` f64[L]
+    (:func:`_leaf_rule_np` on host copies, on ``ns``' device)."""
+    _check_rule(leaf_sums, ns, policy)
+    s = _leaf_rule_np(leaf_sums.cpu().numpy(), ns.cpu().numpy(), policy, per_leaf)
+    return torch.from_numpy(s).to(ns.device)
+
+
+def leaf_scales_kernel(residual: torch.Tensor, rowcount: torch.Tensor, leaf_slots: torch.Tensor, ns: torch.Tensor,
+                       policy: ScalePolicy = ScalePolicy.POW2_RMS, per_leaf: bool = True,
+                       phase: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-leaf scale pass on the GPU: two launches (the partials into a
+    workspace, then the one-block finish), both counted; the scales and
+    the leaf sums stay on the device and nothing waits for it. The
+    residual is only read. Raises for a residual that is not on a GPU or
+    not 16-byte aligned."""
+    if not isinstance(residual, torch.Tensor) or residual.device.type != "cuda":
+        raise ValueError("leaf_scales kernel needs a CUDA residual")
+    rows, slots, n_leaves = _check_leaf(residual, rowcount, leaf_slots, ns, policy, phase)
+    check_aligned([residual], "residual")
+    dev = residual.device
+    partials = torch.empty((3, slots), dtype=torch.float64, device=dev)
+    leaf_sums = torch.empty((3, n_leaves), dtype=torch.float64, device=dev)
+    scales = torch.empty(n_leaves, dtype=torch.float32, device=dev)
+    fn = _fn("leaf_scale")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(residual.data_ptr(), rowcount.data_ptr(), rows, int(phase), partials.data_ptr(), slots,
+                 leaf_slots.data_ptr(), ns.data_ptr(), leaf_sums.data_ptr(), scales.data_ptr(), n_leaves,
+                 POLICY_CODES[policy], int(bool(per_leaf)), stream)
+    _check_launch("leaf_scale", err)
+    _count("leaf_scale", 2)
+    return scales, leaf_sums
+
+
+def leaf_scales(residual: torch.Tensor, rowcount: torch.Tensor, leaf_slots: torch.Tensor, ns: torch.Tensor,
+                policy: ScalePolicy = ScalePolicy.POW2_RMS, per_leaf: bool = True,
+                phase: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-leaf scale pass for a CUDA residual, its plain twin for a CPU
+    one: the scales JAX computes in XLA before kernel A's ``pallas_call``."""
+    dev = residual.device if isinstance(residual, torch.Tensor) else None
+    args = (residual, rowcount, leaf_slots, ns, policy, per_leaf, phase)
+    if dev is not None and dev.type == "cuda":
+        return leaf_scales_kernel(*args)
+    if dev is not None and dev.type == "cpu":
+        return leaf_scales_plain(*args)
+    raise ValueError(f"unsupported device {dev}")
+
+
+def _check_rule(leaf_sums, ns, policy) -> int:
+    if not isinstance(ns, torch.Tensor) or ns.dim() != 1 or ns.shape[0] < 1:
+        raise ValueError("ns must be f64 [n_leaves]")
+    n_leaves = ns.shape[0]
+    _check(ns, "ns", (torch.float64,), (n_leaves,), ns.device)
+    _check(leaf_sums, "leaf_sums", (torch.float64,), (3, n_leaves), ns.device)
+    if policy not in POLICY_CODES:
+        raise ValueError(f"unknown scale policy {policy!r}")
+    return n_leaves
+
+
+def leaf_rule_kernel(leaf_sums: torch.Tensor, ns: torch.Tensor, policy: ScalePolicy = ScalePolicy.POW2_RMS,
+                     per_leaf: bool = True) -> torch.Tensor:
+    """The pass's finish without its reduction, on the GPU: f32[L] scales
+    from leaf sums as given (a pod block's, summed over its shard group),
+    one launch of ``st_leaf_scales`` with no residual, counted under the
+    pass's name. Raises off the GPU."""
+    if not isinstance(ns, torch.Tensor) or ns.device.type != "cuda":
+        raise ValueError("leaf_rule kernel needs CUDA tensors")
+    n_leaves = _check_rule(leaf_sums, ns, policy)
+    scales = torch.empty(n_leaves, dtype=torch.float32, device=ns.device)
+    fn = _fn("leaf_scale")
+    with torch.cuda.device(ns.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(None, None, 0, 0, None, 0, None, ns.data_ptr(), leaf_sums.data_ptr(), scales.data_ptr(), n_leaves,
+                 POLICY_CODES[policy], int(bool(per_leaf)), stream)
+    _check_launch("leaf_scale", err)
+    _count("leaf_scale")
+    return scales
+
+
+def leaf_rule(leaf_sums: torch.Tensor, ns: torch.Tensor, policy: ScalePolicy = ScalePolicy.POW2_RMS,
+              per_leaf: bool = True) -> torch.Tensor:
+    """The pass's rule alone for CUDA leaf sums, its plain twin for CPU ones."""
+    dev = ns.device if isinstance(ns, torch.Tensor) else None
+    if dev is not None and dev.type == "cuda":
+        return leaf_rule_kernel(leaf_sums, ns, policy, per_leaf)
+    if dev is not None and dev.type == "cpu":
+        return leaf_rule_plain(leaf_sums, ns, policy, per_leaf)
     raise ValueError(f"unsupported device {dev}")
 
 

@@ -8,9 +8,11 @@ The counterpart of ``shared_tensor_tpu/ops/table.py``, with the same layout:
   (rows, 128) view. Dicts flatten in sorted key order and lists/tuples in
   index order, exactly as ``jax.tree.flatten`` does, so leaf ``i``, every
   row and every frame bit sit where the JAX package puts them.
-- Quantization computes a scale per leaf (segment reductions in plain
-  torch), then runs the fused sign/pack/error-feedback pass with a per-row
-  scale (kernel A, ``codec_cuda.quantize_rows``).
+- Quantization computes a scale per leaf (the per-leaf scale pass,
+  ``codec_cuda.leaf_scales``: per-tile double partials and a fixed-order
+  leaf reduction, then the host tier's rule), then runs the fused
+  sign/pack/error-feedback pass with a per-row scale (kernel A,
+  ``codec_cuda.quantize_rows``).
 - The receive side unpacks K frames, sums their deltas and applies the sum
   to N arrays in one pass (kernel B, ``codec_cuda.apply_rows_batch``).
 - A K-frame burst either re-measures the scales every frame
@@ -252,7 +254,8 @@ def _consts(spec: TableSpec, device: str):
 
 
 class CascadeConsts(NamedTuple):
-    """Per-(layout, device) constants of the cascade's finish kernel."""
+    """Per-(layout, device) constants of the cascade's finish kernel and
+    of the per-leaf scale pass (one partial slot a tile of the table)."""
 
     leaf_slots: torch.Tensor  # int64[L + 1]: leaf i owns partial slots [leaf_slots[i], leaf_slots[i + 1])
     ns: torch.Tensor  # f64[L]: live elements per leaf
@@ -311,9 +314,13 @@ def compute_scales(
     policy: ScalePolicy = ScalePolicy.POW2_RMS,
     with_amax: bool = False,
 ):
-    """Per-leaf step sizes (overflow-safe segment RMS: each leaf is
-    normalised by its own max|r| before squaring); with ``with_amax``,
-    (scales, each leaf's max |r|), the normaliser it computed.
+    """Per-leaf step sizes as a chain of torch launches (overflow-safe
+    segment RMS: each leaf is normalised by its own max|r| before
+    squaring), the JAX package's arithmetic; with ``with_amax``, (scales,
+    each leaf's max |r|), the normaliser it computed. No codec path calls
+    it: :func:`quantize_table` takes its scales from the per-leaf scale
+    pass (:func:`_table_scales`), and this chain stays as the golden and
+    as the library call the pass is timed against.
 
     Leaf sums are taken as differences of a float64 running sum over the
     f32 row sums, which is deterministic on the GPU (an atomic segment sum
@@ -341,21 +348,34 @@ def compute_scales(
     return (scales, amax) if with_amax else scales
 
 
+def _scales_fn(impl: str):
+    if impl == "auto":
+        return codec_cuda.leaf_scales
+    if impl == "kernel":
+        return codec_cuda.leaf_scales_kernel
+    if impl == "plain":
+        return codec_cuda.leaf_scales_plain
+    raise ValueError(f"impl must be 'auto', 'kernel' or 'plain', got {impl!r}")
+
+
 def _table_scales(
-    residual: torch.Tensor, spec: TableSpec, policy: ScalePolicy, per_leaf: bool, with_amax: bool = False
+    residual: torch.Tensor, spec: TableSpec, policy: ScalePolicy, per_leaf: bool, with_amax: bool = False,
+    impl: str = "auto",
 ):
-    """Per-leaf scales; ``per_leaf=False`` computes ONE scale over the whole
-    table (the reference's behaviour, needed for wire-compat with C peers),
-    replicated to every leaf so the apply path is uniform. ``with_amax``
-    adds each leaf's own max |r|, whatever ``per_leaf``."""
-    if per_leaf:
-        return compute_scales(residual, spec, policy, with_amax)
-    one_spec = dataclasses.replace(
-        spec, shapes=((spec.total_n,),), ns=(spec.total_n,), padded=(spec.total,)
-    )
-    # valid because padding lanes are 0 by invariant
-    s = compute_scales(residual, one_spec, policy).expand(spec.num_leaves).contiguous()
-    return (s, leaf_amax(residual, spec)) if with_amax else s
+    """Per-leaf scales by the per-leaf scale pass (``codec_cuda.leaf_scales``:
+    its kernel on a CUDA residual, its twin on a CPU one; the host tier's
+    rule on double sums); ``per_leaf=False`` computes ONE scale over the
+    whole table (the reference's behaviour, needed for wire-compat with C
+    peers), replicated to every leaf so the apply path is uniform.
+    ``with_amax`` adds each leaf's own max |r| (f32), whatever
+    ``per_leaf``. Padding lanes count as 0 whatever they hold. Against the
+    JAX package's ``compute_scales``: POW2_RMS scales are equal or one octave
+    apart at a power of two's edge, RMS and ABS_MEAN agree to a relative
+    1e-6."""
+    rowcount = _consts(spec, str(residual.device))[1]
+    c = _cascade_consts(spec, str(residual.device))
+    scales, sums = _scales_fn(impl)(residual, rowcount, c.leaf_slots, c.ns, policy, per_leaf)
+    return (scales, sums[0].to(torch.float32)) if with_amax else scales
 
 
 # -- the cascade schedule ---------------------------------------------------------
@@ -460,12 +480,12 @@ def quantize_table(
     per_leaf: bool = True,
     impl: str = "auto",
 ) -> tuple[TableFrame, torch.Tensor]:
-    """Sender step over a table: per-leaf scales, then the fused
-    sign/pack/error-feedback pass. Bit set iff r <= 0; the residual moves by
-    -+scale of its own leaf; leaves at scale 0 idle. ``residual`` is updated
-    in place and returned with the frame."""
+    """Sender step over a table: per-leaf scales (the per-leaf scale pass),
+    then the fused sign/pack/error-feedback pass. Bit set iff r <= 0; the
+    residual moves by -+scale of its own leaf; leaves at scale 0 idle.
+    ``residual`` is updated in place and returned with the frame."""
     fn = _quantize_fn(impl)
-    scales = _table_scales(residual, spec, policy, per_leaf)
+    scales = _table_scales(residual, spec, policy, per_leaf, impl=impl)
     row_leaf, rowcount, *_ = _consts(spec, str(residual.device))
     words = fn(scales[row_leaf], rowcount, residual)
     return TableFrame(scales, words), residual
@@ -518,7 +538,7 @@ def quantize_table_cascade(
     A-cascade), 2K + 1 launches, none of which waits for the device, so one
     CUDA graph replays it. The scales are those of
     ``codec_np.compute_scales_np`` on the same residual (the sums' order
-    aside), not :func:`compute_scales`' f32 ones.
+    aside), by the rule of :func:`quantize_table`'s per-leaf scale pass.
 
     A round past the last frame returns at once. Once a round yields no
     frame (every scale 0) or stops short of its depth at the subnormal floor

@@ -4,9 +4,11 @@ mesh, in PyTorch.
 The counterpart of ``shared_tensor_tpu/parallel/ici.py``. One sync step, on
 every rank of the (peer, shard) mesh (parallel/mesh.py):
 
-  1. per-leaf scales of the local residual block (overflow-safe segment
-     RMS), reduced over the shard group: an all-reduce MAX of the leaf
-     maxima, then an all-reduce SUM of the leaf sums in float64;
+  1. per-leaf scales of the local residual block: the per-leaf scale pass
+     (``ops/codec_cuda.leaf_scales``) makes the block's leaf sums (max |r|,
+     sum r^2, sum |r| in float64) and, with one shard, the scales by the
+     host tier's rule; with more, one all-reduce SUM of those sums over the
+     shard group, then the pass's rule alone (``codec_cuda.leaf_rule``);
   2. kernel A (``ops/codec_cuda.quantize_rows``): sign-quantize the block,
      pack 1 bit per element, error feedback, in place;
   3. one all-gather of the packed words and the scales over the peer group:
@@ -27,11 +29,17 @@ what the all-gather produces, so the Pallas path's transpose to row-major
 has no counterpart. Frames are summed in peer order k = 0..K-1 from 0.0, as
 the Pallas kernel and the JAX package's XLA path sum them.
 
-Leaf sums within a shard are differences of a float64 running sum over the
-shard's rows, cut at the leaf boundaries in the shard, and the cross-shard
-sum is taken in float64 before rounding to f32: deterministic on the GPU
-(an atomic ``index_add`` is not). With one shard this is exactly
-``ops/table.compute_scales``.
+Leaf sums within a shard are the pass's fixed-order sums of per-tile
+partials on the table's tile grid (a block that starts mid-tile has a
+first tile of fewer rows), and the cross-shard sum is taken in float64
+before the rule rounds to f32: deterministic on the GPU (no float
+atomics). The sum of the blocks' maxima is above 0 exactly where their max
+is, which is all the rule asks of max |r|, so one all-reduce replaces
+JAX's pmax and psum. With one shard this is exactly ``ops/table.py``'s
+scales (``_table_scales``). Against JAX's f32 arithmetic (each leaf
+normalised by its max before squaring): POW2_RMS scales equal or one
+octave apart at a power of two's edge, RMS and ABS_MEAN to a relative
+1e-6.
 
 The exact arm (``compressed=False``) sums the residuals over the peer group
 with the backend's all-reduce (BASELINE config 4's comparison). Its
@@ -56,9 +64,10 @@ import torch
 import torch.distributed as dist
 
 from ..config import ScalePolicy
-from ..ops.codec import SAT, pow2_floor
+from ..ops import codec_cuda
+from ..ops.codec import SAT
 from ..ops.packing import BITS_PER_WORD, LANES
-from ..ops.table import TableSpec, _apply_fn, _quantize_fn, flatten, unflatten
+from ..ops.table import TableSpec, _apply_fn, _quantize_fn, _scales_fn, flatten, unflatten
 from ..utils.timing import Spans
 from .mesh import Mesh, all_gather, all_reduce_, broadcast_, rows_per_shard
 
@@ -139,7 +148,7 @@ def apply_external(state: PeerSyncState, delta: torch.Tensor, mesh: Mesh, spec: 
 @dataclasses.dataclass(frozen=True)
 class _StepCtx:
     """This rank's static layout: its rows, their leaves and live lanes, and
-    the leaf cuts of its block."""
+    the leaf cuts of its block in the per-leaf scale pass's slots."""
 
     mesh: Mesh
     rows_local: int
@@ -147,26 +156,30 @@ class _StepCtx:
     row_leaf: torch.Tensor  # int64[rows_local]
     rowcount: torch.Tensor  # int32[rows_local]
     live: torch.Tensor  # bool[rows_local, 128]
-    ns: torch.Tensor  # f32[k]
-    cut_lo: torch.Tensor  # int64[k]: leaf l's local rows are [cut_lo[l], cut_hi[l])
-    cut_hi: torch.Tensor
+    per_leaf: bool
+    phase: int  # rows of the block's first tile that lie before the block
+    leaf_slots: torch.Tensor  # int64[L + 1]: leaf l's slots of the pass, empty outside the block
+    ns: torch.Tensor  # f64[L]: each leaf's live elements in the whole table
+    impl: str
 
 
-def _make_ctx(mesh: Mesh, spec: TableSpec, per_leaf: bool) -> _StepCtx:
+def _make_ctx(mesh: Mesh, spec: TableSpec, per_leaf: bool, impl: str = "auto") -> _StepCtx:
     rows_local = rows_per_shard(spec.total, mesh.n_shard)
     start = mesh.shard * rows_local
     if per_leaf:
         k = spec.num_leaves
         row_leaf = spec.row_leaf()
-        ns = np.asarray(spec.ns, np.float32)
-        ends = np.cumsum([p // LANES for p in spec.padded])
     else:
-        # one global scale over the whole table (the reference's behaviour)
+        # one global scale over the whole table (the reference's behaviour),
+        # the pass's sum over the leaves
         k = 1
         row_leaf = np.zeros(spec.rows, np.int32)
-        ns = np.asarray([spec.total_n], np.float32)
-        ends = np.asarray([spec.rows])
-    begins = np.concatenate([[0], ends[:-1]])
+    # the table's leaves are whole 8-row tiles: on the tile grid of the
+    # block's first row, every slot of the pass lies in one leaf
+    phase = start % codec_cuda.TILE_ROWS
+    slots = codec_cuda.leaf_slot_count(rows_local, phase)
+    cuts = np.clip(np.concatenate([[0], np.cumsum([p // LANES for p in spec.padded])]) - start, 0, rows_local)
+    leaf_slots = np.where(cuts >= rows_local, slots, (cuts + phase) // codec_cuda.TILE_ROWS)
     dev = mesh.device
     rowcount = torch.from_numpy(spec.live_rowcount()[start : start + rows_local].copy()).to(dev)
     lane = torch.arange(LANES, dtype=torch.int32, device=dev)
@@ -177,37 +190,31 @@ def _make_ctx(mesh: Mesh, spec: TableSpec, per_leaf: bool) -> _StepCtx:
         row_leaf=torch.from_numpy(row_leaf[start : start + rows_local].astype(np.int64)).to(dev),
         rowcount=rowcount,
         live=lane[None, :] < rowcount[:, None],
-        ns=torch.from_numpy(ns).to(dev),
-        cut_lo=torch.from_numpy(np.clip(begins - start, 0, rows_local).astype(np.int64)).to(dev),
-        cut_hi=torch.from_numpy(np.clip(ends - start, 0, rows_local).astype(np.int64)).to(dev),
+        per_leaf=per_leaf,
+        phase=int(phase),
+        leaf_slots=torch.from_numpy(leaf_slots.astype(np.int64)).to(dev),
+        ns=torch.tensor(spec.ns, dtype=torch.float64, device=dev),
+        impl=impl,
     )
+
+
+def _rule_fn(impl: str):
+    return {"auto": codec_cuda.leaf_rule, "kernel": codec_cuda.leaf_rule_kernel,
+            "plain": codec_cuda.leaf_rule_plain}[impl]
 
 
 def _leaf_scales(ctx: _StepCtx, rows: torch.Tensor, policy: ScalePolicy) -> torch.Tensor:
     """Per-leaf scales f32[k] of this shard's rows, reduced over the shard
-    group: the overflow-safe normalized RMS of ``ops/table.compute_scales``,
-    with each segment reduction split into a local partial and a
-    cross-shard all-reduce (MAX of the maxima; SUM of the float64 sums)."""
+    group: the per-leaf scale pass over the block (its kernel on the card,
+    its twin on the CPU), and with more than one shard one all-reduce SUM
+    of its float64 leaf sums, then its rule alone."""
     mesh = ctx.mesh
-    zero = torch.zeros((), dtype=rows.dtype, device=rows.device)
-    amax_row = torch.amax(torch.where(ctx.live, rows.abs(), zero), dim=1)
-    amax = torch.zeros(ctx.k, dtype=torch.float32, device=rows.device)
-    amax = amax.scatter_reduce(0, ctx.row_leaf, amax_row, reduce="amax", include_self=True)
-    all_reduce_(mesh, amax, dist.ReduceOp.MAX, mesh.shard_group)
-    denom = torch.where(amax > 0, amax, torch.ones_like(amax))
-    norm = torch.where(ctx.live, rows / denom[ctx.row_leaf][:, None], zero)
-    per_row = torch.sum(norm.abs() if policy == ScalePolicy.ABS_MEAN else norm * norm, dim=1)
-    run = torch.cat([per_row.new_zeros(1, dtype=torch.float64), torch.cumsum(per_row.to(torch.float64), dim=0)])
-    part = run[ctx.cut_hi] - run[ctx.cut_lo]
-    all_reduce_(mesh, part, dist.ReduceOp.SUM, mesh.shard_group)
-    part = part.to(torch.float32)
-    if policy == ScalePolicy.ABS_MEAN:
-        scales = amax * (part / ctx.ns)
-    else:
-        rms = amax * torch.sqrt(part / ctx.ns)
-        scales = pow2_floor(rms) if policy == ScalePolicy.POW2_RMS else rms
-    ok = (amax > 0) & torch.isfinite(scales)
-    return torch.where(ok, scales, torch.zeros_like(scales))
+    scales, sums = _scales_fn(ctx.impl)(rows.reshape(-1), ctx.rowcount, ctx.leaf_slots, ctx.ns, policy,
+                                        ctx.per_leaf, ctx.phase)
+    if mesh.n_shard > 1:
+        all_reduce_(mesh, sums, dist.ReduceOp.SUM, mesh.shard_group)
+        scales = _rule_fn(ctx.impl)(sums, ctx.ns, policy, ctx.per_leaf)
+    return scales if ctx.per_leaf else scales[:1]
 
 
 class Frames:
@@ -282,7 +289,7 @@ def build_sync_step(
     ``spans`` (utils/timing.Spans) receives a mark after each stage:
     ``scales``, ``quantize`` (kernel A), ``gather`` (the collective),
     ``apply`` (kernel B)."""
-    ctx = _make_ctx(mesh, spec, per_leaf)
+    ctx = _make_ctx(mesh, spec, per_leaf, impl)
     quantize, apply = _quantize_fn(impl), _apply_fn(impl)
 
     def compressed_step(state: PeerSyncState):
@@ -331,7 +338,7 @@ def build_sync_phases(
     ``apply_gathered(values, send(residual))`` at once is bit for bit
     :func:`build_sync_step`. ``frames.wait()[1]`` is the scales
     f32[n_peer, k] that step returns."""
-    ctx = _make_ctx(mesh, spec, per_leaf)
+    ctx = _make_ctx(mesh, spec, per_leaf, impl)
     quantize, apply = _quantize_fn(impl), _apply_fn(impl)
 
     def send(residual: torch.Tensor) -> Frames:

@@ -2,7 +2,8 @@
 
 The counterpart of ``shared_tensor_tpu/parallel/ici_lab.py``. The step is
 the production step's (``parallel/ici.build_sync_step``): the same per-leaf
-cross-shard scales (``ici._leaf_scales``, float64 sums), the same one
+cross-shard scales (``ici._leaf_scales``: the per-leaf scale pass, its
+float64 sums reduced over the shard group), the same one
 all-gather over the peer group, split horizon and +-SAT clamps; only the
 quantizer differs. Each element sends ``+-s``, or ``+-3s`` where
 ``|r| > 2s`` (``ops/codec_lab.Sign2``), so the wire carries 2 bits per
@@ -12,9 +13,9 @@ its own words (not interleaved per element as the single-buffer twins of
 
 A separate function, not an option of the production one: the 1-bit step
 is the reference-parity path and stays as it is; this one measures the
-method's convergence on the real pod path. It is plain PyTorch on the
-mesh's device (the JAX package's is XLA only): the row kernels A and B are
-pinned to the 1-bit layout.
+method's convergence on the real pod path. Past its scales it is plain
+PyTorch on the mesh's device (the JAX package's is XLA only): the row
+kernels A and B are pinned to the 1-bit layout.
 
 On uniform residuals ``|r|`` never exceeds ``2s``: the magnitude bit
 idles and the state tracks the production step's bit for bit, to exact

@@ -8,11 +8,15 @@ the tail), each in a process of its own, and prints one JSON line a run:
 ``beats_to_name``, the named skew ratio, and for each beat from two before
 the evidence beat to the naming beat the root analyzer's view: each
 shard's apply rate, the skew ratio and the hot shard; and each node's
-digest age at the root (ms), its pre-coalesce deposits by shard
-(``st_shard_heat_deposit_msgs``), its applies by shard and its FWD
-messages out. The root's analyzer is wrapped in the phase's process; the
-phase itself is the package's own. Then one summary line of both
-distributions. Not a test: ``tests/`` holds it because it imports both
+digest age at the root (ms), whether its digest advanced since the last
+beat (``adv``: false where the root merged the same child digest again),
+its pre-coalesce deposits by shard (``st_shard_heat_deposit_msgs``), its
+applies by shard and its FWD messages out. The root's analyzer is wrapped
+in the phase's process; the phase itself is the package's own. Then one
+summary line of both distributions and of the naming beats (those after
+the evidence beat) that read a digest that had not advanced (any node's,
+and an owner's: a node with applies). Run it beside a loaded suite for
+the tail. Not a test: ``tests/`` holds it because it imports both
 packages.
 """
 
@@ -48,13 +52,16 @@ def one(impl: str) -> dict:
         from shared_tensor_tpu.obs import health
     log = []
     real = health.HealthAnalyzer.beat
+    last_t = {}
 
     def beat(self, doc, t_ns):
         out = real(self, doc, t_ns)
         nodes = {}
         for nid, e in doc.get("nodes", {}).items():
             m = e.get("m", {})
-            nodes[nid] = {"age_ms": round((t_ns - e.get("t_ns", t_ns)) / 1e6, 1),
+            adv = e.get("t_ns") != last_t.get(nid)
+            last_t[nid] = e.get("t_ns")
+            nodes[nid] = {"age_ms": round((t_ns - e.get("t_ns", t_ns)) / 1e6, 1), "adv": adv,
                           "deposits": _by_shard(m, "st_shard_heat_deposit_msgs"),
                           "applies": _by_shard(m, "st_shard_heat_applies"),
                           "fwd_out": m.get("st_shard_fwd_msgs_out_total")}
@@ -97,10 +104,15 @@ def main() -> int:
             results.append(doc)
         left -= len(batch)
     ok = [d for d in results if "beats_to_name" in d]
+    naming = [b for d in ok for b in d["trace"] if b["beat"] > d["trace"][min(2, len(d["trace"]) - 1)]["beat"]]
     print(json.dumps({"impl": args.impl, "runs": len(results), "at_once": args.at_once,
                       "beats_to_name": [d["beats_to_name"] for d in ok],
                       "skew_ratio": [round(d["skew_ratio"], 2) for d in ok],
-                      "over_3": sum(d["beats_to_name"] > 3 for d in ok), "errors": len(results) - len(ok)}))
+                      "over_3": sum(d["beats_to_name"] > 3 for d in ok), "errors": len(results) - len(ok),
+                      "naming_beats": len(naming),
+                      "stale_digest_beats": sum(any(not n["adv"] for n in b["nodes"].values()) for b in naming),
+                      "stale_owner_beats": sum(any(not n["adv"] and n["applies"] for n in b["nodes"].values())
+                                               for b in naming)}))
     return 0
 
 

@@ -462,8 +462,9 @@ def test_burst_graph_equals_the_eager_burst(cuda_device):
     """begin_frame_burst_device replays a CUDA graph of the K-frame quantize:
     its frames and the residual it leaves are bit-equal to the eager
     quantize_table_burst on the same residual, over several replays with
-    adds in between; each replay counts K launches of kernel A (the
-    capture none, its eager warm-up on a copy K); a link
+    adds in between; each replay counts K launches of kernel A and 2K of
+    the per-leaf scale pass (the capture none, its eager warm-up on a copy
+    as many); a link
     whose residual is a new tensor gets a new graph."""
     from shared_tensor_tpu_torch.ops.table import quantize_table_burst
 
@@ -480,7 +481,8 @@ def test_burst_graph_equals_the_eager_burst(cuda_device):
         torch.cuda.synchronize()
         # the first call also runs the eager warm-up burst before its capture
         assert CC.LAUNCHES["quantize_rows"] == (2 * k if i == 0 else k)
-        assert st._graphs[1].tally == {"quantize_rows": k}  # what the capture recorded
+        assert CC.ENGINE_LAUNCHES["leaf_scale"] == 2 * CC.LAUNCHES["quantize_rows"]  # the per-leaf scale pass
+        assert st._graphs[1].tally == {"leaf_scale": 2 * k, "quantize_rows": k}  # what the capture recorded
         assert _same_bits(dev.scales, want.scales) and _same_bits(dev.words, want.words)
         assert _same_bits(st._links[1], ref)
         st.finish_frame_burst(dev)
@@ -746,6 +748,136 @@ def test_a_failed_cascade_kernel_build_raises_on_the_card(cuda_device, monkeypat
     CC.reset_launches()
     with pytest.raises(RuntimeError, match="nvcc failed"):
         quantize_table_cascade(r, spec, 8, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(r, before) and not any(CC.launches().values())
+
+
+# -- the per-leaf scale pass ----------------------------------------------------------------------
+
+
+def _leaf_layout(seed, n_leaves, max_tiles, phase, empty_every=0):
+    """A block of random leaves (1..max_tiles tiles, some empty) whose first
+    row lies ``phase`` rows into its tile, partial rows, values over 40
+    octaves with zeros and subnormals, NaN in the dead lanes. Returns
+    (residual, rowcount, leaf_slots, ns) on the CPU."""
+    rng = np.random.default_rng(seed)
+    tiles = rng.integers(1, max_tiles + 1, n_leaves)
+    if empty_every:
+        tiles[::empty_every] = 0
+    slots = np.concatenate([[0], np.cumsum(tiles)])
+    rows = max(1, int(slots[-1]) * CC.TILE_ROWS - phase - int(rng.integers(0, CC.TILE_ROWS)))
+    n_slots = CC.leaf_slot_count(rows, phase)
+    leaf_slots = np.minimum(slots, n_slots)
+    leaf_slots[-1] = n_slots
+    rowcount = rng.choice([0, 1, 31, 32, 33, 100, 127, 128, 128, 128], rows).astype(np.int32)
+    r = rng.normal(size=rows * 128).astype(np.float32) * (2.0 ** rng.integers(-20, 20, rows * 128)).astype(np.float32)
+    r[rng.random(r.size) < 0.05] = 0.0
+    r[:4] = [1e-40, -1e-45, 0.0, -0.0]
+    r.reshape(rows, 128)[np.arange(128)[None, :] >= rowcount[:, None]] = np.nan
+    ns = np.maximum(1, np.diff(leaf_slots) * 1024 - 17).astype(np.float64)
+    return (torch.from_numpy(r), torch.from_numpy(rowcount), torch.from_numpy(leaf_slots.astype(np.int64)),
+            torch.from_numpy(ns))
+
+
+def _table_block(name, device, n_shard=1, shard=0):
+    """A burst table's residual (burst_graph.residual, NaN in the dead
+    lanes) and the pass's constants of one pod block of it, as
+    ``parallel/ici`` makes them (``n_shard`` 1: the whole table)."""
+    import types
+
+    from shared_tensor_tpu_torch.benchmarks.burst_graph import residual
+    from shared_tensor_tpu_torch.parallel import ici
+
+    spec = _burst_table(name)
+    ctx = ici._make_ctx(types.SimpleNamespace(n_shard=n_shard, shard=shard, device=device), spec, True)
+    r = residual(spec, device, 9)
+    live = torch.arange(128, device=device)[None, :] < torch.from_numpy(spec.live_rowcount()).to(device)[:, None]
+    r = torch.where(live.view(-1), r, torch.full_like(r, float("nan")))
+    lo = shard * ctx.rows_local * 128
+    return r[lo : lo + ctx.rows_local * 128].clone(), ctx.rowcount, ctx.leaf_slots, ctx.ns, ctx.phase
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["few-0", "few-5", "many-0", "many-3", "empty-4", "long-7", "thousands-0",
+                                    "config2", "resnet18", "config2-mesh22", "1Mi"])
+def test_leaf_scale_kernel_matches_twin(cuda_device, layout):
+    """The per-leaf scale pass against its plain twin on the card, bit for
+    bit (scales and leaf sums), every policy, per_leaf on and off, each
+    kernel call twice (a fixed order: the same bits every run); the rule
+    alone on the twin's sums: random blocks at several tile phases (few
+    leaves: the 512-thread finish; many and thousands: 1024 threads, the
+    latter's bounds in global memory; empty leaves, a leaf over many warp
+    ranges), config 2's and ResNet-18's tables, config 2's 2 x 2 pod block
+    that starts mid-tile, and the 1 Mi one-leaf table."""
+    from shared_tensor_tpu_torch.config import ScalePolicy
+
+    if layout in ("config2", "resnet18", "1Mi"):
+        r, rowcount, leaf_slots, ns, phase = _table_block(layout, cuda_device)
+    elif layout == "config2-mesh22":
+        r, rowcount, leaf_slots, ns, phase = _table_block("config2", cuda_device, 2, 1)
+        assert phase == 4
+    else:
+        kind, phase = layout.split("-")
+        phase = int(phase)
+        n_leaves, max_tiles, empty = {"few": (5, 4, 0), "many": (40, 6, 0), "empty": (30, 3, 3), "long": (3, 900, 0),
+                                      "thousands": (1500, 2, 5)}[kind]
+        r, rowcount, leaf_slots, ns = (t.to(cuda_device) for t in _leaf_layout(len(layout), n_leaves, max_tiles,
+                                                                                   phase, empty))
+    for policy in ScalePolicy:
+        for per_leaf in (True, False):
+            got = [CC.leaf_scales_kernel(r, rowcount, leaf_slots, ns, policy, per_leaf, phase) for _ in range(2)]
+            want = CC.leaf_scales_plain(r, rowcount, leaf_slots, ns, policy, per_leaf, phase)
+            torch.cuda.synchronize()
+            for s, sums in got:
+                assert _same_bits(s, want[0]), (policy, per_leaf)
+                assert torch.equal(sums.view(torch.int64), want[1].view(torch.int64)), (policy, per_leaf)
+            assert _same_bits(CC.leaf_rule_kernel(want[1], ns, policy, per_leaf), want[0])
+
+
+@pytest.mark.cuda
+def test_quantize_table_on_the_card_runs_the_pass_and_equals_plain(cuda_device):
+    """quantize_table on a CUDA residual launches the per-leaf scale pass
+    (two launches) and kernel A, and nothing of the torch chain; its frame
+    and residual equal the plain path's (the twin, then plain A) bit for
+    bit, at every policy and per_leaf."""
+    from shared_tensor_tpu_torch.benchmarks.burst_graph import residual
+    from shared_tensor_tpu_torch.config import ScalePolicy
+    from shared_tensor_tpu_torch.ops.table import quantize_table
+
+    spec = _burst_table("config2")
+    r0 = residual(spec, cuda_device, 12)
+    for policy in ScalePolicy:
+        for per_leaf in (True, False):
+            CC.reset_launches()
+            fk, rk = quantize_table(r0.clone(), spec, policy, per_leaf, impl="kernel")
+            torch.cuda.synchronize()
+            assert {k: v for k, v in CC.launches().items() if v} == {"quantize_rows": 1, "leaf_scale": 2}
+            fp, rp = quantize_table(r0.clone(), spec, policy, per_leaf, impl="plain")
+            assert _same_bits(fk.scales, fp.scales) and _same_bits(fk.words, fp.words) and _same_bits(rk, rp)
+
+
+@pytest.mark.cuda
+def test_a_failed_leaf_scale_build_raises_on_the_card(cuda_device, monkeypatch, tmp_path):
+    """A table frame on a CUDA residual whose per-leaf scale pass cannot be
+    built raises and leaves the residual as it was: no fall back to the
+    twin or the torch chain, and kernel A never launches."""
+    from shared_tensor_tpu_torch.ops.table import make_spec, quantize_table
+
+    def broken(names=None):
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(CC, "_LIBS", {})
+    monkeypatch.setattr(CC, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(CC, "build", broken)
+    spec = make_spec({"t": np.zeros(4096, np.float32), "u": np.zeros(100, np.float32)})
+    r = torch.randn(spec.total, device=cuda_device)
+    before = r.clone()
+    CC.reset_launches()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        quantize_table(r, spec)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        CC.leaf_rule_kernel(torch.zeros((3, 2), dtype=torch.float64, device=cuda_device),
+                            torch.ones(2, dtype=torch.float64, device=cuda_device))
     torch.cuda.synchronize()
     assert torch.equal(r, before) and not any(CC.launches().values())
 

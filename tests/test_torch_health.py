@@ -23,11 +23,13 @@ from shared_tensor_tpu_torch.obs.timeseries import TimeSeriesStore, hist_quantil
 S = int(1e9)  # one second in ns
 
 
-def _doc(nodes: dict, counters: dict | None = None, truncated: int = 0, hists: dict | None = None) -> dict:
-    """A digest document in aggregate.py's shape."""
+def _doc(nodes: dict, counters: dict | None = None, truncated: int = 0, hists: dict | None = None,
+         t_ns: int = 0) -> dict:
+    """A digest document in aggregate.py's shape, every node sampled at
+    ``t_ns``."""
     return {
         "v": 1,
-        "nodes": {str(nid): {"t_ns": 0, "m": dict(m)} for nid, m in nodes.items()},
+        "nodes": {str(nid): {"t_ns": t_ns, "m": dict(m)} for nid, m in nodes.items()},
         "counters": dict(counters or {}),
         "hists": dict(hists or {}),
         "gmax": {},
@@ -46,7 +48,10 @@ def _hist(rng) -> dict:
 
 
 def _beats(scenario: str, seed: int = 0) -> list[tuple[dict, int]]:
-    """A seeded sequence of (digest, t_ns) beats of one kind."""
+    """A seeded sequence of (digest, t_ns) beats of one kind, each node's
+    digest sampled at its beat (where the port's store, which files a node
+    at its digest's own sample time, and JAX's, which files it at the beat,
+    agree)."""
     rng = np.random.default_rng(seed)
     out, t = [], 0
     for i in range(40):
@@ -54,14 +59,14 @@ def _beats(scenario: str, seed: int = 0) -> list[tuple[dict, int]]:
         if scenario == "slo":
             # healthy, a stall that blows the objective, then recovery
             stale = 5.0 if 10 <= i < 25 else float(rng.uniform(0.0, 0.3))
-            d = _doc({1: {"st_staleness_seconds": stale}}, {"st_frames_in_total": 10 * i})
+            d = _doc({1: {"st_staleness_seconds": stale}}, {"st_frames_in_total": 10 * i}, t_ns=t)
         elif scenario == "heat":
             # shard 1 takes ten times the writes of shards 0 and 2
             nodes = {nid: {f'st_shard_heat_applies{{shard="{k}"}}': float(r * i),
                            f'st_shard_heat_outbox_bytes{{shard="{k}"}}': float(rng.integers(0, 1000)),
                            "st_shard_alloc_bytes": float(1000 + 10 * nid)}
                      for nid, (k, r) in {10: (0, 10), 11: (1, 100), 12: (2, 10)}.items()}
-            d = _doc(nodes, {"st_updates_total": i})
+            d = _doc(nodes, {"st_updates_total": i}, t_ns=t)
         elif scenario == "staleness":
             # offsets, uncertainties and per-link origins: the correction
             nodes = {
@@ -72,10 +77,10 @@ def _beats(scenario: str, seed: int = 0) -> list[tuple[dict, int]]:
                 6: {"st_clock_offset_seconds": -0.05, "st_clock_uncertainty_seconds": 0.002,
                     'st_staleness_seconds{link="1"}': float(rng.uniform(0, 1.5)), 'st_staleness_origin{link="1"}': 9},
             }
-            d = _doc(nodes, hists={"st_apply_seconds": _hist(rng)})
+            d = _doc(nodes, hists={"st_apply_seconds": _hist(rng)}, t_ns=t)
         else:  # truncated breakdowns and counter resets
             d = _doc({3: {"st_frames_in_total": float(i % 7)}}, {"st_frames_in_total": (i % 13) * 5},
-                     truncated=int(i > 20))
+                     truncated=int(i > 20), t_ns=t)
         out.append((d, t))
     return out
 
@@ -189,7 +194,8 @@ def test_top_render_with_health_and_store_equals_jax():
     sparklines is JAX's, character for character."""
     a, b = TimeSeriesStore(), JaxStore()
     ha, hb = HealthAnalyzer(windows=(("page", 4.0, 1.0, 2.0),)), JaxHealthAnalyzer(windows=(("page", 4.0, 1.0, 2.0),))
-    beats = _beats("heat") + [(_doc({1: {"st_staleness_seconds": 3.0}}, {"st_frames_in_total": 9}), 41 * S // 5)]
+    beats = _beats("heat") + [(_doc({1: {"st_staleness_seconds": 3.0}}, {"st_frames_in_total": 9}, t_ns=41 * S // 5),
+                               41 * S // 5)]
     prev = None
     for d, t in beats:
         a.ingest(d, t)
@@ -202,3 +208,73 @@ def test_top_render_with_health_and_store_equals_jax():
     out = top.render(trunc, None, 0.0)
     assert out == jax_top.render(trunc, None, 0.0)
     assert "3 node breakdown(s) TRUNCATED" in out
+
+
+# -- a node's series at its digest's own sample time (the port's divergence) ----------------
+
+APPLIES = 'st_shard_heat_applies{{shard="{}"}}'
+
+
+def _aged(nodes: dict, beat_ns: int) -> dict:
+    """A digest at ``beat_ns`` whose node entries were sampled ``age_ms``
+    before it: ``nodes`` maps node id -> (age_ms, metrics)."""
+    d = _doc({})
+    d["nodes"] = {str(n): {"t_ns": beat_ns - int(age * 1e6), "m": dict(m)} for n, (age, m) in nodes.items()}
+    return d
+
+
+def test_a_node_series_is_filed_at_its_digests_own_sample_time():
+    """Each node at its entry's ``t_ns`` less its clock offset to the root;
+    the cluster series at the beat; an entry without a sample time at the
+    beat."""
+    st = TimeSeriesStore()
+    d = _aged({7: (150.0, {"st_frames_in_total": 4.0, "st_clock_offset_seconds": 0.02}),
+               8: (30.0, {"st_frames_in_total": 9.0})}, 5 * S)
+    d["counters"] = {"st_updates_total": 3}
+    d["nodes"]["9"] = {"m": {"st_frames_in_total": 1.0}}
+    st.ingest(d, 5 * S)
+    assert st.series(("node", 7, "st_frames_in_total")).points() == [(5 * S - 150_000_000 - 20_000_000, 4.0)]
+    assert st.series(("node", 8, "st_frames_in_total")).points() == [(5 * S - 30_000_000, 9.0)]
+    assert st.series(("node", 9, "st_frames_in_total")).points() == [(5 * S, 1.0)]
+    assert st.series(("cluster", "st_updates_total")).points() == [(5 * S, 3.0)]
+
+
+def test_a_digest_that_did_not_advance_adds_no_point():
+    """A child digest merged again at the next beat (no newer one arrived)
+    adds nothing to the node's series, so its rate is the rate its samples
+    show; JAX's store files it again at the new beat, a flat step that
+    halves the rate."""
+    port, jax_store = TimeSeriesStore(), JaxStore()
+    fresh = [_aged({4: (0.0, {"c": 0.0})}, 0), _aged({4: (0.0, {"c": 20.0})}, S // 5)]
+    beats = [(fresh[0], 0), (fresh[1], S // 5), (fresh[1], 2 * S // 5)]  # beat 3 re-merges beat 2's digest
+    for d, t in beats:
+        port.ingest(d, t)
+        jax_store.ingest(d, t)
+    assert len(port.series(("node", 4, "c"))) == 2 and len(jax_store.series(("node", 4, "c"))) == 3
+    assert port.node_rate(4, "c", 2.0) == pytest.approx(100.0)
+    assert jax_store.node_rate(4, "c", 2.0) == pytest.approx(50.0)
+
+
+def test_heat_names_the_hot_shard_through_jittering_digest_ages():
+    """A loaded run of the fleet-health heat phase, its digests as the root
+    read them (ages in ms at each beat, each owner's applies): shard 1's
+    owner's digest was 231.5 ms old at beat 4 and 25.1 ms at beat 5, so at
+    the beat its 24 applies came over 406 ms, not 200. Filed at their own
+    sample times the rates name shard 2 at beat 5 (3.3x the rest); JAX's
+    analyzer, filing at the beat, read 2.7x there and named it a beat
+    later."""
+    trace = [
+        {39: (0.3, {0: 3}), 38: (202.5, {}), 37: (197.7, {})},
+        {39: (0.3, {0: 47}), 38: (231.5, {1: 12}), 37: (218.6, {2: 64})},
+        {39: (1.7, {0: 61}), 38: (25.1, {1: 36}), 37: (208.7, {2: 136})},
+        {39: (0.3, {0: 84}), 38: (23.7, {1: 36}), 37: (177.4, {2: 274})},
+    ]
+    port, jax_a = HealthAnalyzer(), JaxHealthAnalyzer()
+    named = {"port": [], "jax": []}
+    for i, beat in enumerate(trace):
+        t = (3 + i) * S // 5
+        d = _aged({n: (age, {APPLIES.format(k): float(v) for k, v in m.items()}) for n, (age, m) in beat.items()}, t)
+        named["port"].append(port.beat(d, t)["heat"]["hot_shard"])
+        named["jax"].append(jax_a.beat(json.loads(json.dumps(d)), t)["heat"]["hot_shard"])
+    assert named["port"][2:] == [2, 2]
+    assert named["jax"][2:] == [-1, 2]

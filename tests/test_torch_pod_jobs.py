@@ -121,6 +121,26 @@ def sync(mesh, tpl, ups, policy="POW2_RMS", per_leaf=True, compressed=True, impl
     return {"before": before, "values": values, "residual": residual, "scales": np.stack(scales)}
 
 
+def leaf_scales_block(mesh, shapes, residual, policy="POW2_RMS", per_leaf=True):
+    """The pod tier's per-leaf scales (``ici._leaf_scales``: the per-leaf
+    scale pass on this rank's block of ``residual``, a whole padded table of
+    leaves of ``shapes``, then its sums summed over the shard group and the
+    rule) and the block's own leaf sums, with the block's tile phase and
+    leaf slots. Every rank of a shard group returns the same scales."""
+    from shared_tensor_tpu_torch.ops import codec_cuda
+    from shared_tensor_tpu_torch.parallel.ici import _leaf_scales, _make_ctx
+
+    spec = make_spec({f"l{i:02d}": np.zeros(s, np.float32) for i, s in enumerate(shapes)})
+    ctx = _make_ctx(mesh, spec, per_leaf)
+    lo, hi = block_range(mesh, spec)
+    block = torch.from_numpy(np.asarray(residual, np.float32)[lo:hi].copy())
+    pol = ScalePolicy[policy]
+    scales = _leaf_scales(ctx, block.view(-1, 128), pol)
+    _, sums = codec_cuda.leaf_scales(block, ctx.rowcount, ctx.leaf_slots, ctx.ns, pol, per_leaf, ctx.phase)
+    return {"scales": scales.numpy().copy(), "sums": sums.numpy().copy(), "phase": ctx.phase,
+            "leaf_slots": ctx.leaf_slots.numpy().copy(), "shard": mesh.shard}
+
+
 def _same_bits(a, b):
     return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
 
